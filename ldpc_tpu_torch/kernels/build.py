@@ -7,15 +7,18 @@ in `kernels/csrc/` into `kernels/build/` (git-ignored):
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
          -Xcompiler -fPIC -Xptxas -v -o build/lib<name>-<hash>.so csrc/<name>.cu
 
-The file name carries a hash of the source and the flags, so a stale
-build is never loaded; ptxas' register/shared-memory report is kept next
-to it as `<lib>.log`. A missing nvcc or a failed build raises.
+The file name carries a hash of the source, of every header under
+`csrc/` that it includes (`#include "..."`, followed recursively) and of
+the flags, so a stale build is never loaded; ptxas' register/shared-memory
+report is kept next to it as `<lib>.log`. A missing nvcc or a failed
+build raises.
 """
 from __future__ import annotations
 
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -23,14 +26,19 @@ import threading
 import time
 from dataclasses import dataclass
 from pathlib import Path
-from typing import Dict
+from typing import Dict, List
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-_lock = threading.Lock()
+_INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
+
+# One lock per library: two libraries build at the same time from two
+# threads, one library never twice.
+_locks: Dict[str, threading.Lock] = {}
+_locks_lock = threading.Lock()
 _loaded: Dict[str, "Library"] = {}
 
 
@@ -57,9 +65,26 @@ def find_nvcc() -> str:
     return nvcc
 
 
+def sources(name: str) -> List[Path]:
+    """`csrc/<name>.cu` and the local headers it includes, transitively,
+    in first-include order."""
+    seen: List[Path] = []
+    todo = [CSRC / f"{name}.cu"]
+    while todo:
+        path = todo.pop(0)
+        if path in seen:
+            continue
+        seen.append(path)
+        todo += [path.parent / inc
+                 for inc in _INCLUDE.findall(path.read_text())
+                 if (path.parent / inc).exists()]
+    return seen
+
+
 def library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    h = hashlib.sha256(src.read_bytes())
+    h = hashlib.sha256()
+    for src in sources(name):
+        h.update(src.name.encode() + b"\0" + src.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
@@ -90,7 +115,9 @@ def _compile(name: str, out: Path) -> str:
 def load(name: str, rebuild: bool = False) -> Library:
     """Build (if needed) and load `csrc/<name>.cu`. rebuild=True compiles
     even when a build with the same hash exists."""
-    with _lock:
+    with _locks_lock:
+        lock = _locks.setdefault(name, threading.Lock())
+    with lock:
         if name in _loaded and not rebuild:
             return _loaded[name]
         path = library_path(name)

@@ -1,20 +1,23 @@
-"""On-chip min-sum flooding decoder (counterpart of
+"""On-chip min-sum decoders (counterpart of
 `ldpc_tpu/kernels/minsum_pallas.py`).
 
-`make_decoder` mirrors `minsum_pallas.make_decoder` for the fixed-iteration
-flooding form of its kernel (K1), including the fused-IO form (K1-IO:
-float32 LLRs quantized in the kernel, per-lane info-bit error counts
-out). It returns a `MinsumDecoder` that holds both versions:
+`make_decoder` mirrors `minsum_pallas.make_decoder` for the min-sum family
+of its VMEM kernel: flooding with fixed iterations (K1) or per-lane early
+termination (K2), and the layered schedule with either (K3), each also in
+the fused-IO form (K1-IO: float32 LLRs quantized in the kernel, per-lane
+info-bit error counts out). It returns a `MinsumDecoder` that holds both
+versions:
 
-  * `kernel`: the hand-written CUDA kernel `csrc/minsum_flood.cu`, built
-    with nvcc at first launch (`build.py`), on CUDA tensors only;
+  * `kernel`: a hand-written CUDA kernel, `csrc/minsum_flood.cu` for
+    flooding or `csrc/minsum_layered.cu` for layered, built with nvcc at
+    first launch (`build.py`), on CUDA tensors only;
   * `plain`: the plain torch version, `ops/decode_ref` (+ `ops/quantize`
     and counting in fused-IO mode), on tensors of any device.
 
 Calling the decoder dispatches by the tensor's device: a CPU tensor takes
 the plain version, a CUDA tensor launches the kernel or raises. Nothing
-falls back. The module counts `kernel_launches` (one per launch) and
-`plain_calls` (one per plain call).
+falls back. The module counts `kernel_launches` (one per launch, and per
+library in `library_launches`) and `plain_calls` (one per plain call).
 
 Layout is the reference's pre-transposed one, batch last:
   decode(chan (nb, Z, B))            -> (hard (nb, Z, B) uint8,
@@ -24,9 +27,8 @@ Layout is the reference's pre-transposed one, batch last:
                                          frame_err (B,) int32, iters, conv)
 chan is int8, or float32 when input_scale is set.
 
-Not ported yet, and raising NotImplementedError on CUDA: per-lane early
-termination (ROADMAP kernel K2), the layered schedule (K3, which the plain
-version lacks too) and min* (K5).
+Not ported yet: the min* CN update (ROADMAP kernel K5), which raises
+NotImplementedError.
 """
 from __future__ import annotations
 
@@ -40,16 +42,21 @@ import torch
 from ldpc_tpu.config import DecoderConfig, QuantConfig, cn_params
 
 from ..codes import CodeTensors
-from ..ops.decode_ref import make_flooding_decoder
+from ..ops.decode_ref import make_decoder as make_plain_decoder
 from ..ops.quantize import quantize
 from . import build
 
+# The kernel library of each schedule, its source and the Pallas code it
+# replaces (the kernel body, and for layered its layered_iter).
+LIBRARIES = {"flooding": "minsum_flood", "layered": "minsum_layered"}
+SOURCES = {lib: f"ldpc_tpu_torch/kernels/csrc/{lib}.cu"
+           for lib in LIBRARIES.values()}
+REPLACES = {"minsum_flood": "ldpc_tpu/kernels/minsum_pallas.py:390",
+            "minsum_layered": "ldpc_tpu/kernels/minsum_pallas.py:823"}
+
 kernel_launches = 0
 plain_calls = 0
-
-LIBRARY = "minsum_flood"
-SOURCE = "ldpc_tpu_torch/kernels/csrc/minsum_flood.cu"
-REPLACES = "ldpc_tpu/kernels/minsum_pallas.py:390"
+library_launches = dict.fromkeys(SOURCES, 0)
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
@@ -58,21 +65,26 @@ def reset_counters() -> None:
     global kernel_launches, plain_calls
     kernel_launches = 0
     plain_calls = 0
+    for lib in SOURCES:
+        library_launches[lib] = 0
 
 
-def load_library(rebuild: bool = False) -> build.Library:
-    """Build (first use) and bind the kernel library."""
-    lib = build.load(LIBRARY, rebuild=rebuild)
+def load_library(name: str, rebuild: bool = False) -> build.Library:
+    """Build (first use) and bind kernel library `name` (a value of
+    LIBRARIES); both export <name>_launch, _config and _error_string."""
+    lib = build.load(name, rebuild=rebuild)
     c = lib.cdll
-    c.minsum_flood_launch.argtypes = [
-        _P, _I, _F, _P, _I, _P, _P, _P, _P, _P, _P,
-        _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P]
-    c.minsum_flood_launch.restype = _I
-    c.minsum_flood_config.argtypes = [_I, _I, _I, _I,
-                                      ctypes.POINTER(_I), ctypes.POINTER(_I)]
-    c.minsum_flood_config.restype = _I
-    c.minsum_flood_error_string.argtypes = [_I]
-    c.minsum_flood_error_string.restype = ctypes.c_char_p
+    launch = getattr(c, f"{name}_launch")
+    launch.argtypes = [_P, _I, _F, _P, _I, _P, _P, _P, _P, _P, _P,
+                       _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P]
+    launch.restype = _I
+    config = getattr(c, f"{name}_config")
+    config.argtypes = [_I, _I, _I, _I, ctypes.POINTER(_I),
+                       ctypes.POINTER(_I)]
+    config.restype = _I
+    err = getattr(c, f"{name}_error_string")
+    err.argtypes = [_I]
+    err.restype = ctypes.c_char_p
     return lib
 
 
@@ -94,7 +106,8 @@ def kernel_tables(ct: CodeTensors) -> np.ndarray:
 
 
 class MinsumDecoder:
-    """Fixed-iteration flooding min-sum decoder for one code and config."""
+    """Min-sum decoder (flooding or layered, fixed iterations or early
+    termination) for one code and config."""
 
     def __init__(self, ct: CodeTensors, dec: DecoderConfig,
                  quant: QuantConfig, input_scale: Optional[float],
@@ -103,11 +116,8 @@ class MinsumDecoder:
             raise NotImplementedError(
                 "min-star: the min* CN update is ROADMAP kernel K5, not "
                 "ported yet")
-        if dec.schedule != "flooding":
-            raise NotImplementedError(
-                f"schedule {dec.schedule!r}: the layered decoder is ROADMAP "
-                f"kernel K3 (and module item 5 for its plain version), not "
-                f"ported yet")
+        if dec.schedule not in LIBRARIES:
+            raise ValueError(f"unknown schedule {dec.schedule!r}")
         if count_info_cols is not None:
             if not ct.ident_info:
                 raise ValueError(f"{ct.code.name}: in-kernel counting needs "
@@ -121,25 +131,31 @@ class MinsumDecoder:
         self.beta, self.alpha = cn_params(dec, quant)
         self.input_scale = input_scale
         self.count_info_cols = count_info_cols
-        self._plain = make_flooding_decoder(
-            ct.code, max_iter=dec.max_iter, beta=self.beta, qmax=quant.qmax,
-            early_term=dec.early_term, alpha=self.alpha)
+        self.library = LIBRARIES[dec.schedule]
+        self._plain = make_plain_decoder(ct.code, dec, quant)
         self._tables_np = kernel_tables(ct)
         self._tables: Dict[torch.device, torch.Tensor] = {}
         row_deg = np.diff(self._tables_np[: ct.mb + 1])
         col_deg = np.bincount([c for row in ct.entries for c, _, _ in row],
                               minlength=ct.nb)
-        # The kernel keeps totals in int16: |chan| <= 128 plus dv messages
-        # of magnitude <= qmax must stay below 2**15.
+        # The kernels keep totals (flooding) or posteriors (layered) in
+        # int16: |chan| <= 128 plus dv messages of magnitude <= qmax must
+        # stay below 2**15.
         self._kernel_domain = (
             None if row_deg.min() >= 2
             and 128 + int(col_deg.max()) * quant.qmax < 2 ** 15
             else f"{ct.code.name}: the kernel needs base-row degrees >= 2 "
-                 f"and int16-safe totals")
+                 f"and int16-safe posteriors")
 
     @property
     def counting(self) -> bool:
         return self.count_info_cols is not None
+
+    @property
+    def batch_tile(self) -> int:
+        """The batch granularity: codeword lanes per block of the kernel
+        on a CUDA code (builds the library), 1 for the plain version."""
+        return self.launch_config()[0] if self.ct.device.type == "cuda" else 1
 
     def _check(self, chan: torch.Tensor, info: Optional[torch.Tensor]) -> int:
         ct = self.ct
@@ -194,10 +210,6 @@ class MinsumDecoder:
         """Launch the CUDA kernel on the current stream of chan's device."""
         global kernel_launches
         B = self._check(chan, info)
-        if self.dec.early_term:
-            raise NotImplementedError(
-                "early_term=True on CUDA: per-lane early termination is "
-                "ROADMAP kernel K2, not ported yet")
         if self._kernel_domain is not None:
             raise NotImplementedError(self._kernel_domain)
         dev = chan.device
@@ -208,7 +220,8 @@ class MinsumDecoder:
             raise ValueError("the kernel needs contiguous chan and info")
         if B >= 2 ** 31:
             raise ValueError(f"batch {B} too large for one launch")
-        lib = load_library().cdll
+        name = self.library
+        lib = load_library(name).cdll
         ct = self.ct
         if dev not in self._tables:
             self._tables[dev] = torch.as_tensor(self._tables_np, device=dev)
@@ -230,17 +243,18 @@ class MinsumDecoder:
         num, shift = self.alpha if self.alpha is not None else (1, 0)
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream(dev).cuda_stream
-            err = lib.minsum_flood_launch(
+            err = getattr(lib, f"{name}_launch")(
                 ptr(chan), int(self.input_scale is not None),
                 float(self.input_scale or 0.0), ptr(info),
                 self.count_info_cols or 0, ptr(hard), ptr(bits), ptr(frame),
                 ptr(iters), ptr(conv), ptr(tables), B, ct.nb, ct.Z, ct.mb,
-                ct.n_entries, self.dec.max_iter, self.quant.qmax, self.beta,
-                num, shift, stream)
+                ct.n_entries, self.dec.max_iter, int(self.dec.early_term),
+                self.quant.qmax, self.beta, num, shift, stream)
         if err:
-            msg = lib.minsum_flood_error_string(err).decode()
-            raise RuntimeError(f"minsum_flood launch failed: {msg} ({err})")
+            msg = getattr(lib, f"{name}_error_string")(err).decode()
+            raise RuntimeError(f"{name} launch failed: {msg} ({err})")
         kernel_launches += 1
+        library_launches[name] += 1
         if self.counting:
             return bits, frame, iters, conv
         return hard, iters, conv
@@ -249,9 +263,10 @@ class MinsumDecoder:
         """(codeword lanes per block, dynamic shared-memory bytes) that the
         kernel uses for this code; builds the library."""
         lanes, smem = ctypes.c_int(0), ctypes.c_int(0)
-        load_library().cdll.minsum_flood_config(
-            self.ct.nb, self.ct.Z, self.ct.mb, self.ct.n_entries,
-            ctypes.byref(lanes), ctypes.byref(smem))
+        config = getattr(load_library(self.library).cdll,
+                         f"{self.library}_config")
+        config(self.ct.nb, self.ct.Z, self.ct.mb, self.ct.n_entries,
+               ctypes.byref(lanes), ctypes.byref(smem))
         return lanes.value, smem.value
 
 

@@ -256,7 +256,7 @@ def test_wrapper_rejects_bad_inputs(rng):
 
 @pytest.mark.parametrize("dcfg,match", [
     (DecoderConfig(algorithm="min-star", schedule="flooding"), "K5"),
-    (DecoderConfig(algorithm="min-sum", schedule="layered"), "K3"),
+    (DecoderConfig(algorithm="min-star", schedule="layered"), "K5"),
 ])
 def test_unported_decoders_raise(dcfg, match):
     ct = from_reference(toy_qc(4), "cpu")
@@ -287,16 +287,20 @@ def test_kernel_tables():
         assert len(ents) == (code.base[:, j] >= 0).sum()
 
 
-def test_early_term_refused_by_the_kernel(rng):
-    """Early termination runs in the plain version on CPU; the kernel entry
-    refuses it (ROADMAP kernel K2) before looking at the device."""
+@pytest.mark.parametrize("schedule", ["flooding", "layered"])
+def test_early_term_refused_by_the_kernel(rng, schedule):
+    """Early termination (K2 flooding, K3 layered) runs in the plain
+    version on CPU; the kernel entry takes it but refuses CPU tensors, so
+    nothing falls back and nothing builds here."""
     ct = from_reference(toy_qc(4), "cpu")
-    dec = minsum.make_decoder(ct, _dcfg(3, early_term=True),
-                              QuantConfig(beta_lsb=0))
+    dcfg = DecoderConfig(algorithm="min-sum", schedule=schedule,
+                         max_iter=3, early_term=True)
+    dec = minsum.make_decoder(ct, dcfg, QuantConfig(beta_lsb=0))
+    assert dec.library == minsum.LIBRARIES[schedule]
     chan = _to_t(_random_llrs(rng, 4, ct.n), ct)
     hard, iters, conv = dec(chan)          # plain: fine on CPU
     assert iters.max() <= 3
-    with pytest.raises(NotImplementedError, match="K2"):
+    with pytest.raises(ValueError, match="CUDA tensors"):
         dec.kernel(chan)
 
 

@@ -187,9 +187,27 @@ def _cfg(**sections):
         for k, v in sections.items()})
 
 
+@pytest.mark.parametrize("cfg,label", [
+    (_cfg(decoder=dict(schedule="layered")), "torch-plain-layered"),
+    (_cfg(decoder=dict(early_term=True)), "torch-plain"),
+])
+def test_layered_and_early_term_configs_run(cfg, label):
+    """Layered (K3) and early-terminating (K2) configurations, once refused,
+    run through the plain decoders on CPU."""
+    sweep = Sweep(cfg, device="cpu", batch=32)
+    assert sweep.backend == label
+    assert sweep.run_batch.decoder.library == minsum.LIBRARIES[
+        cfg.decoder.schedule]
+    p = sweep.run([2.0], target_frame_errors=10 ** 9,
+                  max_frames=64).points[0]
+    assert p.frames == 64 and 0 < p.converged <= 64
+    if cfg.decoder.early_term:
+        assert p.iter_sum < 20 * 64
+    else:
+        assert p.iter_sum == 20 * 64
+
+
 @pytest.mark.parametrize("cfg,match", [
-    (_cfg(decoder=dict(schedule="layered")), "K3"),
-    (_cfg(decoder=dict(early_term=True)), "K2"),
     (_cfg(decoder=dict(algorithm="min-star")), "K5"),
     (_cfg(decoder=dict(algorithm="sum-product")), "item 12"),
     (_cfg(channel=dict(modulation="16qam")), "item 11"),

@@ -8,8 +8,10 @@ Phases, each printing its lines; any failure raises and exits non-zero:
 1. device: requires a CUDA device (never runs on the CPU) and prints the
    card's `nvidia-smi` name and power limit;
 2. build: compiles both kernel libraries fresh with nvcc for sm_90a, at
-   the same time (`minsum_flood.cu`: K1/K1-IO/K2; `minsum_layered.cu`:
-   K3), and prints each build's time and ptxas' register/spill report;
+   the same time (`minsum_flood.cu`: K1/K1-IO/K2 and the flooding K1-MC
+   instance; `minsum_layered.cu`: K3 and the layered K1-MC instance; both
+   include `mc_stage.cuh` and `philox.cuh`), and prints each build's time
+   and ptxas' register/spill report;
 3. kernel vs plain: each CUDA kernel against its plain torch version on
    the card, tolerance 0 on every output (an integer program). Flooding,
    fixed iterations (K1, K1-IO): 802.11n n=648 at B=16,384 in hard-output
@@ -20,18 +22,38 @@ Phases, each printing its lines; any failure raises and exits non-zero:
    at 20 fixed iterations with B=4,099, n=648 normalized alpha=3/4 with
    max_iter 7, n=1944 rate 3/4 fused-IO. An all-zero noiseless batch
    through K2 and K3 must give iters 0 and converged on every lane;
-4. slice 1: `Sweep(PRESETS["wifi-648-r12-minsum"], device="cuda",
+4. K1-MC kernel vs plain, tolerance 0 on the four per-lane outputs:
+   n=648 flooding fixed-20 at 2.0 dB with injected words and with Philox
+   words, and n=1944 rate 5/6 layered OMS with early termination at
+   3.5 dB (Philox), at B=16,384 (the batch of the rng=device steps); the
+   per-lane-sigma form with the six sigmas of 1.0-3.5 dB at B=18,432 (the
+   fused sweep's batch) against the plain version and, stripe by stripe,
+   against the scalar form at each sigma and the same batch;
+5. slices 1 and 2: `Sweep(PRESETS["wifi-648-r12-minsum"], device="cuda",
    batch=16384).run([1.5, 2.0, 2.5])`, 32,768 frames per point, against
-   `results/wifi648_minsum.json`;
-5. slice 2: `Sweep(PRESETS["wifi-full-oms"], device="cuda",
-   batch=16384).run([3.0, 3.5])` with AUTO two-phase, 131,072 frames per
-   point, against `results/wifi12_1944_r56.json`: FER and the converged
-   rate by Wilson intervals (z=2.576), BER and average iterations by
-   per-frame z-tests with the variances of batch 0, re-drawn;
-   then two-phase == single-phase counters on one batch at 3.5 dB.
-   Each slice reads the kernel launch counters reset just before it;
-6. times: kernels with CUDA events (warm-up, median, plain and kernel in
-   turns), steps with the host clock and a sync (info bits/s).
+   `results/wifi648_minsum.json`, and `Sweep(PRESETS["wifi-full-oms"],
+   ...).run([3.0, 3.5])` with AUTO two-phase, 131,072 frames per point,
+   against `results/wifi12_1944_r56.json`; then `wifi-full-oms` again
+   with rng="device" (the layered K1-MC instance) against the same file:
+   FER and the converged rate by Wilson intervals (z=2.576), BER and
+   average iterations by per-frame z-tests with the variances of batch 0,
+   re-drawn; then two-phase == single-phase counters on one batch at
+   3.5 dB. Each sweep reads the kernel launch counters reset just before
+   it;
+6. slice 3: `Sweep(PRESETS["wifi-648-r12-minsum"] with rng="device",
+   device="cuda", batch=18432).run_fused([1.0, ..., 3.5],
+   target_frame_errors=300, max_frames=2_000_000)` through the flooding
+   K1-MC instance only (0 plain calls), against
+   `results/wifi648_fused_mc.json` at all six points (FER and converged
+   rate by Wilson intervals, BER by the per-frame z-test, average
+   iterations exactly 20), on the decoder shape that phase 4 checked;
+7. CLI: `python -m ldpc_tpu_torch.cli sweep --preset wifi-648-r12-minsum
+   --rng device --fused --ebn0 1.0:3.5:0.5 --batch 18432 --target-errors
+   300 --max-frames 2000000 --out <tmp>` in a subprocess; its JSON
+   counters must equal slice 3's;
+8. times: kernels with CUDA events (warm-up, median, plain and kernel in
+   turns), steps with the host clock and a sync (info bits/s), the
+   device-RNG steps against the host-RNG steps in turns.
 
 Ends with one JSON line of kernel records, the nvidia-smi line, and, last,
 the device line {"ok": true, "device": {"platform": "gpu", ...}}.
@@ -43,6 +65,7 @@ import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -50,10 +73,15 @@ import torch
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 BATCH = 16384
-SLICES = (  # (preset, reference file, points, frames per point)
-    ("wifi-648-r12-minsum", "wifi648_minsum.json", (1.5, 2.0, 2.5), 32768),
-    ("wifi-full-oms", "wifi12_1944_r56.json", (3.0, 3.5), 131072),
+SLICES = (  # (preset, rng, reference file, points, frames per point)
+    ("wifi-648-r12-minsum", "host", "wifi648_minsum.json", (1.5, 2.0, 2.5),
+     32768),
+    ("wifi-full-oms", "host", "wifi12_1944_r56.json", (3.0, 3.5), 131072),
+    ("wifi-full-oms", "device", "wifi12_1944_r56.json", (3.0, 3.5), 131072),
 )
+FUSED = dict(preset="wifi-648-r12-minsum", ref="wifi648_fused_mc.json",
+             points=(1.0, 1.5, 2.0, 2.5, 3.0, 3.5), batch=18432,
+             target=300, max_frames=2_000_000)
 
 
 def phase(name):
@@ -137,14 +165,14 @@ def kernel_vs_plain_ms(d, args, gpu, what, kernel_reps=10, plain_reps=3):
     return kern_ms, plain_ms
 
 
-def step_seconds(rb, gen, sigma, reps=10):
+def step_seconds(rb, draw, sigma, reps=10):
     for _ in range(3):
-        rb(gen, sigma)
+        rb(draw, sigma)
     torch.cuda.synchronize()
     out = []
     for _ in range(reps):
         t0 = time.perf_counter()
-        rb(gen, sigma).tolist()
+        rb(draw, sigma).tolist()
         out.append(time.perf_counter() - t0)
     return out
 
@@ -157,73 +185,320 @@ def lane_values(sweep, snr_idx, ebn0_db):
     from ldpc_tpu_torch.sim.pipeline import make_lane_step
     step = make_lane_step(sweep.ct, sweep.cfg, batch=sweep.batch)
     sigma = np.float32(sigma_for(ebn0_db, sweep.code.rate, "bpsk"))
-    bits, _, iters, _ = step(sweep.generator(snr_idx, 0), sigma)
-    want = sweep.run_batch(sweep.generator(snr_idx, 0), sigma).tolist()
+    bits, _, iters, _ = step(sweep.draw(snr_idx, 0), sigma)
+    want = sweep.run_batch(sweep.draw(snr_idx, 0), sigma).tolist()
     if [int(bits.sum()), int(iters.sum())] != [want[1], want[3]]:
         raise AssertionError("re-drawn batch differs from the step's own")
     return bits.double(), iters.double()
 
 
-def check_slice(port, minsum, preset, ref_name, points, frames):
-    """Runs one preset's sweep on the card and holds it to its recorded
-    waterfall; returns (sweep, launches of each library in this run)."""
-    from ldpc_tpu_torch.sim import Sweep
-    from ldpc_tpu_torch.sim.stats import (mean_compatible, rates_compatible,
-                                          wilson_interval)
+def slice_config(port, preset, rng, **run):
+    cfg = port.PRESETS[preset]
+    return dataclasses.replace(cfg, run=dataclasses.replace(
+        cfg.run, rng=rng, **run))
+
+
+def rows_compatible(row, r, k, var_bits, var_iters):
+    """(ok_b, ok_f, ok_i, ok_c, bits_wilson) of one port row against one
+    reference row: FER and converged rate by Wilson intervals, BER and
+    iterations by per-frame z-tests with the per-frame variances given."""
+    from ldpc_tpu_torch.sim.stats import mean_compatible, rates_compatible
+    ok_f = rates_compatible(row["frame_errs"], row["frames"],
+                            r["frame_errs"], r["frames"])
+    ok_c = rates_compatible(round(row["early_term_rate"] * row["frames"]),
+                            row["frames"],
+                            round(r["early_term_rate"] * r["frames"]),
+                            r["frames"])
+    bits_wilson = rates_compatible(row["bit_errs"], row["frames"] * k,
+                                   r["bit_errs"], r["frames"] * k)
+    # BER and iterations cluster in failed frames: compare per-frame
+    # means with their per-frame variance, from batch 0 re-drawn
+    ok_b = mean_compatible(row["bit_errs"], row["frames"],
+                           r["bit_errs"], r["frames"], var_bits)
+    ok_i = mean_compatible(row["avg_iters"] * row["frames"],
+                           row["frames"], r["avg_iters"] * r["frames"],
+                           r["frames"], var_iters)
+    return ok_b, ok_f, ok_i, ok_c, bits_wilson
+
+
+def print_row(row, r, var_bits, var_iters, oks, extra=""):
+    from ldpc_tpu_torch.sim.stats import wilson_interval
+    ok_b, ok_f, ok_i, ok_c, bits_wilson = oks
+    ref_lo, ref_hi = wilson_interval(r["frame_errs"], r["frames"])
+    print(f"  Eb/N0 {row['ebn0_db']} dB: frames {row['frames']} "
+          f"BER {row['ber']:.4e} ref {r['ber']:.4e} compatible {ok_b} "
+          f"(per-frame z-test, sd {var_bits ** 0.5:.2f} "
+          f"bits/frame; Wilson over bits {bits_wilson}); FER "
+          f"{row['fer']:.4e} [{row['fer_lo']:.4e}, {row['fer_hi']:.4e}] "
+          f"ref {r['fer']:.4e} [{ref_lo:.4e}, {ref_hi:.4e}] "
+          f"compatible {ok_f}; avg_iters {row['avg_iters']:.4f} ref "
+          f"{r['avg_iters']:.4f} compatible {ok_i} (sd "
+          f"{var_iters ** 0.5:.2f}); converged "
+          f"{row['early_term_rate']:.6f} ref {r['early_term_rate']:.6f} "
+          f"compatible {ok_c}" + extra, flush=True)
+
+
+def read_ref(ref_name):
     with open(os.path.join(HERE, "results", ref_name)) as f:
-        ref = {r["ebn0_db"]: r for r in json.load(f)["results"]}
-    sweep = Sweep(port.PRESETS[preset], device="cuda", batch=BATCH)
+        return {r["ebn0_db"]: r for r in json.load(f)["results"]}
+
+
+def launch_counts(minsum, sweep, label, mc):
+    """The launch counters of the run just made; fails unless it went
+    through the schedule's library only, in its MC instance exactly when
+    `mc`, with no plain call."""
+    launches = dict(minsum.library_launches)
+    mc_launches = dict(minsum.mc_launches)
+    plain = minsum.plain_calls
+    print(f"{label}: backend {sweep.backend}; kernel launches {launches}, "
+          f"of them MC {mc_launches}, plain_calls {plain}", flush=True)
+    lib = minsum.LIBRARIES[sweep.cfg.decoder.schedule]
+    want_mc = {name: launches[name] if mc else 0 for name in launches}
+    if launches[lib] <= 0 or plain != 0 or mc_launches != want_mc or any(
+            v for name, v in launches.items() if name != lib):
+        raise AssertionError(f"{label} did not run through "
+                             f"{lib}{' (MC)' if mc else ''} only")
+    return launches[lib]
+
+
+def check_slice(port, minsum, preset, rng, ref_name, points, frames):
+    """Runs one preset's sweep on the card and holds it to its recorded
+    waterfall; returns (sweep, launches of its library in this run)."""
+    from ldpc_tpu_torch.sim import Sweep
+    ref = read_ref(ref_name)
+    sweep = Sweep(slice_config(port, preset, rng), device="cuda",
+                  batch=BATCH)
+    if sweep.run_batch.mc != (rng == "device"):
+        raise AssertionError(f"{preset} rng={rng}: run_batch.mc is "
+                             f"{sweep.run_batch.mc}")
     minsum.reset_counters()
     res = sweep.run(list(points), target_frame_errors=10 ** 9,
                     max_frames=frames)
     torch.cuda.synchronize()
-    launches = dict(minsum.library_launches)
-    plain = minsum.plain_calls
-    print(f"{preset}: backend {sweep.backend}; kernel launches {launches}, "
-          f"plain_calls {plain}", flush=True)
-    lib = minsum.LIBRARIES[sweep.cfg.decoder.schedule]
-    if launches[lib] <= 0 or plain != 0:
-        raise AssertionError(f"{preset} did not run through {lib} only")
+    launches = launch_counts(minsum, sweep, f"{preset} rng={rng}",
+                             rng == "device")
     k = sweep.code.k_eff
     for si, row in enumerate(res.rows()):
         r = ref[row["ebn0_db"]]
-        ok_f = rates_compatible(row["frame_errs"], row["frames"],
-                                r["frame_errs"], r["frames"])
-        ok_c = rates_compatible(round(row["early_term_rate"] * row["frames"]),
-                                row["frames"],
-                                round(r["early_term_rate"] * r["frames"]),
-                                r["frames"])
-        bits_wilson = rates_compatible(row["bit_errs"], row["frames"] * k,
-                                       r["bit_errs"], r["frames"] * k)
-        # BER and iterations cluster in failed frames: compare per-frame
-        # means with their per-frame variance, from batch 0 re-drawn
         bits, iters = lane_values(sweep, si, row["ebn0_db"])
-        ok_b = mean_compatible(row["bit_errs"], row["frames"],
-                               r["bit_errs"], r["frames"], float(bits.var()))
-        ok_i = mean_compatible(row["avg_iters"] * row["frames"],
-                               row["frames"], r["avg_iters"] * r["frames"],
-                               r["frames"], float(iters.var()))
-        ref_lo, ref_hi = wilson_interval(r["frame_errs"], r["frames"])
+        var_b, var_i = float(bits.var()), float(iters.var())
+        oks = rows_compatible(row, r, k, var_b, var_i)
         auto = sweep.auto_choice.get(si)
-        print(f"  Eb/N0 {row['ebn0_db']} dB: frames {row['frames']} "
-              f"BER {row['ber']:.4e} ref {r['ber']:.4e} compatible {ok_b} "
-              f"(per-frame z-test, sd {float(bits.var()) ** 0.5:.2f} "
-              f"bits/frame; Wilson over bits {bits_wilson}); FER "
-              f"{row['fer']:.4e} [{row['fer_lo']:.4e}, {row['fer_hi']:.4e}] "
-              f"ref {r['fer']:.4e} [{ref_lo:.4e}, {ref_hi:.4e}] "
-              f"compatible {ok_f}; avg_iters {row['avg_iters']:.4f} ref "
-              f"{r['avg_iters']:.4f} compatible {ok_i} (sd "
-              f"{float(iters.var()) ** 0.5:.2f}); converged "
-              f"{row['early_term_rate']:.6f} ref {r['early_term_rate']:.6f} "
-              f"compatible {ok_c}"
-              + (f"; AUTO (p1, cap) = {auto}" if auto else ""), flush=True)
-        if row["frames"] < min(r["frames"], frames) or not (
-                ok_b and ok_f and ok_i and ok_c):
-            raise AssertionError(f"{preset} disagrees with {ref_name} at "
-                                 f"{row['ebn0_db']} dB")
+        print_row(row, r, var_b, var_i, oks,
+                  f"; AUTO (p1, cap) = {auto}" if auto else "")
+        if row["frames"] < min(r["frames"], frames) or not all(oks[:4]):
+            raise AssertionError(f"{preset} rng={rng} disagrees with "
+                                 f"{ref_name} at {row['ebn0_db']} dB")
         if not (np.isfinite(row["ber"]) and np.isfinite(row["fer"])):
             raise AssertionError("non-finite rates")
     return sweep, launches
+
+
+def build_libraries(minsum):
+    libs = list(minsum.SOURCES)
+    with concurrent.futures.ThreadPoolExecutor(len(libs)) as pool:
+        built = list(pool.map(
+            lambda name: minsum.load_library(name, rebuild=True), libs))
+    for name, lib in zip(libs, built):
+        print(f"nvcc sm_90a build of {minsum.SOURCES[name]}: "
+              f"{lib.build_seconds:.2f} s -> "
+              f"{os.path.relpath(lib.path, HERE)}", flush=True)
+        for line in lib.ptxas_log.splitlines():
+            if any(w in line for w in ("entry function", "registers",
+                                       "spill", "smem")):
+                print("  ptxas:", line.strip())
+    return libs
+
+
+def check_mc_kernels(port, minsum, dev):
+    """K1-MC kernel == plain (tolerance 0) in inject, Philox and per-lane
+    sigma modes, both schedules, each at the batch its main path runs:
+    B=16,384 for the scalar forms, the fused sweep's batch for the
+    per-lane form. Returns (worst error per library, the decoders and
+    arguments to time, the per-lane decoder)."""
+    from ldpc_tpu_torch.codes import build_code, from_reference
+    from ldpc_tpu_torch.ops.channel import sigma_for
+    from ldpc_tpu_torch.ops.mc import gain_for
+    cfg648 = port.PRESETS["wifi-648-r12-minsum"]
+    oms = port.PRESETS["wifi-full-oms"]
+    wifi = from_reference(build_code(cfg648), dev)
+    r56 = from_reference(build_code(oms), dev)
+    rng = np.random.default_rng(31)
+    worst = {}
+    timed = {}
+
+    def make(ct, cfg, batch=BATCH, **kw):
+        return minsum.make_decoder(ct, cfg.decoder, cfg.quant,
+                                   input_scale=cfg.quant.scale,
+                                   count_info_cols=ct.kb, mc_batch=batch,
+                                   **kw)
+
+    def compare(label, d, out_k, out_p):
+        torch.cuda.synchronize()
+        err = max_abs_err(out_k, out_p)
+        same = all(torch.equal(a.to(torch.int64), b.to(torch.int64))
+                   for a, b in zip(out_k, out_p))
+        lanes, smem = d.launch_config()
+        print(f"{label} B={d.batch}: max_abs_err {err:g} equal {same} "
+              f"(frame errors {int(out_k[1].sum())}/{d.batch}, converged "
+              f"{int(out_k[3].sum())}, mean iters "
+              f"{float(out_k[2].double().mean()):.3f}, {d.library} "
+              f"{lanes} lanes/block, {smem} B smem)", flush=True)
+        if not same:
+            raise AssertionError(f"K1-MC kernel != plain on {label}")
+        worst[d.library] = max(worst.get(d.library, 0.0), err)
+
+    s20 = np.float32(sigma_for(2.0, wifi.code.rate, "bpsk"))
+    g20 = gain_for(s20, cfg648.quant.scale)
+    d = make(wifi, cfg648, inject_random=True)
+    words = torch.as_tensor(rng.integers(
+        0, 1 << 32, (d.n_words, BATCH), dtype=np.uint32).view(np.int32)
+    ).to(dev)
+    compare("K1-MC n648 flooding fixed-20 2.0 dB inject", d,
+            d.kernel(0, s20, g20, words=words),
+            d.plain(0, s20, g20, words=words))
+    d = make(wifi, cfg648)
+    seed = 0x5EED0FC0FFEE
+    compare("K1-MC n648 flooding fixed-20 2.0 dB Philox", d,
+            d.kernel(seed, s20, g20), d.plain(seed, s20, g20))
+    timed["flood"] = (d, (seed, s20, g20))
+    s35 = np.float32(sigma_for(3.5, r56.code.rate, "bpsk"))
+    g35 = gain_for(s35, oms.quant.scale)
+    d = make(r56, oms)
+    compare("K1-MC n1944 r5/6 layered OMS ET 3.5 dB Philox", d,
+            d.kernel(seed + 1, s35, g35), d.plain(seed + 1, s35, g35))
+    timed["layered"] = (d, (seed + 1, s35, g35))
+    # per-lane sigma, as run_fused runs it: the fused batch, six points,
+    # lane b at point b % 6
+    sig6 = np.asarray([sigma_for(e, wifi.code.rate, "bpsk")
+                       for e in FUSED["points"]], np.float32)
+    point = np.arange(FUSED["batch"]) % len(sig6)
+    sl = torch.as_tensor(sig6[point]).to(dev)
+    gl = gain_for(sl, cfg648.quant.scale)
+    d = make(wifi, cfg648, batch=FUSED["batch"], mc_lane_sigma=True)
+    lane_k = d.kernel(seed + 2, sigma_lane=sl, gain_lane=gl)
+    compare("K1-MC n648 flooding per-lane sigma (6 points) Philox", d,
+            lane_k, d.plain(seed + 2, sigma_lane=sl, gain_lane=gl))
+    lane = d
+    scalar = make(wifi, cfg648, batch=FUSED["batch"])
+    for i, sg in enumerate(sig6):
+        ref = scalar.kernel(seed + 2, sg, gain_for(sg, cfg648.quant.scale))
+        sel = torch.as_tensor(point == i).to(dev)
+        same = all(torch.equal(a[sel], b[sel]) for a, b in zip(lane_k, ref))
+        print(f"  stripe {i} (sigma {sg:.6f}): per-lane form == scalar "
+              f"form {same}", flush=True)
+        if not same:
+            raise AssertionError("per-lane sigma != scalar sigma")
+    return worst, timed, lane
+
+
+def fused_lane_variances(sweep, rb, sigmas, min_failed=100,
+                         max_batches=200):
+    """Per-frame variances (bit errors, iterations) of each point: from
+    fused batch 0, re-drawn through the step's own parts (fails unless its
+    sums are the step's), and, for a point whose stripe holds fewer than
+    `min_failed` failed frames, from further single-point megakernel
+    batches at its sigma (seeds (seed, 1 + point, b), which the sweep
+    never uses) until it does or `max_batches` ran: at low FER the bit
+    errors of batch 0 are all zero, which would make the z-test exact."""
+    from ldpc_tpu_torch.sim.pipeline import make_lane_step
+    from ldpc_tpu_torch.sim.sweep import batch_seed
+    P = len(sigmas)
+    step = make_lane_step(sweep.ct, sweep.cfg, batch=sweep.batch,
+                          n_points=P)
+    bits, frame, iters, _ = step(sweep.draw(0, 0), sigmas)
+    want = rb(sweep.draw(0, 0), sigmas)
+    got = bits.to(torch.int64).reshape(-1, P).sum(dim=0)
+    if not torch.equal(got, want[1]):
+        raise AssertionError("re-drawn fused batch differs from the step's")
+    single = make_lane_step(sweep.ct, sweep.cfg, batch=sweep.batch)
+    out = []
+    for i, sg in enumerate(sigmas):
+        b, it = bits[i::P].double(), iters[i::P].double()
+        sums = torch.stack([b.sum(), (b * b).sum(), it.sum(),
+                            (it * it).sum()])
+        count, failed, n = b.numel(), int(frame[i::P].sum()), 0
+        while failed < min_failed and n < max_batches:
+            bb, ff, ii, _ = single(batch_seed(sweep.cfg.run.seed, 1 + i, n),
+                                   sg)
+            bb, ii = bb.double(), ii.double()
+            sums += torch.stack([bb.sum(), (bb * bb).sum(), ii.sum(),
+                                 (ii * ii).sum()])
+            count += bb.numel()
+            failed += int(ff.sum())
+            n += 1
+        s1, s2, t1, t2 = (float(x) / count for x in sums.tolist())
+        out.append((s2 - s1 * s1, t2 - t1 * t1, count, failed))
+    return out
+
+
+def check_fused(port, minsum, checked):
+    """Slice 3: the fused device-RNG sweep against its recorded waterfall,
+    through a decoder of the shape `checked` (phase 4's per-lane-sigma
+    decoder); returns (result, flooding MC launches)."""
+    from ldpc_tpu_torch.sim import Sweep
+    f = FUSED
+    ref = read_ref(f["ref"])
+    cfg = slice_config(port, f["preset"], "device", batch=f["batch"],
+                       target_frame_errors=f["target"],
+                       max_frames=f["max_frames"])
+    sweep = Sweep(cfg, device="cuda")
+    minsum.reset_counters()
+    t0 = time.perf_counter()
+    res = sweep.run_fused(list(f["points"]))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = launch_counts(minsum, sweep, "slice 3 run_fused", True)
+    rb = sweep.fused_run_batch(len(f["points"]))
+    shape = (rb.decoder.library, rb.decoder.batch, rb.decoder.lane_sigma)
+    if shape != (checked.library, checked.batch, checked.lane_sigma):
+        raise AssertionError(f"run_fused ran {shape}, phase 4 checked "
+                             f"{checked.library, checked.batch, checked.lane_sigma}")
+    sig = np.asarray([sweep._sigma(e) for e in f["points"]], np.float32)
+    var = fused_lane_variances(sweep, rb, sig)
+    k = sweep.code.k_eff
+    frames = sum(p.frames for p in res.points)
+    print(f"run_fused: {launches} launches of {sweep.batch} codewords, "
+          f"{frames} frames in {wall:.3f} s", flush=True)
+    for i, row in enumerate(res.rows()):
+        r = ref[row["ebn0_db"]]
+        var_b, var_i, count, failed = var[i]
+        oks = rows_compatible(row, r, k, var_b, var_i)
+        print_row(row, r, var_b, var_i, oks, f"; variances from {count} "
+                  f"frames, {failed} failed")
+        if not all(oks[:4]) or row["avg_iters"] != 20.0 or row["frames"] <= 0:
+            raise AssertionError(f"slice 3 disagrees with {f['ref']} at "
+                                 f"{row['ebn0_db']} dB")
+    return res, launches
+
+
+def check_cli(res):
+    """The CLI's fused device-RNG sweep must give slice 3's counters."""
+    f = FUSED
+    keys = ("ebn0_db", "frames", "bit_errs", "frame_errs", "avg_iters",
+            "early_term_rate")
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "fused_mc")
+        cmd = [sys.executable, "-m", "ldpc_tpu_torch.cli", "sweep",
+               "--preset", f["preset"], "--rng", "device", "--fused",
+               "--ebn0", "1.0:3.5:0.5", "--batch", str(f["batch"]),
+               "--target-errors", str(f["target"]), "--max-frames",
+               str(f["max_frames"]), "--out", out]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, cwd=HERE, capture_output=True, text=True,
+                              timeout=600)
+        if proc.returncode != 0:
+            raise AssertionError(f"CLI failed ({proc.returncode}):\n"
+                                 f"{proc.stderr[-3000:]}")
+        with open(out + ".json") as fh:
+            got = json.load(fh)
+    want = [{k: row[k] for k in keys} for row in res.rows()]
+    got_rows = [{k: row[k] for k in keys} for row in got["results"]]
+    print(f"CLI ({time.perf_counter() - t0:.1f} s, backend "
+          f"{got['decoder_backend']}): counters equal slice 3's "
+          f"{got_rows == want}", flush=True)
+    if got_rows != want:
+        raise AssertionError(f"CLI counters {got_rows} != {want}")
 
 
 def main():
@@ -241,22 +516,11 @@ def main():
     from ldpc_tpu_torch.kernels import minsum
     from ldpc_tpu_torch.ops.channel import sigma_for
     from ldpc_tpu_torch.sim import make_run_batch
+    from ldpc_tpu_torch.sim.sweep import batch_seed
     dev = torch.device("cuda")
 
     phase("build (both libraries at once)")
-    libs = list(minsum.SOURCES)
-    with concurrent.futures.ThreadPoolExecutor(len(libs)) as pool:
-        built = list(pool.map(
-            lambda name: minsum.load_library(name, rebuild=True), libs))
-    for name, lib in zip(libs, built):
-        print(f"nvcc sm_90a build of {minsum.SOURCES[name]}: "
-              f"{lib.build_seconds:.2f} s -> "
-              f"{os.path.relpath(lib.path, HERE)}", flush=True)
-        for line in lib.ptxas_log.splitlines():
-            if any(w in line for w in ("entry function", "registers",
-                                       "spill", "smem")):
-                print("  ptxas:", line.strip())
-
+    libs = build_libraries(minsum)
     phase("kernel vs plain (tolerance 0)")
     cfg648 = port.PRESETS["wifi-648-r12-minsum"]
     oms_cfg = port.PRESETS["wifi-full-oms"]
@@ -350,17 +614,28 @@ def main():
             raise AssertionError(f"{d.library} all-zero batch: iters "
                                  f"{iters.unique().tolist()}")
 
-    phase("slice 1 and slice 2 (sweeps against recorded waterfalls)")
+    phase("K1-MC kernel vs plain (tolerance 0)")
+    mc_worst, mc_timed, mc_lane = check_mc_kernels(port, minsum, dev)
+
+    phase("slices 1 and 2, and wifi-full-oms with rng=device (sweeps "
+          "against recorded waterfalls)")
     sweeps, launches = {}, {}
-    for preset, ref_name, points, frames in SLICES:
-        sweeps[preset], launches[preset] = check_slice(
-            port, minsum, preset, ref_name, points, frames)
+    for preset, rng_mode, ref_name, points, frames in SLICES:
+        key = (preset, rng_mode)
+        sweeps[key], launches[key] = check_slice(
+            port, minsum, preset, rng_mode, ref_name, points, frames)
+
+    phase("slice 3: fused device-RNG sweep (run_fused)")
+    fused_res, fused_launches = check_fused(port, minsum, mc_lane)
+
+    phase("CLI: sweep --rng device --fused")
+    check_cli(fused_res)
     loaded = sorted(m for m in sys.modules if m.split(".")[0] == "jax")
     if loaded:
         raise AssertionError(f"jax modules loaded: {loaded[:5]}")
 
     phase("two-phase == single-phase on the card (wifi-full-oms, 3.5 dB)")
-    oms_sweep = sweeps["wifi-full-oms"]
+    oms_sweep = sweeps["wifi-full-oms", "host"]
     s35 = np.float32(sigma_for(3.5, r56.code.rate, "bpsk"))
     p1, frac = oms_sweep.auto_choice.get(1, (None, None))
     cfg2 = dataclasses.replace(oms_cfg, decoder=dataclasses.replace(
@@ -392,10 +667,15 @@ def main():
 
     # K1: the canonical decode (all-zeros word at 2.0 dB scored against
     # random info bits; the work does not depend on the data)
-    k1 = sweeps["wifi-648-r12-minsum"].run_batch.decoder
+    s648 = sweeps["wifi-648-r12-minsum", "host"]
+    k1 = s648.run_batch.decoder
     timing["K1"] = kernel_vs_plain_ms(
         k1, fused_args(wifi, sig[wifi, 2.0]), gpu,
         f"K1-IO decode of {BATCH} codewords (n648, fused-IO, 20 iterations)")
+    d, args = mc_timed["flood"]
+    timing["K1-MC flood"] = kernel_vs_plain_ms(
+        d, args, gpu, f"K1-MC step of {BATCH} codewords (n648 flooding, "
+        f"20 iterations, Philox, 2.0 dB)")
     k2 = minsum.make_decoder(wifi, dec_cfg(base_dec, **et), base_q,
                              input_scale=4.0, count_info_cols=wifi.kb)
     timing["K2"] = kernel_vs_plain_ms(
@@ -408,6 +688,10 @@ def main():
             k3, fused_args(r56, sig[r56, db]), gpu,
             f"K3 decode of {BATCH} codewords (n1944 r5/6 OMS, ET, fused-IO, "
             f"{db} dB)")
+    d, args = mc_timed["layered"]
+    timing["K1-MC layered"] = kernel_vs_plain_ms(
+        d, args, gpu, f"K1-MC step of {BATCH} codewords (n1944 r5/6 "
+        f"layered OMS, ET, Philox, 3.5 dB)")
     k3f = minsum.make_decoder(r56, dec_cfg(lay, early_term=False), lay_q,
                               input_scale=4.0, count_info_cols=r56.kb)
     timing["K3 fixed"] = kernel_vs_plain_ms(
@@ -415,36 +699,53 @@ def main():
         f"K3 decode of {BATCH} codewords (n1944 r5/6 OMS, 20 fixed "
         f"iterations, fused-IO, 3.0 dB)")
 
-    def report_step(name, rb, generator, sigma, k):
-        st = step_seconds(rb, generator, sigma)
+    def report_step(name, rb, draw, sigma, k):
+        st = step_seconds(rb, draw, sigma)
         med = statistics.median(st)
         print(f"[{gpu}] {name} step ({rb.backend_label}) of {BATCH} "
               f"codewords: {med * 1e3:.4f} ms median of {len(st)} (min "
               f"{min(st) * 1e3:.4f}, max {max(st) * 1e3:.4f}) -> "
               f"{BATCH * k / med:.6e} decoded info bits/s", flush=True)
 
-    s648 = sweeps["wifi-648-r12-minsum"]
-    report_step("wifi-648-r12-minsum 2.0 dB", s648.run_batch,
-                s648.generator(0, 0), np.float32(sig[wifi, 2.0]), wifi.k)
+    dev648 = make_run_batch(s648.ct, slice_config(
+        port, "wifi-648-r12-minsum", "device"), batch=BATCH)
+    for turn in ("host", "device", "device", "host"):
+        report_step(f"wifi-648-r12-minsum 2.0 dB rng={turn}",
+                    s648.run_batch if turn == "host" else dev648,
+                    s648.generator(0, 0) if turn == "host" else batch_seed(
+                        s648.cfg.run.seed, 0, 0),
+                    np.float32(sig[wifi, 2.0]), wifi.k)
+    oms_dev = sweeps["wifi-full-oms", "device"].run_batch
+    for turn in ("host", "device", "device", "host"):
+        report_step(f"wifi-full-oms 3.5 dB rng={turn} single-phase",
+                    rb1 if turn == "host" else oms_dev,
+                    sweeps["wifi-full-oms", turn].draw(1, 0), s35, r56.k)
     auto_rb = oms_sweep.tuned_run_batch(1, s35)
     for turn in ("single", "auto", "auto", "single"):
-        report_step(f"wifi-full-oms 3.5 dB {turn}-phase",
+        report_step(f"wifi-full-oms 3.5 dB rng=host {turn}-phase",
                     rb1 if turn == "single" else auto_rb,
                     oms_sweep.generator(1, 0), s35, r56.k)
 
+    def record(name, lib, launched, err, t):
+        return {"name": name, "route": "cuda",
+                "source": minsum.SOURCES[lib], "replaces": (
+                    minsum.MC_REPLACES if name.endswith("_mc")
+                    else minsum.REPLACES[lib]),
+                "launches": launched, "max_abs_err": err, "ms": t[0],
+                "plain_ms": t[1]}
+
     print(json.dumps({"kernels": [
-        {"name": "minsum_flood", "route": "cuda",
-         "source": minsum.SOURCES["minsum_flood"],
-         "replaces": minsum.REPLACES["minsum_flood"],
-         "launches": launches["wifi-648-r12-minsum"]["minsum_flood"],
-         "max_abs_err": worst["minsum_flood"], "ms": timing["K1"][0],
-         "plain_ms": timing["K1"][1]},
-        {"name": "minsum_layered", "route": "cuda",
-         "source": minsum.SOURCES["minsum_layered"],
-         "replaces": minsum.REPLACES["minsum_layered"],
-         "launches": launches["wifi-full-oms"]["minsum_layered"],
-         "max_abs_err": worst["minsum_layered"], "ms": timing["K3 3.0"][0],
-         "plain_ms": timing["K3 3.0"][1]}]}))
+        record("minsum_flood", "minsum_flood",
+               launches["wifi-648-r12-minsum", "host"], worst["minsum_flood"],
+               timing["K1"]),
+        record("minsum_layered", "minsum_layered",
+               launches["wifi-full-oms", "host"], worst["minsum_layered"],
+               timing["K3 3.0"]),
+        record("minsum_flood_mc", "minsum_flood", fused_launches,
+               mc_worst["minsum_flood"], timing["K1-MC flood"]),
+        record("minsum_layered_mc", "minsum_layered",
+               launches["wifi-full-oms", "device"],
+               mc_worst["minsum_layered"], timing["K1-MC layered"])]}))
     print(gpu)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -1,6 +1,7 @@
 // Parts shared by the min-sum decoder kernels (minsum_flood.cu,
-// minsum_layered.cu): launch parameters, the entry tables, the in-kernel
-// quantizer and the check-node update. One copy, so the two schedules
+// minsum_layered.cu): launch parameters (the Monte-Carlo stage's
+// included), the entry tables, the in-kernel quantizer and the check-node
+// update. One copy, so the two schedules
 // cannot drift apart in the arithmetic that makes them bit-exact.
 //
 // The CN update follows ldpc_tpu/kernels/minsum_pallas.py::_cn_minsum:
@@ -27,6 +28,19 @@ constexpr int kMaxThreads = 1024;
 constexpr int kMaxSmem = 232448;            // 227 KB opt-in per block on sm_90
 constexpr int kPreferredSmem = 113 * 1024;  // two blocks per SM
 
+// The Monte-Carlo stage's inputs (mc_stage.cuh); zero in the other modes.
+// The launch entries take it by host pointer; kernels/minsum.py::McArgs
+// mirrors this layout with ctypes.
+struct Mc {
+  uint32_t key0, key1;      // Philox key: the 64-bit batch seed (lo, hi)
+  float sigma, gain;        // noise level and demap gain 2 * scale / sigma^2
+  const float* sigma_lane;  // (B,) per-lane sigma, or null: scalar sigma
+  const float* gain_lane;   // (B,) per-lane gain, or null
+  const int32_t* words;     // injected words (W, B), or null: Philox
+  int cb;                   // dual-diagonal core rows of the parity part
+};
+static_assert(sizeof(Mc) == 48, "Mc layout differs from McArgs");
+
 struct Params {
   const void* chan;
   int chan_is_f32;
@@ -42,6 +56,7 @@ struct Params {
   int B, nb, Z, mb, E;
   int max_iter, qmax, beta, alpha_num, alpha_shift;
   int lanes;
+  Mc mc;
 };
 
 __host__ __device__ inline size_t align16(size_t x) { return (x + 15) & ~size_t(15); }
@@ -190,6 +205,7 @@ inline Params make_params(const void* chan, int chan_is_f32, float scale,
   p.alpha_num = alpha_num;
   p.alpha_shift = alpha_shift;
   p.lanes = 0;
+  p.mc = Mc{};
   return p;
 }
 
@@ -209,6 +225,19 @@ int decoder_launch(void (*kern)(Params), SmemFn smem_bytes, Params p,
   const dim3 grid((p.B + p.lanes - 1) / p.lanes);
   kern<<<grid, block, smem, static_cast<cudaStream_t>(stream)>>>(p);
   return int(cudaGetLastError());
+}
+
+using Kernel = void (*)(Params);
+
+// The body of each library's <name>_launch: kernels[MC][ET] are the four
+// instances of its kernel template; the MC instance runs when `mc` (a host
+// pointer, copied into the parameters) is not null.
+template <typename SmemFn>
+int launch_instance(const Kernel (&kernels)[2][2], SmemFn smem_bytes,
+                    Params p, int early_term, const Mc* mc, void* stream) {
+  if (mc) p.mc = *mc;
+  return decoder_launch(kernels[mc != nullptr][early_term != 0], smem_bytes,
+                        p, stream);
 }
 
 }  // namespace ldpc

@@ -50,8 +50,16 @@
 // is active: __syncthreads_or gives every thread the same answer, so no
 // thread waits at a barrier that the others skipped. The flag stamps
 // increase with k, so no reset is needed between iterations.
+//
+// Monte-Carlo megakernel (template MC, K1-MC; mc_stage.cuh): the channel
+// comes from the in-kernel prologue (Philox or injected words -> info bits
+// -> structured encode -> BPSK/AWGN/demap/quantize) instead of device
+// memory, the codeword bits borrow the c2v buffer before it is zeroed, and
+// the error count draws each info bit again. Per codeword, device memory
+// then sees only the four per-lane counters.
 
 #include "cn_minsum.cuh"
+#include "mc_stage.cuh"
 
 namespace {
 
@@ -67,7 +75,7 @@ inline size_t smem_bytes(int nb, int Z, int mb, int E, int lanes) {
        + align16(size_t(E) * Z * lanes);      // c2v
 }
 
-template <bool ET>
+template <bool ET, bool MC>
 __global__ void minsum_flood_kernel(Params p) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int L = p.lanes, Z = p.Z, nb = p.nb, mb = p.mb, E = p.E;
@@ -102,10 +110,17 @@ __global__ void minsum_flood_kernel(Params p) {
   const ldpc::Tables t = ldpc::tables_at(tab, nb, mb, E);
 
   // Channel in: this thread owns row `row` of every base column.
-  for (int j = 0; j < nb; ++j) {
-    const int v = j * Z + row;
-    const int q = valid ? ldpc::load_chan(p, size_t(v) * p.B + b) : 0;
-    chan[v * L + lane] = int8_t(q);
+  if (MC) {
+    __syncthreads();   // the tables, before the encode reads them
+    ldpc::mc_prologue(p, t, reinterpret_cast<uint8_t*>(c2v), chan, valid, b,
+                      row, lane);
+    __syncthreads();   // every codeword bit read, before c2v is zeroed
+  } else {
+    for (int j = 0; j < nb; ++j) {
+      const int v = j * Z + row;
+      const int q = valid ? ldpc::load_chan(p, size_t(v) * p.B + b) : 0;
+      chan[v * L + lane] = int8_t(q);
+    }
   }
   for (int i = tid; i < E * Z * L; i += nthreads) c2v[i] = 0;
   __syncthreads();
@@ -174,7 +189,8 @@ __global__ void minsum_flood_kernel(Params p) {
     if (valid) {
       const size_t g = size_t(v) * p.B + b;
       if (p.hard) p.hard[g] = uint8_t(h);
-      if (p.info && j < p.kb) nerr += h ^ int(p.info[g]);
+      if (MC && j < p.kb) nerr += h ^ ldpc::mc_info_bit(p, b, j, row);
+      else if (p.info && j < p.kb) nerr += h ^ int(p.info[g]);
     }
   }
   if (!ET && ldpc::rows_unsat(t, tot, mb, Z, L, row, lane))
@@ -207,20 +223,26 @@ const char* minsum_flood_error_string(int err) {
 }
 
 // Launches on `stream` and returns cudaGetLastError() (0 on success). All
-// pointers are device pointers; info/hard/bits/frame may be null.
+// pointers but `mc` are device pointers; chan/info/hard/bits/frame may be
+// null. With `mc` (host memory) not null it runs the Monte-Carlo megakernel
+// (K1-MC): the channel comes from the seed (key0, key1) or the injected
+// words, and chan/info are not read.
 int minsum_flood_launch(const void* chan, int chan_is_f32, float scale,
                         const void* info, int kb, void* hard, void* bits,
                         void* frame, void* iters, void* conv,
                         const void* tables, int B, int nb, int Z, int mb,
                         int E, int max_iter, int early_term, int qmax,
                         int beta, int alpha_num, int alpha_shift,
-                        void* stream) {
-  const Params p = ldpc::make_params(
-      chan, chan_is_f32, scale, info, kb, hard, bits, frame, iters, conv,
-      tables, B, nb, Z, mb, E, max_iter, qmax, beta, alpha_num, alpha_shift);
-  return ldpc::decoder_launch(
-      early_term ? minsum_flood_kernel<true> : minsum_flood_kernel<false>,
-      [=](int l) { return smem_bytes(nb, Z, mb, E, l); }, p, stream);
+                        const ldpc::Mc* mc, void* stream) {
+  const ldpc::Kernel kernels[2][2] = {
+      {minsum_flood_kernel<false, false>, minsum_flood_kernel<true, false>},
+      {minsum_flood_kernel<false, true>, minsum_flood_kernel<true, true>}};
+  return ldpc::launch_instance(
+      kernels, [=](int l) { return smem_bytes(nb, Z, mb, E, l); },
+      ldpc::make_params(chan, chan_is_f32, scale, info, kb, hard, bits,
+                        frame, iters, conv, tables, B, nb, Z, mb, E,
+                        max_iter, qmax, beta, alpha_num, alpha_shift),
+      early_term, mc, stream);
 }
 
 }  // extern "C"

@@ -27,6 +27,17 @@ Layout is the reference's pre-transposed one, batch last:
                                          frame_err (B,) int32, iters, conv)
 chan is int8, or float32 when input_scale is set.
 
+With mc_batch=B (and input_scale, count_info_cols=kb) it returns an
+`McDecoder`, the Monte-Carlo megakernel (K1-MC): the whole simulation step
+of B codewords from a 64-bit seed, in the `MC` instance of either library
+(`csrc/mc_stage.cuh`), or plainly (`ops/rng` + `ops/mc` + the plain
+decoder + counting):
+  decode(seed, sigma, gain)                        -> (bit_errs, frame_err,
+                                                       iters, conv), (B,)
+  decode(seed, sigma, gain, words=(W, B) int32)    (inject_random=True)
+  decode(seed, sigma_lane=(B,), gain_lane=(B,))    (mc_lane_sigma=True)
+The module also counts `mc_launches` per library.
+
 Not ported yet: the min* CN update (ROADMAP kernel K5), which raises
 NotImplementedError.
 """
@@ -34,7 +45,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
-from typing import Dict, Optional, Tuple
+from typing import Dict, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -42,7 +53,9 @@ import torch
 from ldpc_tpu.config import DecoderConfig, QuantConfig, cn_params
 
 from ..codes import CodeTensors
+from ..ops import rng
 from ..ops.decode_ref import make_decoder as make_plain_decoder
+from ..ops.mc import make_prologue
 from ..ops.quantize import quantize
 from . import build
 
@@ -53,10 +66,13 @@ SOURCES = {lib: f"ldpc_tpu_torch/kernels/csrc/{lib}.cu"
            for lib in LIBRARIES.values()}
 REPLACES = {"minsum_flood": "ldpc_tpu/kernels/minsum_pallas.py:390",
             "minsum_layered": "ldpc_tpu/kernels/minsum_pallas.py:823"}
+# The MC instance of both libraries: the megakernel's pallas_call.
+MC_REPLACES = "ldpc_tpu/kernels/minsum_pallas.py:990"
 
 kernel_launches = 0
 plain_calls = 0
 library_launches = dict.fromkeys(SOURCES, 0)
+mc_launches = dict.fromkeys(SOURCES, 0)
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
@@ -67,6 +83,14 @@ def reset_counters() -> None:
     plain_calls = 0
     for lib in SOURCES:
         library_launches[lib] = 0
+        mc_launches[lib] = 0
+
+
+class McArgs(ctypes.Structure):
+    """The Monte-Carlo stage's inputs, `ldpc::Mc` of csrc/cn_minsum.cuh."""
+    _fields_ = [("key0", ctypes.c_uint32), ("key1", ctypes.c_uint32),
+                ("sigma", _F), ("gain", _F), ("sigma_lane", _P),
+                ("gain_lane", _P), ("words", _P), ("cb", _I)]
 
 
 def load_library(name: str, rebuild: bool = False) -> build.Library:
@@ -76,7 +100,8 @@ def load_library(name: str, rebuild: bool = False) -> build.Library:
     c = lib.cdll
     launch = getattr(c, f"{name}_launch")
     launch.argtypes = [_P, _I, _F, _P, _I, _P, _P, _P, _P, _P, _P,
-                       _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P]
+                       _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                       ctypes.POINTER(McArgs), _P]
     launch.restype = _I
     config = getattr(c, f"{name}_config")
     config.argtypes = [_I, _I, _I, _I, ctypes.POINTER(_I),
@@ -208,24 +233,29 @@ class MinsumDecoder:
     def kernel(self, chan: torch.Tensor,
                info: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, ...]:
         """Launch the CUDA kernel on the current stream of chan's device."""
-        global kernel_launches
         B = self._check(chan, info)
-        if self._kernel_domain is not None:
-            raise NotImplementedError(self._kernel_domain)
-        dev = chan.device
-        if dev.type != "cuda":
-            raise ValueError(f"the CUDA kernel needs CUDA tensors, got {dev}")
         if not chan.is_contiguous() or (info is not None
                                         and not info.is_contiguous()):
             raise ValueError("the kernel needs contiguous chan and info")
+        return self.launch(chan.device, B, chan=chan, info=info)
+
+    def launch(self, dev: torch.device, B: int,
+               chan: Optional[torch.Tensor] = None,
+               info: Optional[torch.Tensor] = None,
+               mc: Optional[McArgs] = None) -> Tuple[torch.Tensor, ...]:
+        """The one launch of the library's kernel over B codewords on the
+        current stream of `dev`, its MC instance when `mc` is given; counts
+        it. Returns the counting outputs, or (hard, iters, conv)."""
+        global kernel_launches
+        if self._kernel_domain is not None:
+            raise NotImplementedError(self._kernel_domain)
+        if dev.type != "cuda":
+            raise ValueError(f"the CUDA kernel needs CUDA tensors, got {dev}")
         if B >= 2 ** 31:
             raise ValueError(f"batch {B} too large for one launch")
         name = self.library
         lib = load_library(name).cdll
         ct = self.ct
-        if dev not in self._tables:
-            self._tables[dev] = torch.as_tensor(self._tables_np, device=dev)
-        tables = self._tables[dev]
         iters = torch.empty(B, dtype=torch.int32, device=dev)
         conv = torch.empty(B, dtype=torch.bool, device=dev)
         if self.counting:
@@ -240,24 +270,35 @@ class MinsumDecoder:
         def ptr(t):
             return None if t is None else t.data_ptr()
 
-        num, shift = self.alpha if self.alpha is not None else (1, 0)
+        num, shift = self.alpha_pair
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream(dev).cuda_stream
             err = getattr(lib, f"{name}_launch")(
                 ptr(chan), int(self.input_scale is not None),
                 float(self.input_scale or 0.0), ptr(info),
                 self.count_info_cols or 0, ptr(hard), ptr(bits), ptr(frame),
-                ptr(iters), ptr(conv), ptr(tables), B, ct.nb, ct.Z, ct.mb,
-                ct.n_entries, self.dec.max_iter, int(self.dec.early_term),
-                self.quant.qmax, self.beta, num, shift, stream)
-        if err:
-            msg = getattr(lib, f"{name}_error_string")(err).decode()
-            raise RuntimeError(f"{name} launch failed: {msg} ({err})")
+                ptr(iters), ptr(conv), ptr(self.tables_on(dev)), B, ct.nb,
+                ct.Z, ct.mb, ct.n_entries, self.dec.max_iter,
+                int(self.dec.early_term), self.quant.qmax, self.beta, num,
+                shift, None if mc is None else ctypes.byref(mc), stream)
+        check_launch(lib, name, err)
         kernel_launches += 1
         library_launches[name] += 1
+        if mc is not None:
+            mc_launches[name] += 1
         if self.counting:
             return bits, frame, iters, conv
         return hard, iters, conv
+
+    @property
+    def alpha_pair(self) -> Tuple[int, int]:
+        """alpha as the kernel's (num, shift), (1, 0) for none."""
+        return self.alpha if self.alpha is not None else (1, 0)
+
+    def tables_on(self, dev: torch.device) -> torch.Tensor:
+        if dev not in self._tables:
+            self._tables[dev] = torch.as_tensor(self._tables_np, device=dev)
+        return self._tables[dev]
 
     def launch_config(self) -> Tuple[int, int]:
         """(codeword lanes per block, dynamic shared-memory bytes) that the
@@ -270,9 +311,164 @@ class MinsumDecoder:
         return lanes.value, smem.value
 
 
+def check_launch(lib: ctypes.CDLL, name: str, err: int) -> None:
+    if err:
+        msg = getattr(lib, f"{name}_error_string")(err).decode()
+        raise RuntimeError(f"{name} launch failed: {msg} ({err})")
+
+
+class McDecoder:
+    """The Monte-Carlo megakernel (K1-MC) of `mc_batch` codewords for one
+    code and config: random words -> info bits -> structured QC encode ->
+    BPSK/AWGN/demap/quantize -> decode -> per-lane counters, in one launch
+    of the `MC` instance of the schedule's library, or plainly.
+
+    Words come from Philox4x32-10 keyed by the 64-bit `seed` (`ops/rng`),
+    or, with inject_random, from `words` (W, B) int32, W =
+    `rng.word_layout(kb, nb, Z)[2]`. sigma and gain (= 2 * scale /
+    sigma**2, float32) are scalars, or with mc_lane_sigma float32 rows
+    (B,) `sigma_lane` and `gain_lane`. Calls dispatch on the device of the
+    tensor arguments (words, else sigma_lane), else of the code: the CPU
+    runs the plain version, CUDA the kernel, anything else raises."""
+
+    def __init__(self, ct: CodeTensors, dec: DecoderConfig,
+                 quant: QuantConfig, input_scale: Optional[float],
+                 count_info_cols: Optional[int], mc_batch: int,
+                 inject_random: bool, mc_lane_sigma: bool):
+        from ldpc_tpu.codes.qcstruct import detect_enc_struct
+        if input_scale is None or count_info_cols is None:
+            raise ValueError("mc_batch requires input_scale and "
+                             "count_info_cols")
+        code = ct.code
+        st = (detect_enc_struct(code.base) if code.base is not None
+              else None)
+        if st is None:
+            raise ValueError(f"{code.name}: mc mode requires the encodable "
+                             f"QC parity structure")
+        if count_info_cols != st.kb:
+            raise ValueError("mc mode: count_info_cols must equal the "
+                             "structural kb (identity info prefix)")
+        if not 0 < mc_batch < 2 ** 31:
+            raise ValueError(f"mc_batch={mc_batch} outside [1, 2**31)")
+        if float(input_scale) != float(quant.scale):
+            raise ValueError("mc mode quantizes with gain = 2 * "
+                             "quant.scale / sigma**2: input_scale must be "
+                             "quant.scale")
+        self.decoder = MinsumDecoder(ct, dec, quant, input_scale,
+                                     count_info_cols)
+        self.ct, self.dec, self.quant = ct, dec, quant
+        self.library = self.decoder.library
+        self.batch = mc_batch
+        self.inject_random = inject_random
+        self.lane_sigma = mc_lane_sigma
+        self.cb = st.cb
+        self._prologue = make_prologue(code, quant.qmax)
+        self.n_words = self._prologue.n_words
+
+    @property
+    def counting(self) -> bool:
+        return True
+
+    @property
+    def batch_tile(self) -> int:
+        return self.decoder.batch_tile
+
+    def launch_config(self) -> Tuple[int, int]:
+        return self.decoder.launch_config()
+
+    def _check(self, words, sigma_lane, gain_lane) -> torch.device:
+        B = self.batch
+        if (words is not None) != self.inject_random:
+            raise ValueError("words must be given exactly when "
+                             "inject_random is set")
+        if ((sigma_lane is not None) != self.lane_sigma
+                or (gain_lane is not None) != self.lane_sigma):
+            raise ValueError("sigma_lane and gain_lane must both be given "
+                             "exactly when mc_lane_sigma is set")
+        devs = set()
+        if words is not None:
+            if words.dtype != torch.int32:
+                raise TypeError(f"words dtype {words.dtype}, expected int32")
+            if tuple(words.shape) != (self.n_words, B):
+                raise ValueError(f"words shape {tuple(words.shape)}, "
+                                 f"expected ({self.n_words}, {B})")
+            devs.add(words.device)
+        for row in (sigma_lane, gain_lane):
+            if row is not None:
+                if row.dtype != torch.float32 or tuple(row.shape) != (B,):
+                    raise ValueError(f"per-lane rows must be ({B},) "
+                                     f"float32")
+                devs.add(row.device)
+        if len(devs) > 1:
+            raise ValueError(f"arguments on several devices: {devs}")
+        return devs.pop() if devs else self.ct.device
+
+    def __call__(self, seed: int, sigma=None, gain=None, *,
+                 words: Optional[torch.Tensor] = None,
+                 sigma_lane: Optional[torch.Tensor] = None,
+                 gain_lane: Optional[torch.Tensor] = None
+                 ) -> Tuple[torch.Tensor, ...]:
+        dev = self._check(words, sigma_lane, gain_lane)
+        fn = self.plain if dev.type == "cpu" else self.kernel
+        return fn(seed, sigma, gain, words=words, sigma_lane=sigma_lane,
+                  gain_lane=gain_lane)
+
+    def plain(self, seed: int, sigma=None, gain=None, *,
+              words: Optional[torch.Tensor] = None,
+              sigma_lane: Optional[torch.Tensor] = None,
+              gain_lane: Optional[torch.Tensor] = None
+              ) -> Tuple[torch.Tensor, ...]:
+        """The plain torch version, on the arguments' device."""
+        global plain_calls
+        dev = self._check(words, sigma_lane, gain_lane)
+        plain_calls += 1
+        if words is None:
+            words = rng.words(seed, self.n_words, self.batch, dev)
+        if self.lane_sigma:
+            sigma, gain = sigma_lane, gain_lane
+        else:
+            sigma, gain = np.float32(sigma), np.float32(gain)
+        info_t, _, q = self._prologue(words, sigma, gain)
+        hard, iters, conv = self.decoder._plain(q.T)        # (B, n)
+        err = hard[:, : self.ct.k] ^ info_t.T
+        bits = err.sum(dim=1, dtype=torch.int32)
+        return bits, (bits > 0).to(torch.int32), iters, conv
+
+    def kernel(self, seed: int, sigma=None, gain=None, *,
+               words: Optional[torch.Tensor] = None,
+               sigma_lane: Optional[torch.Tensor] = None,
+               gain_lane: Optional[torch.Tensor] = None
+               ) -> Tuple[torch.Tensor, ...]:
+        """Launch the MC instance on the current stream of the device."""
+        dev = self._check(words, sigma_lane, gain_lane)
+        for t in (words, sigma_lane, gain_lane):
+            if t is not None and not t.is_contiguous():
+                raise ValueError("the kernel needs contiguous arguments")
+        seed = int(seed or 0) & ((1 << 64) - 1)
+
+        def ptr(t):
+            return None if t is None else t.data_ptr()
+
+        mc = McArgs(seed & 0xFFFFFFFF, seed >> 32,
+                    float(np.float32(sigma or 0.0)),
+                    float(np.float32(gain or 0.0)), ptr(sigma_lane),
+                    ptr(gain_lane), ptr(words), self.cb)
+        return self.decoder.launch(dev, self.batch, mc=mc)
+
+
 def make_decoder(ct: CodeTensors, dec: DecoderConfig, quant: QuantConfig,
                  *, input_scale: Optional[float] = None,
-                 count_info_cols: Optional[int] = None) -> MinsumDecoder:
+                 count_info_cols: Optional[int] = None,
+                 mc_batch: Optional[int] = None,
+                 inject_random: bool = False,
+                 mc_lane_sigma: bool = False
+                 ) -> Union[MinsumDecoder, McDecoder]:
     """Factory from configs, mirroring `minsum_pallas.make_decoder`;
-    (beta, alpha) come from `config.cn_params`."""
+    (beta, alpha) come from `config.cn_params`. mc_batch selects the
+    Monte-Carlo megakernel (`McDecoder`), as in the reference."""
+    if mc_batch is not None:
+        return McDecoder(ct, dec, quant, input_scale, count_info_cols,
+                         mc_batch, inject_random, mc_lane_sigma)
+    if inject_random or mc_lane_sigma:
+        raise ValueError("inject_random and mc_lane_sigma need mc_batch")
     return MinsumDecoder(ct, dec, quant, input_scale, count_info_cols)

@@ -284,6 +284,7 @@ def test_build_hash_covers_included_headers(monkeypatch, tmp_path):
 def test_shipped_kernels_share_the_cn_header():
     for lib in minsum.SOURCES:
         names = [p.name for p in build.sources(lib)]
-        assert names == [f"{lib}.cu", "cn_minsum.cuh"], names
+        assert names == [f"{lib}.cu", "cn_minsum.cuh", "mc_stage.cuh",
+                         "philox.cuh"], names
     assert (build.library_path("minsum_flood")
             != build.library_path("minsum_layered"))

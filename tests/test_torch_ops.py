@@ -13,8 +13,10 @@ import numpy as np
 import pytest
 import torch
 
+from ldpc_tpu.codes.code import expand_qc
 from ldpc_tpu.codes.ieee80211n import make_code
 from ldpc_tpu.codes.layout import compile_qc_layout
+from ldpc_tpu.codes.qcstruct import qc_encode_numpy
 from ldpc_tpu.codes.toy import toy_qc
 from ldpc_tpu.config import PRESETS, QuantConfig
 from ldpc_tpu.golden import decoder as golden_dec
@@ -100,13 +102,34 @@ def test_encoder_t_matches_reference(rng, name):
 
 
 def test_encoder_large_qc_code_raises():
+    """Above n = 4096 the dense form is not built, so a QC code without the
+    encodable dual-diagonal parity part has no encoder: it raises."""
+    base = make_code(648, "1/2").base.copy()
+    base[:, 12] = -1                 # no weight-3 first parity column
+    code = expand_qc(base, 200, name="no-staircase")
+    assert code.n > tenc.DENSE_MAX_N and not tenc.has_qc_struct(code)
+    with pytest.raises(ValueError, match="no encodable QC parity structure"):
+        tenc.make_qc_encoder_t(code)
+
+
+def test_encoder_large_qc_code_uses_structured_encoder(rng):
+    """Above n = 4096 a QC code with the encodable parity structure takes
+    the structured encoder, bit-exact with the reference's golden
+    structured encoder and with zero syndrome."""
     code = build_code(PRESETS["dvbs2-64800-r12"])
     ct = from_reference(code, "cpu")
     assert ct.P is None and ct.perm is None
     np.testing.assert_array_equal(ct.info_positions.numpy(),
                                   np.arange(code.k))
-    with pytest.raises(NotImplementedError, match="ROADMAP module item 3"):
-        tenc.make_encoder_t(ct)
+    info_t = rng.integers(0, 2, (code.k, 3), dtype=np.uint8)
+    got = tenc.make_encoder_t(ct)(torch.as_tensor(info_t)).numpy()
+    np.testing.assert_array_equal(got, qc_encode_numpy(code, info_t.T).T)
+    np.testing.assert_array_equal(got[: code.k], info_t)
+    for b in range(3):
+        assert not code.syndrome(got[:, b]).any()
+    plain_qc = expand_qc(np.array([[0, 0, 0], [0, 1, 2]]), 3, name="plain")
+    with pytest.raises(ValueError, match="no encodable QC"):
+        tenc.make_qc_encoder_t(plain_qc)
 
 
 @pytest.mark.parametrize("name", sorted(CODES))

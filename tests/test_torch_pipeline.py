@@ -30,6 +30,7 @@ from ldpc_tpu_torch.ops import channel as tch
 from ldpc_tpu_torch.ops.encode import make_encoder_t
 from ldpc_tpu_torch.sim import (BatchCounters, Sweep, make_run_batch,
                                 rates_compatible)
+from ldpc_tpu_torch.sim.pipeline import make_lane_step
 from ldpc_tpu_torch.sim.stats import mean_compatible
 from ldpc_tpu_torch.sim.sweep import batch_seed
 
@@ -143,10 +144,14 @@ def test_sweep_cpu_matches_jax_sweep_statistically():
 
 
 def test_sweep_reproducible_and_bounded():
+    """Synchronous (lookahead 1): the sweep stops at the first batch past
+    its target. With batches in flight (lookahead 4, the default, as in
+    the reference) the batches issued past the stop are consumed too, and
+    the first batch is the same."""
     cfg = dataclasses.replace(CFG, run=dataclasses.replace(CFG.run, seed=3))
-    a = Sweep(cfg, device="cpu", batch=64)
+    a = Sweep(cfg, device="cpu", batch=64, lookahead=1)
     r1 = a.run([1.0, 3.0], target_frame_errors=5, max_frames=256)
-    r2 = Sweep(cfg, device="cpu", batch=64).run(
+    r2 = Sweep(cfg, device="cpu", batch=64, lookahead=1).run(
         [1.0, 3.0], target_frame_errors=5, max_frames=256)
     assert [vars(p) | {"wall_s": 0} for p in r1.points] == \
         [vars(p) | {"wall_s": 0} for p in r2.points]
@@ -154,6 +159,13 @@ def test_sweep_reproducible_and_bounded():
     assert low.batches == 1 and low.frame_errs >= 5     # target reached
     assert high.frames == 256 and high.batches == 4     # budget spent
     assert r1.decoder_backend == "torch-plain"
+    r4 = Sweep(cfg, device="cpu", batch=64).run(
+        [1.0], target_frame_errors=5, max_frames=256)
+    assert r4.points[0].batches == 4 and r4.points[0].frames == 256
+    first = Sweep(cfg, device="cpu", batch=64).run(
+        [1.0], target_frame_errors=5, max_frames=64).points[0]
+    assert (first.frame_errs, first.bit_errs) == (low.frame_errs,
+                                                  low.bit_errs)
 
 
 def test_sweep_result_uses_results_schema():
@@ -213,11 +225,91 @@ def test_layered_and_early_term_configs_run(cfg, label):
     (_cfg(channel=dict(modulation="16qam")), "item 11"),
     (_cfg(code=dict(punct_frac=0.25)), "item 13"),
     (_cfg(run=dict(all_zeros=True)), "batch-first"),
-    (_cfg(run=dict(rng="device")), "K1-MC"),
 ])
 def test_configs_outside_the_slice_raise(cfg, match):
     with pytest.raises(NotImplementedError, match=match):
         Sweep(cfg, device="cpu", batch=32)
+
+
+def test_device_rng_runs_through_the_plain_megakernel():
+    """rng="device", once refused, runs on the CPU through the megakernel's
+    plain version (run_batch.mc), and its counters are the per-lane step's
+    sums."""
+    cfg = _cfg(run=dict(rng="device"))
+    sweep = Sweep(cfg, device="cpu", batch=32)
+    rb = sweep.run_batch
+    assert rb.mc and sweep.backend == "torch-plain-mc"
+    assert isinstance(rb.decoder, minsum.McDecoder)
+    plain = minsum.plain_calls
+    p = sweep.run([2.0], target_frame_errors=10 ** 9,
+                  max_frames=64).points[0]
+    assert minsum.plain_calls == plain + 2
+    assert p.frames == 64 and p.iter_sum == 20 * 64 and p.converged > 0
+    sigma = np.float32(tch.sigma_for(2.0, sweep.code.rate, "bpsk"))
+    step = make_lane_step(sweep.ct, cfg, batch=32)
+    bits, frame, iters, conv = step(sweep.draw(0, 1), sigma)
+    got = rb(sweep.draw(0, 1), sigma).tolist()
+    assert got == [32, int(bits.sum()), int(frame.sum()), int(iters.sum()),
+                   int(conv.sum())]
+    # the Philox stream is keyed by the batch seed; a generator is refused
+    assert sweep.draw(0, 1) == batch_seed(cfg.run.seed, 0, 1)
+    with pytest.raises(TypeError, match="int batch seed"):
+        rb(sweep.generator(0, 1), sigma)
+
+
+@pytest.mark.parametrize("sections,mc,label", [
+    (dict(run=dict(rng="device")), True, "torch-plain-mc"),
+    (dict(run=dict(rng="device"), decoder=dict(
+        schedule="layered", early_term=True, phase1_iters=-1)), True,
+     "torch-plain-layered-mc"),
+    # an explicit two-phase keeps the host chain, as in the reference
+    (dict(run=dict(rng="device"), decoder=dict(
+        early_term=True, phase1_iters=4)), False, "torch-plain-2phase"),
+    (dict(run=dict(rng="host")), False, "torch-plain"),
+])
+def test_megakernel_selection_rule(sections, mc, label):
+    rb = make_run_batch(from_reference(make_code(648, "1/2"), "cpu"),
+                        _cfg(**sections), batch=16)
+    assert rb.mc == mc and rb.backend_label == label
+
+
+@pytest.mark.parametrize("rng_mode", ["host", "device"])
+def test_fused_step_stripes_equal_single_point_steps(rng, rng_mode):
+    """n_points > 1: lane b simulates point b % P with its own sigma (the
+    host chain's per-lane sigma, the megakernel's sigma rows); each stripe
+    equals a single-point step at that sigma on the same draws, and the
+    (5, P) counters are the stripes' sums."""
+    code = make_code(648, "1/2")
+    ct = from_reference(code, "cpu")
+    cfg = _cfg(run=dict(rng=rng_mode), decoder=dict(max_iter=6))
+    B, P = 36, 3
+    sigmas = np.asarray([0.95, 0.8, 0.7], np.float32)
+    point = np.arange(B) % P
+    if rng_mode == "host":
+        info_t = rng.integers(0, 2, (code.k, B), dtype=np.uint8)
+        noise = rng.standard_normal((code.n, B)).astype(np.float32)
+        draws = dict(info_t=torch.as_tensor(info_t),
+                     noise=torch.as_tensor(noise))
+        src = None
+    else:
+        draws, src = {}, 4242
+    step = make_lane_step(ct, cfg, batch=B, n_points=P)
+    lanes = step(src, sigmas, **draws)
+    single = make_lane_step(ct, cfg, batch=B)
+    for p, s in enumerate(sigmas):
+        ref = single(src, s, **draws)
+        sel = torch.as_tensor(point == p)
+        for a, b in zip(lanes, ref):
+            assert torch.equal(a[sel], b[sel])
+    rb = make_run_batch(ct, cfg, batch=B, n_points=P)
+    out = rb(src, sigmas, **draws)
+    assert out.shape == (5, P) and out[0].tolist() == [B // P] * P
+    assert out[1].tolist() == [int(lanes[0][torch.as_tensor(point == p)]
+                                   .sum()) for p in range(P)]
+    with pytest.raises(ValueError, match="shape"):
+        rb(src, sigmas[:2], **draws)
+    with pytest.raises(ValueError, match="not divisible"):
+        make_run_batch(ct, cfg, batch=B + 1, n_points=P)
 
 
 def test_cuda_request_without_card_raises(monkeypatch):
@@ -269,10 +361,11 @@ def test_port_runs_without_loading_jax():
     assert out.stdout.strip().splitlines()[-1] == "[]"
 
 
-# ldpc_tpu modules that pull in JAX when imported
+# ldpc_tpu modules that pull in JAX when imported (ldpc_tpu.cli imports
+# only ldpc_tpu.config at module level; test_torch_sweep_fused.py holds it
+# to that)
 JAX_PULLING = ("jax", "jaxlib", "ldpc_tpu.sim", "ldpc_tpu.ops",
-               "ldpc_tpu.kernels", "ldpc_tpu.parallel", "ldpc_tpu.utils",
-               "ldpc_tpu.cli")
+               "ldpc_tpu.kernels", "ldpc_tpu.parallel", "ldpc_tpu.utils")
 
 
 def _imports(path):

@@ -10,50 +10,100 @@ Phases, each printing its lines; any failure raises and exits non-zero:
 2. build: compiles both kernel libraries fresh with nvcc for sm_90a, at
    the same time (`minsum_flood.cu`: K1/K1-IO/K2 and the flooding K1-MC
    instance; `minsum_layered.cu`: K3 and the layered K1-MC instance; both
-   include `mc_stage.cuh` and `philox.cuh`), and prints each build's time
-   and ptxas' register/spill report;
+   include `cn_minstar.cuh`, the min* update K5 that doubles their
+   instances, `mc_stage.cuh` and `philox.cuh`), and prints each build's
+   time and ptxas' register/spill report;
 3. kernel vs plain: each CUDA kernel against its plain torch version on
-   the card, tolerance 0 on every output (an integer program). Flooding,
-   fixed iterations (K1, K1-IO): 802.11n n=648 at B=16,384 in hard-output
-   and fused-IO modes, offset beta=2, normalized alpha=3/4, n=1944 rate
-   3/4. Flooding with early termination (K2): n=648 at 2.0 dB fused-IO
-   B=16,384, offset beta=2 with max_iter 1. Layered (K3): n=1944 rate 5/6
-   OMS at 3.0 dB fused-IO B=16,384 with early termination, the same code
-   at 20 fixed iterations with B=4,099, n=648 normalized alpha=3/4 with
-   max_iter 7, n=1944 rate 3/4 fused-IO. An all-zero noiseless batch
-   through K2 and K3 must give iters 0 and converged on every lane;
+   the card, tolerance 0 on every output (an integer program), and every
+   decoder a sweep launches below at that sweep's batch, B=16,384.
+   Flooding, fixed iterations (K1, K1-IO): 802.11n n=648 at B=16,384 in
+   hard-output and fused-IO modes, offset beta=2, normalized alpha=3/4,
+   n=1944 rate 3/4. Flooding with early termination (K2): n=648 at 2.0 dB
+   fused-IO B=16,384, offset beta=2 with max_iter 1. Layered (K3): n=1944
+   rate 5/6 OMS at 3.0 dB fused-IO B=16,384 with early termination, the
+   same code at 20 fixed iterations with B=4,099, n=648 normalized
+   alpha=3/4 with max_iter 7, and n=1944 rate 3/4 OMS with early
+   termination on the 16-QAM chain's own LLRs at 5.5 dB, B=16,384 (slice
+   4b's decoder). An all-zero noiseless batch through K2 and K3 must give
+   iters 0 and converged on every lane. min* (K5), the same way: n=648
+   layered with early termination at 2.0 dB fused-IO B=16,384 (slice 4a's
+   decoder), layered fixed-20 hard, flooding fixed-20 and flooding with
+   early termination fused-IO B=16,384 (the latter the flooding min*
+   sweep's decoder), flooding with early termination hard; n=1944 rate
+   5/6 (row degree 20) layered with early termination fused-IO and
+   flooding fixed hard; thresholds T=(8,3,0), T=() (scale 0.5) and a
+   6-bit quantizer on both codes; all-zero batches;
 4. K1-MC kernel vs plain, tolerance 0 on the four per-lane outputs:
    n=648 flooding fixed-20 at 2.0 dB with injected words and with Philox
    words, and n=1944 rate 5/6 layered OMS with early termination at
    3.5 dB (Philox), at B=16,384 (the batch of the rng=device steps); the
    per-lane-sigma form with the six sigmas of 1.0-3.5 dB at B=18,432 (the
    fused sweep's batch) against the plain version and, stripe by stripe,
-   against the scalar form at each sigma and the same batch;
-5. slices 1 and 2: `Sweep(PRESETS["wifi-648-r12-minsum"], device="cuda",
-   batch=16384).run([1.5, 2.0, 2.5])`, 32,768 frames per point, against
-   `results/wifi648_minsum.json`, and `Sweep(PRESETS["wifi-full-oms"],
-   ...).run([3.0, 3.5])` with AUTO two-phase, 131,072 frames per point,
-   against `results/wifi12_1944_r56.json`; then `wifi-full-oms` again
-   with rng="device" (the layered K1-MC instance) against the same file:
-   FER and the converged rate by Wilson intervals (z=2.576), BER and
-   average iterations by per-frame z-tests with the variances of batch 0,
-   re-drawn; then two-phase == single-phase counters on one batch at
-   3.5 dB. Each sweep reads the kernel launch counters reset just before
-   it;
+   against the scalar form at each sigma and the same batch; the min*
+   MC instances with injected words (n=648 layered, early termination)
+   and with Philox (n=648 layered and flooding with early termination,
+   the two instances the min* device-RNG sweeps launch, and flooding
+   fixed-20), B=16,384;
+5. slices 1, 2 and 4, one table (SLICES), one path: each row is a
+   `Sweep(cfg, device="cuda", batch=16384).run(points)` whose launch
+   counters, reset just before it, must show the schedule's library only,
+   its MC instance exactly with rng="device", min* launches exactly for
+   min*, and 0 plain calls; then each is held to its reference: FER and
+   the converged rate by Wilson intervals (z=2.576), BER and average
+   iterations by per-frame z-tests with the variances of batch 0,
+   re-drawn. `wifi-648-r12-minsum` at 1.5, 2.0, 2.5 dB (32,768 frames a
+   point) against `results/wifi648_minsum.json`; `wifi-full-oms` (AUTO
+   two-phase) at 3.0 and 3.5 dB (131,072) against
+   `results/wifi12_1944_r56.json`, and again with rng="device" (the
+   layered K1-MC instance); `wifi-648-minstar` (the canonical code, 8-bit
+   min*, layered, early termination, beta_lsb=0; 4a) at 1.5 and 2.0 dB
+   against `results/cn_variants_minstar.json`, and `qam16-1944-chain`
+   (preset `multihost-qam-chain` without its mesh: n=1944 rate 3/4, Gray
+   16-QAM, OMS beta=2, layered, early termination; 4b) at 5.5 and 6.0 dB
+   against `results/qam16_1944_r34_oms.json`, 131,072 frames a point; the
+   other min* instances on their steps, 32,768 frames at 2.0 dB each: 4a
+   with rng="device" (the layered min* MC instance) against the same
+   file, and flooding min* with host and with device RNG, which no file
+   records, each held to the other's rows. Then each sweep's decoder
+   must be the instance (library, code, decoder and quantizer
+   configuration, thresholds, IO mode, batch) that phases 3 and 4 held to
+   its plain version;
 6. slice 3: `Sweep(PRESETS["wifi-648-r12-minsum"] with rng="device",
    device="cuda", batch=18432).run_fused([1.0, ..., 3.5],
    target_frame_errors=300, max_frames=2_000_000)` through the flooding
    K1-MC instance only (0 plain calls), against
    `results/wifi648_fused_mc.json` at all six points (FER and converged
    rate by Wilson intervals, BER by the per-frame z-test, average
-   iterations exactly 20), on the decoder shape that phase 4 checked;
+   iterations exactly 20), on the decoder instance that phase 4 checked;
 7. CLI: `python -m ldpc_tpu_torch.cli sweep --preset wifi-648-r12-minsum
    --rng device --fused --ebn0 1.0:3.5:0.5 --batch 18432 --target-errors
    300 --max-frames 2000000 --out <tmp>` in a subprocess; its JSON
    counters must equal slice 3's;
-8. times: kernels with CUDA events (warm-up, median, plain and kernel in
-   turns), steps with the host clock and a sync (info bits/s), the
-   device-RNG steps against the host-RNG steps in turns.
+8. two-phase == single-phase counters on two batches of `wifi-full-oms`
+   at 3.5 dB;
+9. times: kernels with CUDA events (warm-up, median, plain and kernel in
+   turns), each of the decoder object its main path launched and at that
+   batch (run_fused's per-lane megakernel at 18,432, K3 of
+   `qam16-1944-chain` on 16-QAM LLRs at 6.0 dB); K5 beside the min-sum
+   instance on the same inputs in turns (layered and flooding with early
+   termination at 2.0 dB, layered and flooding fixed-20); steps with the
+   host clock and a sync (info bits/s), the device-RNG steps against the
+   host-RNG steps in turns, the two new steps with their decode kernel's
+   share.
+
+Each kernel record carries `launches` of the main path named beside it
+and `ms`, `plain_ms`, `bound_ms` of the decoder that path launched.
+`bound_ms` is the least time the card could take for the timed call: the
+larger of its bytes (every input tensor read once, every output written
+once) over 3.35 TB/s and its integer operations over 67e12/s, the data
+sheet's rate outside the tensor cores (the int32 units have half the
+float32 lanes, so the true floor is higher). Operations are counted for
+the iterations this call's lanes ran (the sum of the `iters` output): 12
+per edge and iteration for the min-sum row (subtract, |.|, the clip, two
+merges of min1/min2, the sign XOR to reduce; subtract, compare, select,
+negate, store and the posterior update to emit), and for a min* row of
+degree d, 3d - 6 combines of 12 + 4 * nthr operations plus 4 per edge.
+`library_ms` is null: no single PyTorch call decodes an LDPC code.
 
 Ends with one JSON line of kernel records, the nvidia-smi line, and, last,
 the device line {"ok": true, "device": {"platform": "gpu", ...}}.
@@ -73,12 +123,33 @@ import torch
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 BATCH = 16384
-SLICES = (  # (preset, rng, reference file, points, frames per point)
-    ("wifi-648-r12-minsum", "host", "wifi648_minsum.json", (1.5, 2.0, 2.5),
-     32768),
-    ("wifi-full-oms", "host", "wifi12_1944_r56.json", (3.0, 3.5), 131072),
-    ("wifi-full-oms", "device", "wifi12_1944_r56.json", (3.0, 3.5), 131072),
+MINSTAR_REF = "cn_variants_minstar.json"
+# (label, configuration (see slice_config), schedule or None for the
+# configuration's own, rng, reference: a file of results/ or the label of
+# another slice, points, frames per point)
+SLICES = (
+    ("wifi-648-r12-minsum", "wifi-648-r12-minsum", None, "host",
+     "wifi648_minsum.json", (1.5, 2.0, 2.5), 32768),
+    ("wifi-full-oms", "wifi-full-oms", None, "host", "wifi12_1944_r56.json",
+     (3.0, 3.5), 131072),
+    ("wifi-full-oms, MC", "wifi-full-oms", None, "device",
+     "wifi12_1944_r56.json", (3.0, 3.5), 131072),
+    ("4a wifi-648-minstar", "wifi-648-minstar", "layered", "host",
+     MINSTAR_REF, (1.5, 2.0), 131072),
+    ("4b qam16-1944-chain", "multihost-qam-chain", None, "host",
+     "qam16_1944_r34_oms.json", (5.5, 6.0), 131072),
+    ("4a wifi-648-minstar, MC", "wifi-648-minstar", "layered", "device",
+     MINSTAR_REF, (2.0,), 32768),
+    # flooding min* has no recorded waterfall: its host-RNG and device-RNG
+    # runs are held to each other
+    ("min* flooding", "wifi-648-minstar", "flooding", "host",
+     "min* flooding, MC", (2.0,), 32768),
+    ("min* flooding, MC", "wifi-648-minstar", "flooding", "device",
+     "min* flooding", (2.0,), 32768),
 )
+HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
+CUDA_CORE_OPS_PER_S = 67e12    # float32 rate outside the tensor cores
+MINSUM_OPS_PER_EDGE = 12
 FUSED = dict(preset="wifi-648-r12-minsum", ref="wifi648_fused_mc.json",
              points=(1.0, 1.5, 2.0, 2.5, 3.0, 3.5), batch=18432,
              target=300, max_frames=2_000_000)
@@ -126,6 +197,21 @@ def channel_llrs(rng, ct, B, scale, sigma=0.8):
     return llr, info
 
 
+def chain_args(ct, cfg, ebn0_db, B, gen):
+    """The decoder's arguments as the host step of `cfg` makes them: info
+    bits from `gen`, encoded, modulated, AWGN at `ebn0_db`, demapped.
+    Returns float32 LLRs (nb, Z, B) and the info bits (kb, Z, B)."""
+    from ldpc_tpu_torch.ops import channel as ch
+    from ldpc_tpu_torch.ops.encode import make_encoder_t
+    mod = cfg.channel.modulation
+    sigma = np.float32(ch.sigma_for(ebn0_db, ct.code.rate, mod))
+    info = torch.randint(0, 2, (ct.k, B), generator=gen, device=ct.device,
+                         dtype=torch.uint8)
+    x = ch.modulate_t(make_encoder_t(ct)(info), mod)
+    llr = ch.demap_t(ch.awgn_t(gen, x, sigma), sigma, mod)
+    return llr.reshape(ct.nb, ct.Z, B), info.reshape(ct.kb, ct.Z, B)
+
+
 def max_abs_err(a, b):
     return max(float((x.to(torch.int64) - y.to(torch.int64)).abs().max())
                if x.numel() else 0.0 for x, y in zip(a, b))
@@ -144,25 +230,71 @@ def event_ms(fn, reps):
     return times
 
 
-def kernel_vs_plain_ms(d, args, gpu, what, kernel_reps=10, plain_reps=3):
-    """Median ms of d.kernel and d.plain on args, in turns (plain, kernel,
-    kernel, plain) after a warm-up; prints and returns both."""
+def kernel_vs_plain_ms(d, args, kw, gpu, what, kernel_reps=10, plain_reps=3):
+    """Median ms of d.kernel and d.plain on (*args, **kw), in turns (plain,
+    kernel, kernel, plain) after a warm-up; prints and returns both."""
     for _ in range(3):
-        d.kernel(*args)
-    d.plain(*args)
+        d.kernel(*args, **kw)
+    d.plain(*args, **kw)
     torch.cuda.synchronize()
     plain_t, kern_t = [], []
     for turn in ("plain", "kernel", "kernel", "plain"):
         if turn == "plain":
-            plain_t += event_ms(lambda: d.plain(*args), plain_reps)
+            plain_t += event_ms(lambda: d.plain(*args, **kw), plain_reps)
         else:
-            kern_t += event_ms(lambda: d.kernel(*args), kernel_reps)
+            kern_t += event_ms(lambda: d.kernel(*args, **kw), kernel_reps)
     kern_ms, plain_ms = statistics.median(kern_t), statistics.median(plain_t)
     print(f"[{gpu}] {what}: kernel {kern_ms:.4f} ms (runs {len(kern_t)}, "
           f"min {min(kern_t):.4f}, max {max(kern_t):.4f}), plain "
           f"{plain_ms:.4f} ms (runs {len(plain_t)}, min {min(plain_t):.4f}, "
           f"max {max(plain_t):.4f})", flush=True)
     return kern_ms, plain_ms
+
+
+def ops_per_iteration(d):
+    """Integer operations one codeword needs for one iteration of decoder
+    d (the counting rule of the module docstring)."""
+    dec = getattr(d, "decoder", d)
+    Z = dec.ct.Z
+    degs = [len(row) for row in dec.ct.entries]
+    if dec.minstar is None:
+        return MINSUM_OPS_PER_EDGE * sum(degs) * Z
+    per_combine = 12 + 4 * len(dec.minstar)
+    return Z * sum((3 * dg - 6) * per_combine + 4 * dg for dg in degs)
+
+
+def bound_of(d, args, kw):
+    """(bound_ms, bound_by) of one call d.kernel(*args, **kw): bytes moved
+    once over the memory rate against the operations this call's lanes
+    need over the CUDA cores' rate."""
+    out = d.kernel(*args, **kw)
+    torch.cuda.synchronize()
+    moved = sum(t.numel() * t.element_size()
+                for t in list(args) + list(kw.values()) + list(out)
+                if isinstance(t, torch.Tensor))
+    ops = int(out[-2].to(torch.int64).sum()) * ops_per_iteration(d)
+    t_bytes = moved / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / CUDA_CORE_OPS_PER_S * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def kernels_in_turns_ms(decs, args, gpu, what, reps=10):
+    """Median kernel ms of several decoders on the same arguments, in turns
+    (a, b, b, a) after a warm-up; prints and returns them by name."""
+    names = list(decs)
+    for name in names:
+        for _ in range(3):
+            decs[name].kernel(*args)
+    torch.cuda.synchronize()
+    times = {name: [] for name in names}
+    for name in names + names[::-1]:
+        times[name] += event_ms(lambda: decs[name].kernel(*args), reps)
+    med = {name: statistics.median(t) for name, t in times.items()}
+    print(f"[{gpu}] {what}: " + ", ".join(
+        f"{name} {med[name]:.4f} ms (runs {len(times[name])}, min "
+        f"{min(times[name]):.4f}, max {max(times[name]):.4f})"
+        for name in names), flush=True)
+    return med
 
 
 def step_seconds(rb, draw, sigma, reps=10):
@@ -181,10 +313,9 @@ def lane_values(sweep, snr_idx, ebn0_db):
     """Per-frame info-bit errors and iterations of batch 0 of one sweep
     point, re-drawn from the sweep's own generator through the step's own
     parts; fails unless their sums are the step's own counters."""
-    from ldpc_tpu_torch.ops.channel import sigma_for
     from ldpc_tpu_torch.sim.pipeline import make_lane_step
     step = make_lane_step(sweep.ct, sweep.cfg, batch=sweep.batch)
-    sigma = np.float32(sigma_for(ebn0_db, sweep.code.rate, "bpsk"))
+    sigma = sweep._sigma(ebn0_db)
     bits, _, iters, _ = step(sweep.draw(snr_idx, 0), sigma)
     want = sweep.run_batch(sweep.draw(snr_idx, 0), sigma).tolist()
     if [int(bits.sum()), int(iters.sum())] != [want[1], want[3]]:
@@ -192,9 +323,25 @@ def lane_values(sweep, snr_idx, ebn0_db):
     return bits.double(), iters.double()
 
 
-def slice_config(port, preset, rng, **run):
-    cfg = port.PRESETS[preset]
-    return dataclasses.replace(cfg, run=dataclasses.replace(
+def slice_config(port, what, rng, schedule=None, **run):
+    """A preset with `rng` (and `run` fields), `multihost-qam-chain`
+    without its mesh (`qam16-1944-chain`, as bench.py builds it), or
+    `wifi-648-minstar` as bench.py builds it: the canonical preset with
+    the min* update, beta_lsb=0 and early termination. `schedule` replaces
+    the configuration's own."""
+    star = what == "wifi-648-minstar"
+    cfg = port.PRESETS["wifi-648-r12-minsum" if star else what]
+    dec = cfg.decoder
+    if star:
+        cfg = dataclasses.replace(
+            cfg, quant=dataclasses.replace(cfg.quant, beta_lsb=0))
+        dec = dataclasses.replace(dec, algorithm="min-star",
+                                  schedule="layered", early_term=True)
+    if schedule:
+        dec = dataclasses.replace(dec, schedule=schedule)
+    if what == "multihost-qam-chain":
+        run["mesh_shape"] = None
+    return dataclasses.replace(cfg, decoder=dec, run=dataclasses.replace(
         cfg.run, rng=rng, **run))
 
 
@@ -243,55 +390,91 @@ def read_ref(ref_name):
         return {r["ebn0_db"]: r for r in json.load(f)["results"]}
 
 
+def instance_of(d):
+    """What picks a decoder's kernel instance and its launch shape: the
+    library, ET, MC and min* (with its thresholds and quantizer), the code,
+    fused IO, and for the megakernel the batch and the per-lane form."""
+    inner = getattr(d, "decoder", d)
+    return (inner.library, inner.ct.code.name, inner.dec, inner.quant,
+            inner.minstar, inner.input_scale, inner.count_info_cols,
+            d is not inner, getattr(d, "batch", None),
+            getattr(d, "lane_sigma", None))
+
+
+def same_instance(driven, checked, label):
+    """Fails unless the decoder a main path launched is the kernel instance
+    and shape that was held to its plain version."""
+    if instance_of(driven) != instance_of(checked):
+        raise AssertionError(f"{label} ran {instance_of(driven)}; held to "
+                             f"plain was {instance_of(checked)}")
+
+
 def launch_counts(minsum, sweep, label, mc):
     """The launch counters of the run just made; fails unless it went
     through the schedule's library only, in its MC instance exactly when
     `mc`, with no plain call."""
     launches = dict(minsum.library_launches)
     mc_launches = dict(minsum.mc_launches)
+    star_launches = dict(minsum.star_launches)
     plain = minsum.plain_calls
     print(f"{label}: backend {sweep.backend}; kernel launches {launches}, "
-          f"of them MC {mc_launches}, plain_calls {plain}", flush=True)
+          f"of them MC {mc_launches}, min* {star_launches}, plain_calls "
+          f"{plain}", flush=True)
     lib = minsum.LIBRARIES[sweep.cfg.decoder.schedule]
+    star = sweep.cfg.decoder.algorithm == "min-star"
     want_mc = {name: launches[name] if mc else 0 for name in launches}
-    if launches[lib] <= 0 or plain != 0 or mc_launches != want_mc or any(
-            v for name, v in launches.items() if name != lib):
-        raise AssertionError(f"{label} did not run through "
-                             f"{lib}{' (MC)' if mc else ''} only")
+    want_star = {name: launches[name] if star else 0 for name in launches}
+    if (launches[lib] <= 0 or plain != 0 or mc_launches != want_mc
+            or star_launches != want_star or any(
+                v for name, v in launches.items() if name != lib)):
+        raise AssertionError(
+            f"{label} did not run through {lib}"
+            f"{' (min*)' if star else ''}{' (MC)' if mc else ''} only")
     return launches[lib]
 
 
-def check_slice(port, minsum, preset, rng, ref_name, points, frames):
-    """Runs one preset's sweep on the card and holds it to its recorded
-    waterfall; returns (sweep, launches of its library in this run)."""
+def run_slice(port, minsum, label, what, schedule, rng, points, frames):
+    """Runs one row of SLICES on the card; returns (sweep, launches of its
+    library in this run, the result's rows by Eb/N0). Fails unless the step
+    is the megakernel exactly when rng == "device", every launch went
+    through the schedule's library with no plain call, and every point has
+    its frames and finite rates."""
     from ldpc_tpu_torch.sim import Sweep
-    ref = read_ref(ref_name)
-    sweep = Sweep(slice_config(port, preset, rng), device="cuda",
+    sweep = Sweep(slice_config(port, what, rng, schedule), device="cuda",
                   batch=BATCH)
     if sweep.run_batch.mc != (rng == "device"):
-        raise AssertionError(f"{preset} rng={rng}: run_batch.mc is "
-                             f"{sweep.run_batch.mc}")
+        raise AssertionError(f"{label}: run_batch.mc is {sweep.run_batch.mc}")
     minsum.reset_counters()
     res = sweep.run(list(points), target_frame_errors=10 ** 9,
                     max_frames=frames)
     torch.cuda.synchronize()
-    launches = launch_counts(minsum, sweep, f"{preset} rng={rng}",
-                             rng == "device")
-    k = sweep.code.k_eff
-    for si, row in enumerate(res.rows()):
+    launches = launch_counts(minsum, sweep, label, rng == "device")
+    rows = {row["ebn0_db"]: row for row in res.rows()}
+    for row in rows.values():
+        if not (np.isfinite(row["ber"]) and np.isfinite(row["fer"])
+                and row["frames"] >= frames):
+            raise AssertionError(f"{label}: rates not finite or frames "
+                                 f"short at {row['ebn0_db']} dB")
+    return sweep, launches, rows
+
+
+def hold_slice(label, sweep, rows, ref, ref_name):
+    """Holds a slice's rows to the reference rows `ref` (by Eb/N0; a
+    recorded waterfall or another slice's run, named `ref_name`): FER and
+    converged rate by Wilson intervals, BER and iterations by per-frame
+    z-tests with the variances of batch 0, re-drawn."""
+    print(f"{label} against {ref_name}:", flush=True)
+    for si, row in enumerate(rows.values()):
         r = ref[row["ebn0_db"]]
         bits, iters = lane_values(sweep, si, row["ebn0_db"])
         var_b, var_i = float(bits.var()), float(iters.var())
-        oks = rows_compatible(row, r, k, var_b, var_i)
+        oks = rows_compatible(row, r, sweep.code.k_eff, var_b, var_i)
         auto = sweep.auto_choice.get(si)
         print_row(row, r, var_b, var_i, oks,
                   f"; AUTO (p1, cap) = {auto}" if auto else "")
-        if row["frames"] < min(r["frames"], frames) or not all(oks[:4]):
-            raise AssertionError(f"{preset} rng={rng} disagrees with "
-                                 f"{ref_name} at {row['ebn0_db']} dB")
-        if not (np.isfinite(row["ber"]) and np.isfinite(row["fer"])):
-            raise AssertionError("non-finite rates")
-    return sweep, launches
+        if not all(oks[:4]):
+            raise AssertionError(f"{label} disagrees with {ref_name} at "
+                                 f"{row['ebn0_db']} dB")
 
 
 def build_libraries(minsum):
@@ -314,8 +497,11 @@ def check_mc_kernels(port, minsum, dev):
     """K1-MC kernel == plain (tolerance 0) in inject, Philox and per-lane
     sigma modes, both schedules, each at the batch its main path runs:
     B=16,384 for the scalar forms, the fused sweep's batch for the
-    per-lane form. Returns (worst error per library, the decoders and
-    arguments to time, the per-lane decoder)."""
+    per-lane form. The min* MC instances the same way (inject and Philox,
+    scalar sigma; layered and flooding with early termination, as slice 4
+    drives them, and flooding fixed-20). Returns (worst error per library,
+    name -> (decoder, arguments, keyword arguments) to time, worst error
+    per library of the min* instances)."""
     from ldpc_tpu_torch.codes import build_code, from_reference
     from ldpc_tpu_torch.ops.channel import sigma_for
     from ldpc_tpu_torch.ops.mc import gain_for
@@ -324,7 +510,7 @@ def check_mc_kernels(port, minsum, dev):
     wifi = from_reference(build_code(cfg648), dev)
     r56 = from_reference(build_code(oms), dev)
     rng = np.random.default_rng(31)
-    worst = {}
+    worst, star_worst = {}, {}
     timed = {}
 
     def make(ct, cfg, batch=BATCH, **kw):
@@ -346,7 +532,8 @@ def check_mc_kernels(port, minsum, dev):
               f"{lanes} lanes/block, {smem} B smem)", flush=True)
         if not same:
             raise AssertionError(f"K1-MC kernel != plain on {label}")
-        worst[d.library] = max(worst.get(d.library, 0.0), err)
+        tally = star_worst if d.decoder.minstar is not None else worst
+        tally[d.library] = max(tally.get(d.library, 0.0), err)
 
     s20 = np.float32(sigma_for(2.0, wifi.code.rate, "bpsk"))
     g20 = gain_for(s20, cfg648.quant.scale)
@@ -361,13 +548,13 @@ def check_mc_kernels(port, minsum, dev):
     seed = 0x5EED0FC0FFEE
     compare("K1-MC n648 flooding fixed-20 2.0 dB Philox", d,
             d.kernel(seed, s20, g20), d.plain(seed, s20, g20))
-    timed["flood"] = (d, (seed, s20, g20))
+    timed["flood"] = (d, (seed, s20, g20), {})
     s35 = np.float32(sigma_for(3.5, r56.code.rate, "bpsk"))
     g35 = gain_for(s35, oms.quant.scale)
     d = make(r56, oms)
     compare("K1-MC n1944 r5/6 layered OMS ET 3.5 dB Philox", d,
             d.kernel(seed + 1, s35, g35), d.plain(seed + 1, s35, g35))
-    timed["layered"] = (d, (seed + 1, s35, g35))
+    timed["layered"] = (d, (seed + 1, s35, g35), {})
     # per-lane sigma, as run_fused runs it: the fused batch, six points,
     # lane b at point b % 6
     sig6 = np.asarray([sigma_for(e, wifi.code.rate, "bpsk")
@@ -379,7 +566,7 @@ def check_mc_kernels(port, minsum, dev):
     lane_k = d.kernel(seed + 2, sigma_lane=sl, gain_lane=gl)
     compare("K1-MC n648 flooding per-lane sigma (6 points) Philox", d,
             lane_k, d.plain(seed + 2, sigma_lane=sl, gain_lane=gl))
-    lane = d
+    timed["flood lanes"] = (d, (seed + 2,), dict(sigma_lane=sl, gain_lane=gl))
     scalar = make(wifi, cfg648, batch=FUSED["batch"])
     for i, sg in enumerate(sig6):
         ref = scalar.kernel(seed + 2, sg, gain_for(sg, cfg648.quant.scale))
@@ -389,7 +576,27 @@ def check_mc_kernels(port, minsum, dev):
               f"form {same}", flush=True)
         if not same:
             raise AssertionError("per-lane sigma != scalar sigma")
-    return worst, timed, lane
+    # the min* MC instances (K5 inside K1-MC)
+    star = {sched: slice_config(port, "wifi-648-minstar", "device", sched)
+            for sched in ("layered", "flooding")}
+    d = make(wifi, star["layered"], inject_random=True)
+    compare("K1-MC min* n648 layered ET 2.0 dB inject", d,
+            d.kernel(0, s20, g20, words=words),
+            d.plain(0, s20, g20, words=words))
+    d = make(wifi, star["layered"])
+    compare("K1-MC min* n648 layered ET 2.0 dB Philox", d,
+            d.kernel(seed + 3, s20, g20), d.plain(seed + 3, s20, g20))
+    timed["star layered"] = (d, (seed + 3, s20, g20), {})
+    d = make(wifi, star["flooding"])
+    compare("K1-MC min* n648 flooding ET 2.0 dB Philox", d,
+            d.kernel(seed + 4, s20, g20), d.plain(seed + 4, s20, g20))
+    timed["star flood"] = (d, (seed + 4, s20, g20), {})
+    fixed = dataclasses.replace(star["flooding"], decoder=dataclasses.replace(
+        star["flooding"].decoder, early_term=False))
+    d = make(wifi, fixed)
+    compare("K1-MC min* n648 flooding fixed-20 2.0 dB Philox", d,
+            d.kernel(seed + 5, s20, g20), d.plain(seed + 5, s20, g20))
+    return worst, timed, star_worst
 
 
 def fused_lane_variances(sweep, rb, sigmas, min_failed=100,
@@ -435,7 +642,7 @@ def fused_lane_variances(sweep, rb, sigmas, min_failed=100,
 def check_fused(port, minsum, checked):
     """Slice 3: the fused device-RNG sweep against its recorded waterfall,
     through a decoder of the shape `checked` (phase 4's per-lane-sigma
-    decoder); returns (result, flooding MC launches)."""
+    decoder); returns (result, flooding MC launches, the sweep's decoder)."""
     from ldpc_tpu_torch.sim import Sweep
     f = FUSED
     ref = read_ref(f["ref"])
@@ -450,10 +657,7 @@ def check_fused(port, minsum, checked):
     wall = time.perf_counter() - t0
     launches = launch_counts(minsum, sweep, "slice 3 run_fused", True)
     rb = sweep.fused_run_batch(len(f["points"]))
-    shape = (rb.decoder.library, rb.decoder.batch, rb.decoder.lane_sigma)
-    if shape != (checked.library, checked.batch, checked.lane_sigma):
-        raise AssertionError(f"run_fused ran {shape}, phase 4 checked "
-                             f"{checked.library, checked.batch, checked.lane_sigma}")
+    same_instance(rb.decoder, checked, "slice 3 run_fused")
     sig = np.asarray([sweep._sigma(e) for e in f["points"]], np.float32)
     var = fused_lane_variances(sweep, rb, sig)
     k = sweep.code.k_eff
@@ -469,7 +673,7 @@ def check_fused(port, minsum, checked):
         if not all(oks[:4]) or row["avg_iters"] != 20.0 or row["frames"] <= 0:
             raise AssertionError(f"slice 3 disagrees with {f['ref']} at "
                                  f"{row['ebn0_db']} dB")
-    return res, launches
+    return res, launches, rb.decoder
 
 
 def check_cli(res):
@@ -544,8 +748,13 @@ def main():
     lay = oms_cfg.decoder                     # layered OMS, ET, 20 iterations
     lay_q = oms_cfg.quant
     sig = {(ct, db): float(sigma_for(db, ct.code.rate, "bpsk"))
-           for ct, db in ((r56, 3.0), (r56, 3.5), (wifi, 2.0), (n1944, 3.0))}
-    cases = [  # (label, code, decoder cfg, quant cfg, B, fused, sigma)
+           for ct, db in ((r56, 3.0), (r56, 3.5), (wifi, 2.0))}
+    qam = slice_config(port, "multihost-qam-chain", "host")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(7)
+    # (label, code, decoder cfg, quant cfg, B, fused, sigma of BPSK LLRs or
+    # (configuration, Eb/N0) of the host chain that makes them)
+    cases = [
         ("K1 n648 min-sum hard B=16384", wifi, base_dec, base_q, BATCH,
          False, None),
         ("K1-IO n648 min-sum fused-IO B=16384", wifi, base_dec, base_q,
@@ -564,25 +773,65 @@ def main():
         ("K3 n648 normalized alpha=3/4 ET max_iter 7 hard B=2000", wifi,
          dec_cfg(nms[0], schedule="layered", max_iter=7, **et), nms[1], 2000,
          False, None),
-        ("K3 n1944 r3/4 OMS ET fused-IO 3.0 dB B=4096", n1944, lay, lay_q,
-         4096, True, sig[n1944, 3.0]),
+        ("K3 n1944 r3/4 OMS ET fused-IO 16-QAM 5.5 dB B=16384", n1944,
+         qam.decoder, qam.quant, BATCH, True, (qam, 5.5)),
         ("K2 n648 min-sum ET fused-IO 2.0 dB B=16384", wifi,
          dec_cfg(base_dec, **et), base_q, BATCH, True, sig[wifi, 2.0]),
         ("K2 n648 offset beta=2 ET max_iter 1 hard B=3000", wifi,
          dec_cfg(oms[0], max_iter=1, **et), oms[1], 3000, False, None),
     ]
+    # K5: min* in every form; thresholds (8, 3, 0) at scale 4, () at scale
+    # 0.5 (int8 input, so the scale only picks the thresholds), 6 bits
+    star_lay = dec_cfg(base_dec, algorithm="min-star", schedule="layered")
+    star_fl = dec_cfg(base_dec, algorithm="min-star")
+    q6 = dataclasses.replace(base_q, bits=6)
+    q_none = dataclasses.replace(base_q, scale=0.5)
+    if (port.minstar_thresholds(base_q), port.minstar_thresholds(q_none)) != (
+            (8, 3, 0), ()):
+        raise AssertionError("min* thresholds are not (8, 3, 0) and ()")
+    cases += [
+        ("K5 n648 min* layered ET fused-IO 2.0 dB B=16384", wifi,
+         dec_cfg(star_lay, **et), base_q, BATCH, True, sig[wifi, 2.0]),
+        ("K5 n648 min* layered fixed-20 hard B=4099", wifi, star_lay, base_q,
+         4099, False, None),
+        ("K5 n648 min* flooding fixed-20 fused-IO B=16384", wifi, star_fl,
+         base_q, BATCH, True, sig[wifi, 2.0]),
+        ("K5 n648 min* flooding ET fused-IO 2.0 dB B=16384", wifi,
+         dec_cfg(star_fl, **et), base_q, BATCH, True, sig[wifi, 2.0]),
+        ("K5 n648 min* flooding ET hard B=2000", wifi, dec_cfg(star_fl, **et),
+         base_q, 2000, False, None),
+        ("K5 n1944 r5/6 min* layered ET fused-IO 3.0 dB B=4096", r56,
+         dec_cfg(star_lay, **et), base_q, 4096, True, sig[r56, 3.0]),
+        ("K5 n1944 r5/6 min* flooding fixed-5 hard B=2000", r56,
+         dec_cfg(star_fl, max_iter=5), base_q, 2000, False, None),
+        ("K5 n648 min* T=() layered ET hard B=2000", wifi,
+         dec_cfg(star_lay, **et), q_none, 2000, False, None),
+        ("K5 n1944 r5/6 min* T=() flooding ET max_iter 6 hard B=1000", r56,
+         dec_cfg(star_fl, max_iter=6, **et), q_none, 1000, False, None),
+        ("K5 n648 min* 6-bit layered ET fused-IO 2.0 dB B=4096", wifi,
+         dec_cfg(star_lay, **et), q6, 4096, True, sig[wifi, 2.0]),
+        ("K5 n1944 r5/6 min* 6-bit flooding fixed-5 hard B=1000", r56,
+         dec_cfg(star_fl, max_iter=5), q6, 1000, False, None),
+        ("K5 n648 min* 6-bit flooding fixed-20 hard B=3000", wifi, star_fl,
+         q6, 3000, False, None),
+    ]
     worst = dict.fromkeys(libs, 0.0)
+    star_worst = dict.fromkeys(libs, 0.0)
+    held = {}   # label -> the decoder held to its plain version at B=BATCH
     for label, ct, dc, qc, B, fused, sigma in cases:
         if fused:
             d = minsum.make_decoder(ct, dc, qc, input_scale=qc.scale,
                                     count_info_cols=ct.kb)
-            llr, info = channel_llrs(rng, ct, B, qc.scale, sigma)
-            args = (torch.as_tensor(llr).reshape(ct.nb, ct.Z, B).to(dev),
-                    torch.as_tensor(info).reshape(ct.kb, ct.Z, B).to(dev))
+            if isinstance(sigma, tuple):
+                args = chain_args(ct, *sigma, B=B, gen=gen)
+            else:
+                llr, info = channel_llrs(rng, ct, B, qc.scale, sigma)
+                args = (torch.as_tensor(llr).reshape(ct.nb, ct.Z, B).to(dev),
+                        torch.as_tensor(info).reshape(ct.kb, ct.Z, B).to(dev))
         else:
             d = minsum.make_decoder(ct, dc, qc)
-            args = (torch.as_tensor(mixed_llrs(rng, ct.n, B)).reshape(
-                ct.nb, ct.Z, B).to(dev),)
+            args = (torch.as_tensor(mixed_llrs(rng, ct.n, B, qc.qmax)
+                                    ).reshape(ct.nb, ct.Z, B).to(dev),)
         out_k = d.kernel(*args)
         torch.cuda.synchronize()
         out_p = d.plain(*args)
@@ -597,36 +846,66 @@ def main():
               f"{d.library} {lanes} lanes/block, {smem} B smem)", flush=True)
         if not same:
             raise AssertionError(f"kernel != plain on {label}")
-        worst[d.library] = max(worst[d.library], err)
-    for ct, dc in ((wifi, dec_cfg(base_dec, **et)), (r56, lay)):
+        if (d.minstar is not None) != label.startswith("K5"):
+            raise AssertionError(f"{label}: thresholds {d.minstar}")
+        tally = star_worst if d.minstar is not None else worst
+        tally[d.library] = max(tally[d.library], err)
+        if B == BATCH:
+            held[label] = d
+    for ct, dc in ((wifi, dec_cfg(base_dec, **et)), (r56, lay),
+                   (wifi, dec_cfg(star_fl, **et)),
+                   (r56, dec_cfg(star_lay, **et))):
         B = 1000
-        d = minsum.make_decoder(ct, dc, lay_q, input_scale=4.0,
-                                count_info_cols=ct.kb)
+        d = minsum.make_decoder(
+            ct, dc, base_q if dc.algorithm == "min-star" else lay_q,
+            input_scale=4.0, count_info_cols=ct.kb)
         zero = (torch.full((ct.nb, ct.Z, B), 2.0, device=dev),
                 torch.zeros((ct.kb, ct.Z, B), dtype=torch.uint8, device=dev))
         bits, frame, iters, conv = d.kernel(*zero)
         torch.cuda.synchronize()
         ok = (int(iters.abs().sum()) == 0 and bool(conv.all())
               and int(bits.sum()) == 0 and int(frame.sum()) == 0)
-        print(f"all-zero noiseless {d.library} n={ct.n} B={B}: iters 0 and "
-              f"converged on every lane {ok}", flush=True)
+        print(f"all-zero noiseless {d.library} ({dc.algorithm}) n={ct.n} "
+              f"B={B}: iters 0 and converged on every lane {ok}", flush=True)
         if not ok:
             raise AssertionError(f"{d.library} all-zero batch: iters "
                                  f"{iters.unique().tolist()}")
 
     phase("K1-MC kernel vs plain (tolerance 0)")
-    mc_worst, mc_timed, mc_lane = check_mc_kernels(port, minsum, dev)
+    mc_worst, mc_timed, star_mc_worst = check_mc_kernels(port, minsum, dev)
 
-    phase("slices 1 and 2, and wifi-full-oms with rng=device (sweeps "
-          "against recorded waterfalls)")
-    sweeps, launches = {}, {}
-    for preset, rng_mode, ref_name, points, frames in SLICES:
-        key = (preset, rng_mode)
-        sweeps[key], launches[key] = check_slice(
-            port, minsum, preset, rng_mode, ref_name, points, frames)
+    phase("slices 1, 2 and 4: sweeps against recorded waterfalls "
+          "(wifi-648-r12-minsum; wifi-full-oms, also with rng=device; "
+          "wifi-648-minstar (K5) and qam16-1944-chain (16-QAM chain + K3); "
+          "the other min* instances on their steps)")
+    sweeps, launches, rows = {}, {}, {}
+    for label, what, sched, rng_mode, _, points, frames in SLICES:
+        sweeps[label], launches[label], rows[label] = run_slice(
+            port, minsum, label, what, sched, rng_mode, points, frames)
+    for label, _, _, _, ref_name, _, _ in SLICES:
+        ref = rows[ref_name] if ref_name in rows else read_ref(ref_name)
+        hold_slice(label, sweeps[label], rows[label], ref, ref_name)
+    # every decoder a sweep launched was held to its plain version above,
+    # as that instance and at that batch
+    for label, checked in (
+            ("wifi-648-r12-minsum",
+             held["K1-IO n648 min-sum fused-IO B=16384"]),
+            ("wifi-full-oms",
+             held["K3 n1944 r5/6 OMS ET fused-IO 3.0 dB B=16384"]),
+            ("wifi-full-oms, MC", mc_timed["layered"][0]),
+            ("4a wifi-648-minstar",
+             held["K5 n648 min* layered ET fused-IO 2.0 dB B=16384"]),
+            ("4b qam16-1944-chain",
+             held["K3 n1944 r3/4 OMS ET fused-IO 16-QAM 5.5 dB B=16384"]),
+            ("4a wifi-648-minstar, MC", mc_timed["star layered"][0]),
+            ("min* flooding",
+             held["K5 n648 min* flooding ET fused-IO 2.0 dB B=16384"]),
+            ("min* flooding, MC", mc_timed["star flood"][0])):
+        same_instance(sweeps[label].run_batch.decoder, checked, label)
 
     phase("slice 3: fused device-RNG sweep (run_fused)")
-    fused_res, fused_launches = check_fused(port, minsum, mc_lane)
+    fused_res, fused_launches, fused_dec = check_fused(
+        port, minsum, mc_timed["flood lanes"][0])
 
     phase("CLI: sweep --rng device --fused")
     check_cli(fused_res)
@@ -635,7 +914,7 @@ def main():
         raise AssertionError(f"jax modules loaded: {loaded[:5]}")
 
     phase("two-phase == single-phase on the card (wifi-full-oms, 3.5 dB)")
-    oms_sweep = sweeps["wifi-full-oms", "host"]
+    oms_sweep = sweeps["wifi-full-oms"]
     s35 = np.float32(sigma_for(3.5, r56.code.rate, "bpsk"))
     p1, frac = oms_sweep.auto_choice.get(1, (None, None))
     cfg2 = dataclasses.replace(oms_cfg, decoder=dataclasses.replace(
@@ -652,52 +931,96 @@ def main():
             raise AssertionError("two-phase counters differ on the card")
 
     phase("times (CUDA events for kernels, host clock + sync for steps)")
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(7)
-    timing = {}
+    timing = {}   # name -> (kernel ms, plain ms, bound ms, bound by)
 
-    def fused_args(ct, sigma):
-        info_t = torch.randint(0, 2, (ct.k, BATCH), generator=gen,
-                               device=dev, dtype=torch.uint8)
-        y = 1.0 + sigma * torch.randn((ct.n, BATCH), generator=gen,
-                                      device=dev)
-        llr = 2.0 * y / (sigma * sigma)
-        return (llr.reshape(ct.nb, ct.Z, BATCH),
-                info_t.reshape(ct.kb, ct.Z, BATCH))
+    def timed_call(d, args, what, kw={}, plain_reps=3):
+        t = kernel_vs_plain_ms(d, args, kw, gpu, what, plain_reps=plain_reps)
+        bound, by = bound_of(d, args, kw)
+        print(f"  bound {bound:.4f} ms by {by} ({100 * bound / t[0]:.1f}% "
+              f"of the kernel's time)", flush=True)
+        return t + (bound, by)
 
-    # K1: the canonical decode (all-zeros word at 2.0 dB scored against
-    # random info bits; the work does not depend on the data)
-    s648 = sweeps["wifi-648-r12-minsum", "host"]
-    k1 = s648.run_batch.decoder
-    timing["K1"] = kernel_vs_plain_ms(
-        k1, fused_args(wifi, sig[wifi, 2.0]), gpu,
+    def timed_mc(key, d, what, plain_reps=3):
+        """Times megakernel `d`, the decoder a main path launched, on the
+        arguments of check_mc_kernels' case `key` (the same instance)."""
+        checked, args, kw = mc_timed[key]
+        same_instance(d, checked, what)
+        return timed_call(d, args, what, kw, plain_reps)
+
+    def bpsk_args(ct, db):
+        return chain_args(ct, cfg648, db, BATCH, gen)
+
+    # Each time is of the decoder object its main path launched. K1: the
+    # canonical decode (the work does not depend on the data).
+    s648 = sweeps["wifi-648-r12-minsum"]
+    a20 = bpsk_args(wifi, 2.0)
+    timing["K1"] = timed_call(
+        s648.run_batch.decoder, a20,
         f"K1-IO decode of {BATCH} codewords (n648, fused-IO, 20 iterations)")
-    d, args = mc_timed["flood"]
-    timing["K1-MC flood"] = kernel_vs_plain_ms(
-        d, args, gpu, f"K1-MC step of {BATCH} codewords (n648 flooding, "
-        f"20 iterations, Philox, 2.0 dB)")
+    timing["K1-MC flood"] = timed_call(
+        *mc_timed["flood"][:2], f"K1-MC step of {BATCH} codewords (n648 "
+        f"flooding, 20 iterations, Philox, 2.0 dB)")
+    timing["K1-MC flood lanes"] = timed_mc(
+        "flood lanes", fused_dec, f"K1-MC step of {FUSED['batch']} codewords "
+        f"(n648 flooding, 20 iterations, Philox, per-lane sigma of "
+        f"{len(FUSED['points'])} points: run_fused's launch)")
     k2 = minsum.make_decoder(wifi, dec_cfg(base_dec, **et), base_q,
                              input_scale=4.0, count_info_cols=wifi.kb)
-    timing["K2"] = kernel_vs_plain_ms(
-        k2, fused_args(wifi, sig[wifi, 2.0]), gpu,
-        f"K2 decode of {BATCH} codewords (n648 min-sum, ET, fused-IO, "
-        f"2.0 dB)")
+    timing["K2"] = timed_call(
+        k2, a20, f"K2 decode of {BATCH} codewords (n648 min-sum, ET, "
+        f"fused-IO, 2.0 dB)")
     k3 = oms_sweep.run_batch.decoder
     for db in (3.0, 3.5):
-        timing[f"K3 {db}"] = kernel_vs_plain_ms(
-            k3, fused_args(r56, sig[r56, db]), gpu,
+        timing[f"K3 {db}"] = timed_call(
+            k3, bpsk_args(r56, db),
             f"K3 decode of {BATCH} codewords (n1944 r5/6 OMS, ET, fused-IO, "
             f"{db} dB)")
-    d, args = mc_timed["layered"]
-    timing["K1-MC layered"] = kernel_vs_plain_ms(
-        d, args, gpu, f"K1-MC step of {BATCH} codewords (n1944 r5/6 "
-        f"layered OMS, ET, Philox, 3.5 dB)")
+    timing["K1-MC layered"] = timed_mc(
+        "layered", sweeps["wifi-full-oms, MC"].run_batch.decoder,
+        f"K1-MC step of {BATCH} codewords (n1944 r5/6 layered OMS, ET, "
+        f"Philox, 3.5 dB)")
     k3f = minsum.make_decoder(r56, dec_cfg(lay, early_term=False), lay_q,
                               input_scale=4.0, count_info_cols=r56.kb)
-    timing["K3 fixed"] = kernel_vs_plain_ms(
-        k3f, fused_args(r56, sig[r56, 3.0]), gpu,
+    timing["K3 fixed"] = timed_call(
+        k3f, bpsk_args(r56, 3.0),
         f"K3 decode of {BATCH} codewords (n1944 r5/6 OMS, 20 fixed "
         f"iterations, fused-IO, 3.0 dB)")
+    s4a, s4b = sweeps["4a wifi-648-minstar"], sweeps["4b qam16-1944-chain"]
+    timing["K3 qam16"] = timed_call(
+        s4b.run_batch.decoder, chain_args(n1944, s4b.cfg, 6.0, BATCH, gen),
+        f"K3 decode of {BATCH} codewords (n1944 r3/4 OMS, ET, fused-IO, "
+        f"16-QAM LLRs at 6.0 dB: qam16-1944-chain's launch)")
+
+    # K5 beside the min-sum instance of the same library on the same
+    # inputs, in turns: the decoders slice 4 launched, then the fixed forms
+    # (the plain min* versions take seconds: one run a turn)
+    pairs = {   # what -> (the sweep's min* decoder or None, min-sum config)
+        "layered ET 2.0 dB": (s4a.run_batch.decoder,
+                              dec_cfg(star_lay, algorithm="min-sum", **et)),
+        "flooding ET 2.0 dB": (sweeps["min* flooding"].run_batch.decoder,
+                               dec_cfg(star_fl, algorithm="min-sum", **et)),
+        "layered fixed-20": (None, dec_cfg(star_lay, algorithm="min-sum")),
+        "flooding fixed-20": (None, dec_cfg(star_fl, algorithm="min-sum")),
+    }
+    for what, (d_star, ms_cfg) in pairs.items():
+        if d_star is None:
+            d_star = minsum.make_decoder(
+                wifi, dec_cfg(ms_cfg, algorithm="min-star"), base_q,
+                input_scale=4.0, count_info_cols=wifi.kb)
+        d_ms = minsum.make_decoder(wifi, ms_cfg, base_q, input_scale=4.0,
+                                   count_info_cols=wifi.kb)
+        timing[f"pair {what}"] = kernels_in_turns_ms(
+            {"min-sum": d_ms, "min*": d_star}, a20, gpu,
+            f"n648 {what}, {BATCH} codewords, fused-IO")
+        timing[f"K5 {what}"] = timed_call(
+            d_star, a20, f"K5 decode of {BATCH} codewords (n648 min* {what}, "
+            f"fused-IO)", plain_reps=1)
+    for key, label in (("star layered", "4a wifi-648-minstar, MC"),
+                       ("star flood", "min* flooding, MC")):
+        d = sweeps[label].run_batch.decoder
+        timing[f"K5 MC {d.dec.schedule}"] = timed_mc(
+            key, d, f"K1-MC min* step of {BATCH} codewords (n648 "
+            f"{d.dec.schedule}, ET, Philox, 2.0 dB)", plain_reps=1)
 
     def report_step(name, rb, draw, sigma, k):
         st = step_seconds(rb, draw, sigma)
@@ -706,6 +1029,7 @@ def main():
               f"codewords: {med * 1e3:.4f} ms median of {len(st)} (min "
               f"{min(st) * 1e3:.4f}, max {max(st) * 1e3:.4f}) -> "
               f"{BATCH * k / med:.6e} decoded info bits/s", flush=True)
+        return med * 1e3
 
     dev648 = make_run_batch(s648.ct, slice_config(
         port, "wifi-648-r12-minsum", "device"), batch=BATCH)
@@ -715,37 +1039,63 @@ def main():
                     s648.generator(0, 0) if turn == "host" else batch_seed(
                         s648.cfg.run.seed, 0, 0),
                     np.float32(sig[wifi, 2.0]), wifi.k)
-    oms_dev = sweeps["wifi-full-oms", "device"].run_batch
+    oms_dev = sweeps["wifi-full-oms, MC"]
     for turn in ("host", "device", "device", "host"):
+        sw = oms_sweep if turn == "host" else oms_dev
         report_step(f"wifi-full-oms 3.5 dB rng={turn} single-phase",
-                    rb1 if turn == "host" else oms_dev,
-                    sweeps["wifi-full-oms", turn].draw(1, 0), s35, r56.k)
+                    sw.run_batch, sw.draw(1, 0), s35, r56.k)
     auto_rb = oms_sweep.tuned_run_batch(1, s35)
     for turn in ("single", "auto", "auto", "single"):
         report_step(f"wifi-full-oms 3.5 dB rng=host {turn}-phase",
                     rb1 if turn == "single" else auto_rb,
                     oms_sweep.generator(1, 0), s35, r56.k)
+    for label, sw, db, key in (
+            ("wifi-648-minstar 2.0 dB", s4a, 2.0, "K5 layered ET 2.0 dB"),
+            ("qam16-1944-chain 6.0 dB", s4b, 6.0, "K3 qam16")):
+        ms = [report_step(f"{label} rng=host", sw.run_batch,
+                          sw.generator(1, 0), sw._sigma(db), sw.code.k_eff)
+              for _ in range(2)]
+        print(f"  its decode kernel alone: {timing[key][0]:.4f} ms, "
+              f"{100 * timing[key][0] / min(ms):.1f}% of the faster step",
+              flush=True)
 
     def record(name, lib, launched, err, t):
+        star = "_star" in name
         return {"name": name, "route": "cuda",
-                "source": minsum.SOURCES[lib], "replaces": (
-                    minsum.MC_REPLACES if name.endswith("_mc")
-                    else minsum.REPLACES[lib]),
+                "source": minsum.STAR_SOURCE if star else minsum.SOURCES[lib],
+                "replaces": (minsum.STAR_REPLACES if star
+                             else minsum.MC_REPLACES if name.endswith("_mc")
+                             else minsum.REPLACES[lib]),
                 "launches": launched, "max_abs_err": err, "ms": t[0],
-                "plain_ms": t[1]}
+                "plain_ms": t[1], "bound_ms": t[2], "bound_by": t[3],
+                "library_ms": None}
 
+    # launches: of the main path named; ms, plain_ms, bound_ms: of the
+    # decoder object that path launched, at its batch
     print(json.dumps({"kernels": [
         record("minsum_flood", "minsum_flood",
-               launches["wifi-648-r12-minsum", "host"], worst["minsum_flood"],
+               launches["wifi-648-r12-minsum"], worst["minsum_flood"],
                timing["K1"]),
         record("minsum_layered", "minsum_layered",
-               launches["wifi-full-oms", "host"], worst["minsum_layered"],
+               launches["wifi-full-oms"], worst["minsum_layered"],
                timing["K3 3.0"]),
         record("minsum_flood_mc", "minsum_flood", fused_launches,
-               mc_worst["minsum_flood"], timing["K1-MC flood"]),
+               mc_worst["minsum_flood"], timing["K1-MC flood lanes"]),
         record("minsum_layered_mc", "minsum_layered",
-               launches["wifi-full-oms", "device"],
-               mc_worst["minsum_layered"], timing["K1-MC layered"])]}))
+               launches["wifi-full-oms, MC"],
+               mc_worst["minsum_layered"], timing["K1-MC layered"]),
+        record("minsum_layered_star", "minsum_layered",
+               launches["4a wifi-648-minstar"], star_worst["minsum_layered"],
+               timing["K5 layered ET 2.0 dB"]),
+        record("minsum_flood_star", "minsum_flood",
+               launches["min* flooding"], star_worst["minsum_flood"],
+               timing["K5 flooding ET 2.0 dB"]),
+        record("minsum_layered_star_mc", "minsum_layered",
+               launches["4a wifi-648-minstar, MC"],
+               star_mc_worst["minsum_layered"], timing["K5 MC layered"]),
+        record("minsum_flood_star_mc", "minsum_flood",
+               launches["min* flooding, MC"],
+               star_mc_worst["minsum_flood"], timing["K5 MC flooding"])]}))
     print(gpu)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

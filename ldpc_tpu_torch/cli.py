@@ -4,24 +4,118 @@ the `sweep` command, with the reference's flag names and defaults.
   python -m ldpc_tpu_torch.cli sweep --preset wifi-648-r12-minsum \\
       --rng device --fused --ebn0 1.0:3.5:0.5 --out results/wifi648_mc
 
-The config flags are the reference's option group, resolved by the
-reference's own `_build_config` and `_parse_ebn0` (`ldpc_tpu/cli.py`
-imports only the JAX-free `ldpc_tpu.config` at module level). `--device
+The config flags are the reference's option group, resolved by copies of
+its `_build_config` and `_parse_ebn0` (`ldpc_tpu/cli.py:29,43`). `--device
 cuda|cpu` (default cuda) takes the place of `--platform`; a CUDA request
 without a card raises. The mesh and multi-process flags exist so that
 reference command lines parse, and raise NotImplementedError (ROADMAP
-module item 16), as does a `--decoder-backend` other than auto. The
+module item 16), as does a `--decoder-backend` other than auto. A preset
+that names a mesh (`multihost-qam-chain`) runs on one device: the command
+builds no mesh unless `--mesh` asks for one, as in the reference, and
+records `mesh_shape: null`. The
 checkpoint defaults to `<out>.state`, as in the reference: rerunning an
 interrupted command resumes it.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import logging
 import sys
+from typing import List
 
-from ldpc_tpu.cli import _build_config, _parse_ebn0
-from ldpc_tpu.config import PRESETS
+from .config import PRESETS, SimConfig
+
+
+def _parse_ebn0(spec: str) -> List[float]:
+    """'1.0:3.0:0.5' (lo:hi:step, inclusive) or '1.0,2.0,2.5'."""
+    if ":" in spec:
+        lo, hi, step = (float(x) for x in spec.split(":"))
+        if step <= 0:
+            raise ValueError(f"--ebn0 {spec}: step must be positive")
+        out, v = [], lo
+        while v <= hi + 1e-9:
+            out.append(round(v, 6))
+            v += step
+        return out
+    return [float(x) for x in spec.split(",")]
+
+
+def _build_config(args) -> SimConfig:
+    if args.preset:
+        cfg = PRESETS[args.preset]
+    else:
+        cfg = SimConfig()
+    code = cfg.code
+    if args.family:
+        code = dataclasses.replace(code, family=args.family)
+    if args.n:
+        code = dataclasses.replace(code, n=args.n)
+    if args.rate:
+        code = dataclasses.replace(code, rate=args.rate)
+    if args.base_graph:
+        code = dataclasses.replace(code, base_graph=args.base_graph)
+    if args.Z:
+        code = dataclasses.replace(code, Z=args.Z)
+    if args.k_info:
+        code = dataclasses.replace(code, k_info=args.k_info)
+    if getattr(args, "code_file", None):
+        # An explicit H file implies the alist family.
+        code = dataclasses.replace(code, family="alist", path=args.code_file)
+    if getattr(args, "puncture_frac", None):
+        code = dataclasses.replace(code, punct_frac=args.puncture_frac)
+    if getattr(args, "puncture_scheme", None):
+        code = dataclasses.replace(code, punct_scheme=args.puncture_scheme)
+    if getattr(args, "shorten_bits", None):
+        code = dataclasses.replace(code, shorten_bits=args.shorten_bits)
+    if getattr(args, "profile", None):
+        code = dataclasses.replace(code, profile=args.profile)
+    if getattr(args, "code_seed", None) is not None:
+        code = dataclasses.replace(code, code_seed=args.code_seed)
+    if getattr(args, "core_rows", None):
+        code = dataclasses.replace(code, core_rows=args.core_rows)
+    if getattr(args, "ext_row_degree", None):
+        code = dataclasses.replace(code, ext_row_degree=args.ext_row_degree)
+    chan = cfg.channel
+    if args.modulation:
+        chan = dataclasses.replace(chan, modulation=args.modulation)
+    dec = cfg.decoder
+    if getattr(args, "auto_two_phase", False):
+        args.phase1_iters = -1
+    for f, v in (("algorithm", args.algorithm), ("schedule", args.schedule),
+                 ("max_iter", args.max_iter),
+                 ("phase1_iters", args.phase1_iters)):
+        if v:
+            dec = dataclasses.replace(dec, **{f: v})
+    if args.phase1_iters:
+        if args.no_early_term:
+            raise SystemExit("--phase1-iters/--auto-two-phase require early "
+                             "termination; drop --no-early-term")
+        # two-phase/auto tuning are ET mechanisms: asking for them on an
+        # early_term=False preset means "turn ET on", not a silent no-op
+        dec = dataclasses.replace(dec, early_term=True)
+    if args.no_early_term:
+        dec = dataclasses.replace(dec, early_term=False)
+    quant = cfg.quant
+    if args.bits:
+        quant = dataclasses.replace(quant, bits=args.bits)
+    if args.beta_lsb is not None:
+        quant = dataclasses.replace(quant, beta_lsb=args.beta_lsb)
+    run = cfg.run
+    for f, v in (("batch", args.batch), ("seed", args.seed),
+                 ("max_frames", args.max_frames),
+                 ("target_frame_errors", args.target_errors)):
+        if v is not None:
+            run = dataclasses.replace(run, **{f: v})
+    if args.all_zeros:
+        run = dataclasses.replace(run, all_zeros=True)
+    if args.rng:
+        run = dataclasses.replace(run, rng=args.rng)
+    if not getattr(args, "mesh", None) and run.mesh_shape not in (None, (1,)):
+        # one device: the preset's mesh is not built (bench.py does the same)
+        run = dataclasses.replace(run, mesh_shape=None)
+    return SimConfig(code=code, channel=chan, quant=quant, decoder=dec, run=run)
+
 
 
 def _not_ported(flag: str):

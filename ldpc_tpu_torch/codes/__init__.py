@@ -1,11 +1,15 @@
-"""The code state the port carries across from the reference.
+"""The port's code layer (counterpart of `ldpc_tpu/codes/`).
 
-Counterpart of the code-table plumbing spread over `ldpc_tpu/sim/sweep.py`
-(`build_code`), `ldpc_tpu/kernels/minsum_pallas.py` (`_qc_entries`) and
-`ldpc_tpu/sim/pipeline.py` (the `ident_info` test). The tables themselves
-come from the reference's JAX-free layers (`ldpc_tpu.codes`,
-`ldpc_tpu.golden.encoder`); this module only turns them into tensors on
-one device.
+The family constructors and table compilers beside this file (`code`, `layout`,
+`qcstruct`, `ieee80211n`, `nr_bg`, `dvbs2`, `toy`, `alist`, `peg`,
+`rate_compat`, `imported`) are numpy copies of the reference's under the
+same names, so that the port loads nothing of `ldpc_tpu`. This module holds
+what the port adds: `build_code` (the dispatch of
+`ldpc_tpu/sim/sweep.py::build_code`), `qc_entries`
+(`ldpc_tpu/kernels/minsum_pallas.py::_qc_entries`), `CodeTensors` (the tables
+as tensors on one device, with the `ident_info` test of
+`ldpc_tpu/sim/pipeline.py`), and `from_reference`/`config_from_reference`,
+which carry a code or a config across from the reference package by value.
 """
 from __future__ import annotations
 
@@ -16,12 +20,10 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from ldpc_tpu.codes.code import LDPCCode
-from ldpc_tpu.codes.layout import compile_qc_layout
-from ldpc_tpu.config import SimConfig
-
-from .device import DeviceLike, resolve_device
-from .ops.encode import DENSE_MAX_N, has_qc_struct, info_positions
+from ..config import SimConfig
+from ..device import DeviceLike, resolve_device
+from .code import LDPCCode
+from .layout import compile_qc_layout
 
 
 @dataclass(frozen=True, eq=False)
@@ -74,14 +76,46 @@ def qc_entries(code: LDPCCode):
     return qc, tuple(layers)
 
 
-def from_reference(code: LDPCCode, device: DeviceLike) -> CodeTensors:
-    """Turn the reference's numpy code tables into the port's tensors."""
+_CODE_FIELDS = ("name", "n", "m", "k", "cn_adj", "Z", "base", "punct_vns",
+                "shortened_vns", "standard_exact")
+
+
+def own_code(code) -> LDPCCode:
+    """The port's `LDPCCode` with the fields of `code` (any object that has
+    the reference's fields as numpy values; the arrays are copied)."""
+    if isinstance(code, LDPCCode):
+        return code
+    f = {name: getattr(code, name) for name in _CODE_FIELDS}
+    return LDPCCode(
+        name=str(f["name"]), n=int(f["n"]), m=int(f["m"]), k=int(f["k"]),
+        cn_adj=[np.array(a) for a in f["cn_adj"]],
+        Z=None if f["Z"] is None else int(f["Z"]),
+        base=None if f["base"] is None else np.array(f["base"]),
+        punct_vns=np.array(f["punct_vns"]),
+        shortened_vns=np.array(f["shortened_vns"]),
+        standard_exact=bool(f["standard_exact"]))
+
+
+def config_from_reference(ref_cfg) -> SimConfig:
+    """The port's `SimConfig` equal to a reference `SimConfig`, through its
+    JSON form (no class is shared between the packages)."""
+    if isinstance(ref_cfg, SimConfig):
+        return ref_cfg
+    return SimConfig.from_json(ref_cfg.to_json())
+
+
+def from_reference(code, device: DeviceLike) -> CodeTensors:
+    """Turn numpy code tables (the port's `LDPCCode`, or any object with
+    the reference's fields) into the port's tensors on one device."""
+    # imported here: ops/encode itself imports this package's `code`
+    from ..ops.encode import DENSE_MAX_N, has_qc_struct, info_positions
+    code = own_code(code)
     dev = resolve_device(device)
     qc, entries = qc_entries(code)
     Z = int(qc.Z)
     P = perm = None
     if not (has_qc_struct(code) and code.n > DENSE_MAX_N):
-        from ldpc_tpu.golden.encoder import systematic_form
+        from ..golden.encoder import systematic_form
         P_np, perm_np = systematic_form(code)
         P = torch.as_tensor(P_np.astype(np.float32), device=dev)
         if not np.array_equal(perm_np, np.arange(code.n)):
@@ -104,30 +138,30 @@ def _rate_value(rate: str) -> float:
 
 
 def build_code(cfg: SimConfig) -> LDPCCode:
-    """CodeConfig -> LDPCCode across all supported families (a JAX-free
-    copy of `ldpc_tpu/sim/sweep.py::build_code`, whose module imports JAX;
-    pure dispatch into `ldpc_tpu.codes`)."""
+    """CodeConfig -> LDPCCode across all supported families (a copy of
+    `ldpc_tpu/sim/sweep.py::build_code`; pure dispatch into the family
+    constructors of this package)."""
     c = cfg.code
     if c.family == "ieee80211n":
-        from ldpc_tpu.codes.ieee80211n import make_code
+        from .ieee80211n import make_code
         code = make_code(c.n, c.rate)
     elif c.family == "5gnr":
-        from ldpc_tpu.codes.nr_bg import make_code as make_nr
+        from .nr_bg import make_code as make_nr
         code = make_nr(base_graph=c.base_graph, Z=c.Z, rate=c.rate,
                        k_info=c.k_info)
     elif c.family == "dvbs2":
-        from ldpc_tpu.codes.dvbs2 import make_code as make_dvb
+        from .dvbs2 import make_code as make_dvb
         code = make_dvb(n=c.n, rate=c.rate)
     elif c.family == "toy":
-        from ldpc_tpu.codes.toy import toy_qc
+        from .toy import toy_qc
         code = toy_qc(c.Z or 4)
     elif c.family == "alist":
         if not c.path:
             raise ValueError("alist family requires CodeConfig.path")
-        from ldpc_tpu.codes.alist import read_alist
+        from .alist import read_alist
         code = read_alist(c.path)
     elif c.family == "qcpeg":
-        from ldpc_tpu.codes.peg import parse_profile, qc_peg_construct
+        from .peg import parse_profile, qc_peg_construct
         if not c.Z:
             raise ValueError("qcpeg family requires CodeConfig.Z")
         if c.n % c.Z:
@@ -140,7 +174,7 @@ def build_code(cfg: SimConfig) -> LDPCCode:
                                 col_degrees=parse_profile(c.profile, kb),
                                 seed=c.code_seed)
     elif c.family == "pbrl":
-        from ldpc_tpu.codes.peg import parse_profile, pbrl_construct
+        from .peg import parse_profile, pbrl_construct
         if not c.Z:
             raise ValueError("pbrl family requires CodeConfig.Z")
         if c.n % c.Z:
@@ -160,10 +194,10 @@ def build_code(cfg: SimConfig) -> LDPCCode:
     else:
         raise ValueError(f"unknown code family {c.family}")
     if c.shorten_bits:
-        from ldpc_tpu.codes.rate_compat import shorten
+        from .rate_compat import shorten
         code = shorten(code, c.shorten_bits)
     if c.punct_frac:
-        from ldpc_tpu.codes.rate_compat import puncture
+        from .rate_compat import puncture
         code = puncture(code, frac=c.punct_frac, scheme=c.punct_scheme,
                         seed=cfg.run.seed)
     return code

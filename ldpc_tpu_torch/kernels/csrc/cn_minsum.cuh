@@ -1,8 +1,9 @@
 // Parts shared by the min-sum decoder kernels (minsum_flood.cu,
-// minsum_layered.cu): launch parameters (the Monte-Carlo stage's
-// included), the entry tables, the in-kernel quantizer and the check-node
-// update. One copy, so the two schedules
-// cannot drift apart in the arithmetic that makes them bit-exact.
+// minsum_layered.cu): launch parameters (the Monte-Carlo stage's and the
+// min* thresholds included), the entry tables, the in-kernel quantizer and
+// the min-sum check-node update (the min* one is cn_minstar.cuh). One copy,
+// so the two schedules cannot drift apart in the arithmetic that makes them
+// bit-exact.
 //
 // The CN update follows ldpc_tpu/kernels/minsum_pallas.py::_cn_minsum:
 // magnitudes min(|v|, qmax) (the v2c clip folded in; the sign comes from
@@ -27,6 +28,7 @@ constexpr int kMinSentinel = 1 << 14;
 constexpr int kMaxThreads = 1024;
 constexpr int kMaxSmem = 232448;            // 227 KB opt-in per block on sm_90
 constexpr int kPreferredSmem = 113 * 1024;  // two blocks per SM
+constexpr int kMaxThresholds = 8;           // min* correction LUT entries
 
 // The Monte-Carlo stage's inputs (mc_stage.cuh); zero in the other modes.
 // The launch entries take it by host pointer; kernels/minsum.py::McArgs
@@ -56,6 +58,11 @@ struct Params {
   int B, nb, Z, mb, E;
   int max_iter, qmax, beta, alpha_num, alpha_shift;
   int lanes;
+  // min* (cn_minstar.cuh): star_deg is the largest base-row degree (it sizes
+  // the per-row scratch), 0 for the min-sum update; thr[0..nthr) are the
+  // correction thresholds.
+  int star_deg, nthr;
+  int thr[kMaxThresholds];
   Mc mc;
 };
 
@@ -181,7 +188,8 @@ inline Params make_params(const void* chan, int chan_is_f32, float scale,
                           void* frame, void* iters, void* conv,
                           const void* tables, int B, int nb, int Z, int mb,
                           int E, int max_iter, int qmax, int beta,
-                          int alpha_num, int alpha_shift) {
+                          int alpha_num, int alpha_shift, int star_deg,
+                          const int* thr, int nthr) {
   Params p;
   p.chan = chan;
   p.chan_is_f32 = chan_is_f32;
@@ -205,6 +213,9 @@ inline Params make_params(const void* chan, int chan_is_f32, float scale,
   p.alpha_num = alpha_num;
   p.alpha_shift = alpha_shift;
   p.lanes = 0;
+  p.star_deg = star_deg;
+  p.nthr = nthr;
+  for (int i = 0; i < kMaxThresholds; ++i) p.thr[i] = i < nthr ? thr[i] : 0;
   p.mc = Mc{};
   return p;
 }
@@ -229,15 +240,19 @@ int decoder_launch(void (*kern)(Params), SmemFn smem_bytes, Params p,
 
 using Kernel = void (*)(Params);
 
-// The body of each library's <name>_launch: kernels[MC][ET] are the four
-// instances of its kernel template; the MC instance runs when `mc` (a host
-// pointer, copied into the parameters) is not null.
+// The body of each library's <name>_launch: kernels[STAR][MC][ET] are the
+// eight instances of its kernel template; the MC instance runs when `mc` (a
+// host pointer, copied into the parameters) is not null, the min* instance
+// when the parameters carry a scratch degree. More thresholds than the
+// parameters hold, or a negative count, are refused.
 template <typename SmemFn>
-int launch_instance(const Kernel (&kernels)[2][2], SmemFn smem_bytes,
+int launch_instance(const Kernel (&kernels)[2][2][2], SmemFn smem_bytes,
                     Params p, int early_term, const Mc* mc, void* stream) {
+  if (p.nthr < 0 || p.nthr > kMaxThresholds) return int(cudaErrorInvalidValue);
   if (mc) p.mc = *mc;
-  return decoder_launch(kernels[mc != nullptr][early_term != 0], smem_bytes,
-                        p, stream);
+  return decoder_launch(
+      kernels[p.star_deg > 0][mc != nullptr][early_term != 0], smem_bytes, p,
+      stream);
 }
 
 }  // namespace ldpc

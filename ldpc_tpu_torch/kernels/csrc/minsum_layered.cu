@@ -30,6 +30,9 @@
 // row read twice: reduce, then emit), writes c2v[e][y] = new and
 // post[j][(y + s) mod Z] += new - old, then all threads meet at
 // __syncthreads() before the next layer reads what this one wrote.
+// With the min* update (template STAR, K5; cn_minstar.cuh) the two reads of
+// the row are the suffix pass, backwards into an int8 scratch of star_deg
+// slots per row, and the prefix pass that emits; the writes are the same.
 // No atomics: a base row holds at most one circulant per base column, so
 // within a layer the Z rows of column j touch the permutation
 // (y + s) mod Z of post[j][.], and each address is read and written by one
@@ -59,6 +62,7 @@
 // again.
 
 #include "cn_minsum.cuh"
+#include "cn_minstar.cuh"
 #include "mc_stage.cuh"
 
 namespace {
@@ -66,15 +70,16 @@ namespace {
 using ldpc::align16;
 using ldpc::Params;
 
-inline size_t smem_bytes(int nb, int Z, int mb, int E, int lanes) {
+inline size_t smem_bytes(int nb, int Z, int mb, int E, int star_deg, int lanes) {
   const size_t n = size_t(nb) * Z;
   return align16(4 * size_t(ldpc::table_words(nb, mb, E)))
        + align16(8 * size_t(lanes))          // per-lane flag, bit errors
        + align16(2 * n * lanes)               // post
-       + align16(size_t(E) * Z * lanes);      // c2v
+       + align16(size_t(E) * Z * lanes)       // c2v
+       + align16(ldpc::star_scratch_bytes(star_deg, Z, lanes));  // min* suffixes
 }
 
-template <bool ET, bool MC>
+template <bool ET, bool MC, bool STAR>
 __global__ void minsum_layered_kernel(Params p) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int L = p.lanes, Z = p.Z, nb = p.nb, mb = p.mb, E = p.E;
@@ -90,6 +95,8 @@ __global__ void minsum_layered_kernel(Params p) {
   int16_t* post = reinterpret_cast<int16_t*>(cursor);
   cursor += align16(2 * size_t(n) * L);
   int8_t* c2v = reinterpret_cast<int8_t*>(cursor);
+  cursor += align16(size_t(E) * Z * L);
+  int8_t* scr = reinterpret_cast<int8_t*>(cursor);   // STAR only
 
   const int lane = threadIdx.x;
   const int row = threadIdx.y;
@@ -135,24 +142,40 @@ __global__ void minsum_layered_kernel(Params p) {
     for (int li = 0; li < mb; ++li) {
       if (!ET || !done) {
         const int e0 = t.layer_ptr[li], e1 = t.layer_ptr[li + 1];
-        ldpc::CnRow cn;
-        for (int e = e0; e < e1; ++e) {
-          int c = row + t.ent_shift[e];
-          if (c >= Z) c -= Z;
-          cn.add(int(post[(t.ent_col[e] * Z + c) * L + lane])
-                 - int(c2v[(e * Z + row) * L + lane]), qmax);
-        }
-        cn.finish(p);
-        for (int e = e0; e < e1; ++e) {
-          int c = row + t.ent_shift[e];
-          if (c >= Z) c -= Z;
-          const int idx = (e * Z + row) * L + lane;
-          const int pidx = (t.ent_col[e] * Z + c) * L + lane;
-          const int old = c2v[idx];
-          const int pv = post[pidx];
-          const int nw = cn.emit(pv - old, qmax);
-          c2v[idx] = int8_t(nw);
-          post[pidx] = int16_t(pv + nw - old);
+        // Second read of the row: entry e takes emit(its index, raw) as its
+        // new message, and the posterior moves by new - old.
+        auto write_row = [&](auto&& emit) {
+          for (int e = e0; e < e1; ++e) {
+            int c = row + t.ent_shift[e];
+            if (c >= Z) c -= Z;
+            const int idx = (e * Z + row) * L + lane;
+            const int pidx = (t.ent_col[e] * Z + c) * L + lane;
+            const int old = c2v[idx];
+            const int pv = post[pidx];
+            const int nw = emit(e - e0, pv - old);
+            c2v[idx] = int8_t(nw);
+            post[pidx] = int16_t(pv + nw - old);
+          }
+        };
+        if constexpr (STAR) {
+          ldpc::StarRow star(scr + row * L + lane, Z * L, e1 - e0);
+          for (int e = e1 - 1; e > e0; --e) {
+            int c = row + t.ent_shift[e];
+            if (c >= Z) c -= Z;
+            star.back(p, e - e0, int(post[(t.ent_col[e] * Z + c) * L + lane])
+                                     - int(c2v[(e * Z + row) * L + lane]));
+          }
+          write_row([&](int i, int raw) { return star.emit(p, i, raw); });
+        } else {
+          ldpc::CnRow cn;
+          for (int e = e0; e < e1; ++e) {
+            int c = row + t.ent_shift[e];
+            if (c >= Z) c -= Z;
+            cn.add(int(post[(t.ent_col[e] * Z + c) * L + lane])
+                   - int(c2v[(e * Z + row) * L + lane]), qmax);
+          }
+          cn.finish(p);
+          write_row([&](int, int raw) { return cn.emit(raw, qmax); });
         }
       }
       __syncthreads();
@@ -202,9 +225,11 @@ extern "C" {
 
 // Lanes per block and dynamic shared-memory bytes for one code; 0 lanes
 // when no block shape fits (Z > 1024 or state above 227 KB per codeword).
-int minsum_layered_config(int nb, int Z, int mb, int E, int* lanes, int* smem) {
+int minsum_layered_config(int nb, int Z, int mb, int E, int star_deg,
+                          int* lanes, int* smem) {
   return ldpc::decoder_config(
-      Z, [=](int l) { return smem_bytes(nb, Z, mb, E, l); }, lanes, smem);
+      Z, [=](int l) { return smem_bytes(nb, Z, mb, E, star_deg, l); }, lanes,
+      smem);
 }
 
 const char* minsum_layered_error_string(int err) {
@@ -215,22 +240,32 @@ const char* minsum_layered_error_string(int err) {
 // pointers but `mc` are device pointers; chan/info/hard/bits/frame may be
 // null. With `mc` (host memory) not null it runs the Monte-Carlo megakernel
 // (K1-MC): the channel comes from the seed (key0, key1) or the injected
-// words, and chan/info are not read.
+// words, and chan/info are not read. star_deg > 0 (the largest base-row
+// degree) selects the min* update with the nthr thresholds at `thr` (host
+// memory; beta and alpha are then not read).
 int minsum_layered_launch(const void* chan, int chan_is_f32, float scale,
                           const void* info, int kb, void* hard, void* bits,
                           void* frame, void* iters, void* conv,
                           const void* tables, int B, int nb, int Z, int mb,
                           int E, int max_iter, int early_term, int qmax,
                           int beta, int alpha_num, int alpha_shift,
+                          int star_deg, const int* thr, int nthr,
                           const ldpc::Mc* mc, void* stream) {
-  const ldpc::Kernel kernels[2][2] = {
-      {minsum_layered_kernel<false, false>, minsum_layered_kernel<true, false>},
-      {minsum_layered_kernel<false, true>, minsum_layered_kernel<true, true>}};
+  const ldpc::Kernel kernels[2][2][2] = {
+      {{minsum_layered_kernel<false, false, false>,
+        minsum_layered_kernel<true, false, false>},
+       {minsum_layered_kernel<false, true, false>,
+        minsum_layered_kernel<true, true, false>}},
+      {{minsum_layered_kernel<false, false, true>,
+        minsum_layered_kernel<true, false, true>},
+       {minsum_layered_kernel<false, true, true>,
+        minsum_layered_kernel<true, true, true>}}};
   return ldpc::launch_instance(
-      kernels, [=](int l) { return smem_bytes(nb, Z, mb, E, l); },
+      kernels, [=](int l) { return smem_bytes(nb, Z, mb, E, star_deg, l); },
       ldpc::make_params(chan, chan_is_f32, scale, info, kb, hard, bits,
                         frame, iters, conv, tables, B, nb, Z, mb, E,
-                        max_iter, qmax, beta, alpha_num, alpha_shift),
+                        max_iter, qmax, beta, alpha_num, alpha_shift,
+                        star_deg, thr, nthr),
       early_term, mc, stream);
 }
 

@@ -1,12 +1,13 @@
 """On-chip min-sum decoders (counterpart of
 `ldpc_tpu/kernels/minsum_pallas.py`).
 
-`make_decoder` mirrors `minsum_pallas.make_decoder` for the min-sum family
-of its VMEM kernel: flooding with fixed iterations (K1) or per-lane early
-termination (K2), and the layered schedule with either (K3), each also in
-the fused-IO form (K1-IO: float32 LLRs quantized in the kernel, per-lane
-info-bit error counts out). It returns a `MinsumDecoder` that holds both
-versions:
+`make_decoder` mirrors `minsum_pallas.make_decoder` for the fixed-point
+algorithms of its VMEM kernel, the min-sum family and min* (K5, the CN
+update of `csrc/cn_minstar.cuh` in every instance below): flooding with
+fixed iterations (K1) or per-lane early termination (K2), and the layered
+schedule with either (K3), each also in the fused-IO form (K1-IO: float32
+LLRs quantized in the kernel, per-lane info-bit error counts out). It
+returns a `MinsumDecoder` that holds both versions:
 
   * `kernel`: a hand-written CUDA kernel, `csrc/minsum_flood.cu` for
     flooding or `csrc/minsum_layered.cu` for layered, built with nvcc at
@@ -36,10 +37,8 @@ decoder + counting):
                                                        iters, conv), (B,)
   decode(seed, sigma, gain, words=(W, B) int32)    (inject_random=True)
   decode(seed, sigma_lane=(B,), gain_lane=(B,))    (mc_lane_sigma=True)
-The module also counts `mc_launches` per library.
-
-Not ported yet: the min* CN update (ROADMAP kernel K5), which raises
-NotImplementedError.
+The module also counts `mc_launches` and, for launches of the min*
+instances, `star_launches`, per library.
 """
 from __future__ import annotations
 
@@ -50,7 +49,8 @@ from typing import Dict, Optional, Tuple, Union
 import numpy as np
 import torch
 
-from ldpc_tpu.config import DecoderConfig, QuantConfig, cn_params
+from ..config import (DecoderConfig, QuantConfig, cn_params,
+                      minstar_thresholds)
 
 from ..codes import CodeTensors
 from ..ops import rng
@@ -68,11 +68,16 @@ REPLACES = {"minsum_flood": "ldpc_tpu/kernels/minsum_pallas.py:390",
             "minsum_layered": "ldpc_tpu/kernels/minsum_pallas.py:823"}
 # The MC instance of both libraries: the megakernel's pallas_call.
 MC_REPLACES = "ldpc_tpu/kernels/minsum_pallas.py:990"
+# The min* instances of both libraries (K5): `_cn_minstar`.
+STAR_SOURCE = "ldpc_tpu_torch/kernels/csrc/cn_minstar.cuh"
+STAR_REPLACES = "ldpc_tpu/kernels/minsum_pallas.py:159"
+MAX_THRESHOLDS = 8      # ldpc::kMaxThresholds of csrc/cn_minsum.cuh
 
 kernel_launches = 0
 plain_calls = 0
 library_launches = dict.fromkeys(SOURCES, 0)
 mc_launches = dict.fromkeys(SOURCES, 0)
+star_launches = dict.fromkeys(SOURCES, 0)
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
@@ -84,6 +89,7 @@ def reset_counters() -> None:
     for lib in SOURCES:
         library_launches[lib] = 0
         mc_launches[lib] = 0
+        star_launches[lib] = 0
 
 
 class McArgs(ctypes.Structure):
@@ -101,10 +107,11 @@ def load_library(name: str, rebuild: bool = False) -> build.Library:
     launch = getattr(c, f"{name}_launch")
     launch.argtypes = [_P, _I, _F, _P, _I, _P, _P, _P, _P, _P, _P,
                        _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                       _I, ctypes.POINTER(_I), _I,
                        ctypes.POINTER(McArgs), _P]
     launch.restype = _I
     config = getattr(c, f"{name}_config")
-    config.argtypes = [_I, _I, _I, _I, ctypes.POINTER(_I),
+    config.argtypes = [_I, _I, _I, _I, _I, ctypes.POINTER(_I),
                        ctypes.POINTER(_I)]
     config.restype = _I
     err = getattr(c, f"{name}_error_string")
@@ -131,16 +138,12 @@ def kernel_tables(ct: CodeTensors) -> np.ndarray:
 
 
 class MinsumDecoder:
-    """Min-sum decoder (flooding or layered, fixed iterations or early
-    termination) for one code and config."""
+    """Min-sum family or min* decoder (flooding or layered, fixed
+    iterations or early termination) for one code and config."""
 
     def __init__(self, ct: CodeTensors, dec: DecoderConfig,
                  quant: QuantConfig, input_scale: Optional[float],
                  count_info_cols: Optional[int]):
-        if dec.algorithm == "min-star":
-            raise NotImplementedError(
-                "min-star: the min* CN update is ROADMAP kernel K5, not "
-                "ported yet")
         if dec.schedule not in LIBRARIES:
             raise ValueError(f"unknown schedule {dec.schedule!r}")
         if count_info_cols is not None:
@@ -153,7 +156,19 @@ class MinsumDecoder:
         self.ct = ct
         self.dec = dec
         self.quant = quant
-        self.beta, self.alpha = cn_params(dec, quant)
+        if dec.algorithm == "min-star":
+            # as the reference's make_decoder: min* has neither offset nor
+            # scaling, whatever quant.beta_lsb says
+            self.beta, self.alpha = 0, None
+            self.minstar = tuple(int(t) for t in minstar_thresholds(quant))
+            if len(self.minstar) > MAX_THRESHOLDS:
+                raise ValueError(
+                    f"min-star: scale {quant.scale} gives "
+                    f"{len(self.minstar)} thresholds, the kernel holds "
+                    f"{MAX_THRESHOLDS}")
+        else:
+            self.beta, self.alpha = cn_params(dec, quant)
+            self.minstar = None
         self.input_scale = input_scale
         self.count_info_cols = count_info_cols
         self.library = LIBRARIES[dec.schedule]
@@ -161,6 +176,8 @@ class MinsumDecoder:
         self._tables_np = kernel_tables(ct)
         self._tables: Dict[torch.device, torch.Tensor] = {}
         row_deg = np.diff(self._tables_np[: ct.mb + 1])
+        # the min* instances' scratch degree; 0 selects the min-sum update
+        self.star_deg = int(row_deg.max()) if self.minstar is not None else 0
         col_deg = np.bincount([c for row in ct.entries for c, _, _ in row],
                               minlength=ct.nb)
         # The kernels keep totals (flooding) or posteriors (layered) in
@@ -271,6 +288,7 @@ class MinsumDecoder:
             return None if t is None else t.data_ptr()
 
         num, shift = self.alpha_pair
+        thr = (_I * MAX_THRESHOLDS)(*(self.minstar or ()))
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream(dev).cuda_stream
             err = getattr(lib, f"{name}_launch")(
@@ -280,12 +298,15 @@ class MinsumDecoder:
                 ptr(iters), ptr(conv), ptr(self.tables_on(dev)), B, ct.nb,
                 ct.Z, ct.mb, ct.n_entries, self.dec.max_iter,
                 int(self.dec.early_term), self.quant.qmax, self.beta, num,
-                shift, None if mc is None else ctypes.byref(mc), stream)
+                shift, self.star_deg, thr, len(self.minstar or ()),
+                None if mc is None else ctypes.byref(mc), stream)
         check_launch(lib, name, err)
         kernel_launches += 1
         library_launches[name] += 1
         if mc is not None:
             mc_launches[name] += 1
+        if self.minstar is not None:
+            star_launches[name] += 1
         if self.counting:
             return bits, frame, iters, conv
         return hard, iters, conv
@@ -307,7 +328,7 @@ class MinsumDecoder:
         config = getattr(load_library(self.library).cdll,
                          f"{self.library}_config")
         config(self.ct.nb, self.ct.Z, self.ct.mb, self.ct.n_entries,
-               ctypes.byref(lanes), ctypes.byref(smem))
+               self.star_deg, ctypes.byref(lanes), ctypes.byref(smem))
         return lanes.value, smem.value
 
 
@@ -335,7 +356,7 @@ class McDecoder:
                  quant: QuantConfig, input_scale: Optional[float],
                  count_info_cols: Optional[int], mc_batch: int,
                  inject_random: bool, mc_lane_sigma: bool):
-        from ldpc_tpu.codes.qcstruct import detect_enc_struct
+        from ..codes.qcstruct import detect_enc_struct
         if input_scale is None or count_info_cols is None:
             raise ValueError("mc_batch requires input_scale and "
                              "count_info_cols")
@@ -464,7 +485,8 @@ def make_decoder(ct: CodeTensors, dec: DecoderConfig, quant: QuantConfig,
                  mc_lane_sigma: bool = False
                  ) -> Union[MinsumDecoder, McDecoder]:
     """Factory from configs, mirroring `minsum_pallas.make_decoder`;
-    (beta, alpha) come from `config.cn_params`. mc_batch selects the
+    (beta, alpha) come from `config.cn_params`, the min* thresholds from
+    `config.minstar_thresholds`. mc_batch selects the
     Monte-Carlo megakernel (`McDecoder`), as in the reference."""
     if mc_batch is not None:
         return McDecoder(ct, dec, quant, input_scale, count_info_cols,

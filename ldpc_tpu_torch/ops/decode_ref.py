@@ -6,8 +6,10 @@ The port's CPU decoders and the plain versions of the CUDA kernels
 `kernels/csrc/minsum_flood.cu` (flooding) and `minsum_layered.cu`
 (layered): the same dense padded gathers as the reference ops, on any
 torch device. Min-sum, offset (beta) and normalized (dyadic alpha) CN
-updates, fixed iterations or per-lane early termination. Bit-exact with
-`golden.decoder.decode_fixed` for either schedule.
+updates, or min* (`minstar=` the threshold tuple of
+`config.minstar_thresholds`; the plain version of kernel K5, csrc/
+cn_minstar.cuh), fixed iterations or per-lane early termination. Bit-exact
+with `golden.decoder.decode_fixed` for either schedule.
 
 Layout: messages live check-major in a flat (m * max_dc + 1) int32 buffer
 per codeword; the last slot is a zero dump/pad slot (codes/layout.py).
@@ -19,11 +21,15 @@ from typing import Callable, Dict, Tuple
 import numpy as np
 import torch
 
-from ldpc_tpu.codes.code import LDPCCode
-from ldpc_tpu.codes.layout import compile_edge_layout, compile_layers_general
-from ldpc_tpu.config import DecoderConfig, QuantConfig, cn_params
+from ..codes.code import LDPCCode
+from ..codes.layout import compile_edge_layout, compile_layers_general
+from ..config import DecoderConfig, QuantConfig, cn_params, minstar_thresholds
 
 _BIG = 1 << 15
+# The box-plus identity: both corrections vanish there (thresholds are tiny)
+# and the clip brings min(|x|, INF) back to |x|, so bp2(x, INF) == x for x in
+# [-qmax, qmax].
+_MINSTAR_INF = 1 << 20
 
 Decoded = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 
@@ -51,6 +57,60 @@ def _cn_update(v2c: torch.Tensor, mask: torch.Tensor, beta: int,
     mag = torch.clamp(excl_mag - beta, min=0)
     val = torch.where(excl_neg, -mag, mag)
     return torch.where(mask, val, 0)
+
+
+def _boxplus2(x: torch.Tensor, y: torch.Tensor, thresholds, qmax: int
+              ) -> torch.Tensor:
+    """The pinned fixed-point pairwise box-plus of min*:
+    sign(x) sign(y) clip(min(|x|, |y|) + c(|x| + |y|) - c(||x| - |y||), 0,
+    qmax), c(u) = #{T in thresholds : u <= T}, sign(0) = +1; a combine of
+    magnitude 0 forgets its sign."""
+    ax, ay = x.abs(), y.abs()
+    mag = torch.minimum(ax, ay)
+    if thresholds:
+        s, d = ax + ay, (ax - ay).abs()
+        for t in thresholds:
+            mag = mag + (s <= t).to(torch.int32) - (d <= t).to(torch.int32)
+    mag = torch.clamp(mag, 0, qmax)
+    return torch.where((x < 0) != (y < 0), -mag, mag)
+
+
+def _cn_update_minstar(v2c: torch.Tensor, mask: torch.Tensor, thresholds,
+                       qmax: int) -> torch.Tensor:
+    """min* CN update on dense (..., C, D) int32 messages already clipped to
+    [-qmax, qmax]: exclude-self box-plus by prefix/suffix combines in slot
+    order (the check's variables ascending), out[i] = bp2(pre[i],
+    suf[i + 1]) with pre[0] = suf[D] = INF. `_boxplus2` with its clip is not
+    associative, so the order is part of the result. Pad slots (mask false)
+    are skipped by the chains (two INFs would combine to qmax, not to INF)
+    and give 0; a row of degree 1 gives +qmax."""
+    D = v2c.shape[-1]
+    inf = torch.full_like(v2c[..., 0], _MINSTAR_INF)
+    pre = [inf]
+    for i in range(D - 1):
+        pre.append(torch.where(
+            mask[..., i], _boxplus2(pre[-1], v2c[..., i], thresholds, qmax),
+            pre[-1]))
+    suf = [inf]                                    # suf[D], then downwards
+    for j in range(D - 1, 0, -1):
+        suf.append(torch.where(
+            mask[..., j], _boxplus2(v2c[..., j], suf[-1], thresholds, qmax),
+            suf[-1]))
+    suf.reverse()                                  # suf[k] is list item k - 1
+    out = torch.stack([_boxplus2(pre[i], suf[i], thresholds, qmax)
+                       for i in range(D)], dim=-1)
+    return torch.where(mask, out, 0)
+
+
+def _cn_fn(beta: int, alpha, minstar, qmax: int):
+    """The CN update of a decoder as f(v2c, mask); min* composes with
+    neither beta nor alpha."""
+    if minstar is None:
+        return lambda v2c, mask: _cn_update(v2c, mask, beta, alpha)
+    if beta or alpha is not None:
+        raise ValueError("min-star does not compose with beta/alpha")
+    thr = tuple(int(t) for t in minstar)
+    return lambda v2c, mask: _cn_update_minstar(v2c, mask, thr, qmax)
 
 
 def _on_device(tables_np):
@@ -81,9 +141,13 @@ def make_flooding_decoder(
     qmax: int = 127,
     early_term: bool = True,
     alpha=None,
+    minstar=None,
 ) -> Callable[[torch.Tensor], Decoded]:
     """Returns decode(chan[B, n] integer LLRs) -> (hard[B, n] uint8,
-    iters[B] int32, converged[B] bool), computed on chan's device."""
+    iters[B] int32, converged[B] bool), computed on chan's device.
+    minstar: the min* threshold tuple (`()` for no correction), or None for
+    the min-sum family."""
+    cn_update = _cn_fn(beta, alpha, minstar, qmax)
     lay = compile_edge_layout(code)
     M, D = lay.m, lay.max_dc
     on = _on_device((np.asarray(lay.ev_dense, np.int64),
@@ -117,8 +181,7 @@ def make_flooding_decoder(
             c2v_d = c2v_flat[:, : M * D].reshape(B, M, D)
             v2c = torch.clamp(pad1(tot)[:, ev] - c2v_d, -qmax, qmax)
             v2c = torch.where(mask, v2c, qmax)
-            new_flat = pad1(_cn_update(v2c, mask, beta, alpha)
-                            .reshape(B, M * D))
+            new_flat = pad1(cn_update(v2c, mask).reshape(B, M * D))
             # Totals of the new messages: this iteration's posterior and the
             # next iteration's input (frozen lanes' totals are never used).
             tot = totals(new_flat)
@@ -146,6 +209,7 @@ def make_layered_decoder(
     qmax: int = 127,
     early_term: bool = True,
     alpha=None,
+    minstar=None,
 ) -> Callable[[torch.Tensor], Decoded]:
     """Layered-schedule decoder; layers are the QC base rows when the code
     has them, else a greedy disjoint grouping (codes/layout.py). Returns
@@ -157,7 +221,9 @@ def make_layered_decoder(
     variables, so the scatters never collide (pad slots add 0 to the pad
     column). With early termination a lane freezes (messages, posterior,
     hard bits) after its first iteration whose hard bits satisfy every
-    check; a lane whose channel hard bits already do has iters = 0."""
+    check; a lane whose channel hard bits already do has iters = 0.
+    minstar as in `make_flooding_decoder`."""
+    cn_update = _cn_fn(beta, alpha, minstar, qmax)
     lay = compile_edge_layout(code)
     M, D, N = lay.m, lay.max_dc, lay.n
     DUMP = M * D
@@ -201,7 +267,7 @@ def make_layered_decoder(
                 old = c2v_new[:, pos]                       # (B, C, D)
                 v2c = torch.clamp(post_new[:, evl] - old, -qmax, qmax)
                 v2c = torch.where(mk, v2c, qmax)
-                new = _cn_update(v2c, mk, beta, alpha)
+                new = cn_update(v2c, mk)
                 delta = torch.where(mk, new - old, 0)
                 post_new[:, evl.reshape(-1)] += delta.reshape(B, -1)
                 c2v_new[:, pos.reshape(-1)] = new.reshape(B, -1)
@@ -226,13 +292,18 @@ def make_layered_decoder(
 def make_decoder(code: LDPCCode, dec: DecoderConfig, quant: QuantConfig
                  ) -> Callable[[torch.Tensor], Decoded]:
     """Factory from configs, dispatching on dec.schedule; (beta, alpha)
-    come from `config.cn_params`."""
+    come from `config.cn_params`, the min* thresholds from
+    `config.minstar_thresholds`."""
     if dec.algorithm not in ("min-sum", "offset-min-sum",
-                             "normalized-min-sum"):
-        raise ValueError(f"the plain decoders support the min-sum family, "
-                         f"got {dec.algorithm}")
-    beta, alpha = cn_params(dec, quant)
+                             "normalized-min-sum", "min-star"):
+        raise ValueError(f"the plain decoders support the min-sum family "
+                         f"and min-star, got {dec.algorithm}")
+    minstar = None
+    if dec.algorithm == "min-star":
+        beta, alpha, minstar = 0, None, minstar_thresholds(quant)
+    else:
+        beta, alpha = cn_params(dec, quant)
     maker = (make_layered_decoder if dec.schedule == "layered"
              else make_flooding_decoder)
     return maker(code, max_iter=dec.max_iter, beta=beta, qmax=quant.qmax,
-                 early_term=dec.early_term, alpha=alpha)
+                 early_term=dec.early_term, alpha=alpha, minstar=minstar)

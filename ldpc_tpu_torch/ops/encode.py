@@ -20,7 +20,7 @@ from typing import TYPE_CHECKING, Callable, List, Optional
 import numpy as np
 import torch
 
-from ldpc_tpu.codes.code import LDPCCode
+from ..codes.code import LDPCCode
 
 if TYPE_CHECKING:
     from ..codes import CodeTensors
@@ -31,7 +31,7 @@ DENSE_MAX_N = 4096
 def has_qc_struct(code: LDPCCode) -> bool:
     if code.base is None or code.Z is None:
         return False
-    from ldpc_tpu.codes.qcstruct import detect_enc_struct
+    from ..codes.qcstruct import detect_enc_struct
     return detect_enc_struct(code.base) is not None
 
 
@@ -39,7 +39,7 @@ def info_positions(code: LDPCCode) -> np.ndarray:
     """Codeword positions of the k information bits."""
     if has_qc_struct(code) and code.n > DENSE_MAX_N:
         return np.arange(code.k)
-    from ldpc_tpu.golden.encoder import systematic_form
+    from ..golden.encoder import systematic_form
     _, perm = systematic_form(code)
     return np.asarray(perm[: code.k])
 
@@ -50,7 +50,7 @@ def make_qc_encoder_t(code: LDPCCode
     codeword (n, B) uint8 on info_t's device; the info bits are the
     codeword's prefix. Check row r of circulant C(s) reads variable
     (r + s) % Z, so C(s) x = roll(x, -s) along Z."""
-    from ldpc_tpu.codes.qcstruct import detect_enc_struct
+    from ..codes.qcstruct import detect_enc_struct
     st = detect_enc_struct(code.base) if code.base is not None else None
     if st is None:
         raise ValueError(f"{code.name}: no encodable QC parity structure")

@@ -25,7 +25,7 @@ from typing import Callable, Tuple, Union
 import numpy as np
 import torch
 
-from ldpc_tpu.codes.code import LDPCCode
+from ..codes.code import LDPCCode
 
 from .encode import make_qc_encoder_t
 from .rng import word_layout

@@ -10,7 +10,7 @@ from __future__ import annotations
 
 import torch
 
-from ldpc_tpu.config import QuantConfig
+from ..config import QuantConfig
 
 
 def quantize(llr: torch.Tensor, quant: QuantConfig = QuantConfig()

@@ -1,6 +1,6 @@
-"""Sweep checkpoint/resume (a copy of `ldpc_tpu/sim/checkpoint.py`, whose
-package imports JAX): the same schema and `_VERSION`, so either package's
-`load` reads the other's file.
+"""Sweep checkpoint/resume (a copy of `ldpc_tpu/sim/checkpoint.py`): the
+same schema and `_VERSION`, so either package's `load` reads the other's
+file.
 
 The sweep state is the counter set per SNR point plus the run meta; resume
 re-seeds each batch from (seed, snr_index, batch_index), so a restarted

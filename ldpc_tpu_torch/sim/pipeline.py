@@ -5,12 +5,13 @@
 Ported scope: the transposed step of `make_run_batch` for one Eb/N0 point
 or for n_points striped over the batch (the fused multi-SNR sweep: lane b
 simulates point b % n_points with its own sigma), no mesh, no
-superbatching; flooding or layered min-sum, fixed iterations or early
+superbatching; any modulation of `ops.channel.MODULATIONS`; flooding or
+layered decoding with the min-sum family or min*, fixed iterations or early
 termination, and two-phase early termination. A call runs, batch last,
 one of two chains:
 
-  * host RNG (pipeline.py:600-644): info bits (k, B) -> encode -> BPSK ->
-    AWGN -> demap -> decoder (quantizes in the kernel, and counts info-bit
+  * host RNG (pipeline.py:600-644): info bits (k, B) -> encode -> modulate
+    -> AWGN -> max-log demap -> decoder (quantizes in the kernel, and counts info-bit
     errors there when the info bits are the codeword's prefix), with the
     draws from a torch.Generator on the code's device;
   * device RNG, the Monte-Carlo megakernel (pipeline.py:520-599): one
@@ -33,7 +34,7 @@ from typing import Callable, Optional, Tuple, Union
 import numpy as np
 import torch
 
-from ldpc_tpu.config import SimConfig
+from ..config import SimConfig
 
 from ..codes import CodeTensors
 from ..kernels import minsum
@@ -42,6 +43,7 @@ from ..ops.encode import DENSE_MAX_N, has_qc_struct, make_encoder_t
 from ..ops.mc import gain_for
 
 MIN_SUM_FAMILY = ("min-sum", "offset-min-sum", "normalized-min-sum")
+FIXED_POINT = MIN_SUM_FAMILY + ("min-star",)
 
 
 @dataclass(frozen=True)
@@ -70,12 +72,18 @@ def check_in_slice(ct: CodeTensors, cfg: SimConfig) -> None:
         raise NotImplementedError(f"{what} is not ported yet ({item})")
 
     dec = cfg.decoder
-    if dec.algorithm not in MIN_SUM_FAMILY:
+    if dec.algorithm not in FIXED_POINT:
         no(f"decoder algorithm {dec.algorithm!r}",
-           "ROADMAP kernel K5 for min-star, module item 12 for float "
-           "decoders")
-    if cfg.channel.modulation != "bpsk":
-        no(f"modulation {cfg.channel.modulation!r}", "ROADMAP module item 11")
+           "the float decoders run through the batch-first step, ROADMAP "
+           "module item 13")
+    mod = cfg.channel.modulation
+    if mod not in ch.MODULATIONS:
+        raise ValueError(f"unknown modulation {mod!r}")
+    if ct.n % ch.BITS_PER_SYM[mod]:
+        # the reference's refusal (pipeline.py:475-480)
+        raise ValueError(
+            f"{ct.code.name}: n={ct.n} is not a multiple of {mod}'s "
+            f"{ch.BITS_PER_SYM[mod]} bits per symbol")
     code = ct.code
     if len(code.punct_vns) or len(code.shortened_vns):
         no("rate matching (puncturing/shortening)", "ROADMAP module item 13")
@@ -168,9 +176,10 @@ def select_decoder(ct: CodeTensors, cfg: SimConfig,
     instead (per-lane sigma rows when n_points > 1).
 
     Returns (decoder, label). The label names where it runs, the CUDA
-    kernel or the plain version, and the schedule, two-phase and
-    megakernel forms (`cuda-minsum`, `cuda-minsum-layered`,
-    `torch-plain-layered-2phase`, `cuda-minsum-mc`, ...).
+    kernel or the plain version, the CN update where it is min*, and the
+    schedule, two-phase and megakernel forms (`cuda-minsum`,
+    `cuda-minstar-layered`, `torch-plain-layered-2phase`,
+    `torch-plain-minstar-mc`, `cuda-minsum-mc`, ...).
     decoder.batch_tile is its batch granularity (the Pallas batch tile's
     counterpart).
 
@@ -185,7 +194,11 @@ def select_decoder(ct: CodeTensors, cfg: SimConfig,
             count_info_cols=ct.kb if ct.ident_info else None, **mc)
 
     dc = cfg.decoder
-    label = "cuda-minsum" if ct.device.type == "cuda" else "torch-plain"
+    star = dc.algorithm == "min-star"
+    if ct.device.type == "cuda":
+        label = "cuda-minstar" if star else "cuda-minsum"
+    else:
+        label = "torch-plain-minstar" if star else "torch-plain"
     if dc.schedule == "layered":
         label += "-layered"
     if use_mc(ct, cfg):
@@ -215,7 +228,8 @@ def make_lane_step(ct: CodeTensors, cfg: SimConfig,
     (step.mc) the int batch seed that keys its Philox stream
     (`Sweep.draw` gives either). sigma: the noise standard deviation, taken to float32; with
     n_points > 1 a vector (n_points,), lane b taking sigma[b % n_points].
-    Injected draws (tests): info_t (k, B) uint8 and noise (n, B) float32
+    Injected draws (tests): info_t (k, B) uint8 and noise float32 of the
+    symbols' shape ((n, B) for BPSK, (n / m, 2, B) for m bits per symbol)
     for the host chain, words (W, B) int32 for the megakernel; with them
     no generator is needed. The step carries `decoder`, `backend_label`
     and `mc`."""
@@ -230,6 +244,8 @@ def make_lane_step(ct: CodeTensors, cfg: SimConfig,
     n, k, nb, Z = ct.n, ct.k, ct.nb, ct.Z
     point = torch.arange(B, device=dev) % n_points
     scale = float(cfg.quant.scale)
+    m = ch.BITS_PER_SYM[mod]
+    sym_shape = (n, B) if mod == "bpsk" else (n // m, 2, B)
 
     def lane_sigma(sigma) -> torch.Tensor:
         s = torch.as_tensor(np.asarray(sigma, np.float32), device=dev)
@@ -264,9 +280,9 @@ def make_lane_step(ct: CodeTensors, cfg: SimConfig,
                                        device=dev, dtype=torch.uint8)
             elif tuple(info_t.shape) != (k, B) or info_t.dtype != torch.uint8:
                 raise ValueError(f"info_t must be ({k}, {B}) uint8")
-            if noise is not None and (tuple(noise.shape) != (n, B)
+            if noise is not None and (tuple(noise.shape) != sym_shape
                                       or noise.dtype != torch.float32):
-                raise ValueError(f"noise must be ({n}, {B}) float32")
+                raise ValueError(f"noise must be {sym_shape} float32")
             sig = lane_sigma(sigma) if n_points > 1 else sigma
             x = ch.modulate_t(enc_t(info_t), mod)
             y = ch.awgn_t(rng, x, sig, noise=noise)

@@ -1,6 +1,6 @@
-"""Result reporting (a copy of `ldpc_tpu/sim/report.py`, whose package
-imports JAX): the CSV/JSON writers with the reference's columns, and the
-BER/FER waterfall plot, which imports matplotlib only when called."""
+"""Result reporting (a copy of `ldpc_tpu/sim/report.py`): the CSV/JSON
+writers with the reference's columns, and the BER/FER waterfall plot, which
+imports matplotlib only when called."""
 from __future__ import annotations
 
 import csv

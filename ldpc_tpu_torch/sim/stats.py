@@ -1,6 +1,6 @@
-"""BER/FER statistics (a copy of `ldpc_tpu/sim/stats.py`, whose package
-imports JAX): SnrPoint counters, Wilson intervals, rates_compatible. Tests
-hold the copy equal to the original. The port adds `mean_compatible`.
+"""BER/FER statistics (a copy of `ldpc_tpu/sim/stats.py`): SnrPoint
+counters, Wilson intervals, rates_compatible. Tests hold the copy equal to
+the original. The port adds `mean_compatible`.
 
 The reference prints per-SNR BER/FER rows computed from accumulated counters;
 this module owns the counter -> rate conversion plus binomial confidence

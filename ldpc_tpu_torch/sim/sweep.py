@@ -41,7 +41,7 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from ldpc_tpu.config import SimConfig
+from ..config import SimConfig
 
 from . import checkpoint as ckpt
 from ..codes import build_code, from_reference

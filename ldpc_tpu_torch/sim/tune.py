@@ -1,5 +1,4 @@
-"""AUTO two-phase early termination (counterpart of `ldpc_tpu/sim/tune.py`,
-whose package imports JAX).
+"""AUTO two-phase early termination (counterpart of `ldpc_tpu/sim/tune.py`).
 
 DecoderConfig.phase1_iters = -1 asks the sweep to choose (phase1_iters,
 phase2_frac) per Eb/N0 point from a probe of the convergence CDF
@@ -17,7 +16,7 @@ from typing import Callable, Optional, Tuple
 import numpy as np
 import torch
 
-from ldpc_tpu.config import SimConfig
+from ..config import SimConfig
 
 from ..codes import CodeTensors
 from .pipeline import make_lane_step
@@ -67,7 +66,7 @@ def make_iter_probe(ct: CodeTensors, cfg: SimConfig, batch: int = 2048
                     ) -> Callable[[torch.Generator, float], torch.Tensor]:
     """probe(generator, sigma) -> per-lane first-convergence iteration
     counts (int32, (batch,), on ct's device) through the real chain (info
-    bits, encode, BPSK, AWGN, demap, quantize, single-phase early-
+    bits, encode, modulate, AWGN, demap, quantize, single-phase early-
     terminating decode), with max_iter for lanes that did not converge, so
     the sampled CDF is what the sweep's batches see."""
     cfg1 = dataclasses.replace(

@@ -255,12 +255,17 @@ def test_wrapper_rejects_bad_inputs(rng):
 
 
 @pytest.mark.parametrize("dcfg,match", [
-    (DecoderConfig(algorithm="min-star", schedule="flooding"), "K5"),
-    (DecoderConfig(algorithm="min-star", schedule="layered"), "K5"),
+    (DecoderConfig(algorithm="sum-product", schedule="flooding"),
+     "no fixed-point CN parameters"),
+    (DecoderConfig(algorithm="min-sum-float", schedule="layered"),
+     "no fixed-point CN parameters"),
 ])
 def test_unported_decoders_raise(dcfg, match):
+    """The float decoders have no kernel: the wrapper refuses them as the
+    reference's does (`cn_params`); the step names their ROADMAP item
+    (`test_torch_pipeline.py`)."""
     ct = from_reference(toy_qc(4), "cpu")
-    with pytest.raises(NotImplementedError, match=match):
+    with pytest.raises(ValueError, match=match):
         minsum.make_decoder(ct, dcfg, QuantConfig())
 
 

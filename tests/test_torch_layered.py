@@ -141,7 +141,7 @@ def test_make_decoder_dispatches_like_jax(rng, schedule, algorithm, quant):
         jnp.asarray(chan)))
     with pytest.raises(ValueError, match="min-sum family"):
         tref.make_decoder(code, dataclasses.replace(
-            dcfg, algorithm="min-star"), quant)
+            dcfg, algorithm="sum-product"), quant)
 
 
 @pytest.mark.parametrize("schedule", ["flooding", "layered"])
@@ -284,7 +284,7 @@ def test_build_hash_covers_included_headers(monkeypatch, tmp_path):
 def test_shipped_kernels_share_the_cn_header():
     for lib in minsum.SOURCES:
         names = [p.name for p in build.sources(lib)]
-        assert names == [f"{lib}.cu", "cn_minsum.cuh", "mc_stage.cuh",
-                         "philox.cuh"], names
+        assert names == [f"{lib}.cu", "cn_minsum.cuh", "cn_minstar.cuh",
+                         "mc_stage.cuh", "philox.cuh"], names
     assert (build.library_path("minsum_flood")
             != build.library_path("minsum_layered"))

@@ -213,11 +213,17 @@ def test_awgn_generator_statistics():
 
 @pytest.mark.parametrize("mod", ["qpsk", "16qam", "8psk"])
 def test_non_bpsk_raises(mod):
-    bits = torch.zeros((12, 4), dtype=torch.uint8)
-    with pytest.raises(NotImplementedError, match="item 11"):
+    """Beyond BPSK the bits must fill whole symbols (13 bits fill none of
+    these), and 12 bits give 12 LLRs back."""
+    bits = torch.zeros((13, 4), dtype=torch.uint8)
+    with pytest.raises(ValueError, match="do not fill"):
         tch.modulate_t(bits, mod)
-    with pytest.raises(NotImplementedError, match="item 11"):
-        tch.demap_t(bits.float(), 0.5, mod)
+    with pytest.raises(ValueError, match="do not fill"):
+        tch.modulate(bits.T, mod)
+    x = tch.modulate_t(bits[:12], mod)
+    assert tuple(x.shape) == (12 // tch.BITS_PER_SYM[mod], 2, 4)
+    llr = tch.demap_t(x, 0.5, mod)
+    assert tuple(llr.shape) == (12, 4) and bool((llr > 0).all())
 
 
 @pytest.mark.parametrize("name", sorted(CODES))

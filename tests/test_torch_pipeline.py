@@ -220,9 +220,9 @@ def test_layered_and_early_term_configs_run(cfg, label):
 
 
 @pytest.mark.parametrize("cfg,match", [
-    (_cfg(decoder=dict(algorithm="min-star")), "K5"),
-    (_cfg(decoder=dict(algorithm="sum-product")), "item 12"),
-    (_cfg(channel=dict(modulation="16qam")), "item 11"),
+    (_cfg(decoder=dict(algorithm="min-sum-float")), "item 13"),
+    (_cfg(decoder=dict(algorithm="sum-product")), "item 13"),
+    (_cfg(code=dict(shorten_bits=27)), "item 13"),
     (_cfg(code=dict(punct_frac=0.25)), "item 13"),
     (_cfg(run=dict(all_zeros=True)), "batch-first"),
 ])

@@ -7,12 +7,13 @@ Phases, each printing its lines; any failure raises and exits non-zero:
 
 1. device: requires a CUDA device (never runs on the CPU) and prints the
    card's `nvidia-smi` name and power limit;
-2. build: compiles both kernel libraries fresh with nvcc for sm_90a, at
-   the same time (`minsum_flood.cu`: K1/K1-IO/K2 and the flooding K1-MC
+2. build: compiles the three kernel libraries fresh with nvcc for sm_90a,
+   at the same time (`minsum_flood.cu`: K1/K1-IO/K2 and the flooding K1-MC
    instance; `minsum_layered.cu`: K3 and the layered K1-MC instance; both
    include `cn_minstar.cuh`, the min* update K5 that doubles their
-   instances, `mc_stage.cuh` and `philox.cuh`), and prints each build's
-   time and ptxas' register/spill report;
+   instances, `mc_stage.cuh` and `philox.cuh`; `minsum_stream.cu`: the
+   streaming layered decoder whose four instances answer K6b-K6f), and
+   prints each build's time and ptxas' register/spill report;
 3. kernel vs plain: each CUDA kernel against its plain torch version on
    the card, tolerance 0 on every output (an integer program), and every
    decoder a sweep launches below at that sweep's batch, B=16,384.
@@ -43,16 +44,34 @@ Phases, each printing its lines; any failure raises and exits non-zero:
    MC instances with injected words (n=648 layered, early termination)
    and with Philox (n=648 layered and flooding with early termination,
    the two instances the min* device-RNG sweeps launch, and flooding
-   fixed-20), B=16,384;
-5. slices 1, 2 and 4, one table (SLICES), one path: each row is a
-   `Sweep(cfg, device="cuda", batch=16384).run(points)` whose launch
-   counters, reset just before it, must show the schedule's library only,
-   its MC instance exactly with rng="device", min* launches exactly for
-   min*, and 0 plain calls; then each is held to its reference: FER and
+   fixed-20), B=16,384; then the streaming library (K6b-K6f) against its
+   plain version, tolerance 0 on hard bits, iters and conv, 10 iterations:
+   DVB-S2 n=64,800 (B=32), n=16,200 (B=128) and NR BG1 Z=384 (B=64, its
+   punctured variables at LLR 0), OMS beta=2 and NMS alpha=3/4, fixed and
+   with early termination, both placements of the posteriors: the four
+   instances equal the plain version and each other, and K3 behind its
+   batch-first transposes where K3 admits the code; an odd batch (B - 1
+   codewords: a block is one codeword, so every batch is whole blocks) and
+   an all-zero noiseless batch (with early termination: iters 0). Then
+   every decoder a slice-5 sweep launches, as `select_decoder` builds it,
+   at that sweep's batch on its step's own LLRs (n=64,800 at B=1,024 among
+   them), and the `stream` instance at the CLI preset's batch of 8,192
+   against the `stream-resident` instance (kernel against kernel: the
+   plain version would take a quarter of a minute there);
+5. slices 1, 2, 4 and 5, one table (SLICES), one path: each row is a
+   `Sweep(cfg, device="cuda", batch=..., decoder_backend=...).run(points)`
+   (batch 16,384 and the route `auto` unless the row says otherwise) whose
+   backend label must be the row's `expect` and whose launch counters,
+   reset just before it, must show the route's kernel only (the
+   schedule's on-chip library, its MC instance exactly with rng="device",
+   min* launches exactly for min*; or one instance of the streaming
+   library) and 0 plain calls; then each is held to its reference: FER and
    the converged rate by Wilson intervals (z=2.576), BER and average
    iterations by per-frame z-tests with the variances of batch 0,
-   re-drawn. `wifi-648-r12-minsum` at 1.5, 2.0, 2.5 dB (32,768 frames a
-   point) against `results/wifi648_minsum.json`; `wifi-full-oms` (AUTO
+   re-drawn (the bit-error variance from further batches, until they hold
+   failed frames, where batch 0 holds no bit error).
+   `wifi-648-r12-minsum` at 1.5, 2.0, 2.5 dB (32,768 frames a point)
+   against `results/wifi648_minsum.json`; `wifi-full-oms` (AUTO
    two-phase) at 3.0 and 3.5 dB (131,072) against
    `results/wifi12_1944_r56.json`, and again with rng="device" (the
    layered K1-MC instance); `wifi-648-minstar` (the canonical code, 8-bit
@@ -64,7 +83,21 @@ Phases, each printing its lines; any failure raises and exits non-zero:
    other min* instances on their steps, 32,768 frames at 2.0 dB each: 4a
    with rng="device" (the layered min* MC instance) against the same
    file, and flooding min* with host and with device RNG, which no file
-   records, each held to the other's rows. Then each sweep's decoder
+   records, each held to the other's rows. Slice 5, the batch-first step
+   on long and rate-matched codes: `dvbs2-64800-r12-stream` (preset
+   `dvbs2-64800-r12`: n=64,800, batch 1,024, 20 fixed iterations; 8,192
+   frames at 1.0 and 1.25 dB against `results/dvbs2_r12_stream.json`) and
+   `-stream-et` (early termination; 1.0, 1.25 and 1.5 dB against
+   `results/dvbs2_64800_et.json`), through the streaming library only;
+   `dvbs2-16200-r12-resident-et` (16,384 frames at 1.4 and 2.2 dB against
+   `results/dvbs2_16200_et.json`) on the route `auto` picks (K3 behind
+   transposes) and forced through the resident-ET instance, equal
+   counters on equal draws; `nr-bg1-z384-stream` (preset
+   `nr-bg1-layered`, batch 256), which no file records: auto, the
+   streaming library and the plain QC decoder give equal counters on
+   equal draws; NR BG1 Z=128 rate 1/3 with early termination against
+   `results/nr_bg1_z128_r13.json` (32,768 frames at 0.5 and 1.0 dB).
+   Then each sweep's decoder
    must be the instance (library, code, decoder and quantizer
    configuration, thresholds, IO mode, batch) that phases 3 and 4 held to
    its plain version;
@@ -79,6 +112,10 @@ Phases, each printing its lines; any failure raises and exits non-zero:
    --rng device --fused --ebn0 1.0:3.5:0.5 --batch 18432 --target-errors
    300 --max-frames 2000000 --out <tmp>` in a subprocess; its JSON
    counters must equal slice 3's;
+   Then the long-codeword command lines: `sweep --preset dvbs2-64800-r12
+   --ebn0 1.5 --max-frames 8192` (the streaming library, no frame error)
+   and `sweep --puncture-frac 0.25` (K1 behind the batch-first step),
+   whose counters must equal `--decoder-backend qc`'s;
 8. two-phase == single-phase counters on two batches of `wifi-full-oms`
    at 3.5 dB;
 9. times: kernels with CUDA events (warm-up, median, plain and kernel in
@@ -88,8 +125,11 @@ Phases, each printing its lines; any failure raises and exits non-zero:
    instance on the same inputs in turns (layered and flooding with early
    termination at 2.0 dB, layered and flooding fixed-20); steps with the
    host clock and a sync (info bits/s), the device-RNG steps against the
-   host-RNG steps in turns, the two new steps with their decode kernel's
-   share.
+   host-RNG steps in turns, slice 4's steps with their decode kernel's
+   share; the streaming library's two placements of the posteriors in
+   turns at n=64,800 and n=16,200, B=1,024 (what
+   `minsum_stream.resident_auto` rests on), each instance as its sweep
+   launched it, and slice 5's steps with their kernel's share.
 
 Each kernel record carries `launches` of the main path named beside it
 and `ms`, `plain_ms`, `bound_ms` of the decoder that path launched.
@@ -117,6 +157,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import typing
 
 import numpy as np
 import torch
@@ -124,28 +165,74 @@ import torch
 HERE = os.path.dirname(os.path.abspath(__file__))
 BATCH = 16384
 MINSTAR_REF = "cn_variants_minstar.json"
-# (label, configuration (see slice_config), schedule or None for the
-# configuration's own, rng, reference: a file of results/ or the label of
-# another slice, points, frames per point)
+STREAM_BATCH = 1024         # the long-codeword cells' batch
+
+
+class Slice(typing.NamedTuple):
+    """One sweep of the main paths: `Sweep(cfg, device="cuda", batch=batch,
+    decoder_backend=backend).run(points, max_frames=frames)`."""
+    label: str
+    what: str               # the configuration (see slice_config)
+    schedule: typing.Optional[str]    # None: the configuration's own
+    rng: str
+    ref: str                # a file of results/ or another slice's label
+    points: tuple
+    frames: int             # per point
+    backend: str = "auto"   # the decoder route to force
+    batch: int = BATCH
+    expect: typing.Optional[str] = None     # the sweep's backend label
+    equal_to: typing.Optional[str] = None   # a slice with the same draws
+
+
+S64800, S16200 = "dvbs2-64800-r12-stream", "dvbs2-16200-r12-resident-et"
+NR384, NR128 = "nr-bg1-z384-stream", "nr-bg1-z128-r13"
 SLICES = (
-    ("wifi-648-r12-minsum", "wifi-648-r12-minsum", None, "host",
-     "wifi648_minsum.json", (1.5, 2.0, 2.5), 32768),
-    ("wifi-full-oms", "wifi-full-oms", None, "host", "wifi12_1944_r56.json",
-     (3.0, 3.5), 131072),
-    ("wifi-full-oms, MC", "wifi-full-oms", None, "device",
-     "wifi12_1944_r56.json", (3.0, 3.5), 131072),
-    ("4a wifi-648-minstar", "wifi-648-minstar", "layered", "host",
-     MINSTAR_REF, (1.5, 2.0), 131072),
-    ("4b qam16-1944-chain", "multihost-qam-chain", None, "host",
-     "qam16_1944_r34_oms.json", (5.5, 6.0), 131072),
-    ("4a wifi-648-minstar, MC", "wifi-648-minstar", "layered", "device",
-     MINSTAR_REF, (2.0,), 32768),
+    Slice("wifi-648-r12-minsum", "wifi-648-r12-minsum", None, "host",
+          "wifi648_minsum.json", (1.5, 2.0, 2.5), 32768),
+    Slice("wifi-full-oms", "wifi-full-oms", None, "host",
+          "wifi12_1944_r56.json", (3.0, 3.5), 131072),
+    Slice("wifi-full-oms, MC", "wifi-full-oms", None, "device",
+          "wifi12_1944_r56.json", (3.0, 3.5), 131072),
+    Slice("4a wifi-648-minstar", "wifi-648-minstar", "layered", "host",
+          MINSTAR_REF, (1.5, 2.0), 131072),
+    Slice("4b qam16-1944-chain", "multihost-qam-chain", None, "host",
+          "qam16_1944_r34_oms.json", (5.5, 6.0), 131072),
+    Slice("4a wifi-648-minstar, MC", "wifi-648-minstar", "layered", "device",
+          MINSTAR_REF, (2.0,), 32768),
     # flooding min* has no recorded waterfall: its host-RNG and device-RNG
     # runs are held to each other
-    ("min* flooding", "wifi-648-minstar", "flooding", "host",
-     "min* flooding, MC", (2.0,), 32768),
-    ("min* flooding, MC", "wifi-648-minstar", "flooding", "device",
-     "min* flooding", (2.0,), 32768),
+    Slice("min* flooding", "wifi-648-minstar", "flooding", "host",
+          "min* flooding, MC", (2.0,), 32768),
+    Slice("min* flooding, MC", "wifi-648-minstar", "flooding", "device",
+          "min* flooding", (2.0,), 32768),
+    # slice 5, the long-codeword regime: the batch-first step, decoded by
+    # the streaming library where no on-chip kernel takes the code
+    Slice("5a " + S64800, S64800, None, "host", "dvbs2_r12_stream.json",
+          (1.0, 1.25), 8192, batch=STREAM_BATCH, expect="cuda-stream"),
+    Slice("5b " + S64800 + "-et", S64800 + "-et", None, "host",
+          "dvbs2_64800_et.json", (1.0, 1.25, 1.5), 8192, batch=STREAM_BATCH,
+          expect="cuda-stream-et"),
+    Slice("5c " + S16200, S16200, None, "host", "dvbs2_16200_et.json",
+          (1.4, 2.2), 16384, batch=STREAM_BATCH,
+          expect="cuda-minsum-layered-bf"),
+    Slice("5c " + S16200 + ", stream", S16200, None, "host",
+          "dvbs2_16200_et.json", (1.4, 2.2), 16384, backend="stream",
+          batch=STREAM_BATCH, expect="cuda-stream-resident-et",
+          equal_to="5c " + S16200),
+    # NR BG1 Z=384 (rate matching: 768 punctured variables) has no recorded
+    # waterfall: auto (K3 behind transposes), the streaming library and the
+    # plain QC decoder are held to each other on equal draws
+    Slice("5d " + NR384, NR384, None, "host", "5d " + NR384 + ", stream",
+          (1.0, 2.0), 512, batch=256, expect="cuda-minsum-layered-bf"),
+    Slice("5d " + NR384 + ", stream", NR384, None, "host", "5d " + NR384,
+          (1.0, 2.0), 512, backend="stream", batch=256,
+          expect="cuda-stream-resident", equal_to="5d " + NR384),
+    Slice("5d " + NR384 + ", plain", NR384, None, "host", "5d " + NR384,
+          (1.0, 2.0), 512, backend="qc", batch=256, expect="torch-qc",
+          equal_to="5d " + NR384),
+    # the statistical anchor of rate matching: NR BG1 Z=128 rate 1/3
+    Slice("5e " + NR128, NR128, None, "host", "nr_bg1_z128_r13.json",
+          (0.5, 1.0), 32768, batch=4096, expect="cuda-minsum-layered-bf"),
 )
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
 CUDA_CORE_OPS_PER_S = 67e12    # float32 rate outside the tensor cores
@@ -254,10 +341,11 @@ def kernel_vs_plain_ms(d, args, kw, gpu, what, kernel_reps=10, plain_reps=3):
 def ops_per_iteration(d):
     """Integer operations one codeword needs for one iteration of decoder
     d (the counting rule of the module docstring)."""
-    dec = getattr(d, "decoder", d)
+    dec = getattr(d, "inner", d)
+    dec = getattr(dec, "decoder", dec)
     Z = dec.ct.Z
     degs = [len(row) for row in dec.ct.entries]
-    if dec.minstar is None:
+    if getattr(dec, "minstar", None) is None:
         return MINSUM_OPS_PER_EDGE * sum(degs) * Z
     per_combine = 12 + 4 * len(dec.minstar)
     return Z * sum((3 * dg - 6) * per_combine + 4 * dg for dg in degs)
@@ -309,40 +397,78 @@ def step_seconds(rb, draw, sigma, reps=10):
     return out
 
 
-def lane_values(sweep, snr_idx, ebn0_db):
-    """Per-frame info-bit errors and iterations of batch 0 of one sweep
-    point, re-drawn from the sweep's own generator through the step's own
-    parts; fails unless their sums are the step's own counters."""
+def lane_variances(sweep, snr_idx, ebn0_db, need_failed, min_failed=10,
+                   max_batches=200):
+    """Per-frame variances (info-bit errors, iterations) of one sweep
+    point, with the frames and failed frames they come from: batch 0,
+    re-drawn from the sweep's own generator through the step's own parts
+    (fails unless its sums are the step's own counters). With `need_failed`
+    and no bit error in batch 0 (a variance of 0 would make the z-test
+    demand equal counts), the bit-error variance comes from further
+    batches, at indices the sweep never uses, until they hold `min_failed`
+    failed frames or `max_batches` ran, as `fused_lane_variances` does."""
     from ldpc_tpu_torch.sim.pipeline import make_lane_step
-    step = make_lane_step(sweep.ct, sweep.cfg, batch=sweep.batch)
+    step = make_lane_step(sweep.ct, sweep.cfg, batch=sweep.batch,
+                          backend=sweep.decoder_backend)
     sigma = sweep._sigma(ebn0_db)
-    bits, _, iters, _ = step(sweep.draw(snr_idx, 0), sigma)
+    bits, frame, iters, _ = step(sweep.draw(snr_idx, 0), sigma)
     want = sweep.run_batch(sweep.draw(snr_idx, 0), sigma).tolist()
     if [int(bits.sum()), int(iters.sum())] != [want[1], want[3]]:
         raise AssertionError("re-drawn batch differs from the step's own")
-    return bits.double(), iters.double()
+    bits = bits.double()
+    sums = torch.stack([bits.sum(), (bits * bits).sum()])
+    count, failed, n = bits.numel(), int(frame.sum()), 0
+    more = need_failed and not bool(bits.any())
+    while more and failed < min_failed and n < max_batches:
+        bb, ff, _, _ = step(sweep.draw(snr_idx, (1 << 20) + n), sigma)
+        bb = bb.double()
+        sums += torch.stack([bb.sum(), (bb * bb).sum()])
+        count += bb.numel()
+        failed += int(ff.sum())
+        n += 1
+    s1, s2 = (float(x) / count for x in sums.tolist())
+    return s2 - s1 * s1, float(iters.double().var()), count, failed
 
 
 def slice_config(port, what, rng, schedule=None, **run):
-    """A preset with `rng` (and `run` fields), `multihost-qam-chain`
-    without its mesh (`qam16-1944-chain`, as bench.py builds it), or
-    `wifi-648-minstar` as bench.py builds it: the canonical preset with
-    the min* update, beta_lsb=0 and early termination. `schedule` replaces
-    the configuration's own."""
+    """A preset with `rng` (and `run` fields), or one of bench.py's
+    extended workloads, built as it builds them: `multihost-qam-chain`
+    without its mesh (`qam16-1944-chain`); `wifi-648-minstar`, the canonical
+    preset with the min* update, beta_lsb=0 and early termination; the
+    long-codeword cells on `dvbs2-64800-r12` (fixed 20 iterations, with
+    early termination, and n=16,200 with early termination);
+    `nr-bg1-z384-stream` (preset `nr-bg1-layered`); and NR BG1 Z=128 rate
+    1/3 with early termination, the configuration of
+    results/nr_bg1_z128_r13.json. `schedule` replaces the configuration's
+    own."""
     star = what == "wifi-648-minstar"
-    cfg = port.PRESETS["wifi-648-r12-minsum" if star else what]
-    dec = cfg.decoder
+    code_kw, dec_kw = {}, {}
+    if star:
+        preset = "wifi-648-r12-minsum"
+        dec_kw = dict(algorithm="min-star", schedule="layered",
+                      early_term=True)
+    elif what.startswith("dvbs2-"):
+        preset = "dvbs2-64800-r12"
+        dec_kw = dict(early_term=what.endswith("-et"))
+        code_kw = dict(n=16200) if what == S16200 else {}
+    elif what in (NR384, NR128):
+        preset = "nr-bg1-layered"
+        if what == NR128:
+            code_kw, dec_kw = dict(Z=128, rate="1/3"), dict(early_term=True)
+    else:
+        preset = what
+    cfg = port.PRESETS[preset]
     if star:
         cfg = dataclasses.replace(
             cfg, quant=dataclasses.replace(cfg.quant, beta_lsb=0))
-        dec = dataclasses.replace(dec, algorithm="min-star",
-                                  schedule="layered", early_term=True)
     if schedule:
-        dec = dataclasses.replace(dec, schedule=schedule)
+        dec_kw["schedule"] = schedule
     if what == "multihost-qam-chain":
         run["mesh_shape"] = None
-    return dataclasses.replace(cfg, decoder=dec, run=dataclasses.replace(
-        cfg.run, rng=rng, **run))
+    return dataclasses.replace(
+        cfg, code=dataclasses.replace(cfg.code, **code_kw),
+        decoder=dataclasses.replace(cfg.decoder, **dec_kw),
+        run=dataclasses.replace(cfg.run, rng=rng, **run))
 
 
 def rows_compatible(row, r, k, var_bits, var_iters):
@@ -359,7 +485,8 @@ def rows_compatible(row, r, k, var_bits, var_iters):
     bits_wilson = rates_compatible(row["bit_errs"], row["frames"] * k,
                                    r["bit_errs"], r["frames"] * k)
     # BER and iterations cluster in failed frames: compare per-frame
-    # means with their per-frame variance, from batch 0 re-drawn
+    # means with their per-frame variance, from batches that hold failed
+    # frames (the caller's).
     ok_b = mean_compatible(row["bit_errs"], row["frames"],
                            r["bit_errs"], r["frames"], var_bits)
     ok_i = mean_compatible(row["avg_iters"] * row["frames"],
@@ -391,14 +518,23 @@ def read_ref(ref_name):
 
 
 def instance_of(d):
-    """What picks a decoder's kernel instance and its launch shape: the
-    library, ET, MC and min* (with its thresholds and quantizer), the code,
-    fused IO, and for the megakernel the batch and the per-lane form."""
+    """What picks a decoder's kernel instance and its launch shape. On-chip
+    libraries: the library, ET, MC and min* (with its thresholds and
+    quantizer), the code, fused IO, whether it stands behind the
+    batch-first transposes, and for the megakernel the batch and the
+    per-lane form. The streaming library: its instance, the code, the CN
+    parameters (a block is one codeword at any batch)."""
+    if hasattr(d, "variant"):
+        return ("minsum_stream", d.variant, d.ct.code.name, d.max_iter,
+                d.beta, d.alpha, d.qmax)
+    behind_transposes = hasattr(d, "inner")
+    if behind_transposes:
+        d = d.inner
     inner = getattr(d, "decoder", d)
     return (inner.library, inner.ct.code.name, inner.dec, inner.quant,
             inner.minstar, inner.input_scale, inner.count_info_cols,
             d is not inner, getattr(d, "batch", None),
-            getattr(d, "lane_sigma", None))
+            getattr(d, "lane_sigma", None), behind_transposes)
 
 
 def same_instance(driven, checked, label):
@@ -409,81 +545,128 @@ def same_instance(driven, checked, label):
                              f"plain was {instance_of(checked)}")
 
 
-def launch_counts(minsum, sweep, label, mc):
-    """The launch counters of the run just made; fails unless it went
-    through the schedule's library only, in its MC instance exactly when
-    `mc`, with no plain call."""
+def launch_counts(minsum, stream, sweep, label, mc):
+    """The launch counters of the run just made. An on-chip route must
+    have gone through the schedule's library only, in its MC instance
+    exactly when `mc`; a streaming route through its instance of the
+    streaming library only; both with no plain call. A plain route (forced,
+    to compare with) launches no kernel. Returns the route's launches."""
     launches = dict(minsum.library_launches)
     mc_launches = dict(minsum.mc_launches)
     star_launches = dict(minsum.star_launches)
-    plain = minsum.plain_calls
+    inst = dict(stream.instance_launches)
+    plain = minsum.plain_calls + stream.plain_calls
     print(f"{label}: backend {sweep.backend}; kernel launches {launches}, "
-          f"of them MC {mc_launches}, min* {star_launches}, plain_calls "
-          f"{plain}", flush=True)
+          f"of them MC {mc_launches}, min* {star_launches}, streaming "
+          f"library {inst}, plain_calls {plain}", flush=True)
+    backend = sweep.backend
+    if backend.startswith("torch-"):
+        if any(launches.values()) or stream.kernel_launches:
+            raise AssertionError(f"{label}: a plain route launched kernels")
+        return 0
+    if backend.startswith("cuda-stream"):
+        variant = backend[len("cuda-"):]
+        if (inst[variant] <= 0 or plain != 0 or any(launches.values())
+                or stream.kernel_launches != inst[variant]):
+            raise AssertionError(f"{label} did not run through the "
+                                 f"{variant} instance only")
+        return inst[variant]
     lib = minsum.LIBRARIES[sweep.cfg.decoder.schedule]
     star = sweep.cfg.decoder.algorithm == "min-star"
     want_mc = {name: launches[name] if mc else 0 for name in launches}
     want_star = {name: launches[name] if star else 0 for name in launches}
     if (launches[lib] <= 0 or plain != 0 or mc_launches != want_mc
-            or star_launches != want_star or any(
-                v for name, v in launches.items() if name != lib)):
+            or star_launches != want_star or stream.kernel_launches
+            or any(v for name, v in launches.items() if name != lib)):
         raise AssertionError(
             f"{label} did not run through {lib}"
             f"{' (min*)' if star else ''}{' (MC)' if mc else ''} only")
     return launches[lib]
 
 
-def run_slice(port, minsum, label, what, schedule, rng, points, frames):
+def run_slice(port, minsum, stream, sl):
     """Runs one row of SLICES on the card; returns (sweep, launches of its
-    library in this run, the result's rows by Eb/N0). Fails unless the step
-    is the megakernel exactly when rng == "device", every launch went
-    through the schedule's library with no plain call, and every point has
-    its frames and finite rates."""
+    kernel in this run, the result's rows by Eb/N0). Fails unless the step
+    is the megakernel exactly when rng == "device", the backend is the
+    row's, every launch went through the route's kernel with no plain
+    call, and every point has its frames and finite rates."""
     from ldpc_tpu_torch.sim import Sweep
-    sweep = Sweep(slice_config(port, what, rng, schedule), device="cuda",
-                  batch=BATCH)
-    if sweep.run_batch.mc != (rng == "device"):
-        raise AssertionError(f"{label}: run_batch.mc is {sweep.run_batch.mc}")
+    sweep = Sweep(slice_config(port, sl.what, sl.rng, sl.schedule),
+                  device="cuda", batch=sl.batch, decoder_backend=sl.backend)
+    if sweep.run_batch.mc != (sl.rng == "device"):
+        raise AssertionError(f"{sl.label}: run_batch.mc is "
+                             f"{sweep.run_batch.mc}")
+    if sl.expect and sweep.backend != sl.expect:
+        raise AssertionError(f"{sl.label}: backend {sweep.backend}, "
+                             f"expected {sl.expect}")
     minsum.reset_counters()
-    res = sweep.run(list(points), target_frame_errors=10 ** 9,
-                    max_frames=frames)
+    stream.reset_counters()
+    t0 = time.perf_counter()
+    res = sweep.run(list(sl.points), target_frame_errors=10 ** 9,
+                    max_frames=sl.frames)
     torch.cuda.synchronize()
-    launches = launch_counts(minsum, sweep, label, rng == "device")
+    wall = time.perf_counter() - t0
+    launches = launch_counts(minsum, stream, sweep, sl.label,
+                             sl.rng == "device")
+    print(f"  {len(sl.points)} points of {sl.frames} frames in {wall:.2f} s",
+          flush=True)
     rows = {row["ebn0_db"]: row for row in res.rows()}
     for row in rows.values():
         if not (np.isfinite(row["ber"]) and np.isfinite(row["fer"])
-                and row["frames"] >= frames):
-            raise AssertionError(f"{label}: rates not finite or frames "
+                and row["frames"] >= sl.frames):
+            raise AssertionError(f"{sl.label}: rates not finite or frames "
                                  f"short at {row['ebn0_db']} dB")
     return sweep, launches, rows
 
 
-def hold_slice(label, sweep, rows, ref, ref_name):
+COUNTERS = ("frames", "bit_errs", "frame_errs", "avg_iters",
+            "early_term_rate")
+
+
+def hold_slice(label, sweep, rows, ref, ref_name, equal=None):
     """Holds a slice's rows to the reference rows `ref` (by Eb/N0; a
     recorded waterfall or another slice's run, named `ref_name`): FER and
     converged rate by Wilson intervals, BER and iterations by per-frame
-    z-tests with the variances of batch 0, re-drawn."""
+    z-tests with the variances of `lane_variances` (batch 0 re-drawn, and
+    further batches where one of the rows holds bit errors and batch 0
+    none). `equal`: the rows of a slice that saw the same draws, whose
+    counters must be these exactly."""
     print(f"{label} against {ref_name}:", flush=True)
     for si, row in enumerate(rows.values()):
         r = ref[row["ebn0_db"]]
-        bits, iters = lane_values(sweep, si, row["ebn0_db"])
-        var_b, var_i = float(bits.var()), float(iters.var())
+        var_b, var_i, count, failed = lane_variances(
+            sweep, si, row["ebn0_db"],
+            need_failed=bool(row["bit_errs"] or r["bit_errs"]))
         oks = rows_compatible(row, r, sweep.code.k_eff, var_b, var_i)
         auto = sweep.auto_choice.get(si)
         print_row(row, r, var_b, var_i, oks,
-                  f"; AUTO (p1, cap) = {auto}" if auto else "")
+                  f"; bit-error variance from {count} frames, {failed} "
+                  f"failed" + (f"; AUTO (p1, cap) = {auto}" if auto else ""))
         if not all(oks[:4]):
             raise AssertionError(f"{label} disagrees with {ref_name} at "
                                  f"{row['ebn0_db']} dB")
+        if equal is not None:
+            other = equal[row["ebn0_db"]]
+            same = all(row[c] == other[c] for c in COUNTERS)
+            print(f"    counters equal the other route's on equal draws: "
+                  f"{same}", flush=True)
+            if not same:
+                raise AssertionError(
+                    f"{label}: {[row[c] for c in COUNTERS]} != "
+                    f"{[other[c] for c in COUNTERS]}")
 
 
-def build_libraries(minsum):
+def build_libraries(minsum, stream):
+    """Builds the three libraries fresh, at the same time."""
     libs = list(minsum.SOURCES)
-    with concurrent.futures.ThreadPoolExecutor(len(libs)) as pool:
-        built = list(pool.map(
-            lambda name: minsum.load_library(name, rebuild=True), libs))
-    for name, lib in zip(libs, built):
-        print(f"nvcc sm_90a build of {minsum.SOURCES[name]}: "
+    sources = dict(minsum.SOURCES, **{stream.LIBRARY: stream.SOURCE})
+    with concurrent.futures.ThreadPoolExecutor(len(sources)) as pool:
+        jobs = {name: pool.submit(minsum.load_library, name, rebuild=True)
+                for name in libs}
+        jobs[stream.LIBRARY] = pool.submit(stream.load_library, rebuild=True)
+        built = {name: job.result() for name, job in jobs.items()}
+    for name, lib in built.items():
+        print(f"nvcc sm_90a build of {sources[name]}: "
               f"{lib.build_seconds:.2f} s -> "
               f"{os.path.relpath(lib.path, HERE)}", flush=True)
         for line in lib.ptxas_log.splitlines():
@@ -599,6 +782,143 @@ def check_mc_kernels(port, minsum, dev):
     return worst, timed, star_worst
 
 
+def bf_chain(ct, cfg, ebn0_db, B, gen, backend="auto"):
+    """The decoder's input (B, n) as the batch-first step of `cfg` makes it
+    at `ebn0_db`: info bits from `gen`, encoded, rate matched, modulated,
+    AWGN, demapped, scattered back and quantized."""
+    from ldpc_tpu_torch.ops.channel import sigma_for
+    from ldpc_tpu_torch.sim.pipeline import make_lane_step
+    step = make_lane_step(ct, cfg, batch=B, backend=backend)
+    sigma = np.float32(sigma_for(ebn0_db, ct.code.rate,
+                                 cfg.channel.modulation))
+    return step.chain(gen, sigma)[1]
+
+
+def hold_to_plain(label, d, q, worst):
+    """d.kernel(q) == d.plain(q), tolerance 0, for a batch-first decoder
+    (a streaming instance, or K3 behind its transposes); the worst error
+    goes to `worst` under the instance's or the library's name."""
+    out_k = d.kernel(q)
+    torch.cuda.synchronize()
+    out_p = d.plain(q)
+    torch.cuda.synchronize()
+    err = max_abs_err(out_k, out_p)
+    same = all(torch.equal(a, b) for a, b in zip(out_k, out_p))
+    key = getattr(d, "variant", None) or d.library
+    shape = (f"{d.launch_smem()} B smem/block" if hasattr(d, "variant")
+             else f"{d.inner.launch_config()[0]} lanes/block")
+    print(f"{label} B={q.shape[0]}: max_abs_err {err:g} equal {same} "
+          f"(converged {int(out_k[2].sum())}/{q.shape[0]}, mean iters "
+          f"{float(out_k[1].double().mean()):.3f}, {key}, {shape})",
+          flush=True)
+    if not same:
+        raise AssertionError(f"kernel != plain on {label}")
+    worst[key] = max(worst.get(key, 0.0), err)
+    return out_k
+
+
+def check_stream_kernels(port, minsum, stream, dev, worst):
+    """The streaming library (K6b-K6f) == its plain version, tolerance 0.
+    The matrix, at 10 iterations: DVB-S2 n=64,800 (B=32), n=16,200 (B=128)
+    and NR BG1 Z=384 (B=64, 768 punctured variables at LLR 0), OMS beta=2
+    and NMS alpha=3/4, fixed iterations and early termination, both
+    placements of the posteriors: the four instances against the plain
+    version, hence against each other, and against K3 behind its
+    transposes where K3 admits the code; an odd batch (B - 1 codewords);
+    an all-zero noiseless batch (converged, iters 0 with early
+    termination). Then every decoder a sweep of slice 5 launches, as
+    `select_decoder` builds it, at that sweep's batch and on its step's own
+    LLRs; and the `stream` instance at the batch the CLI's preset gives it,
+    8,192 codewords of n=64,800, against the `stream-resident` instance on
+    the same input (both were held to plain above). Fills `worst` (by
+    instance, and by library for K3); returns label -> (the decoder held,
+    its input)."""
+    from ldpc_tpu_torch.codes import build_code, from_reference
+    from ldpc_tpu_torch.sim.pipeline import BatchFirstDecoder, select_decoder
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(55)
+    cfgs = {w: slice_config(port, w, "host")
+            for w in (S64800, S64800 + "-et", S16200, NR384, NR128)}
+    cts = {w: from_reference(build_code(cfgs[w]), dev)
+           for w in (S64800, S16200, NR384, NR128)}
+    cts[S64800 + "-et"] = cts[S64800]
+    iters = 10
+    for what, db, B in ((S64800, 1.6, 32), (S16200, 1.6, 128),
+                        (NR384, 1.5, 64)):
+        ct, cfg = cts[what], cfgs[what]
+        q = bf_chain(ct, cfg, db, B, gen)
+        zero = torch.full((B, ct.n), 8, dtype=torch.int8, device=dev)
+        for alg in ("offset-min-sum", "normalized-min-sum"):
+            for et in (False, True):
+                dc = dataclasses.replace(cfg.decoder, algorithm=alg,
+                                         early_term=et, max_iter=iters)
+                what_dec = (f"{what} {alg} {'ET' if et else 'fixed'}-{iters} "
+                            f"{db} dB")
+                decs = [stream.make_decoder(ct, dc, cfg.quant, resident=res)
+                        for res in (False, True)]
+                plain = decs[0].plain(q)
+                for d in decs:
+                    ids = "/".join(k for k, _ in stream.REPLACES[d.variant])
+                    out = hold_to_plain(f"{ids} {what_dec}", d, q, worst)
+                    if not all(torch.equal(a, b) for a, b in zip(out, plain)):
+                        raise AssertionError(f"{d.variant} differs from the "
+                                             f"other instance on {what_dec}")
+                    hz, iz, cz = d.kernel(zero)
+                    want = 0 if et else iters
+                    ok = (int(hz.sum()) == 0 and bool(cz.all())
+                          and bool((iz == want).all()))
+                    print(f"  all-zero noiseless batch: hard 0, converged, "
+                          f"iters {want} on every lane {ok}", flush=True)
+                    if not ok:
+                        raise AssertionError(f"{d.variant} all-zero batch")
+                    odd = d.kernel(q[: B - 1].contiguous())
+                    ok = all(torch.equal(a, b[: B - 1])
+                             for a, b in zip(odd, plain))
+                    print(f"  odd batch of {B - 1}: == plain {ok}",
+                          flush=True)
+                    if not ok:
+                        raise AssertionError(f"{d.variant} odd batch")
+                if minsum.onchip_domain(ct, dc, cfg.quant) is None:
+                    k3 = BatchFirstDecoder(
+                        minsum.make_decoder(ct, dc, cfg.quant)).kernel(q)
+                    ok = all(torch.equal(a, b) for a, b in zip(k3, plain))
+                    print(f"  K3 behind its transposes == the streaming "
+                          f"instances {ok}", flush=True)
+                    if not ok:
+                        raise AssertionError(f"K3 != stream on {what_dec}")
+    held = {}
+    for sl in SLICES:
+        if not sl.label.startswith("5") or sl.backend == "qc":
+            continue
+        ct, cfg = cts[sl.what], cfgs[sl.what]
+        d, label = select_decoder(ct, cfg, batch=sl.batch,
+                                  backend=sl.backend)
+        if label != sl.expect:
+            raise AssertionError(f"{sl.label}: {label}, expected {sl.expect}")
+        q = bf_chain(ct, cfg, sl.points[0], sl.batch, gen, sl.backend)
+        hold_to_plain(f"{sl.label} ({label}) {sl.points[0]} dB", d, q, worst)
+        held[sl.label] = (d, q)
+    # the CLI's launch: `--preset dvbs2-64800-r12` decodes 8,192 codewords a
+    # batch (2.9 GB of kernel scratch, indexed with size_t)
+    ct, cfg = cts[S64800], cfgs[S64800]
+    B = port.PRESETS["dvbs2-64800-r12"].run.batch
+    q = bf_chain(ct, cfg, 1.0, B, gen)
+    d, label = select_decoder(ct, cfg, batch=B)
+    other = stream.make_decoder(ct, cfg.decoder, cfg.quant, resident=True)
+    if (label, other.variant) != ("cuda-stream", "stream-resident"):
+        raise AssertionError(f"the preset's decoder is {label}")
+    out, want = d.kernel(q), other.kernel(q)
+    torch.cuda.synchronize()
+    ok = all(torch.equal(a, b) for a, b in zip(out, want))
+    print(f"{label} at the preset's batch B={B}, 1.0 dB: == stream-resident "
+          f"{ok} (converged {int(out[2].sum())}/{B})", flush=True)
+    if not ok or not 0 < int(out[2].sum()) < B:
+        raise AssertionError("stream != stream-resident at the CLI's batch")
+    del d, other, out, want, q
+    torch.cuda.empty_cache()
+    return held
+
+
 def fused_lane_variances(sweep, rb, sigmas, min_failed=100,
                          max_batches=200):
     """Per-frame variances (bit errors, iterations) of each point: from
@@ -639,7 +959,7 @@ def fused_lane_variances(sweep, rb, sigmas, min_failed=100,
     return out
 
 
-def check_fused(port, minsum, checked):
+def check_fused(port, minsum, stream, checked):
     """Slice 3: the fused device-RNG sweep against its recorded waterfall,
     through a decoder of the shape `checked` (phase 4's per-lane-sigma
     decoder); returns (result, flooding MC launches, the sweep's decoder)."""
@@ -651,11 +971,13 @@ def check_fused(port, minsum, checked):
                        max_frames=f["max_frames"])
     sweep = Sweep(cfg, device="cuda")
     minsum.reset_counters()
+    stream.reset_counters()
     t0 = time.perf_counter()
     res = sweep.run_fused(list(f["points"]))
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = launch_counts(minsum, sweep, "slice 3 run_fused", True)
+    launches = launch_counts(minsum, stream, sweep, "slice 3 run_fused",
+                             True)
     rb = sweep.fused_run_batch(len(f["points"]))
     same_instance(rb.decoder, checked, "slice 3 run_fused")
     sig = np.asarray([sweep._sigma(e) for e in f["points"]], np.float32)
@@ -705,6 +1027,67 @@ def check_cli(res):
         raise AssertionError(f"CLI counters {got_rows} != {want}")
 
 
+def check_cli_long():
+    """The long-codeword command lines on the card, at once: `sweep
+    --preset dvbs2-64800-r12` with nothing but a point and a frame limit
+    (the preset's batch of 8,192) must run on the streaming library and, at
+    1.5 dB, decode every frame; `--puncture-frac 0.25` on the default code
+    must run on K1 behind the batch-first step, and give the plain QC
+    decoder's counters on equal draws (`--decoder-backend qc`)."""
+    punct = ["--puncture-frac", "0.25", "--ebn0", "2.0,3.0", "--batch",
+             "4096", "--max-frames", "16384", "--target-errors", "1000000"]
+    runs = {"dvbs2": ["--preset", "dvbs2-64800-r12", "--ebn0", "1.5",
+                      "--max-frames", "8192"],
+            "punctured": punct,
+            "punctured, plain": punct + ["--decoder-backend", "qc"]}
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        procs = {}
+        for i, (name, argv) in enumerate(runs.items()):
+            cmd = [sys.executable, "-m", "ldpc_tpu_torch.cli", "sweep",
+                   *argv, "--no-checkpoint", "--out",
+                   os.path.join(tmp, f"run{i}")]
+            procs[name] = (i, subprocess.Popen(
+                cmd, cwd=HERE, stdout=subprocess.PIPE,
+                stderr=subprocess.PIPE, text=True))
+        got = {}
+        try:
+            for name, (i, proc) in procs.items():
+                _, err = proc.communicate(timeout=600)
+                if proc.returncode != 0:
+                    raise AssertionError(
+                        f"CLI {name} failed ({proc.returncode}):\n"
+                        f"{err[-3000:]}")
+                with open(os.path.join(tmp, f"run{i}.json")) as fh:
+                    got[name] = json.load(fh)
+        finally:
+            for _, proc in procs.values():
+                if proc.poll() is None:
+                    proc.kill()
+    for name, res in got.items():
+        print(f"CLI {name}: backend {res['decoder_backend']}, k {res['k']}, "
+              + "; ".join(f"{r['ebn0_db']} dB frames {r['frames']} frame_errs "
+                          f"{r['frame_errs']} bit_errs {r['bit_errs']} "
+                          f"avg_iters {r['avg_iters']:.4f}"
+                          for r in res["results"]), flush=True)
+    print(f"  three command lines in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    row = got["dvbs2"]["results"][0]
+    if (got["dvbs2"]["decoder_backend"] != "cuda-stream"
+            or row["frames"] < 8192 or row["frame_errs"] != 0):
+        raise AssertionError("CLI --preset dvbs2-64800-r12 at 1.5 dB")
+    a, b = got["punctured"], got["punctured, plain"]
+    if (a["decoder_backend"], b["decoder_backend"]) != ("cuda-minsum-bf",
+                                                        "torch-qc"):
+        raise AssertionError("CLI --puncture-frac: backends")
+    if [[r[c] for c in COUNTERS] for r in a["results"]] != [
+            [r[c] for c in COUNTERS] for r in b["results"]]:
+        raise AssertionError("CLI --puncture-frac: K1 behind the batch-first "
+                             "step and the plain QC decoder differ")
+    if a["results"][0]["frames"] < 16384:
+        raise AssertionError("CLI --puncture-frac: frames short")
+
+
 def main():
     phase("device")
     if not torch.cuda.is_available():
@@ -718,13 +1101,14 @@ def main():
     port = import_port()
     from ldpc_tpu_torch.codes import build_code, from_reference
     from ldpc_tpu_torch.kernels import minsum
+    from ldpc_tpu_torch.kernels import minsum_stream as stream
     from ldpc_tpu_torch.ops.channel import sigma_for
     from ldpc_tpu_torch.sim import make_run_batch
     from ldpc_tpu_torch.sim.sweep import batch_seed
     dev = torch.device("cuda")
 
-    phase("build (both libraries at once)")
-    libs = build_libraries(minsum)
+    phase("build (the three libraries at once)")
+    libs = build_libraries(minsum, stream)
     phase("kernel vs plain (tolerance 0)")
     cfg648 = port.PRESETS["wifi-648-r12-minsum"]
     oms_cfg = port.PRESETS["wifi-full-oms"]
@@ -874,17 +1258,25 @@ def main():
     phase("K1-MC kernel vs plain (tolerance 0)")
     mc_worst, mc_timed, star_mc_worst = check_mc_kernels(port, minsum, dev)
 
-    phase("slices 1, 2 and 4: sweeps against recorded waterfalls "
+    phase("streaming library K6b-K6f vs plain (tolerance 0), and K3 behind "
+          "its transposes")
+    stream_held = check_stream_kernels(port, minsum, stream, dev, worst)
+
+    phase("slices 1, 2, 4 and 5: sweeps against recorded waterfalls "
           "(wifi-648-r12-minsum; wifi-full-oms, also with rng=device; "
           "wifi-648-minstar (K5) and qam16-1944-chain (16-QAM chain + K3); "
-          "the other min* instances on their steps)")
+          "the other min* instances on their steps; the long-codeword "
+          "cells on the batch-first step: dvbs2-64800-r12 fixed and with "
+          "early termination (the streaming library), dvbs2-16200 and NR "
+          "BG1 route against route, NR BG1 Z=128 rate 1/3)")
     sweeps, launches, rows = {}, {}, {}
-    for label, what, sched, rng_mode, _, points, frames in SLICES:
-        sweeps[label], launches[label], rows[label] = run_slice(
-            port, minsum, label, what, sched, rng_mode, points, frames)
-    for label, _, _, _, ref_name, _, _ in SLICES:
-        ref = rows[ref_name] if ref_name in rows else read_ref(ref_name)
-        hold_slice(label, sweeps[label], rows[label], ref, ref_name)
+    for sl in SLICES:
+        sweeps[sl.label], launches[sl.label], rows[sl.label] = run_slice(
+            port, minsum, stream, sl)
+    for sl in SLICES:
+        ref = rows[sl.ref] if sl.ref in rows else read_ref(sl.ref)
+        hold_slice(sl.label, sweeps[sl.label], rows[sl.label], ref, sl.ref,
+                   rows[sl.equal_to] if sl.equal_to else None)
     # every decoder a sweep launched was held to its plain version above,
     # as that instance and at that batch
     for label, checked in (
@@ -900,15 +1292,19 @@ def main():
             ("4a wifi-648-minstar, MC", mc_timed["star layered"][0]),
             ("min* flooding",
              held["K5 n648 min* flooding ET fused-IO 2.0 dB B=16384"]),
-            ("min* flooding, MC", mc_timed["star flood"][0])):
+            ("min* flooding, MC", mc_timed["star flood"][0]),
+            *((label, d) for label, (d, _) in stream_held.items())):
         same_instance(sweeps[label].run_batch.decoder, checked, label)
 
     phase("slice 3: fused device-RNG sweep (run_fused)")
     fused_res, fused_launches, fused_dec = check_fused(
-        port, minsum, mc_timed["flood lanes"][0])
+        port, minsum, stream, mc_timed["flood lanes"][0])
 
     phase("CLI: sweep --rng device --fused")
     check_cli(fused_res)
+    phase("CLI: sweep --preset dvbs2-64800-r12, sweep --puncture-frac 0.25")
+    torch.cuda.empty_cache()
+    check_cli_long()
     loaded = sorted(m for m in sys.modules if m.split(".")[0] == "jax")
     if loaded:
         raise AssertionError(f"jax modules loaded: {loaded[:5]}")
@@ -1022,13 +1418,71 @@ def main():
             key, d, f"K1-MC min* step of {BATCH} codewords (n648 "
             f"{d.dec.schedule}, ET, Philox, 2.0 dB)", plain_reps=1)
 
-    def report_step(name, rb, draw, sigma, k):
+    # Slice 5. The two placements of the posteriors in turns on the same
+    # inputs, B = 1,024, at n=64,800 and n=16,200 (what
+    # `minsum_stream.resident_auto` rests on), K3 behind its transposes
+    # beside them where it takes the code; then each instance as its main
+    # path launched it (the decoder object held above, on that input).
+    l5a, l5b = "5a " + S64800, "5b " + S64800 + "-et"
+    l5c, l5d = "5c " + S16200, "5d " + NR384
+    d5a, q5a = stream_held[l5a]
+    d5b = stream_held[l5b][0]
+    d5c, q5c = stream_held[l5c]
+    d5cs = stream_held[l5c + ", stream"][0]
+    d5ds, q5d = stream_held[l5d + ", stream"]
+    if (d5a.variant, d5b.variant, d5cs.variant, d5ds.variant) != (
+            "stream", "stream-et", "stream-resident-et", "stream-resident"):
+        raise AssertionError("slice 5's sweeps did not cover the instances")
+    q5b = bf_chain(d5b.ct, sweeps[l5b].cfg, 1.25, STREAM_BATCH, gen)
+
+    def placed(d, resident, early_term):
+        """d's decoder in another instance of the library."""
+        return stream.make_stream_decoder(
+            d.ct, max_iter=d.max_iter, beta=d.beta, qmax=d.qmax,
+            alpha=d.alpha, resident=resident, early_term=early_term)
+
+    timing["turns 64800 fixed"] = kernels_in_turns_ms(
+        {"stream": d5a, "stream-resident": placed(d5a, True, False)},
+        (q5a,), gpu, f"n=64,800 OMS fixed-20 at 1.0 dB, {STREAM_BATCH} "
+        f"codewords", reps=5)
+    timing["turns 64800 ET"] = kernels_in_turns_ms(
+        {"stream-et": d5b, "stream-resident-et": placed(d5b, True, True)},
+        (q5b,), gpu, f"n=64,800 OMS ET at 1.25 dB, {STREAM_BATCH} codewords",
+        reps=5)
+    timing["turns 16200 fixed"] = kernels_in_turns_ms(
+        {"stream": placed(d5cs, False, False),
+         "stream-resident": placed(d5cs, True, False)}, (q5c,), gpu,
+        f"n=16,200 OMS fixed-20 at 1.4 dB, {STREAM_BATCH} codewords")
+    timing["turns 16200 ET"] = kernels_in_turns_ms(
+        {"stream-et": placed(d5cs, False, True), "stream-resident-et": d5cs,
+         "K3 behind its transposes": d5c}, (q5c,), gpu,
+        f"n=16,200 OMS ET at 1.4 dB, {STREAM_BATCH} codewords")
+    timing["K6 stream"] = timed_call(
+        d5a, (q5a,), f"K6b/K6c stream decode of {STREAM_BATCH} codewords "
+        f"(n=64,800 OMS, 20 fixed iterations, 1.0 dB: {l5a}'s launch)",
+        plain_reps=1)
+    timing["K6 stream-et"] = timed_call(
+        d5b, (q5b,), f"K6f stream-et decode of {STREAM_BATCH} codewords "
+        f"(n=64,800 OMS, ET, 1.25 dB: {l5b}'s launch)", plain_reps=1)
+    timing["K6 stream-resident-et"] = timed_call(
+        d5cs, (q5c,), f"K6e stream-resident-et decode of {STREAM_BATCH} "
+        f"codewords (n=16,200 OMS, ET, 1.4 dB: {l5c}, stream's launch)",
+        plain_reps=1)
+    timing["K6 stream-resident"] = timed_call(
+        d5ds, (q5d,), f"K6d stream-resident decode of {q5d.shape[0]} "
+        f"codewords (NR BG1 Z=384 OMS, 20 fixed iterations, 1.0 dB: {l5d}, "
+        f"stream's launch)", plain_reps=1)
+    timing["K3 16200"] = timed_call(
+        d5c, (q5c,), f"K3 behind its transposes, decode of {STREAM_BATCH} "
+        f"codewords (n=16,200 OMS, ET, 1.4 dB: {l5c}'s launch)")
+
+    def report_step(name, rb, draw, sigma, k, batch=BATCH):
         st = step_seconds(rb, draw, sigma)
         med = statistics.median(st)
-        print(f"[{gpu}] {name} step ({rb.backend_label}) of {BATCH} "
+        print(f"[{gpu}] {name} step ({rb.backend_label}) of {batch} "
               f"codewords: {med * 1e3:.4f} ms median of {len(st)} (min "
               f"{min(st) * 1e3:.4f}, max {max(st) * 1e3:.4f}) -> "
-              f"{BATCH * k / med:.6e} decoded info bits/s", flush=True)
+              f"{batch * k / med:.6e} decoded info bits/s", flush=True)
         return med * 1e3
 
     dev648 = make_run_batch(s648.ct, slice_config(
@@ -1059,6 +1513,24 @@ def main():
               f"{100 * timing[key][0] / min(ms):.1f}% of the faster step",
               flush=True)
 
+    for label, si, db, key in ((l5a, 0, 1.0, "K6 stream"),
+                               (l5b, 1, 1.25, "K6 stream-et"),
+                               (l5c, 0, 1.4, "K3 16200"),
+                               (l5c + ", stream", 0, 1.4,
+                                "K6 stream-resident-et")):
+        sw = sweeps[label]
+        ms = [report_step(f"{label} {db} dB rng=host", sw.run_batch,
+                          sw.generator(si, 0), sw._sigma(db), sw.code.k_eff,
+                          sw.batch) for _ in range(2)]
+        chain_ms = statistics.median(event_ms(
+            lambda: sw.run_batch.chain(sw.generator(si, 0), sw._sigma(db)),
+            5))
+        print(f"  its decode kernel alone: {timing[key][0]:.4f} ms, "
+              f"{100 * timing[key][0] / min(ms):.1f}% of the faster step; "
+              f"its chain before the decoder (draws, encode, rate matching, "
+              f"channel, quantize; CUDA events): {chain_ms:.4f} ms",
+              flush=True)
+
     def record(name, lib, launched, err, t):
         star = "_star" in name
         return {"name": name, "route": "cuda",
@@ -1069,6 +1541,19 @@ def main():
                 "launches": launched, "max_abs_err": err, "ms": t[0],
                 "plain_ms": t[1], "bound_ms": t[2], "bound_by": t[3],
                 "library_ms": None}
+
+    stream_launched = {"stream": launches[l5a], "stream-et": launches[l5b],
+                       "stream-resident-et": launches[l5c + ", stream"],
+                       "stream-resident": launches[l5d + ", stream"]}
+    stream_records = [
+        {"name": f"minsum_stream_{kid}", "instance": variant, "route": "cuda",
+         "source": stream.SOURCE, "replaces": site,
+         "launches": stream_launched[variant],
+         "max_abs_err": worst[variant], "ms": t[0], "plain_ms": t[1],
+         "bound_ms": t[2], "bound_by": t[3], "library_ms": None}
+        for variant, sites in stream.REPLACES.items()
+        for kid, site in sites
+        for t in (timing[f"K6 {variant}"],)]
 
     # launches: of the main path named; ms, plain_ms, bound_ms: of the
     # decoder object that path launched, at its batch
@@ -1095,7 +1580,8 @@ def main():
                star_mc_worst["minsum_layered"], timing["K5 MC layered"]),
         record("minsum_flood_star_mc", "minsum_flood",
                launches["min* flooding, MC"],
-               star_mc_worst["minsum_flood"], timing["K5 MC flooding"])]}))
+               star_mc_worst["minsum_flood"], timing["K5 MC flooding"]),
+        *stream_records]}))
     print(gpu)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -72,6 +72,9 @@ MC_REPLACES = "ldpc_tpu/kernels/minsum_pallas.py:990"
 STAR_SOURCE = "ldpc_tpu_torch/kernels/csrc/cn_minstar.cuh"
 STAR_REPLACES = "ldpc_tpu/kernels/minsum_pallas.py:159"
 MAX_THRESHOLDS = 8      # ldpc::kMaxThresholds of csrc/cn_minsum.cuh
+MAX_THREADS = 1024      # ldpc::kMaxThreads
+MAX_SMEM = 232448       # ldpc::kMaxSmem, the 227 KB opt-in of sm_90
+PREFERRED_SMEM = 113 * 1024     # ldpc::kPreferredSmem, two blocks per SM
 
 kernel_launches = 0
 plain_calls = 0
@@ -137,6 +140,89 @@ def kernel_tables(ct: CodeTensors) -> np.ndarray:
                            col_ent]).astype(np.int32)
 
 
+def align16(x: int) -> int:
+    return (x + 15) & ~15
+
+
+def table_words(ct: CodeTensors) -> int:
+    """int32 words of `kernel_tables` (ldpc::table_words)."""
+    return (ct.mb + 1) + 3 * ct.n_entries + (ct.nb + 1)
+
+
+def base_degrees(ct: CodeTensors) -> Tuple[int, int]:
+    """(least base-row degree, largest base-column degree)."""
+    col_deg = np.bincount([c for row in ct.entries for c, _, _ in row],
+                          minlength=ct.nb)
+    return min(len(row) for row in ct.entries), int(col_deg.max())
+
+
+def onchip_smem_bytes(ct: CodeTensors, schedule: str, star_deg: int,
+                      lanes: int) -> int:
+    """Dynamic shared memory of one block of `lanes` codewords of the
+    on-chip kernels (smem_bytes of csrc/minsum_flood.cu and
+    minsum_layered.cu): the tables, two words per lane, int16 totals or
+    posteriors, for flooding the int8 channel, the int8 messages and the
+    min* scratch."""
+    return (align16(4 * table_words(ct)) + align16(8 * lanes)
+            + align16(2 * ct.n * lanes)
+            + (align16(ct.n * lanes) if schedule == "flooding" else 0)
+            + align16(ct.n_entries * ct.Z * lanes)
+            + align16(star_deg * ct.Z * lanes))
+
+
+def pick_lanes(ct: CodeTensors, schedule: str, star_deg: int = 0) -> int:
+    """Codeword lanes per block of the on-chip kernels for this code
+    (ldpc::pick_lanes of csrc/cn_minsum.cuh), without building them: the
+    most lanes (a power of two <= 32, lanes * Z <= 1024 threads) whose
+    state fits 113 KB, else the 227 KB opt-in; 0 when one codeword's state
+    does not fit one SM's shared memory."""
+    for limit in (PREFERRED_SMEM, MAX_SMEM):
+        lanes = 32
+        while lanes >= 1:
+            if (lanes * ct.Z <= MAX_THREADS and onchip_smem_bytes(
+                    ct, schedule, star_deg, lanes) <= limit):
+                return lanes
+            lanes //= 2
+    return 0
+
+
+def star_degree(ct: CodeTensors, dec: DecoderConfig) -> int:
+    """The min* instances' scratch degree, the largest base-row degree; 0
+    for the min-sum update."""
+    if dec.algorithm != "min-star":
+        return 0
+    return max(len(row) for row in ct.entries)
+
+
+def kernel_domain(ct: CodeTensors, quant: QuantConfig) -> Optional[str]:
+    """None when the kernels' arithmetic takes the code, else why not. The
+    CN update needs base rows of degree >= 2, and the kernels keep totals
+    (flooding) or posteriors (layered) in int16: |chan| <= 128 plus dv
+    messages of magnitude <= qmax must stay below 2**15."""
+    row_deg, col_deg = base_degrees(ct)
+    if row_deg >= 2 and 128 + col_deg * quant.qmax < 2 ** 15:
+        return None
+    return (f"{ct.code.name}: the kernel needs base-row degrees >= 2 and "
+            f"int16-safe posteriors")
+
+
+def onchip_domain(ct: CodeTensors, dec: DecoderConfig,
+                  quant: QuantConfig) -> Optional[str]:
+    """None when an on-chip kernel (K1/K2/K3/K5) takes this code and
+    decoder, else why not: `kernel_domain`, or a state per codeword above
+    one SM's shared memory. Reads shapes only and builds nothing."""
+    why = kernel_domain(ct, quant)
+    if why is not None:
+        return why
+    star_deg = star_degree(ct, dec)
+    if pick_lanes(ct, dec.schedule, star_deg) == 0:
+        need = onchip_smem_bytes(ct, dec.schedule, star_deg, 1)
+        return (f"{ct.code.name}: the state of one codeword ({need} B) "
+                f"exceeds the {MAX_SMEM} B of shared memory a block can "
+                f"use, or Z={ct.Z} exceeds {MAX_THREADS} threads")
+    return None
+
+
 class MinsumDecoder:
     """Min-sum family or min* decoder (flooding or layered, fixed
     iterations or early termination) for one code and config."""
@@ -175,19 +261,9 @@ class MinsumDecoder:
         self._plain = make_plain_decoder(ct.code, dec, quant)
         self._tables_np = kernel_tables(ct)
         self._tables: Dict[torch.device, torch.Tensor] = {}
-        row_deg = np.diff(self._tables_np[: ct.mb + 1])
         # the min* instances' scratch degree; 0 selects the min-sum update
-        self.star_deg = int(row_deg.max()) if self.minstar is not None else 0
-        col_deg = np.bincount([c for row in ct.entries for c, _, _ in row],
-                              minlength=ct.nb)
-        # The kernels keep totals (flooding) or posteriors (layered) in
-        # int16: |chan| <= 128 plus dv messages of magnitude <= qmax must
-        # stay below 2**15.
-        self._kernel_domain = (
-            None if row_deg.min() >= 2
-            and 128 + int(col_deg.max()) * quant.qmax < 2 ** 15
-            else f"{ct.code.name}: the kernel needs base-row degrees >= 2 "
-                 f"and int16-safe posteriors")
+        self.star_deg = star_degree(ct, dec)
+        self._kernel_domain = kernel_domain(ct, quant)
 
     @property
     def counting(self) -> bool:

@@ -202,6 +202,33 @@ def make_flooding_decoder(
     return decode
 
 
+def _layer_tables(code: LDPCCode, lay):
+    """The layered decoders' gather tables, (L, Cmax, D) each: message
+    slot, variable and mask of every check of every layer. Layers are the
+    QC base rows when the code has them, else a greedy disjoint grouping
+    (codes/layout.py); pad slots point at the dump slot and the pad
+    column."""
+    M, D, N = lay.m, lay.max_dc, lay.n
+    DUMP = M * D
+    if code.base is not None and code.Z is not None:
+        Z = int(code.Z)
+        layers = [np.arange(i * Z, (i + 1) * Z) for i in range(code.m // Z)]
+    else:
+        layers = compile_layers_general(code)
+    L = len(layers)
+    Cmax = max(len(l) for l in layers)
+    lpos = np.full((L, Cmax, D), DUMP, np.int64)
+    lev = np.full((L, Cmax, D), N, np.int64)
+    lmask = np.zeros((L, Cmax, D), bool)
+    for li, checks in enumerate(layers):
+        for t, c in enumerate(checks):
+            m_ = lay.cn_mask[c]
+            lpos[li, t][m_] = c * D + np.nonzero(m_)[0]
+            lev[li, t] = lay.ev_dense[c]
+            lmask[li, t] = m_
+    return lpos, lev, lmask
+
+
 def make_layered_decoder(
     code: LDPCCode,
     max_iter: int = 20,
@@ -227,22 +254,8 @@ def make_layered_decoder(
     lay = compile_edge_layout(code)
     M, D, N = lay.m, lay.max_dc, lay.n
     DUMP = M * D
-    if code.base is not None and code.Z is not None:
-        Z = int(code.Z)
-        layers = [np.arange(i * Z, (i + 1) * Z) for i in range(code.m // Z)]
-    else:
-        layers = compile_layers_general(code)
-    L = len(layers)
-    Cmax = max(len(l) for l in layers)
-    lpos = np.full((L, Cmax, D), DUMP, np.int64)
-    lev = np.full((L, Cmax, D), N, np.int64)
-    lmask = np.zeros((L, Cmax, D), bool)
-    for li, checks in enumerate(layers):
-        for t, c in enumerate(checks):
-            m_ = lay.cn_mask[c]
-            lpos[li, t][m_] = c * D + np.nonzero(m_)[0]
-            lev[li, t] = lay.ev_dense[c]
-            lmask[li, t] = m_
+    lpos, lev, lmask = _layer_tables(code, lay)
+    L = lpos.shape[0]
     on = _on_device((lpos, lev, lmask, np.asarray(lay.ev_dense, np.int64)))
 
     def decode(chan: torch.Tensor) -> Decoded:
@@ -283,6 +296,164 @@ def make_layered_decoder(
             else:
                 c2v_flat, post, hard = c2v_new, post_new, hard_new
                 iters += 1
+        conv = done if early_term else _syndrome_ok(hard, ev)
+        return hard.to(torch.uint8), iters, conv
+
+    return decode
+
+
+# ---------------------------------------------------------------------------
+# Float decoders (counterpart of `_cn_update_float`, `make_float_decoder`,
+# `make_layered_float_decoder`): belief propagation on raw float32 LLRs, no
+# quantizer. The reference computes them outside any kernel; plain torch.
+# ---------------------------------------------------------------------------
+
+FLOAT_CN = ("sum-product", "min-sum", "offset-min-sum", "normalized-min-sum")
+
+
+def _cn_update_float(v2c: torch.Tensor, mask: torch.Tensor, algorithm: str,
+                     beta: float) -> torch.Tensor:
+    """Float CN update on dense (..., C, D) float32 messages. sum-product
+    is the tanh rule (inputs clipped to +-30, |tanh| floored at 1e-12, the
+    quotient clipped to +-0.999999); the min-sum family excludes the first
+    slot of least magnitude; offset subtracts beta, floored at 0, and for
+    normalized beta carries the scaling factor."""
+    if algorithm == "sum-product":
+        t = torch.tanh(torch.clamp(v2c, -30.0, 30.0) / 2.0)
+        eps = 1e-12
+        t = torch.where(t.abs() < eps, torch.where(t < 0, -eps, eps), t)
+        t = torch.where(mask, t, 1.0)
+        p = t.prod(dim=-1, keepdim=True)
+        r = torch.clamp(p / t, -0.999999, 0.999999)
+        return torch.where(mask, 2.0 * torch.atanh(r), 0.0)
+    big = 1e30
+    mags = torch.where(mask, v2c, big).abs()
+    amin = mags.argmin(dim=-1, keepdim=True)
+    first = torch.arange(v2c.shape[-1], device=v2c.device) == amin
+    min1 = mags.amin(dim=-1, keepdim=True)
+    min2 = torch.where(first, big, mags).amin(dim=-1, keepdim=True)
+    neg = (v2c < 0) & mask
+    par = (neg.sum(dim=-1, keepdim=True) & 1).bool()
+    excl_mag = torch.where(first, min2, min1)
+    if algorithm == "offset-min-sum":
+        excl_mag = torch.clamp(excl_mag - beta, min=0.0)
+    elif algorithm == "normalized-min-sum":
+        excl_mag = excl_mag * beta
+    val = torch.where(par ^ neg, -excl_mag, excl_mag)
+    return torch.where(mask, val, 0.0)
+
+
+def make_float_decoder(
+    code: LDPCCode,
+    max_iter: int = 20,
+    algorithm: str = "sum-product",
+    beta: float = 0.5,
+    early_term: bool = True,
+    schedule: str = "flooding",
+) -> Callable[[torch.Tensor], Decoded]:
+    """Float BP decoder: decode(llr (B, n) float32) -> (hard uint8, iters
+    int32, converged bool), on llr's device; schedule "layered" gives
+    `make_layered_float_decoder`."""
+    if algorithm not in FLOAT_CN:
+        raise ValueError(f"unknown float CN update {algorithm!r}")
+    if schedule == "layered":
+        return make_layered_float_decoder(code, max_iter, algorithm, beta,
+                                          early_term)
+    if schedule != "flooding":
+        raise ValueError(schedule)
+    lay = compile_edge_layout(code)
+    M, D = lay.m, lay.max_dc
+    on = _on_device((np.asarray(lay.ev_dense, np.int64),
+                     np.asarray(lay.vn_pos, np.int64),
+                     np.asarray(lay.cn_mask, bool)))
+    beta = float(np.float32(beta))
+
+    def decode(chan: torch.Tensor) -> Decoded:
+        ev, vn_pos, mask = on(chan.device)
+        B = chan.shape[0]
+        chan = chan.to(torch.float32)
+
+        def pad1(x):
+            return torch.nn.functional.pad(x, (0, 1))
+
+        def totals(c2v_flat):
+            return chan + c2v_flat[:, vn_pos].sum(dim=-1)
+
+        c2v_flat = torch.zeros((B, M * D + 1), dtype=torch.float32,
+                               device=chan.device)
+        hard = chan < 0
+        done = (_syndrome_ok(hard, ev) if early_term
+                else torch.zeros(B, dtype=torch.bool, device=chan.device))
+        iters = torch.zeros(B, dtype=torch.int32, device=chan.device)
+        for _ in range(max_iter):
+            if early_term and bool(done.all()):
+                break
+            c2v_d = c2v_flat[:, : M * D].reshape(B, M, D)
+            v2c = pad1(totals(c2v_flat))[:, ev] - c2v_d
+            new_flat = pad1(_cn_update_float(v2c, mask, algorithm, beta
+                                             ).reshape(B, M * D))
+            hard_new = totals(new_flat) < 0
+            keep = done[:, None]
+            c2v_flat = torch.where(keep, c2v_flat, new_flat)
+            hard = torch.where(keep, hard, hard_new)
+            iters += (~done).to(torch.int32)
+            if early_term:
+                done = done | _syndrome_ok(hard_new, ev)
+        conv = done if early_term else _syndrome_ok(hard, ev)
+        return hard.to(torch.uint8), iters, conv
+
+    return decode
+
+
+def make_layered_float_decoder(
+    code: LDPCCode,
+    max_iter: int = 20,
+    algorithm: str = "sum-product",
+    beta: float = 0.5,
+    early_term: bool = True,
+) -> Callable[[torch.Tensor], Decoded]:
+    """Layered float BP decoder, the same-schedule float bound of the
+    layered fixed-point runs: every check of a layer reads the posterior
+    as it stood before the layer, the syndrome is taken once per sweep."""
+    if algorithm not in FLOAT_CN:
+        raise ValueError(f"unknown float CN update {algorithm!r}")
+    lay = compile_edge_layout(code)
+    on = _on_device(_layer_tables(code, lay)
+                    + (np.asarray(lay.ev_dense, np.int64),))
+    N, DUMP = lay.n, lay.m * lay.max_dc
+    beta = float(np.float32(beta))
+
+    def decode(chan: torch.Tensor) -> Decoded:
+        lpos_t, lev_t, lmask_t, ev = on(chan.device)
+        B = chan.shape[0]
+        chan = chan.to(torch.float32)
+        c2v_flat = torch.zeros((B, DUMP + 1), dtype=torch.float32,
+                               device=chan.device)
+        post = torch.nn.functional.pad(chan, (0, 1))
+        hard = chan < 0
+        done = (_syndrome_ok(hard, ev) if early_term
+                else torch.zeros(B, dtype=torch.bool, device=chan.device))
+        iters = torch.zeros(B, dtype=torch.int32, device=chan.device)
+        for _ in range(max_iter):
+            if early_term and bool(done.all()):
+                break
+            c2v_new, post_new = c2v_flat.clone(), post.clone()
+            for li in range(lpos_t.shape[0]):
+                pos, evl, mk = lpos_t[li], lev_t[li], lmask_t[li]
+                old = c2v_new[:, pos]
+                new = _cn_update_float(post_new[:, evl] - old, mk,
+                                       algorithm, beta)
+                delta = torch.where(mk, new - old, 0.0)
+                post_new[:, evl.reshape(-1)] += delta.reshape(B, -1)
+                c2v_new[:, pos.reshape(-1)] = new.reshape(B, -1)
+            hard_new = post_new[:, :N] < 0
+            keep = done[:, None]
+            c2v_flat = torch.where(keep, c2v_flat, c2v_new)
+            post = torch.where(keep, post, post_new)
+            hard = torch.where(keep, hard, hard_new)
+            iters += (~done).to(torch.int32)
+            if early_term:
+                done = done | _syndrome_ok(hard_new, ev)
         conv = done if early_term else _syndrome_ok(hard, ev)
         return hard.to(torch.uint8), iters, conv
 

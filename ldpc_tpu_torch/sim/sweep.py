@@ -131,22 +131,27 @@ class Sweep:
     torch versions); a CUDA request without a card raises. batch: codewords
     per batch (cfg.run.batch when None). checkpoint_path: JSON state
     written after every consumed batch; pass the same path again to
-    resume. lookahead: batches kept in flight (at least 1). After a run
+    resume. lookahead: batches kept in flight (at least 1).
+    decoder_backend: "auto", or a route to force (`pipeline.resolve_route`;
+    a route that cannot run raises). After a run
     with AUTO two-phase, `auto_choice[snr_idx]` holds the (phase1_iters,
     phase2_frac) chosen for that point, (None, None) where single-phase
     was kept."""
 
     def __init__(self, cfg: SimConfig, device: DeviceLike = "cuda",
                  batch: Optional[int] = None,
-                 checkpoint_path: Optional[str] = None, lookahead: int = 4):
+                 checkpoint_path: Optional[str] = None, lookahead: int = 4,
+                 decoder_backend: str = "auto"):
         self.cfg = cfg
+        self.decoder_backend = decoder_backend
         self.device = resolve_device(device)
         self.code = build_code(cfg)
         self.ct = from_reference(self.code, self.device)
         self.batch = batch or cfg.run.batch
         self.checkpoint_path = checkpoint_path
         self.lookahead = max(1, lookahead)
-        self.run_batch = make_run_batch(self.ct, cfg, batch=self.batch)
+        self.run_batch = make_run_batch(self.ct, cfg, batch=self.batch,
+                                        backend=decoder_backend)
         self.backend = self.run_batch.backend_label
         self._fused_rb: Dict[int, Callable] = {}
         # phase1_iters == -1: AUTO two-phase early termination. The base
@@ -196,7 +201,8 @@ class Sweep:
             return self.run_batch
         if self._probe is None:
             self._probe = make_iter_probe(self.ct, self.cfg,
-                                          min(self.batch, 2048))
+                                          min(self.batch, 2048),
+                                          backend=self.decoder_backend)
         it = self._probe(self.generator(snr_idx, 2 ** 31 - 2), sigma)
         it = it.cpu().numpy()
         g = self.run_batch.decoder.batch_tile
@@ -213,8 +219,9 @@ class Sweep:
             cfgv = dataclasses.replace(
                 self.cfg, decoder=dataclasses.replace(
                     self.cfg.decoder, phase1_iters=p1, phase2_frac=frac))
-            self._tuned_rb[key] = make_run_batch(self.ct, cfgv,
-                                                 batch=self.batch)
+            self._tuned_rb[key] = make_run_batch(
+                self.ct, cfgv, batch=self.batch,
+                backend=self.decoder_backend)
         return self._tuned_rb[key]
 
     def _meta(self, key: str, ebn0_list: Sequence[float]) -> Dict:
@@ -322,7 +329,8 @@ class Sweep:
         simulates slot b % n_points, counters come back (5, n_points)."""
         if n_points not in self._fused_rb:
             self._fused_rb[n_points] = make_run_batch(
-                self.ct, self.cfg, batch=self.batch, n_points=n_points)
+                self.ct, self.cfg, batch=self.batch, n_points=n_points,
+                backend=self.decoder_backend)
         return self._fused_rb[n_points]
 
     def run_fused(self, ebn0_list: Sequence[float],

@@ -62,7 +62,8 @@ def pick_two_phase(iters_sample, max_iter: int, tile_frac: float,
     return best
 
 
-def make_iter_probe(ct: CodeTensors, cfg: SimConfig, batch: int = 2048
+def make_iter_probe(ct: CodeTensors, cfg: SimConfig, batch: int = 2048,
+                    backend: str = "auto"
                     ) -> Callable[[torch.Generator, float], torch.Tensor]:
     """probe(generator, sigma) -> per-lane first-convergence iteration
     counts (int32, (batch,), on ct's device) through the real chain (info
@@ -71,7 +72,7 @@ def make_iter_probe(ct: CodeTensors, cfg: SimConfig, batch: int = 2048
     the sampled CDF is what the sweep's batches see."""
     cfg1 = dataclasses.replace(
         cfg, decoder=dataclasses.replace(cfg.decoder, phase1_iters=None))
-    step = make_lane_step(ct, cfg1, batch=batch)
+    step = make_lane_step(ct, cfg1, batch=batch, backend=backend)
     max_iter = cfg.decoder.max_iter
 
     def probe(generator: torch.Generator, sigma) -> torch.Tensor:

@@ -219,16 +219,39 @@ def test_layered_and_early_term_configs_run(cfg, label):
         assert p.iter_sum == 20 * 64
 
 
-@pytest.mark.parametrize("cfg,match", [
-    (_cfg(decoder=dict(algorithm="min-sum-float")), "item 13"),
-    (_cfg(decoder=dict(algorithm="sum-product")), "item 13"),
-    (_cfg(code=dict(shorten_bits=27)), "item 13"),
-    (_cfg(code=dict(punct_frac=0.25)), "item 13"),
-    (_cfg(run=dict(all_zeros=True)), "batch-first"),
+@pytest.mark.parametrize("cfg,backend,match", [
+    (_cfg(decoder=dict(algorithm="gallager-b")), "auto",
+     "unknown decoder algorithm"),
+    (_cfg(channel=dict(modulation="qam1024")), "auto", "unknown modulation"),
+    (_cfg(run=dict(rng="hardware")), "auto", "rng="),
+    (_cfg(code=dict(punct_frac=0.25), channel=dict(modulation="16qam")),
+     "auto", "not a multiple"),
+    (CFG, "stream", "layered-only"),
 ])
-def test_configs_outside_the_slice_raise(cfg, match):
-    with pytest.raises(NotImplementedError, match=match):
-        Sweep(cfg, device="cpu", batch=32)
+def test_configs_outside_the_slice_raise(cfg, backend, match):
+    """What no step runs raises: unknown names, a transmitted length that
+    does not fill the symbols, a forced route that cannot run."""
+    with pytest.raises(ValueError, match=match):
+        Sweep(cfg, device="cpu", batch=32, decoder_backend=backend)
+
+
+@pytest.mark.parametrize("cfg,label", [
+    (_cfg(decoder=dict(algorithm="min-sum-float")), "torch-float"),
+    (_cfg(decoder=dict(algorithm="sum-product")), "torch-float"),
+    (_cfg(code=dict(shorten_bits=27)), "torch-plain-bf"),
+    (_cfg(code=dict(punct_frac=0.25)), "torch-plain-bf"),
+    (_cfg(run=dict(all_zeros=True)), "torch-plain-bf"),
+])
+def test_configs_once_outside_the_slice_run_batch_first(cfg, label):
+    """The float algorithms, rate matching and all_zeros, once refused, run
+    on the batch-first step; info bits per frame are k_eff."""
+    sweep = Sweep(cfg, device="cpu", batch=16)
+    assert sweep.backend == label and not sweep.run_batch.transposed
+    p = sweep.run([3.0], target_frame_errors=10 ** 9,
+                  max_frames=16).points[0]
+    assert p.frames == 16 and p.converged > 0
+    assert p.bit_errs <= 16 * sweep.code.k_eff
+    assert sweep.code.k_eff == 324 - cfg.code.shorten_bits
 
 
 def test_device_rng_runs_through_the_plain_megakernel():

@@ -65,11 +65,14 @@ def test_every_module_and_the_cli_load_nothing_of_the_reference(tmp_path):
         f"    '--modulation', 'qpsk', '--ebn0', '3.0', '--batch', '16',\n"
         f"    '--max-frames', '32', '--device', 'cpu', '--out', {out!r}])\n"
         "assert rc == 0\n"
+        "for new in ('ops.decode_qc', 'kernels.minsum_stream',\n"
+        "            'kernels.probe_stream', 'sim.pipeline'):\n"
+        "    assert 'ldpc_tpu_torch.' + new in names, new\n"
         "print(len(names), sorted(foreign() - before))\n")
     res = _run(["-c", code])
     assert res.returncode == 0, res.stderr
     n_modules, gained = res.stdout.strip().splitlines()[-1].split(" ", 1)
-    assert int(n_modules) >= 30 and gained == "[]"
+    assert int(n_modules) >= 33 and gained == "[]"
     got = json.load(open(out + ".json"))
     assert got["decoder_backend"] == "torch-plain-minstar-layered"
     assert got["results"][0]["frames"] == 32

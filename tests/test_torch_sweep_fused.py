@@ -233,7 +233,7 @@ def test_cli_flags_match_the_reference():
 @pytest.mark.parametrize("flags,match", [
     (["--mesh", "2"], "item 16"),
     (["--num-processes", "2"], "item 16"),
-    (["--decoder-backend", "jnp"], "item 16"),
+    (["--coordinator", "localhost:1234"], "item 16"),
     (["--superbatches", "2"], "superbatching"),
 ])
 def test_cli_refuses_unported_flags(flags, match):

@@ -7,8 +7,9 @@ Phases, each printing its lines; any failure raises and exits non-zero:
 
 1. device: requires a CUDA device (never runs on the CPU) and prints the
    card's `nvidia-smi` name and power limit;
-2. build: compiles the three kernel libraries fresh with nvcc for sm_90a,
-   at the same time (`minsum_flood.cu`: K1/K1-IO/K2 and the flooding K1-MC
+2. build: compiles the four kernel libraries fresh with nvcc for sm_90a,
+   at the same time (`microbench.cu`: the six microbenchmark kernels S1-S6;
+   `minsum_flood.cu`: K1/K1-IO/K2 and the flooding K1-MC
    instance; `minsum_layered.cu`: K3 and the layered K1-MC instance; both
    include `cn_minstar.cuh`, the min* update K5 that doubles their
    instances, `mc_stage.cuh` and `philox.cuh`; `minsum_stream.cu`: the
@@ -57,7 +58,22 @@ Phases, each printing its lines; any failure raises and exits non-zero:
    at that sweep's batch on its step's own LLRs (n=64,800 at B=1,024 among
    them), and the `stream` instance at the CLI preset's batch of 8,192
    against the `stream-resident` instance (kernel against kernel: the
-   plain version would take a quarter of a minute there);
+   plain version would take a quarter of a minute there). On the DVB-S2
+   codes the C oracle (`ldpc_tpu_torch/oracle.py`, built with the system
+   compiler) is the third witness: the first 8 frames of every instance's
+   kernel output equal `oracle.decode_batch`. Then the microbenchmark
+   library (`kernels/microbench.py`, S1-S6) against its plain versions,
+   tolerance 0: the sweep with and without the shift at 44 sweeps (the
+   int32 totals wrap) and the min-sum sweep with int32 and int16 messages
+   at 20, at B = 512, 1,024, 1,001 and 16,384; the packed int16 expression
+   on the script's inputs, on the int16 extremes and fed back 3 times, also
+   against numpy; the int32 chain at 1, 2 and 4 elements a thread; `grid32`
+   == `grid1` == plain; the library's shared-memory size against the
+   wrapper's. Then the entry point `python -m
+   ldpc_tpu_torch.kernels.microbench`, driven in process for every variant
+   at the reference's iteration counts (`rot`, `base`, `minsum`, `minsum16`
+   at B = 512, 1,024 and 16,384; `int16`; `opshape`; `gridstep`), its JSON
+   lines printed, with its launches counted from 0 and no plain call;
 5. slices 1, 2, 4 and 5, one table (SLICES), one path: each row is a
    `Sweep(cfg, device="cuda", batch=..., decoder_backend=...).run(points)`
    (batch 16,384 and the route `auto` unless the row says otherwise) whose
@@ -108,6 +124,19 @@ Phases, each printing its lines; any failure raises and exits non-zero:
    `results/wifi648_fused_mc.json` at all six points (FER and converged
    rate by Wilson intervals, BER by the per-frame z-test, average
    iterations exactly 20), on the decoder instance that phase 4 checked;
+   then slice 6, the hard-decision path (the port's counterpart of
+   `scripts/make_hard_curve.py`): 802.11n n=648 rate 1/2 at full width,
+   batch 2,048, 4,096 frames at each of p = 0.005, 0.01, 0.02, 0.03, 0.04,
+   0.06: info bits -> encoder -> `channel.bsc` -> Gallager-B and
+   bit-flipping (`ops/decode_hard`, 30 iterations, plain torch: the
+   reference has no kernel there) and, over `bsc_llr` + `quantize`, the
+   soft decoder that `select_decoder` gives (K1 behind the batch-first
+   transposes, held to its plain version on a batch of these LLRs first;
+   0 plain calls in the run); the (3,6)-regular array code on the
+   all-zeros word. Every curve of `results/bsc_hard_wifi648.json` at all
+   six p: FER by Wilson intervals, BER by the per-frame z-test (with
+   this run's per-frame variance or, where larger, the least the file's
+   row allows; the 36 rows share the 1% between them, z = 3.63);
 7. CLI: `python -m ldpc_tpu_torch.cli sweep --preset wifi-648-r12-minsum
    --rng device --fused --ebn0 1.0:3.5:0.5 --batch 18432 --target-errors
    300 --max-frames 2000000 --out <tmp>` in a subprocess; its JSON
@@ -129,7 +158,12 @@ Phases, each printing its lines; any failure raises and exits non-zero:
    share; the streaming library's two placements of the posteriors in
    turns at n=64,800 and n=16,200, B=1,024 (what
    `minsum_stream.resident_auto` rests on), each instance as its sweep
-   launched it, and slice 5's steps with their kernel's share.
+   launched it, and slice 5's steps with their kernel's share; the six
+   microbenchmark kernels against their plain versions in turns, each at
+   the shape the entry point gives it (the sweeps at B = 16,384 and the
+   entry point's smaller iteration count, 200; the int32 chain at 2,000
+   iterations, where its plain version takes a second), and the min-sum
+   sweep's time a sweep beside K1's time an iteration.
 
 Each kernel record carries `launches` of the main path named beside it
 and `ms`, `plain_ms`, `bound_ms` of the decoder that path launched.
@@ -143,12 +177,18 @@ per edge and iteration for the min-sum row (subtract, |.|, the clip, two
 merges of min1/min2, the sign XOR to reduce; subtract, compare, select,
 negate, store and the posterior update to emit), and for a min* row of
 degree d, 3d - 6 combines of 12 + 4 * nthr operations plus 4 per edge.
-`library_ms` is null: no single PyTorch call decodes an LDPC code.
+`library_ms` is null: no single PyTorch call decodes an LDPC code, and
+none computes a sweep over 88 shifted gathers or a dependent chain of
+hundreds of integer steps. The microbenchmarks' operations are counted by
+`kernels/microbench.py` (`sweep_cost` and the like: one add an entry, 12 an
+edge, 6 a pair of chain statements, 4 a grid step); the arithmetic of the
+bound itself is `utils.profiling.bound`.
 
 Ends with one JSON line of kernel records, the nvidia-smi line, and, last,
 the device line {"ok": true, "device": {"platform": "gpu", ...}}.
 """
 import concurrent.futures
+import ctypes
 import dataclasses
 import json
 import os
@@ -157,6 +197,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import types
 import typing
 
 import numpy as np
@@ -234,12 +275,15 @@ SLICES = (
     Slice("5e " + NR128, NR128, None, "host", "nr_bg1_z128_r13.json",
           (0.5, 1.0), 32768, batch=4096, expect="cuda-minsum-layered-bf"),
 )
-HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
-CUDA_CORE_OPS_PER_S = 67e12    # float32 rate outside the tensor cores
 MINSUM_OPS_PER_EDGE = 12
 FUSED = dict(preset="wifi-648-r12-minsum", ref="wifi648_fused_mc.json",
              points=(1.0, 1.5, 2.0, 2.5, 3.0, 3.5), batch=18432,
              target=300, max_frames=2_000_000)
+# slice 6, the hard-decision path, as scripts/make_hard_curve.py runs it
+HARD = dict(preset="wifi-648-r12-minsum", ref="bsc_hard_wifi648.json",
+            ps=(0.005, 0.01, 0.02, 0.03, 0.04, 0.06), batch=2048,
+            frames=4096, max_iter=30, seed=13)
+MICRO_BATCHES = (512, 1024, BATCH)   # the reference's two tiles, and K1's
 
 
 def phase(name):
@@ -304,22 +348,10 @@ def max_abs_err(a, b):
                if x.numel() else 0.0 for x, y in zip(a, b))
 
 
-def event_ms(fn, reps):
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    times = []
-    for _ in range(reps):
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return times
-
-
 def kernel_vs_plain_ms(d, args, kw, gpu, what, kernel_reps=10, plain_reps=3):
     """Median ms of d.kernel and d.plain on (*args, **kw), in turns (plain,
     kernel, kernel, plain) after a warm-up; prints and returns both."""
+    from ldpc_tpu_torch.utils.profiling import event_ms
     for _ in range(3):
         d.kernel(*args, **kw)
     d.plain(*args, **kw)
@@ -355,20 +387,17 @@ def bound_of(d, args, kw):
     """(bound_ms, bound_by) of one call d.kernel(*args, **kw): bytes moved
     once over the memory rate against the operations this call's lanes
     need over the CUDA cores' rate."""
+    from ldpc_tpu_torch.utils.profiling import bound, tensor_bytes
     out = d.kernel(*args, **kw)
     torch.cuda.synchronize()
-    moved = sum(t.numel() * t.element_size()
-                for t in list(args) + list(kw.values()) + list(out)
-                if isinstance(t, torch.Tensor))
     ops = int(out[-2].to(torch.int64).sum()) * ops_per_iteration(d)
-    t_bytes = moved / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / CUDA_CORE_OPS_PER_S * 1e3
-    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+    return bound(tensor_bytes(args, kw, out), ops)
 
 
 def kernels_in_turns_ms(decs, args, gpu, what, reps=10):
     """Median kernel ms of several decoders on the same arguments, in turns
     (a, b, b, a) after a warm-up; prints and returns them by name."""
+    from ldpc_tpu_torch.utils.profiling import event_ms
     names = list(decs)
     for name in names:
         for _ in range(3):
@@ -656,14 +685,16 @@ def hold_slice(label, sweep, rows, ref, ref_name, equal=None):
                     f"{[other[c] for c in COUNTERS]}")
 
 
-def build_libraries(minsum, stream):
-    """Builds the three libraries fresh, at the same time."""
+def build_libraries(minsum, stream, micro):
+    """Builds the four libraries fresh, at the same time."""
     libs = list(minsum.SOURCES)
-    sources = dict(minsum.SOURCES, **{stream.LIBRARY: stream.SOURCE})
+    sources = dict(minsum.SOURCES, **{stream.LIBRARY: stream.SOURCE,
+                                      micro.LIBRARY: micro.SOURCE})
     with concurrent.futures.ThreadPoolExecutor(len(sources)) as pool:
         jobs = {name: pool.submit(minsum.load_library, name, rebuild=True)
                 for name in libs}
         jobs[stream.LIBRARY] = pool.submit(stream.load_library, rebuild=True)
+        jobs[micro.LIBRARY] = pool.submit(micro.load_library, rebuild=True)
         built = {name: job.result() for name, job in jobs.items()}
     for name, lib in built.items():
         print(f"nvcc sm_90a build of {sources[name]}: "
@@ -833,6 +864,7 @@ def check_stream_kernels(port, minsum, stream, dev, worst):
     the same input (both were held to plain above). Fills `worst` (by
     instance, and by library for K3); returns label -> (the decoder held,
     its input)."""
+    from ldpc_tpu_torch import oracle
     from ldpc_tpu_torch.codes import build_code, from_reference
     from ldpc_tpu_torch.sim.pipeline import BatchFirstDecoder, select_decoder
     gen = torch.Generator(device=dev)
@@ -863,6 +895,18 @@ def check_stream_kernels(port, minsum, stream, dev, worst):
                     if not all(torch.equal(a, b) for a, b in zip(out, plain)):
                         raise AssertionError(f"{d.variant} differs from the "
                                              f"other instance on {what_dec}")
+                    if what != NR384:
+                        want = oracle.decode_batch(
+                            q[:8].cpu().numpy(), ct.code, max_iter=iters,
+                            beta=d.beta, qmax=d.qmax, schedule="layered",
+                            early_term=et, alpha=d.alpha)
+                        ok = all(np.array_equal(a[:8].cpu().numpy(), b)
+                                 for a, b in zip(out, want))
+                        print(f"  the C oracle on the first 8 frames == the "
+                              f"kernel {ok}", flush=True)
+                        if not ok:
+                            raise AssertionError(f"{d.variant} != the C "
+                                                 f"oracle on {what_dec}")
                     hz, iz, cz = d.kernel(zero)
                     want = 0 if et else iters
                     ok = (int(hz.sum()) == 0 and bool(cz.all())
@@ -1088,6 +1132,224 @@ def check_cli_long():
         raise AssertionError("CLI --puncture-frac: frames short")
 
 
+def check_microbench(micro, dev):
+    """The microbenchmark library (S1-S6) == its plain versions on the card,
+    tolerance 0; returns the worst error by kernel name."""
+    rng = np.random.default_rng(66)
+    worst = dict.fromkeys(micro.REPLACES, 0.0)
+    g = micro.wifi648()
+
+    def hold(name, label, got, want):
+        torch.cuda.synchronize()
+        err = max_abs_err((got,), (want,))
+        same = torch.equal(got, want)
+        print(f"{name} {label}: max_abs_err {err:g} equal {same}", flush=True)
+        if not same:
+            raise AssertionError(f"microbench {name} != plain on {label}")
+        worst[name] = max(worst[name], err)
+
+    lib = micro.load_library().cdll
+    for c2v_bytes in (0, 2, 4):
+        lanes = micro.pick_lanes(g, c2v_bytes)
+        smem = ctypes.c_longlong(0)
+        lib.microbench_config(g.nb, g.Z, g.mb, g.n_entries, c2v_bytes, lanes,
+                              ctypes.byref(smem))
+        print(f"message bytes {c2v_bytes}: {lanes} lanes a block, "
+              f"{smem.value} B of shared memory", flush=True)
+        if smem.value != micro.smem_bytes(g, c2v_bytes, lanes):
+            raise AssertionError("the library's block is not the wrapper's")
+    for B in (512, 1024, 1001, BATCH):
+        chan = torch.as_tensor(rng.integers(
+            -100, 100, size=(g.nb, g.Z, B)).astype(np.int8)).to(dev)
+        for use_rot in (True, False):
+            hold("sweep", f"{'rot' if use_rot else 'base'} B={B} 44 sweeps "
+                 f"(the totals wrap int32)", micro.sweep(chan, 44, use_rot),
+                 micro.sweep_plain(chan, 44, use_rot))
+        for dt in (torch.int32, torch.int16):
+            hold("minsum", f"{dt} messages B={B} 20 sweeps",
+                 micro.minsum(chan, 20, dt), micro.minsum_plain(chan, 20, dt))
+    a, b = (rng.integers(-120, 120, size=(64, 256)).astype(np.int16)
+            for _ in range(2))
+    for label, iters in (("the script's inputs", 1), ("the int16 extremes", 1),
+                         ("fed back 3 times", 3)):
+        if "extremes" in label:
+            a, b = (rng.integers(-32768, 32768, size=(64, 256)).astype(
+                np.int16) for _ in range(2))
+            a[0, :4] = [-32768, -32767, 32767, 0]
+            b[0, :4] = [5, -32768, -32768, -32768]
+        ta, tb = torch.as_tensor(a).to(dev), torch.as_tensor(b).to(dev)
+        got = micro.int16(ta, tb, iters)
+        hold("int16", label, got, micro.int16_plain(ta, tb, iters))
+        if iters == 1:
+            ref = np.minimum(np.where(a < b, np.maximum(a, b), np.abs(a)),
+                             np.maximum(a, np.int16(3)))
+            if not np.array_equal(got.cpu().numpy(), ref):
+                raise AssertionError(f"int16 != numpy on {label}")
+    for rows, n_ops in ((micro.Z, 64), (2 * micro.Z, 32), (4 * micro.Z, 16)):
+        x = torch.as_tensor(rng.integers(
+            -128, 128, size=(rows, micro.TILE_W)).astype(np.int8)).to(dev)
+        hold("opchain", f"({rows}, {micro.TILE_W}) n_ops {n_ops} 50 "
+             f"iterations, {micro.opchain_ilp(x)} a thread",
+             micro.opchain(x, n_ops, 50), micro.opchain_plain(x, n_ops, 50))
+    x = torch.as_tensor(rng.integers(
+        -128, 128, (micro.Z, micro.N_TILES * micro.TILE_W)).astype(
+            np.int8)).to(dev)
+    g32, g1 = micro.grid32(x), micro.grid1(x)
+    want = micro.gridstep_plain(x)
+    hold("grid32", f"{tuple(x.shape)}, {micro.INNER} steps", g32, want)
+    hold("grid1", f"{tuple(x.shape)}, {micro.INNER} steps", g1, want)
+    if not torch.equal(g32, g1):
+        raise AssertionError("grid32 != grid1")
+    return worst
+
+
+def drive_microbench(micro):
+    """The entry point in process, every variant at the reference's
+    iteration counts; its counters are set to 0 just before and read just
+    after. Returns (records by (variant, batch), launches by kernel)."""
+    runs = [[v, "--batch", str(B)] for v in ("rot", "base", "minsum",
+                                             "minsum16")
+            for B in MICRO_BATCHES]
+    runs += [["int16"], ["opshape"], ["gridstep"]]
+    micro.reset_counters()
+    records = {}
+    t0 = time.perf_counter()
+    for argv in runs:
+        for rec in micro.main(argv):
+            records[rec["variant"], rec.get("batch_tile")] = rec
+    torch.cuda.synchronize()
+    launches = dict(micro.kernel_launches)
+    plain = sum(micro.plain_calls.values())
+    print(f"microbench entry point: {len(runs)} runs in "
+          f"{time.perf_counter() - t0:.1f} s; kernel launches {launches}, "
+          f"plain_calls {plain}", flush=True)
+    if plain or not all(launches.values()):
+        raise AssertionError("the entry point did not run every kernel, or "
+                             "ran a plain version")
+    if records["int16", None] != {"variant": "int16", "pass": True}:
+        raise AssertionError("int16: FAIL")
+    for B in MICRO_BATCHES:
+        rot, base = records["rot", B], records["base", B]
+        print(f"  B={B}: rot {rot['us_per_sweep']} us a sweep beside base "
+              f"{base['us_per_sweep']} (the shift costs "
+              f"{rot['us_per_sweep'] - base['us_per_sweep']:.3f} us, "
+              f"{100 * (rot['us_per_sweep'] / base['us_per_sweep'] - 1):.1f}"
+              f"%); minsum {records['minsum', B]['us_per_sweep']}, minsum16 "
+              f"{records['minsum16', B]['us_per_sweep']}", flush=True)
+    return records, launches
+
+
+def check_hard(port, minsum, stream, dev):
+    """Slice 6, the hard-decision path: HARD["frames"] frames at each p of
+    the BSC through Gallager-B, bit-flipping and the soft min-sum decoder
+    (K1 behind the batch-first transposes, 0 plain calls) on 802.11n n=648,
+    and through both hard decoders on the (3,6)-regular array code, every
+    curve held to results/bsc_hard_wifi648.json."""
+    from ldpc_tpu_torch.codes import build_code, from_reference
+    from ldpc_tpu_torch.codes.toy import array_qc
+    from ldpc_tpu_torch.ops import channel as ch
+    from ldpc_tpu_torch.ops import make_hard_decoder
+    from ldpc_tpu_torch.ops.encode import make_encoder
+    from ldpc_tpu_torch.ops.quantize import quantize
+    from ldpc_tpu_torch.sim.pipeline import select_decoder
+    from ldpc_tpu_torch.sim.stats import (mean_compatible, rates_compatible,
+                                          wilson_interval)
+    h = HARD
+    cfg = port.PRESETS[h["preset"]]
+    ct = from_reference(build_code(cfg), dev)
+    reg = array_qc()
+    B, n_batches = h["batch"], h["frames"] // h["batch"]
+    soft, label = select_decoder(ct, cfg, batch=B, batch_first=True)
+    if label != "cuda-minsum-bf":
+        raise AssertionError(f"slice 6: the soft decoder is {label}")
+    enc = make_encoder(ct)
+    algs = ("gallager-b", "bit-flip")
+    wifi_decs = {a: make_hard_decoder(ct.code, max_iter=h["max_iter"],
+                                      algorithm=a) for a in algs}
+    reg_decs = {a: make_hard_decoder(reg, max_iter=h["max_iter"],
+                                     algorithm=a) for a in algs}
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(h["seed"])
+
+    def received(p):
+        info = torch.randint(0, 2, (B, ct.k), generator=gen, device=dev,
+                             dtype=torch.uint8)
+        rx = ch.bsc(gen, enc(info), p)
+        return info, rx, quantize(ch.bsc_llr(rx, p), cfg.quant)
+
+    # the soft decoder on these LLRs (two magnitudes only) == its plain
+    # version, before the counted run
+    _, _, q = received(0.04)
+    out_k, out_p = soft.kernel(q), soft.plain(q)
+    torch.cuda.synchronize()
+    same = all(torch.equal(a, b) for a, b in zip(out_k, out_p))
+    print(f"K1 behind its transposes on BSC LLRs at p=0.04, B={B}: == plain "
+          f"{same} (converged {int(out_k[2].sum())}/{B})", flush=True)
+    if not same:
+        raise AssertionError("slice 6: K1 != plain on BSC LLRs")
+
+    with open(os.path.join(HERE, "results", h["ref"])) as f:
+        ref = {r["p"]: r for r in json.load(f)["results"]}
+    minsum.reset_counters()
+    stream.reset_counters()
+    t0 = time.perf_counter()
+    per_frame = {}      # (p, curve) -> per-frame bit errors, all batches
+    for p in h["ps"]:
+        p32 = np.float32(p)
+        for _ in range(n_batches):
+            info, rx, q = received(p32)
+            outs = {"min-sum-8bit": soft(q)[0], "uncoded": rx}
+            outs.update({a: d(rx)[0] for a, d in wifi_decs.items()})
+            for name, hard in outs.items():
+                errs = (hard[:, ct.info_positions] != info).sum(dim=1)
+                per_frame.setdefault((p, name), []).append(errs)
+            y = ch.bsc(gen, torch.zeros((B, reg.n), dtype=torch.uint8,
+                                        device=dev), p32)
+            for a, d in reg_decs.items():
+                per_frame.setdefault((p, "regular/" + a), []).append(
+                    d(y)[0].sum(dim=1))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = minsum.library_launches["minsum_flood"]
+    plain = minsum.plain_calls + stream.plain_calls
+    print(f"slice 6: {len(h['ps'])} points of {h['frames']} frames in "
+          f"{wall:.2f} s; backend {label}; kernel launches "
+          f"{dict(minsum.library_launches)}, plain_calls {plain}", flush=True)
+    if (launches != len(h["ps"]) * n_batches or plain
+            or minsum.kernel_launches != launches or stream.kernel_launches):
+        raise AssertionError("slice 6 did not run through K1 only")
+    # 36 BER rows are held at once: each at 1% / 36 (two-sided), so that
+    # the family of them fails a right port 1 time in 100, as one row would
+    z_ber = statistics.NormalDist().inv_cdf(1 - 0.005 / len(per_frame))
+    for (p, name), chunks in per_frame.items():
+        errs = torch.cat(chunks).double()
+        frames = errs.numel()
+        bits = reg.n if name.startswith("regular/") else ct.k
+        r, rf = ref[p][name], ref[p]["frames"]
+        bit_errs, frame_errs = int(errs.sum()), int((errs > 0).sum())
+        ref_fe = round(r["fer"] * rf)
+        ok_f = rates_compatible(frame_errs, frames, ref_fe, rf)
+        # The per-frame variance: this run's, or, where this run saw fewer
+        # failed frames than it takes to estimate one, the least the file's
+        # row allows (its bit errors spread evenly over its failed frames:
+        # mu^2 / FER - mu^2).
+        mu = r["ber"] * bits
+        var = max(float(errs.var()),
+                  mu * mu / r["fer"] - mu * mu if r["fer"] > 0 else 0.0)
+        ok_b = mean_compatible(bit_errs, frames, mu * rf, rf, var, z=z_ber)
+        lo, hi = wilson_interval(frame_errs, frames)
+        rlo, rhi = wilson_interval(ref_fe, rf)
+        print(f"  p {p} {name}: frames {frames} FER {frame_errs / frames:.4e}"
+              f" [{lo:.4e}, {hi:.4e}] ref {r['fer']:.4e} [{rlo:.4e}, "
+              f"{rhi:.4e}] compatible {ok_f}; BER "
+              f"{bit_errs / (frames * bits):.4e} ref {r['ber']:.4e} "
+              f"compatible {ok_b} (per-frame z-test at z = {z_ber:.3f}, sd "
+              f"{var ** 0.5:.2f} bits/frame)", flush=True)
+        if not (ok_f and ok_b and frames == h["frames"]):
+            raise AssertionError(f"slice 6: {name} disagrees with "
+                                 f"{h['ref']} at p = {p}")
+
+
 def main():
     phase("device")
     if not torch.cuda.is_available():
@@ -1100,15 +1362,17 @@ def main():
           f"device_count {torch.cuda.device_count()}", flush=True)
     port = import_port()
     from ldpc_tpu_torch.codes import build_code, from_reference
+    from ldpc_tpu_torch.kernels import microbench as micro
     from ldpc_tpu_torch.kernels import minsum
     from ldpc_tpu_torch.kernels import minsum_stream as stream
     from ldpc_tpu_torch.ops.channel import sigma_for
     from ldpc_tpu_torch.sim import make_run_batch
     from ldpc_tpu_torch.sim.sweep import batch_seed
+    from ldpc_tpu_torch.utils.profiling import bound, event_ms
     dev = torch.device("cuda")
 
-    phase("build (the three libraries at once)")
-    libs = build_libraries(minsum, stream)
+    phase("build (the four libraries at once)")
+    libs = build_libraries(minsum, stream, micro)
     phase("kernel vs plain (tolerance 0)")
     cfg648 = port.PRESETS["wifi-648-r12-minsum"]
     oms_cfg = port.PRESETS["wifi-full-oms"]
@@ -1262,6 +1526,12 @@ def main():
           "its transposes")
     stream_held = check_stream_kernels(port, minsum, stream, dev, worst)
 
+    phase("microbench library S1-S6 vs plain (tolerance 0)")
+    micro_worst = check_microbench(micro, dev)
+    phase("microbench entry point, every variant (python -m "
+          "ldpc_tpu_torch.kernels.microbench <variant> [--batch N])")
+    micro_records, micro_launches = drive_microbench(micro)
+
     phase("slices 1, 2, 4 and 5: sweeps against recorded waterfalls "
           "(wifi-648-r12-minsum; wifi-full-oms, also with rng=device; "
           "wifi-648-minstar (K5) and qam16-1944-chain (16-QAM chain + K3); "
@@ -1299,6 +1569,10 @@ def main():
     phase("slice 3: fused device-RNG sweep (run_fused)")
     fused_res, fused_launches, fused_dec = check_fused(
         port, minsum, stream, mc_timed["flood lanes"][0])
+
+    phase("slice 6: the hard-decision path over the BSC (Gallager-B, "
+          "bit-flipping, soft min-sum on K1; the regular array code)")
+    check_hard(port, minsum, stream, dev)
 
     phase("CLI: sweep --rng device --fused")
     check_cli(fused_res)
@@ -1531,6 +1805,59 @@ def main():
               f"channel, quantize; CUDA events): {chain_ms:.4f} ms",
               flush=True)
 
+    # The microbenchmark kernels beside their plain versions, in turns, at
+    # the shapes the entry point gives them: the sweeps at K1's batch and the
+    # entry point's smaller iteration count; the chain at 2,000 iterations
+    # (its plain version is 80 launches an iteration).
+    mrng = np.random.default_rng(0)
+    mg = micro.wifi648()
+    mchan = torch.as_tensor(mrng.integers(
+        -100, 100, size=(mg.nb, mg.Z, BATCH)).astype(np.int8)).to(dev)
+    ma, mb_ = (torch.as_tensor(mrng.integers(-120, 120, size=(64, 256)).astype(
+        np.int16)).to(dev) for _ in range(2))
+    mx = torch.as_tensor(mrng.integers(
+        -100, 100, size=(micro.Z, micro.TILE_W)).astype(np.int8)).to(dev)
+    mgrid = torch.as_tensor(mrng.integers(
+        -100, 100, (micro.Z, micro.N_TILES * micro.TILE_W)).astype(
+            np.int8)).to(dev)
+    sweeps = micro.DEFAULT_ITERS["minsum"][0]
+    micro_cases = {     # kernel -> (kernel, plain, arguments, cost, what)
+        "sweep": (micro.sweep, micro.sweep_plain, (mchan, sweeps),
+                  micro.sweep_cost(BATCH, sweeps),
+                  f"S1 sweep, {sweeps} sweeps of {BATCH} codewords"),
+        "minsum": (micro.minsum, micro.minsum_plain, (mchan, sweeps),
+                   micro.sweep_cost(BATCH, sweeps, mg,
+                                    micro.MINSUM_OPS_PER_EDGE),
+                   f"S2 minsum, {sweeps} sweeps of {BATCH} codewords"),
+        "int16": (micro.int16, micro.int16_plain, (ma, mb_),
+                  micro.int16_cost(ma.numel()), "S3 int16, (64, 256)"),
+        "opchain": (micro.opchain, micro.opchain_plain, (mx, 64, 2000),
+                    micro.opchain_cost(mx.numel(), 64, 2000),
+                    f"S4 opchain, ({micro.Z}, {micro.TILE_W}), 64 ops x "
+                    f"2,000 iterations"),
+        "grid32": (micro.grid32, micro.gridstep_plain, (mgrid,),
+                   micro.gridstep_cost(mgrid.numel()),
+                   f"S5 grid32, {tuple(mgrid.shape)}"),
+        "grid1": (micro.grid1, micro.gridstep_plain, (mgrid,),
+                  micro.gridstep_cost(mgrid.numel()),
+                  f"S6 grid1, {tuple(mgrid.shape)}"),
+    }
+    for name, (kernel, plain, args, cost, what) in micro_cases.items():
+        t = kernel_vs_plain_ms(types.SimpleNamespace(kernel=kernel,
+                                                     plain=plain),
+                               args, {}, gpu, what, plain_reps=1)
+        b_ms, b_by = bound(*cost)
+        print(f"  bound {b_ms:.6f} ms by {b_by} ({100 * b_ms / t[0]:.1f}% of "
+              f"the kernel's time)", flush=True)
+        timing["micro " + name] = t + (b_ms, b_by)
+    s2 = micro_records["minsum", BATCH]
+    print(f"[{gpu}] S2 minsum at B={BATCH}: {s2['us_per_sweep']} us a sweep "
+          f"(minsum16 {micro_records['minsum16', BATCH]['us_per_sweep']}) "
+          f"beside K1's {timing['K1'][0] * 1e3 / base_dec.max_iter:.3f} us an "
+          f"iteration ({timing['K1'][0]:.4f} ms / {base_dec.max_iter}, the "
+          f"same {BATCH} codewords with IO, int16 totals and int8 messages)",
+          flush=True)
+
     def record(name, lib, launched, err, t):
         star = "_star" in name
         return {"name": name, "route": "cuda",
@@ -1581,7 +1908,14 @@ def main():
         record("minsum_flood_star_mc", "minsum_flood",
                launches["min* flooding, MC"],
                star_mc_worst["minsum_flood"], timing["K5 MC flooding"]),
-        *stream_records]}))
+        *stream_records,
+        *({"name": f"microbench_{name}", "route": "cuda",
+           "source": micro.SOURCE, "replaces": micro.REPLACES[name],
+           "launches": micro_launches[name],
+           "max_abs_err": micro_worst[name], "ms": t[0], "plain_ms": t[1],
+           "bound_ms": t[2], "bound_by": t[3], "library_ms": None}
+          for name in micro.REPLACES
+          for t in (timing["micro " + name],))]}))
     print(gpu)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -21,6 +21,7 @@ from ..codes import build_code, from_reference
 from ..config import cn_params
 from ..ops.channel import sigma_for
 from ..ops.quantize import quantize
+from ..utils.profiling import event_ms
 from . import minsum, minsum_stream as ms
 
 
@@ -30,19 +31,6 @@ def channel_q(ct, cfg, ebn0_db, B, gen):
     y = 1.0 + sigma * torch.randn((B, ct.n), generator=gen,
                                   device=ct.device)
     return quantize(2.0 * y / sigma ** 2, cfg.quant)
-
-
-def event_ms(fn, reps):
-    out = []
-    for _ in range(reps):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        fn()
-        b.record()
-        b.synchronize()
-        out.append(a.elapsed_time(b))
-    return out
 
 
 def main(argv=None) -> int:

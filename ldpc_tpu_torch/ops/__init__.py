@@ -1,2 +1,5 @@
-"""Tensor ops of the port: quantizer, encoder, BPSK channel, reference
-decoder (counterparts of `ldpc_tpu/ops/`)."""
+"""Tensor ops of the port: quantizer, encoder, channels, reference and
+hard-decision decoders (counterparts of `ldpc_tpu/ops/`)."""
+from .decode_hard import make_hard_decoder  # noqa: F401
+
+__all__ = ["make_hard_decoder"]

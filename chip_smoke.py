@@ -284,6 +284,8 @@ HARD = dict(preset="wifi-648-r12-minsum", ref="bsc_hard_wifi648.json",
             ps=(0.005, 0.01, 0.02, 0.03, 0.04, 0.06), batch=2048,
             frames=4096, max_iter=30, seed=13)
 MICRO_BATCHES = (512, 1024, BATCH)   # the reference's two tiles, and K1's
+RAGGED = (1, 3, 5, 4099, 16385)      # batches of the packed flooding kernel
+SASS_OPS = ("LDS", "STS", "LDC", "ULDC", "LD")   # the SASS loads counted
 
 
 def phase(name):
@@ -341,6 +343,84 @@ def chain_args(ct, cfg, ebn0_db, B, gen):
     x = ch.modulate_t(make_encoder_t(ct)(info), mod)
     llr = ch.demap_t(ch.awgn_t(gen, x, sigma), sigma, mod)
     return llr.reshape(ct.nb, ct.Z, B), info.reshape(ct.kb, ct.Z, B)
+
+
+def shape_text(d):
+    """The launch shape of decoder d's instance, as its library reports it."""
+    lanes, smem, lpt, blocks = d.launch_shape()
+    return (f"{lanes} lanes/block, {lpt} lanes/thread, {blocks} blocks/SM, "
+            f"{smem} B smem")
+
+
+def bare_tensors(code, dev):
+    """CodeTensors of a code whose parity-check matrix has no systematic
+    form (the array codes): enough for a decoder, which reads the entries
+    only."""
+    from ldpc_tpu_torch.codes import CodeTensors, qc_entries
+    qc, entries = qc_entries(code)
+    return CodeTensors(code=code, device=dev, n=int(code.n), k=int(code.k),
+                       Z=int(qc.Z), nb=int(qc.nb), mb=int(qc.mb), kb=0,
+                       entries=entries, P=None, perm=None,
+                       info_positions=torch.zeros(0, dtype=torch.int64,
+                                                  device=dev),
+                       ident_info=False)
+
+
+def sass_counts(path):
+    """Per kernel function of a built library, from `cuobjdump -sass`: its
+    shared-memory loads and stores (LDS, STS), constant-bank loads (LDC,
+    ULDC) and generic loads (LD) in the whole function ("all") and in each
+    innermost loop (the instructions between a backward branch's target and
+    the branch, holding no other backward branch), in address order."""
+    import re
+    import shutil
+    cuobjdump = shutil.which("cuobjdump") or os.path.join(
+        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    text = subprocess.run([cuobjdump, "-sass", str(path)], capture_output=True,
+                          text=True, check=True, timeout=120).stdout
+    funcs, name = {}, None
+    for line in text.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            name = m.group(1)
+            funcs[name] = []
+            continue
+        m = re.search(r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?([A-Z0-9]+)"
+                      r"([^;]*)", line)
+        if name and m:
+            funcs[name].append((int(m.group(1), 16), m.group(2), m.group(3)))
+    out = {}
+    for name, ins in funcs.items():
+        def count(lo, hi):
+            c = dict.fromkeys(SASS_OPS, 0)
+            for addr, op, _ in ins:
+                if lo <= addr <= hi and op in c:
+                    c[op] += 1
+            return c
+        back = []
+        for addr, op, rest in ins:
+            t = re.search(r"0x([0-9a-f]+)", rest) if op == "BRA" else None
+            if t and int(t.group(1), 16) < addr:
+                back.append((int(t.group(1), 16), addr))
+        inner = [(lo, hi) for lo, hi in back
+                 if not any(lo <= a < b <= hi and (a, b) != (lo, hi)
+                            for a, b in back)]
+        out[name] = {"all": count(0, 1 << 62),
+                     "loops": [dict(count(lo, hi), span=[hex(lo), hex(hi)])
+                               for lo, hi in sorted(inner)]}
+    return out
+
+
+def print_sass(minsum):
+    """Shared-memory and constant-bank loads of the flooding library's
+    fixed min-sum instances, the packed one (row degree 8, the canonical
+    code's) and the one-lane template's (K1's layout before the packed
+    kernel, unchanged), in the whole function and in each innermost loop."""
+    path = minsum.load_library("minsum_flood").path
+    for fn, c in sass_counts(path).items():
+        if ("flood_packed_kernelILi4ELi8ELb0E" in fn
+                or "minsum_flood_kernelILb0ELb0ELb0E" in fn):
+            print(f"  sass {fn}: {json.dumps(c)}", flush=True)
 
 
 def max_abs_err(a, b):
@@ -738,12 +818,11 @@ def check_mc_kernels(port, minsum, dev):
         err = max_abs_err(out_k, out_p)
         same = all(torch.equal(a.to(torch.int64), b.to(torch.int64))
                    for a, b in zip(out_k, out_p))
-        lanes, smem = d.launch_config()
         print(f"{label} B={d.batch}: max_abs_err {err:g} equal {same} "
               f"(frame errors {int(out_k[1].sum())}/{d.batch}, converged "
               f"{int(out_k[3].sum())}, mean iters "
               f"{float(out_k[2].double().mean()):.3f}, {d.library} "
-              f"{lanes} lanes/block, {smem} B smem)", flush=True)
+              f"{shape_text(d)})", flush=True)
         if not same:
             raise AssertionError(f"K1-MC kernel != plain on {label}")
         tally = star_worst if d.decoder.minstar is not None else worst
@@ -790,6 +869,35 @@ def check_mc_kernels(port, minsum, dev):
               f"form {same}", flush=True)
         if not same:
             raise AssertionError("per-lane sigma != scalar sigma")
+    # the packed flooding instance at ragged and tiny batches: Philox,
+    # injected words and per-lane sigma
+    for B in RAGGED:
+        d = make(wifi, cfg648, batch=B)
+        compare("K1-MC n648 flooding fixed-20 2.0 dB Philox", d,
+                d.kernel(seed + B, s20, g20), d.plain(seed + B, s20, g20))
+    d = make(wifi, cfg648, batch=5, inject_random=True)
+    w5 = words[:, :5].contiguous()
+    compare("K1-MC n648 flooding fixed-20 2.0 dB inject", d,
+            d.kernel(0, s20, g20, words=w5), d.plain(0, s20, g20, words=w5))
+    d = make(wifi, cfg648, batch=4099, mc_lane_sigma=True)
+    sl5, gl5 = sl[:4099].contiguous(), gl[:4099].contiguous()
+    compare("K1-MC n648 flooding per-lane sigma Philox", d,
+            d.kernel(seed + 6, sigma_lane=sl5, gain_lane=gl5),
+            d.plain(seed + 6, sigma_lane=sl5, gain_lane=gl5))
+    # the packed MC instances of the longer register rows: n=1944 r3/4 (row
+    # degree 15: DMAX 16) and r5/6 (20: DMAX 24), offset min-sum, fixed-20
+    for rate, db in (("3/4", 2.5), ("5/6", 3.0)):
+        cfg = dataclasses.replace(
+            oms, code=dataclasses.replace(oms.code, rate=rate),
+            decoder=dataclasses.replace(oms.decoder, schedule="flooding",
+                                        early_term=False, max_iter=20))
+        ct = from_reference(build_code(cfg), dev)
+        s = np.float32(sigma_for(db, ct.code.rate, "bpsk"))
+        g = gain_for(s, cfg.quant.scale)
+        d = make(ct, cfg, batch=4099)
+        compare(f"K1-MC n1944 r{rate} flooding OMS fixed-20 {db} dB Philox "
+                f"(register row {minsum.row_degree_instance(ct)})", d,
+                d.kernel(seed + 7, s, g), d.plain(seed + 7, s, g))
     # the min* MC instances (K5 inside K1-MC)
     star = {sched: slice_config(port, "wifi-648-minstar", "device", sched)
             for sched in ("layered", "flooding")}
@@ -1373,6 +1481,11 @@ def main():
 
     phase("build (the four libraries at once)")
     libs = build_libraries(minsum, stream, micro)
+    from ldpc_tpu_torch.kernels import build as kbuild
+    print(subprocess.run([kbuild.find_nvcc(), "--version"],
+                         capture_output=True, text=True,
+                         timeout=60).stdout.strip().splitlines()[-1])
+    print_sass(minsum)
     phase("kernel vs plain (tolerance 0)")
     cfg648 = port.PRESETS["wifi-648-r12-minsum"]
     oms_cfg = port.PRESETS["wifi-full-oms"]
@@ -1393,6 +1506,12 @@ def main():
                                              rate=rate))), dev)
 
     wifi, n1944, r56 = code(648, "1/2"), code(1944, "3/4"), code(1944, "5/6")
+
+    def long_code(preset, n=None):
+        c = port.PRESETS[preset]
+        if n:
+            c = dataclasses.replace(c, code=dataclasses.replace(c.code, n=n))
+        return from_reference(build_code(c), dev)
     lay = oms_cfg.decoder                     # layered OMS, ET, 20 iterations
     lay_q = oms_cfg.quant
     sig = {(ct, db): float(sigma_for(db, ct.code.rate, "bpsk"))
@@ -1463,6 +1582,41 @@ def main():
         ("K5 n648 min* 6-bit flooding fixed-20 hard B=3000", wifi, star_fl,
          q6, 3000, False, None),
     ]
+    # the packed flooding instance (K1, K1-IO) at ragged and tiny batches,
+    # 6 bits, the row read twice (the (3,30) array code: row degree 30,
+    # above the largest register row) and slice 6's (3,6)-regular array code
+    from ldpc_tpu_torch.codes.toy import array_qc
+    q6_k1 = dataclasses.replace(base_q, bits=6)
+    for B in RAGGED:
+        cases += [
+            (f"K1 n648 min-sum hard B={B}", wifi, base_dec, base_q, B, False,
+             None),
+            (f"K1-IO n648 min-sum fused-IO B={B}", wifi, base_dec, base_q, B,
+             True, 0.8)]
+    cases += [
+        ("K1 n648 6-bit hard B=4099", wifi, base_dec, q6_k1, 4099, False,
+         None),
+        ("K1-IO n648 offset beta=2 6-bit fused-IO B=5", wifi, oms[0],
+         dataclasses.replace(oms[1], bits=6), 5, True, 0.8),
+        ("K1 n1944 r5/6 normalized alpha=3/4 hard B=4099", r56, *nms, 4099,
+         False, None),
+        ("K1-IO n1944 r5/6 offset beta=2 fused-IO B=16385", r56, *oms,
+         16385, True, 0.8),
+        ("K1 n1944 r3/4 6-bit hard B=3", n1944, base_dec, q6_k1, 3, False,
+         None),
+        ("K1 array 3x30 z31 (row degree 30, read twice) hard B=4099",
+         bare_tensors(array_qc(3, 30, 31), dev), base_dec, base_q, 4099,
+         False, None),
+        ("K1 array 3x6 z17 (n=102) hard B=4099",
+         bare_tensors(array_qc(), dev), base_dec, base_q, 4099, False, None),
+        # codes with no block of four lanes, which keep the one-lane
+        # template
+        ("K1 DVB-S2 n=16,200 (one-lane template) hard B=5",
+         long_code("dvbs2-64800-r12", 16200), base_dec, base_q, 5, False,
+         None),
+        ("K1 NR BG1 Z=384 (one-lane template) hard B=3",
+         long_code("nr-bg1-layered"), base_dec, base_q, 3, False, None),
+    ]
     worst = dict.fromkeys(libs, 0.0)
     star_worst = dict.fromkeys(libs, 0.0)
     held = {}   # label -> the decoder held to its plain version at B=BATCH
@@ -1486,12 +1640,11 @@ def main():
         torch.cuda.synchronize()
         err = max_abs_err(out_k, out_p)
         same = all(torch.equal(a, b) for a, b in zip(out_k, out_p))
-        lanes, smem = d.launch_config()
         conv = int(out_k[-1].sum())
         iters = out_k[-2].double()
         print(f"{label}: max_abs_err {err:g} equal {same} (converged "
               f"{conv}/{B}, mean iters {float(iters.mean()):.3f}, "
-              f"{d.library} {lanes} lanes/block, {smem} B smem)", flush=True)
+              f"{d.library} {shape_text(d)})", flush=True)
         if not same:
             raise AssertionError(f"kernel != plain on {label}")
         if (d.minstar is not None) != label.startswith("K5"):
@@ -1634,6 +1787,14 @@ def main():
         "flood lanes", fused_dec, f"K1-MC step of {FUSED['batch']} codewords "
         f"(n648 flooding, 20 iterations, Philox, per-lane sigma of "
         f"{len(FUSED['points'])} points: run_fused's launch)")
+    # K1 in its other form, int8 in and hard bits out (slice 6's), on the
+    # same channel quantized
+    from ldpc_tpu_torch.ops.quantize import quantize
+    k1_hard = minsum.make_decoder(wifi, base_dec, base_q)
+    kernel_vs_plain_ms(
+        k1_hard, (quantize(a20[0], base_q),), {}, gpu,
+        f"K1 decode of {BATCH} codewords (n648, int8 in, hard bits out, 20 "
+        f"iterations)")
     k2 = minsum.make_decoder(wifi, dec_cfg(base_dec, **et), base_q,
                              input_scale=4.0, count_info_cols=wifi.kb)
     timing["K2"] = timed_call(

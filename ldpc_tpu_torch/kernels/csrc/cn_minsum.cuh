@@ -183,6 +183,19 @@ int decoder_config(int Z, SmemFn smem_bytes, int* lanes, int* smem) {
   return l ? 0 : int(cudaErrorInvalidConfiguration);
 }
 
+// The blocks of `threads` threads and `smem` dynamic shared-memory bytes
+// that an SM keeps resident for kernel k (registers included), after
+// allowing k that much dynamic shared memory, as a launch does.
+template <typename K>
+int occupancy(K k, int threads, int smem, int* blocks) {
+  cudaError_t err = cudaFuncSetAttribute(
+      k, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, k, threads,
+                                                        smem);
+  return int(err);
+}
+
 inline Params make_params(const void* chan, int chan_is_f32, float scale,
                           const void* info, int kb, void* hard, void* bits,
                           void* frame, void* iters, void* conv,

@@ -219,17 +219,37 @@ __global__ void minsum_layered_kernel(Params p) {
   }
 }
 
+// kernels[STAR][MC][ET]
+const ldpc::Kernel kernels[2][2][2] = {
+    {{minsum_layered_kernel<false, false, false>,
+      minsum_layered_kernel<true, false, false>},
+     {minsum_layered_kernel<false, true, false>,
+      minsum_layered_kernel<true, true, false>}},
+    {{minsum_layered_kernel<false, false, true>,
+      minsum_layered_kernel<true, false, true>},
+     {minsum_layered_kernel<false, true, true>,
+      minsum_layered_kernel<true, true, true>}}};
+
 }  // namespace
 
 extern "C" {
 
-// Lanes per block and dynamic shared-memory bytes for one code; 0 lanes
-// when no block shape fits (Z > 1024 or state above 227 KB per codeword).
+// The launch shape of one instance for one code: lanes per block, dynamic
+// shared-memory bytes, codeword lanes a thread (1 here) and the blocks an
+// SM keeps resident (cudaOccupancyMaxActiveBlocksPerMultiprocessor).
+// Returns cudaErrorInvalidConfiguration, lanes 0, when no block shape fits
+// (Z > 1024 or state above 227 KB per codeword).
 int minsum_layered_config(int nb, int Z, int mb, int E, int star_deg,
-                          int* lanes, int* smem) {
-  return ldpc::decoder_config(
+                          int early_term, int mc, int* lanes, int* smem,
+                          int* lanes_per_thread, int* blocks_per_sm) {
+  *lanes_per_thread = 1;
+  *blocks_per_sm = 0;
+  const int cfg = ldpc::decoder_config(
       Z, [=](int l) { return smem_bytes(nb, Z, mb, E, star_deg, l); }, lanes,
       smem);
+  if (cfg) return cfg;
+  return ldpc::occupancy(kernels[star_deg > 0][mc != 0][early_term != 0],
+                         *lanes * Z, *smem, blocks_per_sm);
 }
 
 const char* minsum_layered_error_string(int err) {
@@ -251,15 +271,6 @@ int minsum_layered_launch(const void* chan, int chan_is_f32, float scale,
                           int beta, int alpha_num, int alpha_shift,
                           int star_deg, const int* thr, int nthr,
                           const ldpc::Mc* mc, void* stream) {
-  const ldpc::Kernel kernels[2][2][2] = {
-      {{minsum_layered_kernel<false, false, false>,
-        minsum_layered_kernel<true, false, false>},
-       {minsum_layered_kernel<false, true, false>,
-        minsum_layered_kernel<true, true, false>}},
-      {{minsum_layered_kernel<false, false, true>,
-        minsum_layered_kernel<true, false, true>},
-       {minsum_layered_kernel<false, true, true>,
-        minsum_layered_kernel<true, true, true>}}};
   return ldpc::launch_instance(
       kernels, [=](int l) { return smem_bytes(nb, Z, mb, E, star_deg, l); },
       ldpc::make_params(chan, chan_is_f32, scale, info, kb, hard, bits,

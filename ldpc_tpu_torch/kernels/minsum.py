@@ -75,6 +75,18 @@ MAX_THRESHOLDS = 8      # ldpc::kMaxThresholds of csrc/cn_minsum.cuh
 MAX_THREADS = 1024      # ldpc::kMaxThreads
 MAX_SMEM = 232448       # ldpc::kMaxSmem, the 227 KB opt-in of sm_90
 PREFERRED_SMEM = 113 * 1024     # ldpc::kPreferredSmem, two blocks per SM
+# The packed fixed-iteration flooding instance (flood_packed_kernel of
+# csrc/minsum_flood.cu): an SM's shared memory for blocks, the runtime's
+# reserve per resident block, warps and blocks an SM keeps, its lanes a
+# thread, the row-degree (DMAX) instances and the table words its parameters
+# hold.
+SM_SMEM = 233472
+BLOCK_RESERVE = 1024
+SM_WARPS = 64
+SM_BLOCKS = 32
+LANES_PER_THREAD = 4
+ROW_DEGREES = (8, 16, 24)
+TAB_WORDS = 8000
 
 kernel_launches = 0
 plain_calls = 0
@@ -83,6 +95,12 @@ mc_launches = dict.fromkeys(SOURCES, 0)
 star_launches = dict.fromkeys(SOURCES, 0)
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# What each library's <name>_launch takes between `mc` and the stream (the
+# flooding library's packed instance: its entry tables in host memory and
+# their words), and how many int arguments <name>_config takes before its
+# four outputs (the flooding library's last: the largest base-row degree).
+LAUNCH_TABLES = {"minsum_flood": [_P, _I], "minsum_layered": []}
+CONFIG_INTS = {"minsum_flood": 8, "minsum_layered": 7}
 
 
 def reset_counters() -> None:
@@ -111,11 +129,10 @@ def load_library(name: str, rebuild: bool = False) -> build.Library:
     launch.argtypes = [_P, _I, _F, _P, _I, _P, _P, _P, _P, _P, _P,
                        _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                        _I, ctypes.POINTER(_I), _I,
-                       ctypes.POINTER(McArgs), _P]
+                       ctypes.POINTER(McArgs), *LAUNCH_TABLES[name], _P]
     launch.restype = _I
     config = getattr(c, f"{name}_config")
-    config.argtypes = [_I, _I, _I, _I, _I, ctypes.POINTER(_I),
-                       ctypes.POINTER(_I)]
+    config.argtypes = [_I] * CONFIG_INTS[name] + [ctypes.POINTER(_I)] * 4
     config.restype = _I
     err = getattr(c, f"{name}_error_string")
     err.argtypes = [_I]
@@ -140,6 +157,21 @@ def kernel_tables(ct: CodeTensors) -> np.ndarray:
                            col_ent]).astype(np.int32)
 
 
+def packed_tables(ct: CodeTensors) -> np.ndarray:
+    """The packed flooding instance's uint32 entry tables (its kernel
+    parameters): layer_ptr[mb+1], col_ptr[nb+1], ent[E] = (col * Z) << 11 |
+    shift by base row, col_ent[E] = (e * Z) << 11 | shift by base
+    column."""
+    t = kernel_tables(ct).astype(np.int64)
+    mb, nb, E, Z = ct.mb, ct.nb, ct.n_entries, ct.Z
+    layer_ptr = t[: mb + 1]
+    cols, shifts = t[mb + 1: mb + 1 + E], t[mb + 1 + E: mb + 1 + 2 * E]
+    col_ptr, col_ent = t[mb + 1 + 2 * E: mb + nb + 2 + 2 * E], t[-E:]
+    return np.concatenate([layer_ptr, col_ptr, (cols * Z) << 11 | shifts,
+                           (col_ent * Z) << 11 | shifts[col_ent]]
+                          ).astype(np.uint32)
+
+
 def align16(x: int) -> int:
     return (x + 15) & ~15
 
@@ -156,13 +188,68 @@ def base_degrees(ct: CodeTensors) -> Tuple[int, int]:
     return min(len(row) for row in ct.entries), int(col_deg.max())
 
 
+def is_packed(ct: CodeTensors, schedule: str, star_deg: int,
+              early_term: bool) -> bool:
+    """Whether this code and instance take the packed flooding kernel
+    (is_packed of csrc/minsum_flood.cu): flooding, fixed iterations, the
+    min-sum family, and a block of four lanes fits; else the one-lane
+    template decodes it."""
+    return (schedule == "flooding" and star_deg == 0 and not early_term
+            and packed_shape(ct)[0] > 0)
+
+
+def packed_smem_bytes(ct: CodeTensors, lanes: int) -> int:
+    """Dynamic shared memory of one block of the packed flooding instance
+    (packed_smem of csrc/minsum_flood.cu): two words a lane, int16 totals,
+    the int8 channel and int8 messages; no tables."""
+    return (align16(8 * lanes) + align16(2 * ct.n * lanes)
+            + align16(ct.n * lanes) + align16(ct.n_entries * ct.Z * lanes))
+
+
+def packed_shape(ct: CodeTensors) -> Tuple[int, int, int, int]:
+    """(lanes per block, lanes a thread, shared-memory bytes, blocks an SM
+    holds by shared memory, warps and blocks) of the packed flooding
+    instance, as packed_shape of csrc/minsum_flood.cu gives them: of the
+    block shapes (lanes a multiple of LANES_PER_THREAD, lanes /
+    LANES_PER_THREAD * Z <= 1024 threads, state within MAX_SMEM) the fewest
+    lanes that keep at least 9/10 of the most codewords an SM holds. Zeros
+    when no block fits."""
+    lpt, shapes = LANES_PER_THREAD, []
+    k = 1
+    while k * ct.Z <= MAX_THREADS:
+        lanes = k * lpt
+        smem = packed_smem_bytes(ct, lanes)
+        if smem > MAX_SMEM:
+            break
+        warps = -(-k * ct.Z // 32)
+        blocks = min(SM_SMEM // (smem + BLOCK_RESERVE), SM_WARPS // warps,
+                     SM_BLOCKS)
+        shapes.append((lanes, lpt, smem, blocks))
+        k += 1
+    if not shapes:
+        return (0, 0, 0, 0)
+    most = max(s[3] * s[0] for s in shapes)
+    return next(s for s in shapes if 10 * s[3] * s[0] >= 9 * most)
+
+
+def row_degree_instance(ct: CodeTensors) -> int:
+    """The packed instance's register row (DMAX) for this code: the least
+    of ROW_DEGREES >= its largest base-row degree, 0 (the row read twice)
+    above them."""
+    d = max(len(row) for row in ct.entries)
+    return next((r for r in ROW_DEGREES if d <= r), 0)
+
+
 def onchip_smem_bytes(ct: CodeTensors, schedule: str, star_deg: int,
-                      lanes: int) -> int:
+                      lanes: int, early_term: bool = False) -> int:
     """Dynamic shared memory of one block of `lanes` codewords of the
     on-chip kernels (smem_bytes of csrc/minsum_flood.cu and
     minsum_layered.cu): the tables, two words per lane, int16 totals or
     posteriors, for flooding the int8 channel, the int8 messages and the
-    min* scratch."""
+    min* scratch; the packed flooding instance keeps no tables
+    (`packed_smem_bytes`)."""
+    if is_packed(ct, schedule, star_deg, early_term):
+        return packed_smem_bytes(ct, lanes)
     return (align16(4 * table_words(ct)) + align16(8 * lanes)
             + align16(2 * ct.n * lanes)
             + (align16(ct.n * lanes) if schedule == "flooding" else 0)
@@ -170,12 +257,16 @@ def onchip_smem_bytes(ct: CodeTensors, schedule: str, star_deg: int,
             + align16(star_deg * ct.Z * lanes))
 
 
-def pick_lanes(ct: CodeTensors, schedule: str, star_deg: int = 0) -> int:
-    """Codeword lanes per block of the on-chip kernels for this code
-    (ldpc::pick_lanes of csrc/cn_minsum.cuh), without building them: the
-    most lanes (a power of two <= 32, lanes * Z <= 1024 threads) whose
-    state fits 113 KB, else the 227 KB opt-in; 0 when one codeword's state
-    does not fit one SM's shared memory."""
+def pick_lanes(ct: CodeTensors, schedule: str, star_deg: int = 0,
+               early_term: bool = False) -> int:
+    """Codeword lanes per block of the on-chip kernels for this code,
+    without building them: for the packed flooding instance
+    `packed_shape`; else ldpc::pick_lanes of csrc/cn_minsum.cuh, the most
+    lanes (a power of two <= 32, lanes * Z <= 1024 threads) whose state
+    fits 113 KB, else the 227 KB opt-in. 0 when one block's state does not
+    fit one SM's shared memory."""
+    if is_packed(ct, schedule, star_deg, early_term):
+        return packed_shape(ct)[0]
     for limit in (PREFERRED_SMEM, MAX_SMEM):
         lanes = 32
         while lanes >= 1:
@@ -215,8 +306,9 @@ def onchip_domain(ct: CodeTensors, dec: DecoderConfig,
     if why is not None:
         return why
     star_deg = star_degree(ct, dec)
-    if pick_lanes(ct, dec.schedule, star_deg) == 0:
-        need = onchip_smem_bytes(ct, dec.schedule, star_deg, 1)
+    if pick_lanes(ct, dec.schedule, star_deg, dec.early_term) == 0:
+        need = onchip_smem_bytes(ct, dec.schedule, star_deg, 1,
+                                 dec.early_term)
         return (f"{ct.code.name}: the state of one codeword ({need} B) "
                 f"exceeds the {MAX_SMEM} B of shared memory a block can "
                 f"use, or Z={ct.Z} exceeds {MAX_THREADS} threads")
@@ -264,6 +356,22 @@ class MinsumDecoder:
         # the min* instances' scratch degree; 0 selects the min-sum update
         self.star_deg = star_degree(ct, dec)
         self._kernel_domain = kernel_domain(ct, quant)
+        # the packed flooding instance: its entry tables travel in the
+        # kernel's parameters
+        self.packed = is_packed(ct, dec.schedule, self.star_deg,
+                                dec.early_term)
+        self._ptab = packed_tables(ct) if self.packed else None
+        # what the flooding library's launch and config take beyond the
+        # layered library's (LAUNCH_TABLES, CONFIG_INTS): the packed
+        # instance's tables (none for its other instances), the largest
+        # base-row degree
+        self._launch_tables: Tuple = ()
+        self._config_ints: Tuple = ()
+        if dec.schedule == "flooding":
+            self._launch_tables = (
+                (None, 0) if self._ptab is None
+                else (self._ptab.ctypes.data, len(self._ptab)))
+            self._config_ints = (max(len(row) for row in ct.entries),)
 
     @property
     def counting(self) -> bool:
@@ -342,13 +450,20 @@ class MinsumDecoder:
         global kernel_launches
         if self._kernel_domain is not None:
             raise NotImplementedError(self._kernel_domain)
+        ct = self.ct
+        if self.packed and (len(self._ptab) > TAB_WORDS
+                            or ct.n_entries * ct.Z >= 1 << 21):
+            raise ValueError(
+                f"{ct.code.name}: {len(self._ptab)} words of entry tables "
+                f"(E * Z = {ct.n_entries * ct.Z}) exceed the {TAB_WORDS} "
+                f"words (and 2**21) the packed flooding kernel's parameters "
+                f"hold")
         if dev.type != "cuda":
             raise ValueError(f"the CUDA kernel needs CUDA tensors, got {dev}")
         if B >= 2 ** 31:
             raise ValueError(f"batch {B} too large for one launch")
         name = self.library
         lib = load_library(name).cdll
-        ct = self.ct
         iters = torch.empty(B, dtype=torch.int32, device=dev)
         conv = torch.empty(B, dtype=torch.bool, device=dev)
         if self.counting:
@@ -375,7 +490,8 @@ class MinsumDecoder:
                 ct.Z, ct.mb, ct.n_entries, self.dec.max_iter,
                 int(self.dec.early_term), self.quant.qmax, self.beta, num,
                 shift, self.star_deg, thr, len(self.minstar or ()),
-                None if mc is None else ctypes.byref(mc), stream)
+                None if mc is None else ctypes.byref(mc),
+                *self._launch_tables, stream)
         check_launch(lib, name, err)
         kernel_launches += 1
         library_launches[name] += 1
@@ -400,12 +516,22 @@ class MinsumDecoder:
     def launch_config(self) -> Tuple[int, int]:
         """(codeword lanes per block, dynamic shared-memory bytes) that the
         kernel uses for this code; builds the library."""
-        lanes, smem = ctypes.c_int(0), ctypes.c_int(0)
-        config = getattr(load_library(self.library).cdll,
-                         f"{self.library}_config")
-        config(self.ct.nb, self.ct.Z, self.ct.mb, self.ct.n_entries,
-               self.star_deg, ctypes.byref(lanes), ctypes.byref(smem))
-        return lanes.value, smem.value
+        return self.launch_shape()[:2]
+
+    def launch_shape(self, mc: bool = False) -> Tuple[int, int, int, int]:
+        """(codeword lanes per block, dynamic shared-memory bytes, lanes a
+        thread, blocks an SM keeps resident) of the instance for this code,
+        from the library's `<name>_config` (the last by
+        cudaOccupancyMaxActiveBlocksPerMultiprocessor); builds the library.
+        A code no block shape takes raises."""
+        out = [ctypes.c_int(0) for _ in range(4)]
+        lib = load_library(self.library).cdll
+        err = getattr(lib, f"{self.library}_config")(
+            self.ct.nb, self.ct.Z, self.ct.mb, self.ct.n_entries,
+            self.star_deg, int(self.dec.early_term), int(mc),
+            *self._config_ints, *(ctypes.byref(o) for o in out))
+        check_launch(lib, self.library, err)
+        return tuple(o.value for o in out)
 
 
 def check_launch(lib: ctypes.CDLL, name: str, err: int) -> None:
@@ -472,6 +598,9 @@ class McDecoder:
 
     def launch_config(self) -> Tuple[int, int]:
         return self.decoder.launch_config()
+
+    def launch_shape(self) -> Tuple[int, int, int, int]:
+        return self.decoder.launch_shape(mc=True)
 
     def _check(self, words, sigma_lane, gain_lane) -> torch.device:
         B = self.batch

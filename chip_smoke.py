@@ -13,8 +13,11 @@ Phases, each printing its lines; any failure raises and exits non-zero:
    instance; `minsum_layered.cu`: K3 and the layered K1-MC instance; both
    include `cn_minstar.cuh`, the min* update K5 that doubles their
    instances, `mc_stage.cuh` and `philox.cuh`; `minsum_stream.cu`: the
-   streaming layered decoder whose four instances answer K6b-K6f), and
-   prints each build's time and ptxas' register/spill report;
+   streaming layered decoders that answer K6b-K6f, the pipelined kernel
+   and the template it began with), and prints each build's time and
+   ptxas' register/spill report, and `cuobjdump -sass` counts of the
+   packed flooding instance and of every streaming instance (the pipelined
+   kernel's layer loop beside the template's);
 3. kernel vs plain: each CUDA kernel against its plain torch version on
    the card, tolerance 0 on every output (an integer program), and every
    decoder a sweep launches below at that sweep's batch, B=16,384.
@@ -49,16 +52,21 @@ Phases, each printing its lines; any failure raises and exits non-zero:
    plain version, tolerance 0 on hard bits, iters and conv, 10 iterations:
    DVB-S2 n=64,800 (B=32), n=16,200 (B=128) and NR BG1 Z=384 (B=64, its
    punctured variables at LLR 0), OMS beta=2 and NMS alpha=3/4, fixed and
-   with early termination, both placements of the posteriors: the four
-   instances equal the plain version and each other, and K3 behind its
-   batch-first transposes where K3 admits the code; an odd batch (B - 1
+   with early termination: the template's two placements of the
+   posteriors and the pipelined kernel (NR BG1's rows of 22 at its 24-entry
+   register row), and on DVB-S2 n=16,200 rate 8/9 (B=64, rows of 27-28)
+   the template's two placements only, each code's set of instances stated
+   (`STREAM_INSTANCES`), equal the plain version and each other, and K3
+   behind its batch-first transposes where K3 admits the code; an odd
+   batch (B - 1
    codewords: a block is one codeword, so every batch is whole blocks) and
    an all-zero noiseless batch (with early termination: iters 0). Then
    every decoder a slice-5 sweep launches, as `select_decoder` builds it,
    at that sweep's batch on its step's own LLRs (n=64,800 at B=1,024 among
-   them), and the `stream` instance at the CLI preset's batch of 8,192
-   against the `stream-resident` instance (kernel against kernel: the
-   plain version would take a quarter of a minute there). On the DVB-S2
+   them), and the pipelined instance at the CLI preset's batch of 8,192
+   against the template's `stream-resident` instance (kernel against
+   kernel: the plain version would take a quarter of a minute there). On
+   the DVB-S2
    codes the C oracle (`ldpc_tpu_torch/oracle.py`, built with the system
    compiler) is the third witness: the first 8 frames of every instance's
    kernel output equal `oracle.decode_batch`. Then the microbenchmark
@@ -104,15 +112,22 @@ Phases, each printing its lines; any failure raises and exits non-zero:
    `dvbs2-64800-r12`: n=64,800, batch 1,024, 20 fixed iterations; 8,192
    frames at 1.0 and 1.25 dB against `results/dvbs2_r12_stream.json`) and
    `-stream-et` (early termination; 1.0, 1.25 and 1.5 dB against
-   `results/dvbs2_64800_et.json`), through the streaming library only;
+   `results/dvbs2_64800_et.json`), through the pipelined kernel only;
    `dvbs2-16200-r12-resident-et` (16,384 frames at 1.4 and 2.2 dB against
    `results/dvbs2_16200_et.json`) on the route `auto` picks (K3 behind
-   transposes) and forced through the resident-ET instance, equal
-   counters on equal draws; `nr-bg1-z384-stream` (preset
+   transposes) and forced through the library (the pipelined ET
+   instance), equal counters on equal draws; `nr-bg1-z384-stream` (preset
    `nr-bg1-layered`, batch 256), which no file records: auto, the
    streaming library and the plain QC decoder give equal counters on
    equal draws; NR BG1 Z=128 rate 1/3 with early termination against
-   `results/nr_bg1_z128_r13.json` (32,768 frames at 0.5 and 1.0 dB).
+   `results/nr_bg1_z128_r13.json` (32,768 frames at 0.5 and 1.0 dB);
+   DVB-S2 n=64,800 rate 8/9 (rows of 27-28, which the template's
+   streaming instances `stream` and `stream-et` take), fixed and with
+   early termination, batch 256, 512 frames at 3.0 and 3.5 dB, and DVB-S2
+   n=16,200 rate 8/9 forced through the library (the template's resident
+   instances `stream-resident` and `stream-resident-et`), batch 256, 512
+   frames at 3.5 and 4.0 dB, each equal to the plain QC decoder's
+   counters on equal draws.
    Then each sweep's decoder
    must be the instance (library, code, decoder and quantizer
    configuration, thresholds, IO mode, batch) that phases 3 and 4 held to
@@ -155,10 +170,13 @@ Phases, each printing its lines; any failure raises and exits non-zero:
    termination at 2.0 dB, layered and flooding fixed-20); steps with the
    host clock and a sync (info bits/s), the device-RNG steps against the
    host-RNG steps in turns, slice 4's steps with their decode kernel's
-   share; the streaming library's two placements of the posteriors in
-   turns at n=64,800 and n=16,200, B=1,024 (what
-   `minsum_stream.resident_auto` rests on), each instance as its sweep
-   launched it, and slice 5's steps with their kernel's share; the six
+   share; the streaming library's kernels in turns (old, new, new, old;
+   `probe_stream.in_turns`) at n=64,800, n=16,200 and NR BG1 Z=384,
+   B=1,024, fixed-20 and with early termination, and n=64,800 rate 5/6
+   fixed-20: the pipelined kernel beside the template's two placements
+   (what `minsum_stream.instance_auto` rests on), each instance as its
+   sweep launched it, and slice 5's steps with their kernel's share; the
+   six
    microbenchmark kernels against their plain versions in turns, each at
    the shape the entry point gives it (the sweeps at B = 16,384 and the
    entry point's smaller iteration count, 200; the int32 chain at 2,000
@@ -226,6 +244,8 @@ class Slice(typing.NamedTuple):
 
 
 S64800, S16200 = "dvbs2-64800-r12-stream", "dvbs2-16200-r12-resident-et"
+S89 = "dvbs2-64800-r89"     # rows of degree 27-28: the template streams
+S1689 = "dvbs2-16200-r89"   # rows of 27-28, posteriors of 32 KB: resident
 NR384, NR128 = "nr-bg1-z384-stream", "nr-bg1-z128-r13"
 SLICES = (
     Slice("wifi-648-r12-minsum", "wifi-648-r12-minsum", None, "host",
@@ -249,16 +269,17 @@ SLICES = (
     # slice 5, the long-codeword regime: the batch-first step, decoded by
     # the streaming library where no on-chip kernel takes the code
     Slice("5a " + S64800, S64800, None, "host", "dvbs2_r12_stream.json",
-          (1.0, 1.25), 8192, batch=STREAM_BATCH, expect="cuda-stream"),
+          (1.0, 1.25), 8192, batch=STREAM_BATCH,
+          expect="cuda-stream-pipelined"),
     Slice("5b " + S64800 + "-et", S64800 + "-et", None, "host",
           "dvbs2_64800_et.json", (1.0, 1.25, 1.5), 8192, batch=STREAM_BATCH,
-          expect="cuda-stream-et"),
+          expect="cuda-stream-pipelined-et"),
     Slice("5c " + S16200, S16200, None, "host", "dvbs2_16200_et.json",
           (1.4, 2.2), 16384, batch=STREAM_BATCH,
           expect="cuda-minsum-layered-bf"),
     Slice("5c " + S16200 + ", stream", S16200, None, "host",
           "dvbs2_16200_et.json", (1.4, 2.2), 16384, backend="stream",
-          batch=STREAM_BATCH, expect="cuda-stream-resident-et",
+          batch=STREAM_BATCH, expect="cuda-stream-pipelined-et",
           equal_to="5c " + S16200),
     # NR BG1 Z=384 (rate matching: 768 punctured variables) has no recorded
     # waterfall: auto (K3 behind transposes), the streaming library and the
@@ -274,7 +295,47 @@ SLICES = (
     # the statistical anchor of rate matching: NR BG1 Z=128 rate 1/3
     Slice("5e " + NR128, NR128, None, "host", "nr_bg1_z128_r13.json",
           (0.5, 1.0), 32768, batch=4096, expect="cuda-minsum-layered-bf"),
+    # DVB-S2 n=64,800 rate 8/9 (rows of 27-28, longer than the pipelined
+    # kernel's register row) has no recorded waterfall: the template's
+    # streaming instances, fixed and with early termination, are held to the
+    # plain QC decoder on equal draws
+    Slice("5f " + S89, S89, None, "host", "5f " + S89 + ", plain",
+          (3.0, 3.5), 512, batch=256, expect="cuda-stream"),
+    Slice("5f " + S89 + ", plain", S89, None, "host", "5f " + S89,
+          (3.0, 3.5), 512, backend="qc", batch=256, expect="torch-qc",
+          equal_to="5f " + S89),
+    Slice("5f " + S89 + "-et", S89 + "-et", None, "host",
+          "5f " + S89 + "-et, plain", (3.0, 3.5), 512, batch=256,
+          expect="cuda-stream-et"),
+    Slice("5f " + S89 + "-et, plain", S89 + "-et", None, "host",
+          "5f " + S89 + "-et", (3.0, 3.5), 512, backend="qc", batch=256,
+          expect="torch-qc", equal_to="5f " + S89 + "-et"),
+    # DVB-S2 n=16,200 rate 8/9 (rows of 27-28; 32 KB of posteriors, two
+    # blocks an SM) forced through the library: the template's resident
+    # instances, held to the plain QC decoder on equal draws
+    Slice("5g " + S1689, S1689, None, "host", "5g " + S1689 + ", plain",
+          (3.5, 4.0), 512, backend="stream", batch=256,
+          expect="cuda-stream-resident"),
+    Slice("5g " + S1689 + ", plain", S1689, None, "host", "5g " + S1689,
+          (3.5, 4.0), 512, backend="qc", batch=256, expect="torch-qc",
+          equal_to="5g " + S1689),
+    Slice("5g " + S1689 + "-et", S1689 + "-et", None, "host",
+          "5g " + S1689 + "-et, plain", (3.5, 4.0), 512, backend="stream",
+          batch=256, expect="cuda-stream-resident-et"),
+    Slice("5g " + S1689 + "-et, plain", S1689 + "-et", None, "host",
+          "5g " + S1689 + "-et", (3.5, 4.0), 512, backend="qc", batch=256,
+          expect="torch-qc", equal_to="5g " + S1689 + "-et"),
 )
+# The streaming library's instances (`minsum_stream.StreamDecoder.variant`,
+# fixed form) that take each code of check_stream_kernels: the template's
+# two placements, and the pipelined kernel where its register row holds the
+# code's rows (24 entries).
+STREAM_INSTANCES = {
+    S64800: {"stream", "stream-pipelined", "stream-resident"},
+    S16200: {"stream", "stream-pipelined", "stream-resident"},
+    NR384: {"stream", "stream-pipelined", "stream-resident"},
+    S1689: {"stream", "stream-resident"},
+}
 MINSUM_OPS_PER_EDGE = 12
 FUSED = dict(preset="wifi-648-r12-minsum", ref="wifi648_fused_mc.json",
              points=(1.0, 1.5, 2.0, 2.5, 3.0, 3.5), batch=18432,
@@ -285,7 +346,8 @@ HARD = dict(preset="wifi-648-r12-minsum", ref="bsc_hard_wifi648.json",
             frames=4096, max_iter=30, seed=13)
 MICRO_BATCHES = (512, 1024, BATCH)   # the reference's two tiles, and K1's
 RAGGED = (1, 3, 5, 4099, 16385)      # batches of the packed flooding kernel
-SASS_OPS = ("LDS", "STS", "LDC", "ULDC", "LD")   # the SASS loads counted
+# the SASS memory instructions counted (LDGSTS: cp.async; BAR: barriers)
+SASS_OPS = ("LDS", "STS", "LDC", "ULDC", "LD", "LDG", "STG", "LDGSTS", "BAR")
 
 
 def phase(name):
@@ -369,7 +431,9 @@ def bare_tensors(code, dev):
 def sass_counts(path):
     """Per kernel function of a built library, from `cuobjdump -sass`: its
     shared-memory loads and stores (LDS, STS), constant-bank loads (LDC,
-    ULDC) and generic loads (LD) in the whole function ("all") and in each
+    ULDC), generic loads (LD), device-memory loads and stores (LDG, STG),
+    asynchronous copies (LDGSTS) and barriers (BAR) in the whole function
+    ("all") and in each
     innermost loop (the instructions between a backward branch's target and
     the branch, holding no other backward branch), in address order."""
     import re
@@ -411,16 +475,20 @@ def sass_counts(path):
     return out
 
 
-def print_sass(minsum):
+def print_sass(minsum, stream):
     """Shared-memory and constant-bank loads of the flooding library's
     fixed min-sum instances, the packed one (row degree 8, the canonical
     code's) and the one-lane template's (K1's layout before the packed
-    kernel, unchanged), in the whole function and in each innermost loop."""
+    kernel, unchanged), in the whole function and in each innermost loop;
+    and every instance of the streaming library, the pipelined kernel's
+    (its layer loop: LDGSTS, LDS, STS, STG, LDC) beside the template's."""
     path = minsum.load_library("minsum_flood").path
     for fn, c in sass_counts(path).items():
         if ("flood_packed_kernelILi4ELi8ELb0E" in fn
                 or "minsum_flood_kernelILb0ELb0ELb0E" in fn):
             print(f"  sass {fn}: {json.dumps(c)}", flush=True)
+    for fn, c in sass_counts(stream.load_library().path).items():
+        print(f"  sass {fn}: {json.dumps(c)}", flush=True)
 
 
 def max_abs_err(a, b):
@@ -477,15 +545,10 @@ def bound_of(d, args, kw):
 def kernels_in_turns_ms(decs, args, gpu, what, reps=10):
     """Median kernel ms of several decoders on the same arguments, in turns
     (a, b, b, a) after a warm-up; prints and returns them by name."""
-    from ldpc_tpu_torch.utils.profiling import event_ms
+    from ldpc_tpu_torch.utils.profiling import in_turns_ms
     names = list(decs)
-    for name in names:
-        for _ in range(3):
-            decs[name].kernel(*args)
-    torch.cuda.synchronize()
-    times = {name: [] for name in names}
-    for name in names + names[::-1]:
-        times[name] += event_ms(lambda: decs[name].kernel(*args), reps)
+    times = in_turns_ms({name: (lambda d=d: d.kernel(*args))
+                         for name, d in decs.items()}, reps)
     med = {name: statistics.median(t) for name, t in times.items()}
     print(f"[{gpu}] {what}: " + ", ".join(
         f"{name} {med[name]:.4f} ms (runs {len(times[name])}, min "
@@ -545,7 +608,8 @@ def slice_config(port, what, rng, schedule=None, **run):
     without its mesh (`qam16-1944-chain`); `wifi-648-minstar`, the canonical
     preset with the min* update, beta_lsb=0 and early termination; the
     long-codeword cells on `dvbs2-64800-r12` (fixed 20 iterations, with
-    early termination, and n=16,200 with early termination);
+    early termination, and n=16,200 with early termination; rate 8/9,
+    fixed and with early termination, at n=64,800 and n=16,200);
     `nr-bg1-z384-stream` (preset `nr-bg1-layered`); and NR BG1 Z=128 rate
     1/3 with early termination, the configuration of
     results/nr_bg1_z128_r13.json. `schedule` replaces the configuration's
@@ -559,7 +623,10 @@ def slice_config(port, what, rng, schedule=None, **run):
     elif what.startswith("dvbs2-"):
         preset = "dvbs2-64800-r12"
         dec_kw = dict(early_term=what.endswith("-et"))
-        code_kw = dict(n=16200) if what == S16200 else {}
+        code_kw = (dict(n=16200) if what == S16200
+                   else dict(rate="8/9") if what.startswith(S89)
+                   else dict(n=16200, rate="8/9") if what.startswith(S1689)
+                   else {})
     elif what in (NR384, NR128):
         preset = "nr-bg1-layered"
         if what == NR128:
@@ -944,8 +1011,15 @@ def hold_to_plain(label, d, q, worst):
     err = max_abs_err(out_k, out_p)
     same = all(torch.equal(a, b) for a, b in zip(out_k, out_p))
     key = getattr(d, "variant", None) or d.library
-    shape = (f"{d.launch_smem()} B smem/block" if hasattr(d, "variant")
-             else f"{d.inner.launch_config()[0]} lanes/block")
+    if hasattr(d, "variant"):
+        smem, dmax, blocks = d.launch_shape()
+        if smem != d.smem_bytes():
+            raise AssertionError(f"{key}: the library's {smem} B is not "
+                                 f"the wrapper's {d.smem_bytes()} B")
+        shape = f"{smem} B smem/block" + (
+            f", register row {dmax}, {blocks} blocks/SM" if dmax else "")
+    else:
+        shape = f"{d.inner.launch_config()[0]} lanes/block"
     print(f"{label} B={q.shape[0]}: max_abs_err {err:g} equal {same} "
           f"(converged {int(out_k[2].sum())}/{q.shape[0]}, mean iters "
           f"{float(out_k[1].double().mean()):.3f}, {key}, {shape})",
@@ -960,31 +1034,38 @@ def check_stream_kernels(port, minsum, stream, dev, worst):
     """The streaming library (K6b-K6f) == its plain version, tolerance 0.
     The matrix, at 10 iterations: DVB-S2 n=64,800 (B=32), n=16,200 (B=128)
     and NR BG1 Z=384 (B=64, 768 punctured variables at LLR 0), OMS beta=2
-    and NMS alpha=3/4, fixed iterations and early termination, both
-    placements of the posteriors: the four instances against the plain
-    version, hence against each other, and against K3 behind its
-    transposes where K3 admits the code; an odd batch (B - 1 codewords);
-    an all-zero noiseless batch (converged, iters 0 with early
-    termination). Then every decoder a sweep of slice 5 launches, as
-    `select_decoder` builds it, at that sweep's batch and on its step's own
-    LLRs; and the `stream` instance at the batch the CLI's preset gives it,
-    8,192 codewords of n=64,800, against the `stream-resident` instance on
-    the same input (both were held to plain above). Fills `worst` (by
-    instance, and by library for K3); returns label -> (the decoder held,
-    its input)."""
+    and NMS alpha=3/4, fixed iterations and early termination, and DVB-S2
+    n=16,200 rate 8/9 (B=64): every instance that takes the code, which
+    must be the set `STREAM_INSTANCES` states (the template's two
+    placements of the posteriors; the pipelined kernel where its register
+    row holds the rows, NR BG1's rows of 22 at its 24-entry row), against
+    the plain version, hence against each other, and against K3 behind its
+    transposes where K3 admits the code;
+    an odd batch (B - 1 codewords); an all-zero noiseless batch
+    (converged, iters 0 with early termination). Then every decoder a
+    sweep of slice 5 launches, as `select_decoder` builds it, at that
+    sweep's batch and on its step's own LLRs; and the pipelined instance at
+    the batch the CLI's preset gives it, 8,192 codewords of n=64,800,
+    against the template's `stream-resident` instance on the same input
+    (both were held to plain above). Fills `worst` (by instance, and by
+    library for K3); returns label -> (the decoder held, its input)."""
     from ldpc_tpu_torch import oracle
     from ldpc_tpu_torch.codes import build_code, from_reference
+    from ldpc_tpu_torch.config import cn_params
+    from ldpc_tpu_torch.kernels import probe_stream
     from ldpc_tpu_torch.sim.pipeline import BatchFirstDecoder, select_decoder
     gen = torch.Generator(device=dev)
     gen.manual_seed(55)
     cfgs = {w: slice_config(port, w, "host")
-            for w in (S64800, S64800 + "-et", S16200, NR384, NR128)}
+            for w in (S64800, S64800 + "-et", S16200, NR384, NR128, S89,
+                      S89 + "-et", S1689, S1689 + "-et")}
     cts = {w: from_reference(build_code(cfgs[w]), dev)
-           for w in (S64800, S16200, NR384, NR128)}
-    cts[S64800 + "-et"] = cts[S64800]
+           for w in (S64800, S16200, NR384, NR128, S89, S1689)}
+    for w in (S64800, S89, S1689):
+        cts[w + "-et"] = cts[w]
     iters = 10
     for what, db, B in ((S64800, 1.6, 32), (S16200, 1.6, 128),
-                        (NR384, 1.5, 64)):
+                        (NR384, 1.5, 64), (S1689, 4.0, 64)):
         ct, cfg = cts[what], cfgs[what]
         q = bf_chain(ct, cfg, db, B, gen)
         zero = torch.full((B, ct.n), 8, dtype=torch.int8, device=dev)
@@ -994,8 +1075,16 @@ def check_stream_kernels(port, minsum, stream, dev, worst):
                                          early_term=et, max_iter=iters)
                 what_dec = (f"{what} {alg} {'ET' if et else 'fixed'}-{iters} "
                             f"{db} dB")
-                decs = [stream.make_decoder(ct, dc, cfg.quant, resident=res)
-                        for res in (False, True)]
+                beta, alpha = cn_params(dc, cfg.quant)
+                decs = probe_stream.decoders(ct, iters, beta,
+                                             cfg.quant.qmax, alpha, et)
+                want_set = {v + "-et" if et else v
+                            for v in STREAM_INSTANCES[what]}
+                if set(decs) != want_set:
+                    raise AssertionError(f"{what_dec}: the instances that "
+                                         f"take the code are {set(decs)}, "
+                                         f"expected {want_set}")
+                decs = list(decs.values())
                 plain = decs[0].plain(q)
                 for d in decs:
                     ids = "/".join(k for k, _ in stream.REPLACES[d.variant])
@@ -1057,7 +1146,8 @@ def check_stream_kernels(port, minsum, stream, dev, worst):
     q = bf_chain(ct, cfg, 1.0, B, gen)
     d, label = select_decoder(ct, cfg, batch=B)
     other = stream.make_decoder(ct, cfg.decoder, cfg.quant, resident=True)
-    if (label, other.variant) != ("cuda-stream", "stream-resident"):
+    if (label, other.variant) != ("cuda-stream-pipelined",
+                                  "stream-resident"):
         raise AssertionError(f"the preset's decoder is {label}")
     out, want = d.kernel(q), other.kernel(q)
     torch.cuda.synchronize()
@@ -1065,7 +1155,8 @@ def check_stream_kernels(port, minsum, stream, dev, worst):
     print(f"{label} at the preset's batch B={B}, 1.0 dB: == stream-resident "
           f"{ok} (converged {int(out[2].sum())}/{B})", flush=True)
     if not ok or not 0 < int(out[2].sum()) < B:
-        raise AssertionError("stream != stream-resident at the CLI's batch")
+        raise AssertionError("stream-pipelined != stream-resident at the "
+                             "CLI's batch")
     del d, other, out, want, q
     torch.cuda.empty_cache()
     return held
@@ -1182,7 +1273,7 @@ def check_cli(res):
 def check_cli_long():
     """The long-codeword command lines on the card, at once: `sweep
     --preset dvbs2-64800-r12` with nothing but a point and a frame limit
-    (the preset's batch of 8,192) must run on the streaming library and, at
+    (the preset's batch of 8,192) must run on the pipelined kernel and, at
     1.5 dB, decode every frame; `--puncture-frac 0.25` on the default code
     must run on K1 behind the batch-first step, and give the plain QC
     decoder's counters on equal draws (`--decoder-backend qc`)."""
@@ -1225,7 +1316,7 @@ def check_cli_long():
     print(f"  three command lines in {time.perf_counter() - t0:.1f} s",
           flush=True)
     row = got["dvbs2"]["results"][0]
-    if (got["dvbs2"]["decoder_backend"] != "cuda-stream"
+    if (got["dvbs2"]["decoder_backend"] != "cuda-stream-pipelined"
             or row["frames"] < 8192 or row["frame_errs"] != 0):
         raise AssertionError("CLI --preset dvbs2-64800-r12 at 1.5 dB")
     a, b = got["punctured"], got["punctured, plain"]
@@ -1472,7 +1563,7 @@ def main():
     from ldpc_tpu_torch.codes import build_code, from_reference
     from ldpc_tpu_torch.kernels import microbench as micro
     from ldpc_tpu_torch.kernels import minsum
-    from ldpc_tpu_torch.kernels import minsum_stream as stream
+    from ldpc_tpu_torch.kernels import minsum_stream as stream, probe_stream
     from ldpc_tpu_torch.ops.channel import sigma_for
     from ldpc_tpu_torch.sim import make_run_batch
     from ldpc_tpu_torch.sim.sweep import batch_seed
@@ -1485,7 +1576,7 @@ def main():
     print(subprocess.run([kbuild.find_nvcc(), "--version"],
                          capture_output=True, text=True,
                          timeout=60).stdout.strip().splitlines()[-1])
-    print_sass(minsum)
+    print_sass(minsum, stream)
     phase("kernel vs plain (tolerance 0)")
     cfg648 = port.PRESETS["wifi-648-r12-minsum"]
     oms_cfg = port.PRESETS["wifi-full-oms"]
@@ -1853,60 +1944,104 @@ def main():
             key, d, f"K1-MC min* step of {BATCH} codewords (n648 "
             f"{d.dec.schedule}, ET, Philox, 2.0 dB)", plain_reps=1)
 
-    # Slice 5. The two placements of the posteriors in turns on the same
-    # inputs, B = 1,024, at n=64,800 and n=16,200 (what
-    # `minsum_stream.resident_auto` rests on), K3 behind its transposes
-    # beside them where it takes the code; then each instance as its main
-    # path launched it (the decoder object held above, on that input).
+    # Slice 5. The streaming library's kernels in turns on the same inputs,
+    # B = 1,024, at n=64,800, n=16,200 (K3 behind its transposes beside
+    # them) and NR BG1 Z=384: the pipelined kernel against the template's
+    # two placements, what `minsum_stream.instance_auto` rests on; then
+    # each instance as its main path launched it (the decoder object held
+    # above, on that input).
     l5a, l5b = "5a " + S64800, "5b " + S64800 + "-et"
     l5c, l5d = "5c " + S16200, "5d " + NR384
+    l5f, l5fe = "5f " + S89, "5f " + S89 + "-et"
+    l5g, l5ge = "5g " + S1689, "5g " + S1689 + "-et"
     d5a, q5a = stream_held[l5a]
     d5b = stream_held[l5b][0]
     d5c, q5c = stream_held[l5c]
     d5cs = stream_held[l5c + ", stream"][0]
-    d5ds, q5d = stream_held[l5d + ", stream"]
-    if (d5a.variant, d5b.variant, d5cs.variant, d5ds.variant) != (
-            "stream", "stream-et", "stream-resident-et", "stream-resident"):
+    d5ds = stream_held[l5d + ", stream"][0]
+    d5f, q5f = stream_held[l5f]
+    d5fe, q5fe = stream_held[l5fe]
+    d5g, q5g = stream_held[l5g]
+    d5ge, q5ge = stream_held[l5ge]
+    if (d5a.variant, d5b.variant, d5cs.variant, d5ds.variant, d5f.variant,
+            d5fe.variant, d5g.variant, d5ge.variant) != (
+            "stream-pipelined", "stream-pipelined-et", "stream-pipelined-et",
+            "stream-resident", "stream", "stream-et", "stream-resident",
+            "stream-resident-et"):
         raise AssertionError("slice 5's sweeps did not cover the instances")
     q5b = bf_chain(d5b.ct, sweeps[l5b].cfg, 1.25, STREAM_BATCH, gen)
 
-    def placed(d, resident, early_term):
-        """d's decoder in another instance of the library."""
-        return stream.make_stream_decoder(
-            d.ct, max_iter=d.max_iter, beta=d.beta, qmax=d.qmax,
-            alpha=d.alpha, resident=resident, early_term=early_term)
+    def in_turns(d, early_term, q, what, extra=None):
+        """Every instance of the library that takes d's code, on q, in
+        turns: old, new, old, old, new, old."""
+        decs = probe_stream.decoders(d.ct, d.max_iter, d.beta, d.qmax,
+                                     d.alpha, early_term)
+        return probe_stream.in_turns(decs, q, what, gpu, reps=5, extra=extra)
 
-    timing["turns 64800 fixed"] = kernels_in_turns_ms(
-        {"stream": d5a, "stream-resident": placed(d5a, True, False)},
-        (q5a,), gpu, f"n=64,800 OMS fixed-20 at 1.0 dB, {STREAM_BATCH} "
-        f"codewords", reps=5)
-    timing["turns 64800 ET"] = kernels_in_turns_ms(
-        {"stream-et": d5b, "stream-resident-et": placed(d5b, True, True)},
-        (q5b,), gpu, f"n=64,800 OMS ET at 1.25 dB, {STREAM_BATCH} codewords",
-        reps=5)
-    timing["turns 16200 fixed"] = kernels_in_turns_ms(
-        {"stream": placed(d5cs, False, False),
-         "stream-resident": placed(d5cs, True, False)}, (q5c,), gpu,
-        f"n=16,200 OMS fixed-20 at 1.4 dB, {STREAM_BATCH} codewords")
-    timing["turns 16200 ET"] = kernels_in_turns_ms(
-        {"stream-et": placed(d5cs, False, True), "stream-resident-et": d5cs,
-         "K3 behind its transposes": d5c}, (q5c,), gpu,
-        f"n=16,200 OMS ET at 1.4 dB, {STREAM_BATCH} codewords")
-    timing["K6 stream"] = timed_call(
-        d5a, (q5a,), f"K6b/K6c stream decode of {STREAM_BATCH} codewords "
-        f"(n=64,800 OMS, 20 fixed iterations, 1.0 dB: {l5a}'s launch)",
+    timing["turns 64800 fixed"] = in_turns(
+        d5a, False, q5a, f"n=64,800 OMS fixed-20 at 1.0 dB, {STREAM_BATCH} "
+        f"codewords")
+    timing["turns 64800 ET"] = in_turns(
+        d5b, True, q5b, f"n=64,800 OMS ET at 1.25 dB, {STREAM_BATCH} "
+        f"codewords")
+    timing["turns 16200 fixed"] = in_turns(
+        d5cs, False, q5c, f"n=16,200 OMS fixed-20 at 1.4 dB, {STREAM_BATCH} "
+        f"codewords")
+    timing["turns 16200 ET"] = in_turns(
+        d5cs, True, q5c, f"n=16,200 OMS ET at 1.4 dB, {STREAM_BATCH} "
+        f"codewords", extra={"K3 behind its transposes": d5c})
+    nr_cfg = sweeps[l5d + ", stream"].cfg
+    for et, db in ((False, 1.0), (True, 1.25)):
+        timing[f"turns nr384 {'ET' if et else 'fixed'}"] = in_turns(
+            d5ds, et, bf_chain(d5ds.ct, nr_cfg, db, STREAM_BATCH, gen),
+            f"NR BG1 Z=384 OMS {'ET' if et else 'fixed-20'} at {db} dB, "
+            f"{STREAM_BATCH} codewords")
+    # rows of 22-23 (rate 5/6): the pipelined kernel's 24-entry register row
+    cfg56 = slice_config(port, S64800, "host")
+    cfg56 = dataclasses.replace(cfg56, code=dataclasses.replace(
+        cfg56.code, rate="5/6"))
+    ct56 = from_reference(build_code(cfg56), dev)
+    timing["turns 64800 r56 fixed"] = in_turns(
+        stream.make_decoder(ct56, cfg56.decoder, cfg56.quant), False,
+        bf_chain(ct56, cfg56, 3.0, STREAM_BATCH, gen),
+        f"n=64,800 rate 5/6 (rows of 22-23) OMS fixed-20 at 3.0 dB, "
+        f"{STREAM_BATCH} codewords")
+    ct5 = d5a.ct
+    per_cw = {"int8 messages": ct5.n_entries * ct5.Z,
+              "int8 rows as stored": ct5.mb * ct5.Z * stream.row_bytes(ct5)}
+    print(f"  message traffic at n=64,800, {STREAM_BATCH} codewords and 20 "
+          f"iterations (read and written once an iteration), at 3.35 TB/s: "
+          + ", ".join(f"{k} {2 * v * 20 * STREAM_BATCH / 1e9:.2f} GB, "
+                      f"{2 * v * 20 * STREAM_BATCH / 3.35e9:.4f} ms"
+                      for k, v in per_cw.items()), flush=True)
+    timing["K6 stream-pipelined"] = timed_call(
+        d5a, (q5a,), f"K6b/K6c stream-pipelined decode of {STREAM_BATCH} "
+        f"codewords (n=64,800 OMS, 20 fixed iterations, 1.0 dB: {l5a}'s "
+        f"launch)", plain_reps=1)
+    timing["K6 stream-pipelined-et"] = timed_call(
+        d5b, (q5b,), f"K6f stream-pipelined-et decode of {STREAM_BATCH} "
+        f"codewords (n=64,800 OMS, ET, 1.25 dB: {l5b}'s launch)",
         plain_reps=1)
+    timing["K6 stream"] = timed_call(
+        d5f, (q5f,), f"K6b/K6c stream decode of {q5f.shape[0]} codewords "
+        f"(n=64,800 rate 8/9 OMS, 20 fixed iterations, 3.0 dB: {l5f}'s "
+        f"launch)", plain_reps=1)
     timing["K6 stream-et"] = timed_call(
-        d5b, (q5b,), f"K6f stream-et decode of {STREAM_BATCH} codewords "
-        f"(n=64,800 OMS, ET, 1.25 dB: {l5b}'s launch)", plain_reps=1)
-    timing["K6 stream-resident-et"] = timed_call(
-        d5cs, (q5c,), f"K6e stream-resident-et decode of {STREAM_BATCH} "
-        f"codewords (n=16,200 OMS, ET, 1.4 dB: {l5c}, stream's launch)",
+        d5fe, (q5fe,), f"K6f stream-et decode of {q5fe.shape[0]} codewords "
+        f"(n=64,800 rate 8/9 OMS, ET, 3.0 dB: {l5fe}'s launch)",
         plain_reps=1)
     timing["K6 stream-resident"] = timed_call(
-        d5ds, (q5d,), f"K6d stream-resident decode of {q5d.shape[0]} "
-        f"codewords (NR BG1 Z=384 OMS, 20 fixed iterations, 1.0 dB: {l5d}, "
-        f"stream's launch)", plain_reps=1)
+        d5g, (q5g,), f"K6d stream-resident decode of {q5g.shape[0]} "
+        f"codewords (n=16,200 rate 8/9 OMS, 20 fixed iterations, 3.5 dB: "
+        f"{l5g}'s launch)", plain_reps=1)
+    timing["K6 stream-resident-et"] = timed_call(
+        d5ge, (q5ge,), f"K6e stream-resident-et decode of {q5ge.shape[0]} "
+        f"codewords (n=16,200 rate 8/9 OMS, ET, 3.5 dB: {l5ge}'s launch)",
+        plain_reps=1)
+    timing["K6 16200 stream"] = timed_call(
+        d5cs, (q5c,), f"K6f stream-pipelined-et decode of {STREAM_BATCH} "
+        f"codewords (n=16,200 OMS, ET, 1.4 dB: {l5c}, stream's launch)",
+        plain_reps=1)
     timing["K3 16200"] = timed_call(
         d5c, (q5c,), f"K3 behind its transposes, decode of {STREAM_BATCH} "
         f"codewords (n=16,200 OMS, ET, 1.4 dB: {l5c}'s launch)")
@@ -1948,11 +2083,11 @@ def main():
               f"{100 * timing[key][0] / min(ms):.1f}% of the faster step",
               flush=True)
 
-    for label, si, db, key in ((l5a, 0, 1.0, "K6 stream"),
-                               (l5b, 1, 1.25, "K6 stream-et"),
+    for label, si, db, key in ((l5a, 0, 1.0, "K6 stream-pipelined"),
+                               (l5b, 1, 1.25, "K6 stream-pipelined-et"),
                                (l5c, 0, 1.4, "K3 16200"),
                                (l5c + ", stream", 0, 1.4,
-                                "K6 stream-resident-et")):
+                                "K6 16200 stream")):
         sw = sweeps[label]
         ms = [report_step(f"{label} {db} dB rng=host", sw.run_batch,
                           sw.generator(si, 0), sw._sigma(db), sw.code.k_eff,
@@ -2030,16 +2165,22 @@ def main():
                 "plain_ms": t[1], "bound_ms": t[2], "bound_by": t[3],
                 "library_ms": None}
 
-    stream_launched = {"stream": launches[l5a], "stream-et": launches[l5b],
-                       "stream-resident-et": launches[l5c + ", stream"],
-                       "stream-resident": launches[l5d + ", stream"]}
+    # the main path of each instance: the sweep that launched it
+    stream_launched = {"stream-pipelined": launches[l5a],
+                       "stream-pipelined-et": launches[l5b],
+                       "stream": launches[l5f], "stream-et": launches[l5fe],
+                       "stream-resident": launches[l5g],
+                       "stream-resident-et": launches[l5ge]}
     stream_records = [
-        {"name": f"minsum_stream_{kid}", "instance": variant, "route": "cuda",
+        {"name": ("minsum_stream_pipelined_" if "pipelined" in variant
+                  else "minsum_stream_") + kid,
+         "instance": variant, "route": "cuda",
          "source": stream.SOURCE, "replaces": site,
          "launches": stream_launched[variant],
          "max_abs_err": worst[variant], "ms": t[0], "plain_ms": t[1],
          "bound_ms": t[2], "bound_by": t[3], "library_ms": None}
         for variant, sites in stream.REPLACES.items()
+        if variant in stream_launched
         for kid, site in sites
         for t in (timing[f"K6 {variant}"],)]
 

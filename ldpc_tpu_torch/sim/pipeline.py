@@ -149,7 +149,7 @@ def resolve_route(ct: CodeTensors, cfg: SimConfig,
                 shared memory (`MinsumDecoder.onchip_domain`);
       "stream"  else, for layered min-sum-family configs inside its domain,
                 the streaming library (`kernels/minsum_stream`), which
-                places the posteriors by its own rule;
+                picks its kernel by its own rule (`instance_auto`);
       "qc"      else the plain QC decoder (`ops/decode_qc`), the
                 reference's qc-jnp backend (min* and flooding on long
                 codes).
@@ -369,7 +369,8 @@ def select_decoder(ct: CodeTensors, cfg: SimConfig,
     forms (`cuda-minsum`, `cuda-minstar-layered`,
     `torch-plain-layered-2phase`, `cuda-minsum-mc`, ...; `-bf` for an
     on-chip decoder behind transposes), the streaming library's instance
-    (`cuda-stream`, `cuda-stream-resident`, `cuda-stream-et`,
+    (`cuda-stream-pipelined`, `cuda-stream-pipelined-et`,
+    `cuda-stream`, `cuda-stream-resident`, `cuda-stream-et`,
     `cuda-stream-resident-et`; `torch-plain-stream...` on a CPU code), or
     the plain routes `torch-qc`, `torch-ref`, `torch-float`.
     decoder.batch_tile is its batch granularity.

@@ -4,7 +4,7 @@
   * `timed(fn, *args)`: median seconds a call, by CUDA events on a CUDA
     device and by `time.perf_counter` on the CPU; `event_ms` is the list of
     per-call event times it takes the median of, for callers that print
-    the spread;
+    the spread, and `in_turns_ms` takes it of several callables in turns;
   * `trace(logdir)`: a `torch.profiler` context that writes a Chrome trace
     into `logdir`;
   * `compiled_cost(...)`: what the port can know of a hand-written kernel
@@ -48,6 +48,22 @@ def event_ms(fn: Callable[[], Any], reps: int) -> List[float]:
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end))
+    return times
+
+
+def in_turns_ms(fns: Dict[str, Callable[[], Any]], reps: int,
+                warmup: int = 3) -> Dict[str, List[float]]:
+    """Milliseconds of `reps` calls of each fn a turn (`event_ms`), the
+    callables in turns a, b, ..., ..., b, a after `warmup` calls each, so
+    that a drift of the card's clock weighs on all of them alike."""
+    names = list(fns)
+    for name in names:
+        for _ in range(warmup):
+            fns[name]()
+    torch.cuda.synchronize()
+    times: Dict[str, List[float]] = {name: [] for name in names}
+    for name in names + names[::-1]:
+        times[name] += event_ms(fns[name], reps)
     return times
 
 

@@ -294,6 +294,6 @@ def test_sweep_and_cli_run_rate_matched_and_long_codes(tmp_path):
         decoder=dataclasses.replace(PRESETS["dvbs2-64800-r12"].decoder,
                                     max_iter=3))
     sweep = Sweep(cfg, device="cpu", batch=4, decoder_backend="stream")
-    assert sweep.backend == "torch-plain-stream-resident"
+    assert sweep.backend == "torch-plain-stream-pipelined"
     p = sweep.run([3.0], target_frame_errors=10 ** 9, max_frames=8).points[0]
     assert p.frames == 8 and p.iter_sum == 3 * 8

@@ -200,18 +200,30 @@ def test_admission_rule_on_cpu_code_tensors():
     assert minsum.pick_lanes(long_ct, "layered") == 0
     assert minsum.onchip_smem_bytes(long_ct, "layered", 0, 1) > 356760
     assert resolve_route(long_ct, long_cfg) == "stream"
+    # rows of 7-8: the pipelined kernel takes the code (posteriors on chip,
+    # int8 rows copied in ahead); the template's resident block would be
+    # 138 KB, one block an SM
+    assert tstream.smem_bytes(long_ct, True, False) > 113 * 1024
     dec, label = select_decoder(long_ct, long_cfg, batch=64)
-    assert label == "torch-plain-stream" and dec.variant == "stream"
-    assert not dec.resident        # 138 KB a block: one block an SM
+    assert label == "torch-plain-stream-pipelined"
+    assert dec.variant == "stream-pipelined"
+    assert dec.resident and dec.pipelined
     dec, label = select_decoder(long_ct, _with(long_cfg, early_term=True),
                                 batch=64)
-    assert label == "torch-plain-stream-et"
+    assert label == "torch-plain-stream-pipelined-et"
     assert tstream.smem_bytes(long_ct, False, True) < 113 * 1024
     # forced routes; a placement is forced through make_decoder(resident=)
     assert tstream.make_decoder(long_ct, long_cfg.decoder, long_cfg.quant,
                                 resident=True).variant == "stream-resident"
+    assert tstream.make_decoder(long_ct, long_cfg.decoder, long_cfg.quant,
+                                resident=False).variant == "stream"
+    assert tstream.make_decoder(
+        long_ct, _with(long_cfg, early_term=True).decoder, long_cfg.quant,
+        resident=False).variant == "stream-et"
+    assert tstream.make_decoder(long_ct, long_cfg.decoder, long_cfg.quant,
+                                pipelined=True).variant == "stream-pipelined"
     assert select_decoder(long_ct, long_cfg, backend="pallas")[
-        1] == "torch-plain-stream"
+        1] == "torch-plain-stream-pipelined"
     assert select_decoder(long_ct, long_cfg, backend="qc-jnp")[
         1] == "torch-qc"
     assert select_decoder(long_ct, long_cfg, backend="jnp")[
@@ -229,7 +241,12 @@ def test_admission_rule_on_cpu_code_tensors():
     # them, behind transposes (the step is batch first: n > 4096)
     short_cfg, short_ct = _ct("dvbs2-64800-r12", 16200)
     nr_cfg, nr_ct = _ct("nr-bg1-layered")
-    for cfg, ct, lanes in ((short_cfg, short_ct, 1), (nr_cfg, nr_ct, 2)):
+    # forced through the library: rows of 7 take the pipelined kernel's
+    # 8-entry row; NR BG1's rows of up to 22 would take its 24-entry row,
+    # which loses to two resident blocks of the template an SM
+    for cfg, ct, lanes, forced_label in (
+            (short_cfg, short_ct, 1, "torch-plain-stream-pipelined-et"),
+            (nr_cfg, nr_ct, 2, "torch-plain-stream-resident-et")):
         assert minsum.pick_lanes(ct, "layered") == lanes
         dec, label = select_decoder(ct, cfg, batch=64)
         assert label == "torch-plain-layered-bf"
@@ -237,7 +254,8 @@ def test_admission_rule_on_cpu_code_tensors():
         assert not use_transposed(ct, cfg, "onchip")
         forced, label = select_decoder(ct, _with(cfg, early_term=True),
                                        backend="stream")
-        assert label == "torch-plain-stream-resident-et" and forced.resident
+        assert label == forced_label and forced.resident
+        assert forced.pipelined == ("pipelined" in forced_label)
     assert len(nr_ct.code.punct_vns) == 768
     # the canonical code stays on the transposed on-chip path
     wifi_cfg, wifi_ct = _ct("wifi-648-r12-minsum")
@@ -245,7 +263,18 @@ def test_admission_rule_on_cpu_code_tensors():
     assert use_transposed(wifi_ct, wifi_cfg, "onchip")
     assert select_decoder(wifi_ct, _with(wifi_cfg, schedule="layered"),
                           backend="stream")[
-        1] == "torch-plain-stream-resident"
+        1] == "torch-plain-stream-pipelined"
+    # rows of 27-28 (n=16,200 rate 8/9), longer than the pipelined
+    # kernel's register row: the template, posteriors on chip (34 KB a
+    # block, two an SM)
+    r89_cfg = _preset("dvbs2-64800-r12", n=16200, rate="8/9")
+    r89_ct = from_reference(build_code(r89_cfg), "cpu")
+    assert tstream.max_row_degree(r89_ct) == 28
+    assert not tstream.pipelined_fits(r89_ct)
+    for et, variant in ((False, "stream-resident"),
+                        (True, "stream-resident-et")):
+        assert select_decoder(r89_ct, _with(r89_cfg, early_term=et),
+                              backend="stream")[0].variant == variant
     for unknown in ("mosaic", "onchip", "stream-resident", "ref"):
         with pytest.raises(ValueError, match="unknown decoder backend"):
             select_decoder(wifi_ct, wifi_cfg, backend=unknown)
@@ -258,6 +287,6 @@ def test_two_phase_capacity_follows_the_stream_block():
     cfg, ct = _ct("dvbs2-64800-r12", 16200)
     cfg = _with(cfg, early_term=True, phase1_iters=4, phase2_frac=0.1)
     dec, label = select_decoder(ct, cfg, batch=2048, backend="stream")
-    assert label == "torch-plain-stream-resident-et-2phase"
+    assert label == "torch-plain-stream-pipelined-et-2phase"
     assert dec.batch_first and dec.capacity == 204
     assert dec.dec_p1.max_iter == 4 and dec.dec_full.max_iter == 20

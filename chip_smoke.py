@@ -10,14 +10,18 @@ Phases, each printing its lines; any failure raises and exits non-zero:
 2. build: compiles the four kernel libraries fresh with nvcc for sm_90a,
    at the same time (`microbench.cu`: the six microbenchmark kernels S1-S6;
    `minsum_flood.cu`: K1/K1-IO/K2 and the flooding K1-MC
-   instance; `minsum_layered.cu`: K3 and the layered K1-MC instance; both
-   include `cn_minstar.cuh`, the min* update K5 that doubles their
-   instances, `mc_stage.cuh` and `philox.cuh`; `minsum_stream.cu`: the
-   streaming layered decoders that answer K6b-K6f, the pipelined kernel
-   and the template it began with), and prints each build's time and
-   ptxas' register/spill report, and `cuobjdump -sass` counts of the
-   packed flooding instance and of every streaming instance (the pipelined
-   kernel's layer loop beside the template's);
+   instance; `minsum_layered.cu`: K3, K5 layered and the layered K1-MC
+   instance, in the packed kernel `layered_packed_kernel` wherever a block
+   of four lanes fits and the one-lane template elsewhere; both include
+   `cn_minstar.cuh`, the min* update K5 that doubles their instances,
+   `cn_packed.cuh` (the packed parts both libraries share), `mc_stage.cuh`
+   and `philox.cuh`; `minsum_stream.cu`: the streaming layered decoders
+   that answer K6b-K6f, the pipelined kernel and the template it began
+   with), and prints each build's time and ptxas' register/spill report,
+   and `cuobjdump -sass` counts of the packed flooding instance, of the
+   packed layered instances of the main paths beside the one-lane
+   template's (their layer loops) and of every streaming instance (the
+   pipelined kernel's layer loop beside the template's);
 3. kernel vs plain: each CUDA kernel against its plain torch version on
    the card, tolerance 0 on every output (an integer program), and every
    decoder a sweep launches below at that sweep's batch, B=16,384.
@@ -37,7 +41,14 @@ Phases, each printing its lines; any failure raises and exits non-zero:
    sweep's decoder), flooding with early termination hard; n=1944 rate
    5/6 (row degree 20) layered with early termination fused-IO and
    flooding fixed hard; thresholds T=(8,3,0), T=() (scale 0.5) and a
-   6-bit quantizer on both codes; all-zero batches;
+   6-bit quantizer on both codes; all-zero batches. The packed layered
+   instance besides: K3 (n=1944 rate 5/6 OMS with early termination) and
+   K5 (n=648 layered with early termination) at the ragged and tiny
+   batches 1, 3, 5, 4,099, 16,385; fixed-20 K3 fused-IO at B=16,384 (the
+   20-entry register row), on n=1944 rate 3/4 (the 16-entry row) and on
+   n=648 hard; fixed-20 K5 fused-IO at B=16,384; the (3,30) array code
+   layered (rows of 30: the row read twice), and min* on it (the one-lane
+   template);
 4. K1-MC kernel vs plain, tolerance 0 on the four per-lane outputs:
    n=648 flooding fixed-20 at 2.0 dB with injected words and with Philox
    words, and n=1944 rate 5/6 layered OMS with early termination at
@@ -48,7 +59,10 @@ Phases, each printing its lines; any failure raises and exits non-zero:
    MC instances with injected words (n=648 layered, early termination)
    and with Philox (n=648 layered and flooding with early termination,
    the two instances the min* device-RNG sweeps launch, and flooding
-   fixed-20), B=16,384; then the streaming library (K6b-K6f) against its
+   fixed-20), B=16,384; the packed layered MC instances at B = 1, 3, 5
+   and 4,099 (n=1944 rate 5/6 OMS and n=648 min*, with early termination,
+   Philox), fixed-20 at 4,099, and min* with injected words at 5; then the
+   streaming library (K6b-K6f) against its
    plain version, tolerance 0 on hard bits, iters and conv, 10 iterations:
    DVB-S2 n=64,800 (B=32), n=16,200 (B=128) and NR BG1 Z=384 (B=64, its
    punctured variables at LLR 0), OMS beta=2 and NMS alpha=3/4, fixed and
@@ -88,8 +102,10 @@ Phases, each printing its lines; any failure raises and exits non-zero:
    backend label must be the row's `expect` and whose launch counters,
    reset just before it, must show the route's kernel only (the
    schedule's on-chip library, its MC instance exactly with rng="device",
-   min* launches exactly for min*; or one instance of the streaming
-   library) and 0 plain calls; then each is held to its reference: FER and
+   min* launches exactly for min*, its packed instance exactly where a
+   block of four lanes takes the code and the one-lane template elsewhere;
+   or one instance of the streaming library) and 0 plain calls; then each
+   is held to its reference: FER and
    the converged rate by Wilson intervals (z=2.576), BER and average
    iterations by per-frame z-tests with the variances of batch 0,
    re-drawn (the bit-error variance from further batches, until they hold
@@ -114,9 +130,11 @@ Phases, each printing its lines; any failure raises and exits non-zero:
    `-stream-et` (early termination; 1.0, 1.25 and 1.5 dB against
    `results/dvbs2_64800_et.json`), through the pipelined kernel only;
    `dvbs2-16200-r12-resident-et` (16,384 frames at 1.4 and 2.2 dB against
-   `results/dvbs2_16200_et.json`) on the route `auto` picks (K3 behind
-   transposes) and forced through the library (the pipelined ET
-   instance), equal counters on equal draws; `nr-bg1-z384-stream` (preset
+   `results/dvbs2_16200_et.json`) on the route `auto` picks (the pipelined
+   ET instance: no block of four lanes takes the code,
+   `pipeline.stream_first`) and forced to K3 (backend "pallas": the
+   one-lane template behind transposes), equal counters on equal draws;
+   `nr-bg1-z384-stream` (preset
    `nr-bg1-layered`, batch 256), which no file records: auto, the
    streaming library and the plain QC decoder give equal counters on
    equal draws; NR BG1 Z=128 rate 1/3 with early termination against
@@ -171,7 +189,9 @@ Phases, each printing its lines; any failure raises and exits non-zero:
    host clock and a sync (info bits/s), the device-RNG steps against the
    host-RNG steps in turns, slice 4's steps with their decode kernel's
    share; the streaming library's kernels in turns (old, new, new, old;
-   `probe_stream.in_turns`) at n=64,800, n=16,200 and NR BG1 Z=384,
+   `probe_stream.in_turns`) at n=64,800, n=16,200 (with K3 behind its
+   transposes, fixed-20 and with early termination: the one-lane template
+   there) and NR BG1 Z=384,
    B=1,024, fixed-20 and with early termination, and n=64,800 rate 5/6
    fixed-20: the pipelined kernel beside the template's two placements
    (what `minsum_stream.instance_auto` rests on), each instance as its
@@ -183,8 +203,9 @@ Phases, each printing its lines; any failure raises and exits non-zero:
    iterations, where its plain version takes a second), and the min-sum
    sweep's time a sweep beside K1's time an iteration.
 
-Each kernel record carries `launches` of the main path named beside it
-and `ms`, `plain_ms`, `bound_ms` of the decoder that path launched.
+Each kernel record carries `launches` of the main path named beside it,
+the kernel template instance that path launched (`instance`), and `ms`,
+`plain_ms`, `bound_ms` of the decoder that path launched.
 `bound_ms` is the least time the card could take for the timed call: the
 larger of its bytes (every input tensor read once, every output written
 once) over 3.35 TB/s and its integer operations over 67e12/s, the data
@@ -274,12 +295,15 @@ SLICES = (
     Slice("5b " + S64800 + "-et", S64800 + "-et", None, "host",
           "dvbs2_64800_et.json", (1.0, 1.25, 1.5), 8192, batch=STREAM_BATCH,
           expect="cuda-stream-pipelined-et"),
+    # n=16,200 admits no block of four lanes: `auto` streams it through the
+    # pipelined kernel (pipeline.stream_first); "pallas" forces K3, the
+    # one-lane template behind the batch-first transposes
     Slice("5c " + S16200, S16200, None, "host", "dvbs2_16200_et.json",
           (1.4, 2.2), 16384, batch=STREAM_BATCH,
-          expect="cuda-minsum-layered-bf"),
-    Slice("5c " + S16200 + ", stream", S16200, None, "host",
-          "dvbs2_16200_et.json", (1.4, 2.2), 16384, backend="stream",
-          batch=STREAM_BATCH, expect="cuda-stream-pipelined-et",
+          expect="cuda-stream-pipelined-et"),
+    Slice("5c " + S16200 + ", K3", S16200, None, "host",
+          "dvbs2_16200_et.json", (1.4, 2.2), 16384, backend="pallas",
+          batch=STREAM_BATCH, expect="cuda-minsum-layered-bf",
           equal_to="5c " + S16200),
     # NR BG1 Z=384 (rate matching: 768 punctured variables) has no recorded
     # waterfall: auto (K3 behind transposes), the streaming library and the
@@ -348,6 +372,15 @@ MICRO_BATCHES = (512, 1024, BATCH)   # the reference's two tiles, and K1's
 RAGGED = (1, 3, 5, 4099, 16385)      # batches of the packed flooding kernel
 # the SASS memory instructions counted (LDGSTS: cp.async; BAR: barriers)
 SASS_OPS = ("LDS", "STS", "LDC", "ULDC", "LD", "LDG", "STG", "LDGSTS", "BAR")
+# the layered library's functions whose SASS is counted: the packed
+# instances of the main paths (<LPT, DMAX, STAR, ET, MC>: K3 with early
+# termination at the 20-entry row, n=1944 rate 5/6; K3 and K5 with early
+# termination at the 8-entry row, n=648) and the one-lane template's
+# early-terminating min-sum instance (<ET, MC, STAR>), K3's layout before
+SASS_LAYERED = ("layered_packed_kernelILi4ELi20ELb0ELb1ELb0E",
+                "layered_packed_kernelILi4ELi8ELb0ELb1ELb0E",
+                "layered_packed_kernelILi4ELi8ELb1ELb1ELb0E",
+                "minsum_layered_kernelILb1ELb0ELb0E")
 
 
 def phase(name):
@@ -480,12 +513,18 @@ def print_sass(minsum, stream):
     fixed min-sum instances, the packed one (row degree 8, the canonical
     code's) and the one-lane template's (K1's layout before the packed
     kernel, unchanged), in the whole function and in each innermost loop;
-    and every instance of the streaming library, the pipelined kernel's
-    (its layer loop: LDGSTS, LDS, STS, STG, LDC) beside the template's."""
+    the layered library's functions of SASS_LAYERED (the packed kernel's
+    layer loop beside the one-lane template's); and every instance of the
+    streaming library, the pipelined kernel's (its layer loop: LDGSTS, LDS,
+    STS, STG, LDC) beside the template's."""
     path = minsum.load_library("minsum_flood").path
     for fn, c in sass_counts(path).items():
         if ("flood_packed_kernelILi4ELi8ELb0E" in fn
                 or "minsum_flood_kernelILb0ELb0ELb0E" in fn):
+            print(f"  sass {fn}: {json.dumps(c)}", flush=True)
+    for fn, c in sass_counts(minsum.load_library("minsum_layered").path
+                             ).items():
+        if any(k in fn for k in SASS_LAYERED):
             print(f"  sass {fn}: {json.dumps(c)}", flush=True)
     for fn, c in sass_counts(stream.load_library().path).items():
         print(f"  sass {fn}: {json.dumps(c)}", flush=True)
@@ -713,6 +752,27 @@ def instance_of(d):
             getattr(d, "lane_sigma", None), behind_transposes)
 
 
+def instance_name(d):
+    """The kernel template instance decoder d launches: the packed kernel
+    of its library <lanes a thread, register row, (min*, ET,) MC> or the
+    one-lane template <ET, MC, min*>."""
+    from ldpc_tpu_torch.kernels import minsum
+    mc = hasattr(d, "cb")                  # the megakernel (McDecoder)
+    d = getattr(d, "inner", d)             # behind the batch-first transposes
+    d = getattr(d, "decoder", d)
+    lib = d.library[len("minsum_"):]
+    et, star = d.dec.early_term, d.minstar is not None
+
+    def b(x):
+        return "true" if x else "false"
+    if not d.packed:
+        return f"minsum_{lib}_kernel<{b(et)}, {b(mc)}, {b(star)}>"
+    dmax = minsum.row_degree_instance(d.ct, d.dec.schedule)
+    args = ((minsum.LANES_PER_THREAD, dmax, b(mc)) if lib == "flood" else
+            (minsum.LANES_PER_THREAD, dmax, b(star), b(et), b(mc)))
+    return f"{lib}_packed_kernel<{', '.join(map(str, args))}>"
+
+
 def same_instance(driven, checked, label):
     """Fails unless the decoder a main path launched is the kernel instance
     and shape that was held to its plain version."""
@@ -724,17 +784,21 @@ def same_instance(driven, checked, label):
 def launch_counts(minsum, stream, sweep, label, mc):
     """The launch counters of the run just made. An on-chip route must
     have gone through the schedule's library only, in its MC instance
-    exactly when `mc`; a streaming route through its instance of the
+    exactly when `mc`, in its packed instance (four lanes a thread) exactly
+    when a block of four lanes takes the code (`minsum.is_packed`), else in
+    the one-lane template; a streaming route through its instance of the
     streaming library only; both with no plain call. A plain route (forced,
     to compare with) launches no kernel. Returns the route's launches."""
     launches = dict(minsum.library_launches)
     mc_launches = dict(minsum.mc_launches)
     star_launches = dict(minsum.star_launches)
+    packed = dict(minsum.packed_launches)
     inst = dict(stream.instance_launches)
     plain = minsum.plain_calls + stream.plain_calls
     print(f"{label}: backend {sweep.backend}; kernel launches {launches}, "
-          f"of them MC {mc_launches}, min* {star_launches}, streaming "
-          f"library {inst}, plain_calls {plain}", flush=True)
+          f"of them MC {mc_launches}, min* {star_launches}, packed "
+          f"{packed}, streaming library {inst}, plain_calls {plain}",
+          flush=True)
     backend = sweep.backend
     if backend.startswith("torch-"):
         if any(launches.values()) or stream.kernel_launches:
@@ -747,16 +811,24 @@ def launch_counts(minsum, stream, sweep, label, mc):
             raise AssertionError(f"{label} did not run through the "
                                  f"{variant} instance only")
         return inst[variant]
-    lib = minsum.LIBRARIES[sweep.cfg.decoder.schedule]
-    star = sweep.cfg.decoder.algorithm == "min-star"
+    dc = sweep.cfg.decoder
+    lib = minsum.LIBRARIES[dc.schedule]
+    star = dc.algorithm == "min-star"
+    is_packed = minsum.is_packed(sweep.ct, dc.schedule,
+                                 minsum.star_degree(sweep.ct, dc),
+                                 dc.early_term)
     want_mc = {name: launches[name] if mc else 0 for name in launches}
     want_star = {name: launches[name] if star else 0 for name in launches}
+    want_packed = {name: launches[name] if is_packed else 0
+                   for name in launches}
     if (launches[lib] <= 0 or plain != 0 or mc_launches != want_mc
-            or star_launches != want_star or stream.kernel_launches
+            or star_launches != want_star or packed != want_packed
+            or stream.kernel_launches
             or any(v for name, v in launches.items() if name != lib)):
         raise AssertionError(
             f"{label} did not run through {lib}"
-            f"{' (min*)' if star else ''}{' (MC)' if mc else ''} only")
+            f"{' (min*)' if star else ''}{' (MC)' if mc else ''}"
+            f"{' (packed)' if is_packed else ' (one lane a thread)'} only")
     return launches[lib]
 
 
@@ -985,6 +1057,31 @@ def check_mc_kernels(port, minsum, dev):
     d = make(wifi, fixed)
     compare("K1-MC min* n648 flooding fixed-20 2.0 dB Philox", d,
             d.kernel(seed + 5, s20, g20), d.plain(seed + 5, s20, g20))
+    # the packed layered MC instances at ragged and tiny batches, with
+    # early termination and fixed, min-sum and min*, Philox and injected
+    # words
+    oms_fixed = dataclasses.replace(oms, decoder=dataclasses.replace(
+        oms.decoder, early_term=False))
+    star_fixed = dataclasses.replace(star["layered"], decoder=(
+        dataclasses.replace(star["layered"].decoder, early_term=False)))
+    for B in RAGGED[:-1]:
+        d = make(r56, oms, batch=B)
+        compare("K1-MC n1944 r5/6 layered OMS ET 3.5 dB Philox", d,
+                d.kernel(seed + 11 + B, s35, g35),
+                d.plain(seed + 11 + B, s35, g35))
+        d = make(wifi, star["layered"], batch=B)
+        compare("K1-MC min* n648 layered ET 2.0 dB Philox", d,
+                d.kernel(seed + 12 + B, s20, g20),
+                d.plain(seed + 12 + B, s20, g20))
+    d = make(r56, oms_fixed, batch=4099)
+    compare("K1-MC n1944 r5/6 layered OMS fixed-20 3.5 dB Philox", d,
+            d.kernel(seed + 13, s35, g35), d.plain(seed + 13, s35, g35))
+    d = make(wifi, star_fixed, batch=4099)
+    compare("K1-MC min* n648 layered fixed-20 2.0 dB Philox", d,
+            d.kernel(seed + 14, s20, g20), d.plain(seed + 14, s20, g20))
+    d = make(wifi, star["layered"], batch=5, inject_random=True)
+    compare("K1-MC min* n648 layered ET 2.0 dB inject", d,
+            d.kernel(0, s20, g20, words=w5), d.plain(0, s20, g20, words=w5))
     return worst, timed, star_worst
 
 
@@ -1708,6 +1805,36 @@ def main():
         ("K1 NR BG1 Z=384 (one-lane template) hard B=3",
          long_code("nr-bg1-layered"), base_dec, base_q, 3, False, None),
     ]
+    # the packed layered instance (K3, K5 layered) at ragged and tiny
+    # batches; its fixed forms (fused IO at the main paths' batch, the
+    # 16-entry row, the 8-entry row in hard-output form); the row read
+    # twice (the (3,30) array code, rows of 30); and min* on rows of 30,
+    # which keeps the one-lane template
+    star_et = dec_cfg(star_lay, **et)
+    for B in RAGGED:
+        cases += [
+            (f"K3 n1944 r5/6 OMS ET fused-IO 3.0 dB B={B}", r56, lay, lay_q,
+             B, True, sig[r56, 3.0]),
+            (f"K5 n648 min* layered ET fused-IO 2.0 dB B={B}", wifi, star_et,
+             base_q, B, True, sig[wifi, 2.0])]
+    cases += [
+        ("K3 n1944 r5/6 OMS fixed-20 fused-IO 3.0 dB B=16384", r56,
+         dec_cfg(lay, early_term=False), lay_q, BATCH, True, sig[r56, 3.0]),
+        ("K3 n1944 r3/4 OMS fixed-20 hard B=4099", n1944,
+         dec_cfg(qam.decoder, early_term=False), qam.quant, 4099, False,
+         None),
+        ("K3 n648 min-sum layered fixed-20 hard B=16384", wifi,
+         dec_cfg(base_dec, schedule="layered"), base_q, BATCH, False, None),
+        ("K5 n648 min* layered fixed-20 fused-IO B=16384", wifi, star_lay,
+         base_q, BATCH, True, sig[wifi, 2.0]),
+        ("K3 array 3x30 z31 layered ET (row degree 30, read twice) hard "
+         "B=4099", bare_tensors(array_qc(3, 30, 31), dev),
+         dec_cfg(base_dec, schedule="layered", **et), base_q, 4099, False,
+         None),
+        ("K5 array 3x30 z31 min* layered ET (one-lane template) hard B=999",
+         bare_tensors(array_qc(3, 30, 31), dev), star_et, base_q, 999, False,
+         None),
+    ]
     worst = dict.fromkeys(libs, 0.0)
     star_worst = dict.fromkeys(libs, 0.0)
     held = {}   # label -> the decoder held to its plain version at B=BATCH
@@ -1956,8 +2083,8 @@ def main():
     l5g, l5ge = "5g " + S1689, "5g " + S1689 + "-et"
     d5a, q5a = stream_held[l5a]
     d5b = stream_held[l5b][0]
-    d5c, q5c = stream_held[l5c]
-    d5cs = stream_held[l5c + ", stream"][0]
+    d5cs, q5c = stream_held[l5c]
+    d5c = stream_held[l5c + ", K3"][0]
     d5ds = stream_held[l5d + ", stream"][0]
     d5f, q5f = stream_held[l5f]
     d5fe, q5fe = stream_held[l5fe]
@@ -1984,9 +2111,13 @@ def main():
     timing["turns 64800 ET"] = in_turns(
         d5b, True, q5b, f"n=64,800 OMS ET at 1.25 dB, {STREAM_BATCH} "
         f"codewords")
+    from ldpc_tpu_torch.sim.pipeline import BatchFirstDecoder
+    k3_16200_fixed = BatchFirstDecoder(minsum.make_decoder(
+        d5c.inner.ct, dataclasses.replace(d5c.inner.dec, early_term=False),
+        d5c.inner.quant))
     timing["turns 16200 fixed"] = in_turns(
         d5cs, False, q5c, f"n=16,200 OMS fixed-20 at 1.4 dB, {STREAM_BATCH} "
-        f"codewords")
+        f"codewords", extra={"K3 behind its transposes": k3_16200_fixed})
     timing["turns 16200 ET"] = in_turns(
         d5cs, True, q5c, f"n=16,200 OMS ET at 1.4 dB, {STREAM_BATCH} "
         f"codewords", extra={"K3 behind its transposes": d5c})
@@ -2040,11 +2171,11 @@ def main():
         plain_reps=1)
     timing["K6 16200 stream"] = timed_call(
         d5cs, (q5c,), f"K6f stream-pipelined-et decode of {STREAM_BATCH} "
-        f"codewords (n=16,200 OMS, ET, 1.4 dB: {l5c}, stream's launch)",
+        f"codewords (n=16,200 OMS, ET, 1.4 dB: {l5c}'s launch)",
         plain_reps=1)
     timing["K3 16200"] = timed_call(
         d5c, (q5c,), f"K3 behind its transposes, decode of {STREAM_BATCH} "
-        f"codewords (n=16,200 OMS, ET, 1.4 dB: {l5c}'s launch)")
+        f"codewords (n=16,200 OMS, ET, 1.4 dB: {l5c}, K3's launch)")
 
     def report_step(name, rb, draw, sigma, k, batch=BATCH):
         st = step_seconds(rb, draw, sigma)
@@ -2085,8 +2216,8 @@ def main():
 
     for label, si, db, key in ((l5a, 0, 1.0, "K6 stream-pipelined"),
                                (l5b, 1, 1.25, "K6 stream-pipelined-et"),
-                               (l5c, 0, 1.4, "K3 16200"),
-                               (l5c + ", stream", 0, 1.4,
+                               (l5c + ", K3", 0, 1.4, "K3 16200"),
+                               (l5c, 0, 1.4,
                                 "K6 16200 stream")):
         sw = sweeps[label]
         ms = [report_step(f"{label} {db} dB rng=host", sw.run_batch,
@@ -2116,15 +2247,15 @@ def main():
     mgrid = torch.as_tensor(mrng.integers(
         -100, 100, (micro.Z, micro.N_TILES * micro.TILE_W)).astype(
             np.int8)).to(dev)
-    sweeps = micro.DEFAULT_ITERS["minsum"][0]
+    n_sweeps = micro.DEFAULT_ITERS["minsum"][0]
     micro_cases = {     # kernel -> (kernel, plain, arguments, cost, what)
-        "sweep": (micro.sweep, micro.sweep_plain, (mchan, sweeps),
-                  micro.sweep_cost(BATCH, sweeps),
-                  f"S1 sweep, {sweeps} sweeps of {BATCH} codewords"),
-        "minsum": (micro.minsum, micro.minsum_plain, (mchan, sweeps),
-                   micro.sweep_cost(BATCH, sweeps, mg,
+        "sweep": (micro.sweep, micro.sweep_plain, (mchan, n_sweeps),
+                  micro.sweep_cost(BATCH, n_sweeps),
+                  f"S1 sweep, {n_sweeps} sweeps of {BATCH} codewords"),
+        "minsum": (micro.minsum, micro.minsum_plain, (mchan, n_sweeps),
+                   micro.sweep_cost(BATCH, n_sweeps, mg,
                                     micro.MINSUM_OPS_PER_EDGE),
-                   f"S2 minsum, {sweeps} sweeps of {BATCH} codewords"),
+                   f"S2 minsum, {n_sweeps} sweeps of {BATCH} codewords"),
         "int16": (micro.int16, micro.int16_plain, (ma, mb_),
                   micro.int16_cost(ma.numel()), "S3 int16, (64, 256)"),
         "opchain": (micro.opchain, micro.opchain_plain, (mx, 64, 2000),
@@ -2154,9 +2285,9 @@ def main():
           f"same {BATCH} codewords with IO, int16 totals and int8 messages)",
           flush=True)
 
-    def record(name, lib, launched, err, t):
+    def record(name, lib, launched, err, t, d):
         star = "_star" in name
-        return {"name": name, "route": "cuda",
+        return {"name": name, "instance": instance_name(d), "route": "cuda",
                 "source": minsum.STAR_SOURCE if star else minsum.SOURCES[lib],
                 "replaces": (minsum.STAR_REPLACES if star
                              else minsum.MC_REPLACES if name.endswith("_mc")
@@ -2189,27 +2320,37 @@ def main():
     print(json.dumps({"kernels": [
         record("minsum_flood", "minsum_flood",
                launches["wifi-648-r12-minsum"], worst["minsum_flood"],
-               timing["K1"]),
+               timing["K1"], s648.run_batch.decoder),
         record("minsum_layered", "minsum_layered",
                launches["wifi-full-oms"], worst["minsum_layered"],
-               timing["K3 3.0"]),
+               timing["K3 3.0"], k3),
+        # the one-lane template where no block of four lanes fits: K3
+        # behind the batch-first transposes on DVB-S2 n=16,200
+        record("minsum_layered_onelane", "minsum_layered",
+               launches[l5c + ", K3"],
+               worst["minsum_layered"], timing["K3 16200"], d5c),
         record("minsum_flood_mc", "minsum_flood", fused_launches,
-               mc_worst["minsum_flood"], timing["K1-MC flood lanes"]),
+               mc_worst["minsum_flood"], timing["K1-MC flood lanes"],
+               fused_dec),
         record("minsum_layered_mc", "minsum_layered",
                launches["wifi-full-oms, MC"],
-               mc_worst["minsum_layered"], timing["K1-MC layered"]),
+               mc_worst["minsum_layered"], timing["K1-MC layered"],
+               sweeps["wifi-full-oms, MC"].run_batch.decoder),
         record("minsum_layered_star", "minsum_layered",
                launches["4a wifi-648-minstar"], star_worst["minsum_layered"],
-               timing["K5 layered ET 2.0 dB"]),
+               timing["K5 layered ET 2.0 dB"], s4a.run_batch.decoder),
         record("minsum_flood_star", "minsum_flood",
                launches["min* flooding"], star_worst["minsum_flood"],
-               timing["K5 flooding ET 2.0 dB"]),
+               timing["K5 flooding ET 2.0 dB"],
+               sweeps["min* flooding"].run_batch.decoder),
         record("minsum_layered_star_mc", "minsum_layered",
                launches["4a wifi-648-minstar, MC"],
-               star_mc_worst["minsum_layered"], timing["K5 MC layered"]),
+               star_mc_worst["minsum_layered"], timing["K5 MC layered"],
+               sweeps["4a wifi-648-minstar, MC"].run_batch.decoder),
         record("minsum_flood_star_mc", "minsum_flood",
                launches["min* flooding, MC"],
-               star_mc_worst["minsum_flood"], timing["K5 MC flooding"]),
+               star_mc_worst["minsum_flood"], timing["K5 MC flooding"],
+               sweeps["min* flooding, MC"].run_batch.decoder),
         *stream_records,
         *({"name": f"microbench_{name}", "route": "cuda",
            "source": micro.SOURCE, "replaces": micro.REPLACES[name],

@@ -90,44 +90,22 @@
 // at once (mc_prologue_lanes: the codeword bits of LPT lanes are one word,
 // so the encode's XORs take them together), from the parameter-space
 // tables.
-
-#include <string.h>
-
-#include <algorithm>
+//
+// The packed parts (the parameter block, the shape rule, the word helpers,
+// PackedRow and PackedEmit, mc_prologue_lanes, packed_finish) live in
+// cn_packed.cuh, which the layered library's packed kernel shares.
 
 #include "cn_minsum.cuh"
 #include "cn_minstar.cuh"
+#include "cn_packed.cuh"
 #include "mc_stage.cuh"
 
 namespace {
 
-using ldpc::align16;
-using ldpc::Params;
+using namespace ldpc;
 
 // ---------------------------------------------------------------------------
 // The packed fixed-iteration instance.
-
-constexpr int kTabWords = 8000;       // uint32 words of tables in the parameters
-constexpr int kSmSmem = 233472;       // shared memory an SM gives its blocks
-constexpr int kBlockReserve = 1024;   // the runtime's share per resident block
-constexpr int kSmWarps = 64;
-constexpr int kSmBlocks = 32;
-constexpr int kLanesPerThread = 4;   // the one packed instance built
-constexpr int kRowDegrees[3] = {8, 16, 24};   // the DMAX instances
-
-// Entry tables (uint32): layer_ptr[mb + 1], col_ptr[nb + 1],
-// ent[E] = (col * Z) << 11 | shift (by base row), col_ent[E] =
-// (e * Z) << 11 | shift (by base column); so Z <= 2047 and n, E * Z < 2^21.
-// kernels/minsum.py::packed_tables builds them.
-struct PackedTab {
-  uint32_t w[kTabWords];
-};
-
-struct PackedArgs {
-  Params p;
-  PackedTab t;
-};
-static_assert(sizeof(PackedArgs) <= 32764, "kernel parameters above 32,764 B");
 
 inline size_t packed_smem(int nb, int Z, int E, int lanes) {
   const size_t n = size_t(nb) * Z;
@@ -135,345 +113,11 @@ inline size_t packed_smem(int nb, int Z, int E, int lanes) {
        + align16(n * lanes) + align16(size_t(E) * Z * lanes);
 }
 
-struct PackedShape {
-  int lanes, smem, blocks;   // blocks: resident an SM by this rule
-};
-
-// Lanes per block at kLanesPerThread lanes a thread: of the block shapes
-// (lanes a multiple of it, lanes / kLanesPerThread * Z <= 1024 threads,
-// state within the opt-in) the fewest lanes that keep at least 9/10 of the most
-// codewords an SM holds (its shared memory with the runtime's reserve per
-// block, warps, blocks). Small blocks fill the last wave of a batch finely
-// and wait at barriers that span few warps. lanes 0 when no block fits.
-inline PackedShape packed_shape(int nb, int Z, int E) {
-  PackedShape shapes[ldpc::kMaxThreads];
-  int count = 0, most = 0;
-  for (int k = 1; k * Z <= ldpc::kMaxThreads; ++k) {
-    const int lanes = k * kLanesPerThread;
-    const size_t smem = packed_smem(nb, Z, E, lanes);
-    if (smem > size_t(ldpc::kMaxSmem)) break;
-    const int warps = (k * Z + 31) / 32;
-    const int blocks = std::min({kSmSmem / int(smem + kBlockReserve),
-                                 kSmWarps / warps, kSmBlocks});
-    shapes[count++] = PackedShape{lanes, int(smem), blocks};
-    most = std::max(most, blocks * lanes);
-  }
-  for (int i = 0; i < count; ++i)
-    if (10 * shapes[i].blocks * shapes[i].lanes >= 9 * most) return shapes[i];
-  return PackedShape{0, 0, 0};
-}
-
-// The DMAX instance for a largest base-row degree (0: the two-pass row).
-inline int row_instance(int max_deg) {
-  for (int i = 0; i < 3; ++i)
-    if (max_deg <= kRowDegrees[i]) return i;
-  return 3;
-}
-
-__device__ __forceinline__ uint32_t prmt(uint32_t a, uint32_t b, uint32_t s) {
-  uint32_t d;
-  asm("prmt.b32 %0, %1, %2, %3;" : "=r"(d) : "r"(a), "r"(b), "r"(s));
-  return d;
-}
-
-// int8 lanes 0, 1 (lo) or 2, 3 (hi) of w, sign-extended into 16x2 pairs.
-__device__ __forceinline__ uint32_t widen_lo(uint32_t w) { return prmt(w, 0, 0x9180); }
-__device__ __forceinline__ uint32_t widen_hi(uint32_t w) { return prmt(w, 0, 0xB3A2); }
-
-// Words of LPT lanes: int8 lanes in one uint32 (byte k = lane k), int16
-// lanes in two (lo: lanes 0, 1; hi: lanes 2, 3). LPT is 2 or 4: every
-// access below covers exactly the thread's own lanes.
-template <int LPT>
-__device__ __forceinline__ uint32_t ld8(const int8_t* a) {
-  static_assert(LPT == 2 || LPT == 4, "lanes a thread: 2 or 4");
-  if constexpr (LPT == 4) return *reinterpret_cast<const uint32_t*>(a);
-  else return *reinterpret_cast<const uint16_t*>(a);
-}
-
-template <int LPT>
-__device__ __forceinline__ void st8(int8_t* a, uint32_t w) {
-  static_assert(LPT == 2 || LPT == 4, "lanes a thread: 2 or 4");
-  if constexpr (LPT == 4) *reinterpret_cast<uint32_t*>(a) = w;
-  else *reinterpret_cast<uint16_t*>(a) = uint16_t(w);
-}
-
-template <int LPT>
-__device__ __forceinline__ void ld16(const int16_t* a, uint32_t& lo, uint32_t& hi) {
-  static_assert(LPT == 2 || LPT == 4, "lanes a thread: 2 or 4");
-  if constexpr (LPT == 4) {
-    const uint2 v = *reinterpret_cast<const uint2*>(a);
-    lo = v.x;
-    hi = v.y;
-  } else {
-    lo = *reinterpret_cast<const uint32_t*>(a);
-    hi = 0;
-  }
-}
-
-template <int LPT>
-__device__ __forceinline__ void st16(int16_t* a, uint32_t lo, uint32_t hi) {
-  static_assert(LPT == 2 || LPT == 4, "lanes a thread: 2 or 4");
-  if constexpr (LPT == 4) *reinterpret_cast<uint2*>(a) = make_uint2(lo, hi);
-  else *reinterpret_cast<uint32_t*>(a) = lo;
-}
-
-__device__ __forceinline__ int lane8(uint32_t w, int k) {
-  return int(int8_t(uint8_t(w >> (8 * k))));
-}
-
-__device__ __forceinline__ int lane16(uint32_t lo, uint32_t hi, int k) {
-  const uint32_t w = k < 2 ? lo : hi;
-  return (k & 1) ? int(w) >> 16 : int(int16_t(uint16_t(w)));
-}
-
-template <int LPT, typename T>
-__device__ __forceinline__ bool aligned_for(const T* a) {
-  return (reinterpret_cast<uintptr_t>(a) & (sizeof(T) * LPT - 1)) == 0;
-}
-
-// The quantized channel of LPT lanes at device index g (lanes whole and
-// the address aligned: one vector load; else lane by lane, 0 past the
-// batch), packed as int8 lanes.
-template <int LPT>
-__device__ __forceinline__ uint32_t load_chan_lanes(const Params& p, size_t g,
-                                                    int nvalid) {
-  uint32_t w = 0;
-  if (p.chan_is_f32) {
-    const float* f = static_cast<const float*>(p.chan) + g;
-    float x[LPT];
-    if (nvalid == LPT && aligned_for<LPT>(f)) {
-      if constexpr (LPT == 4) {
-        const float4 v = *reinterpret_cast<const float4*>(f);
-        x[0] = v.x; x[1] = v.y; x[2] = v.z; x[3] = v.w;
-      } else {
-        const float2 v = *reinterpret_cast<const float2*>(f);
-        x[0] = v.x; x[1] = v.y;
-      }
-    } else {
-#pragma unroll
-      for (int k = 0; k < LPT; ++k) x[k] = k < nvalid ? f[k] : 0.f;
-    }
-#pragma unroll
-    for (int k = 0; k < LPT; ++k)
-      w |= uint32_t(uint8_t(ldpc::quant32(x[k], p.scale, p.qmax))) << (8 * k);
-    return w;
-  }
-  const int8_t* c = static_cast<const int8_t*>(p.chan) + g;
-  if (nvalid == LPT && aligned_for<LPT>(c)) return ld8<LPT>(c);
-#pragma unroll
-  for (int k = 0; k < LPT; ++k)
-    if (k < nvalid) w |= uint32_t(uint8_t(c[k])) << (8 * k);
-  return w;
-}
-
-// The int8 lanes of a word of 16x2 pairs (values in [0, 127]): the low
-// byte of each half of lo (lanes 0, 1) and hi (lanes 2, 3); with 0x7531,
-// the high bytes (each lane's sign in bit 7).
-__device__ __forceinline__ uint32_t bytes_of(uint32_t lo, uint32_t hi,
-                                             uint32_t sel = 0x6420) {
-  return prmt(lo, hi, sel);
-}
-
-// One check row's min-sum state for the thread's lanes as NP = LPT / 2
-// pairs of 16-bit lanes: CnRow of cn_minsum.cuh, two lanes an
-// instruction. The messages are stored negated (n = -c2v), so raw = tot - c2v
-// is one add.
-template <int LPT>
-struct PackedRow {
-  static_assert(LPT == 2 || LPT == 4, "lanes a thread: 2 or 4");
-  static constexpr int NP = LPT / 2;
-  uint32_t min1[NP], min2[NP];
-  uint32_t ns = 0;   // the row's sign product, bit 7 of each lane's byte
-
-  __device__ __forceinline__ PackedRow() {
-#pragma unroll
-    for (int k = 0; k < NP; ++k) min1[k] = min2[k] = 0x40004000u;  // kMinSentinel
-  }
-
-  // The row bytes of one entry, min(|raw|, qmax) | sign(raw) << 7 a lane,
-  // from its totals t (16x2 pairs) and negated old message word n; with ADD
-  // the row takes them in. A padded entry (!real) leaves min1, min2 and the
-  // sign product as they were: its magnitude 127 is >= every min2 of a row
-  // of degree >= 2, and its sign is not taken.
-  template <bool ADD>
-  __device__ __forceinline__ uint32_t entry(const uint32_t (&t)[2], uint32_t n,
-                                            uint32_t q2, bool real = true) {
-    uint32_t m[2] = {0u, 0u}, raw[2] = {0u, 0u};
-#pragma unroll
-    for (int k = 0; k < NP; ++k) {
-      raw[k] = __vadd2(t[k], k ? widen_hi(n) : widen_lo(n));
-      m[k] = __vmins2(__vmaxs2(raw[k], __vneg2(raw[k])), q2);
-      if (ADD) {
-        const uint32_t mk = real ? m[k] : 0x007f007fu;
-        min2[k] = __vmins2(min2[k], __vmaxs2(min1[k], mk));
-        min1[k] = __vmins2(min1[k], mk);
-      }
-    }
-    const uint32_t w = bytes_of(m[0], m[1]) |
-                       (bytes_of(raw[0], raw[1], 0x7531) & 0x80808080u);
-    if (ADD && real) ns ^= w & 0x80808080u;
-    return w;
-  }
-};
-
-// CnRow::finish and emit on packed lanes: the new negated message bytes of
-// an entry from its row bytes w. m1: min1 a byte; o1, o2: min1o, min2o; ns:
-// the row's sign product in bit 7 of each byte.
-struct PackedEmit {
-  uint32_t m1, o1, o2, ns;
-
-  template <int LPT>
-  __device__ __forceinline__ PackedEmit(const PackedRow<LPT>& r,
-                                        const Params& p) {
-    uint32_t a[2] = {r.min1[0], 0u}, b[2] = {r.min2[0], 0u};
-    if constexpr (LPT == 4) {
-      a[1] = r.min1[1];
-      b[1] = r.min2[1];
-    }
-    m1 = bytes_of(a[0], a[1]);
-    if (p.alpha_num != 1 || p.alpha_shift != 0) {
-      // (m * num) >> shift a half: m * num < 2^15 carries into no half
-      const uint32_t keep = (0xffffu >> p.alpha_shift) * 0x00010001u;
-#pragma unroll
-      for (int k = 0; k < 2; ++k) {
-        a[k] = ((a[k] * uint32_t(p.alpha_num)) >> p.alpha_shift) & keep;
-        b[k] = ((b[k] * uint32_t(p.alpha_num)) >> p.alpha_shift) & keep;
-      }
-    }
-    if (p.beta) {
-      const uint32_t nb = (uint32_t(-p.beta) & 0xffffu) * 0x00010001u;
-#pragma unroll
-      for (int k = 0; k < 2; ++k) {
-        a[k] = __viaddmax_s16x2(a[k], nb, 0u);
-        b[k] = __viaddmax_s16x2(b[k], nb, 0u);
-      }
-    }
-    o1 = bytes_of(a[0], a[1]);
-    o2 = bytes_of(b[0], b[1]);
-    ns = r.ns;
-  }
-
-  // Every byte at once: bytes of (w & 0x7f) equal to min1 take min2o, the
-  // others min1o (a byte x <= 0x7f is nonzero exactly when x + 0x7f sets
-  // bit 7, and no byte carries); the stored message is the negated one, so
-  // the magnitude (<= 127) is negated per byte, as (0x80 - m) ^ 0x80, where
-  // sign(raw) ^ sign product is clear.
-  __device__ __forceinline__ uint32_t emit(uint32_t w) const {
-    const uint32_t x = (w & 0x7f7f7f7fu) ^ m1;
-    const uint32_t ne = (((x + 0x7f7f7f7fu) & 0x80808080u) >> 7) * 0xffu;
-    const uint32_t mag = (o1 & ne) | (o2 & ~ne);
-    const uint32_t sm = (((w ^ ns) & 0x80808080u) >> 7) * 0xffu;
-    const uint32_t negm = (0x80808080u - mag) ^ 0x80808080u;
-    return (mag & sm) | (negm & ~sm);
-  }
-};
-
-// lam_range of mc_stage.cuh for the thread's LPT lanes at once: the XOR
-// over base row li's entries with lo <= col < hi (columns ascend within a
-// row) of the codeword-bit bytes cw[col][(row + s) mod Z], from the
-// parameter-space tables (entry word colZ << 11 | shift).
-template <int LPT>
-__device__ __forceinline__ uint32_t lam_lanes(const uint32_t* tw, int o_ent,
-                                              int li, int lo, int hi,
-                                              const int8_t* cw_l, int Z,
-                                              int L, int row) {
-  uint32_t x = 0;
-  for (int e = tw[li]; e < int(tw[li + 1]); ++e) {
-    const uint32_t en = tw[o_ent + e];
-    const int cz = int(en >> 11);
-    if (cz < lo * Z) continue;
-    if (cz >= hi * Z) break;
-    int c = row + int(en & 0x7ffu);
-    if (c >= Z) c -= Z;
-    x ^= ld8<LPT>(cw_l + (cz + c) * L);
-  }
-  return x;
-}
-
-// mc_prologue of mc_stage.cuh (the same draws, encode and float stage, in
-// the same order a lane) for the thread's LPT lanes at once: the codeword
-// bits of LPT lanes are one word of bytes, so the encode's XORs take them
-// together, and the lanes' Box-Muller pairs are independent work. Lanes
-// past the batch get zero bits and zero LLRs; every thread reaches the
-// three barriers.
-template <int LPT>
-__device__ void mc_prologue_lanes(const Params& p, const uint32_t* tw,
-                                  int8_t* cw, int8_t* chan, int nvalid,
-                                  long long b0, int row, int lane0) {
-  const int Z = p.Z, L = p.lanes, nb = p.nb, mb = p.mb;
-  const int kb = p.kb, cb = p.mc.cb, o_ent = mb + nb + 2;
-  const int nph = (nb + 1) / 2, k = kb * Z;
-  int8_t* const cw_l = cw + lane0;
-
-  // 1. info bits: one word per bit, its least significant bit
-  for (int j = 0; j < kb; ++j) {
-    uint32_t w = 0;
-#pragma unroll
-    for (int i = 0; i < LPT; ++i)
-      if (i < nvalid) w |= uint32_t(ldpc::mc_info_bit(p, b0 + i, j, row)) << (8 * i);
-    st8<LPT>(cw_l + (j * Z + row) * L, w);
-  }
-  __syncthreads();
-  // 2. p0 = XOR of the core rows' syndromes of the info part
-  uint32_t p0 = 0;
-  for (int i = 0; i < cb; ++i)
-    p0 ^= lam_lanes<LPT>(tw, o_ent, i, 0, kb, cw_l, Z, L, row);
-  st8<LPT>(cw_l + (kb * Z + row) * L, p0);
-  __syncthreads();
-  // 3. staircase over the core rows
-  uint32_t par = 0;
-  for (int tt = 0; tt < cb - 1; ++tt) {
-    par ^= lam_lanes<LPT>(tw, o_ent, tt, 0, kb + 1, cw_l, Z, L, row);
-    st8<LPT>(cw_l + ((kb + tt + 1) * Z + row) * L, par);
-  }
-  __syncthreads();
-  // 4. extension rows: their own identity column from columns < kb + cb
-  for (int e = cb; e < mb; ++e)
-    st8<LPT>(cw_l + ((kb + e) * Z + row) * L,
-             lam_lanes<LPT>(tw, o_ent, e, 0, kb + cb, cw_l, Z, L, row));
-
-  // 5. BPSK + AWGN + demap + quantize on the thread's own rows
-  float sigma[LPT], gain[LPT];
-#pragma unroll
-  for (int i = 0; i < LPT; ++i) {
-    sigma[i] = p.mc.sigma;
-    gain[i] = p.mc.gain;
-    if (p.mc.sigma_lane && i < nvalid) {
-      sigma[i] = p.mc.sigma_lane[b0 + i];
-      gain[i] = p.mc.gain_lane[b0 + i];
-    }
-  }
-  for (int q = 0; q < nph; ++q) {
-    float nrm[LPT][2];
-#pragma unroll
-    for (int i = 0; i < LPT; ++i) {
-      nrm[i][0] = nrm[i][1] = 0.f;
-      if (i < nvalid) {
-        const float f1 = ldpc::mc_unit(ldpc::mc_word(p, b0 + i, k + q * Z + row));
-        const float f2 =
-            ldpc::mc_unit(ldpc::mc_word(p, b0 + i, k + (nph + q) * Z + row));
-        const float r = sqrtf(__fmul_rn(-2.f, logf(f1)));
-        const float th = __fmul_rn(float(2.0 * 3.14159265358979323846), f2);
-        nrm[i][0] = __fmul_rn(r, cosf(th));
-        nrm[i][1] = __fmul_rn(r, sinf(th));
-      }
-    }
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int j = 2 * q + h;
-      if (j >= nb) break;
-      const int v = j * Z + row;
-      const uint32_t c = ld8<LPT>(cw_l + v * L);
-      uint32_t w = 0;
-#pragma unroll
-      for (int i = 0; i < LPT; ++i)
-        if (i < nvalid)
-          w |= uint32_t(uint8_t(ldpc::mc_quant((c >> (8 * i)) & 1, nrm[i][h],
-                                               sigma[i], gain[i], p.qmax)))
-               << (8 * i);
-      st8<LPT>(chan + v * L + lane0, w);
-    }
-  }
+// packed_shape of cn_packed.cuh for this kernel's state, up to 1,024
+// threads a block.
+inline PackedShape flood_shape(int nb, int Z, int E) {
+  return packed_shape(Z, kMaxThreads,
+                      [=](int l) { return packed_smem(nb, Z, E, l); });
 }
 
 template <int LPT, int DMAX, bool MC>
@@ -597,78 +241,12 @@ flood_packed_kernel(const __grid_constant__ PackedArgs a) {
   }
 
   // Outputs from the final totals: hard bits or info-bit errors, and the
-  // syndrome of the hard bits (the XOR of int16 totals carries the parity
-  // of their signs in bits 15 and 31).
-  int nerr[LPT];
+  // syndrome of the hard bits.
+  int iters[LPT];
 #pragma unroll
-  for (int k = 0; k < LPT; ++k) nerr[k] = 0;
-  for (int j = 0; j < nb; ++j) {
-    const int v = j * Z + row;
-    uint32_t lo, hi;
-    ld16<LPT>(tot + v * L + lane0, lo, hi);
-    const uint32_t h = (bytes_of(lo, hi, 0x7531) >> 7) & 0x01010101u;
-    const size_t g = size_t(v) * p.B + b0;
-    if (p.hard) {
-      uint8_t* out = p.hard + g;
-      if (nvalid == LPT && aligned_for<LPT>(out)) {
-        st8<LPT>(reinterpret_cast<int8_t*>(out), h);
-      } else {
-#pragma unroll
-        for (int k = 0; k < LPT; ++k)
-          if (k < nvalid) out[k] = uint8_t(h >> (8 * k));
-      }
-    }
-    if (j < p.kb && (MC || p.info)) {
-      uint32_t ref = 0;
-      if constexpr (MC) {
-#pragma unroll
-        for (int k = 0; k < LPT; ++k)
-          if (k < nvalid) ref |= uint32_t(ldpc::mc_info_bit(p, b0 + k, j, row)) << (8 * k);
-      } else {
-        const int8_t* in = reinterpret_cast<const int8_t*>(p.info + g);
-        if (nvalid == LPT && aligned_for<LPT>(in)) {
-          ref = ld8<LPT>(in);
-        } else {
-#pragma unroll
-          for (int k = 0; k < LPT; ++k)
-            if (k < nvalid) ref |= uint32_t(uint8_t(in[k])) << (8 * k);
-        }
-      }
-#pragma unroll
-      for (int k = 0; k < LPT; ++k) nerr[k] += ((h ^ ref) >> (8 * k)) & 1;
-    }
-  }
-  uint32_t un[2] = {0u, 0u};
-  for (int li = 0; li < mb; ++li) {
-    uint32_t x[2] = {0u, 0u};
-    for (int e = tw[li]; e < int(tw[li + 1]); ++e) {
-      uint32_t t[2];
-      tot_of(tw[o_ent + e], t);
-      x[0] ^= t[0];
-      x[1] ^= t[1];
-    }
-    un[0] |= x[0];
-    un[1] |= x[1];
-  }
-#pragma unroll
-  for (int k = 0; k < LPT; ++k) {
-    if (lane16(un[0], un[1], k) < 0) atomicOr(&s_flag[lane0 + k], 1);
-    if (nerr[k]) atomicAdd(&s_bits[lane0 + k], nerr[k]);
-  }
-  __syncthreads();
-  if (row == 0) {
-#pragma unroll
-    for (int k = 0; k < LPT; ++k) {
-      if (k >= nvalid) break;
-      const long long b = b0 + k;
-      p.iters[b] = p.max_iter;
-      p.conv[b] = s_flag[lane0 + k] == 0;
-      if (p.bits) {
-        p.bits[b] = s_bits[lane0 + k];
-        p.frame[b] = s_bits[lane0 + k] > 0;
-      }
-    }
-  }
+  for (int k = 0; k < LPT; ++k) iters[k] = p.max_iter;
+  packed_finish<LPT, false, MC>(p, tw, tot, s_flag, s_bits, nvalid, b0, row,
+                                lane0, iters, 0u);
 }
 
 using PackedKernel = void (*)(PackedArgs);
@@ -686,24 +264,6 @@ const PackedKernel kPacked[4][2] = {
 
 inline PackedKernel packed_kernel(int max_deg, bool mc) {
   return kPacked[row_instance(max_deg)][mc];
-}
-
-inline int packed_max_degree(const uint32_t* tab, int mb) {
-  int d = 0;
-  for (int i = 0; i < mb; ++i) d = std::max(d, int(tab[i + 1] - tab[i]));
-  return d;
-}
-
-// Sets the instance's shared-memory attributes (the most dynamic shared
-// memory it launches with, the largest carveout) before a launch or an
-// occupancy query.
-template <typename K>
-cudaError_t prepare(K kern, int smem) {
-  cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return err;
-  return cudaFuncSetAttribute(
-      kern, cudaFuncAttributePreferredSharedMemoryCarveout, 100);
 }
 
 // ---------------------------------------------------------------------------
@@ -884,7 +444,7 @@ const ldpc::Kernel kOneLane[2][2][2] = {
 // The fixed min-sum family takes the packed kernel wherever a block of
 // four lanes fits, and the one-lane template elsewhere.
 inline bool is_packed(int nb, int Z, int E, int star_deg, int early_term) {
-  return star_deg == 0 && !early_term && packed_shape(nb, Z, E).lanes > 0;
+  return star_deg == 0 && !early_term && flood_shape(nb, Z, E).lanes > 0;
 }
 
 }  // namespace
@@ -904,7 +464,7 @@ int minsum_flood_config(int nb, int Z, int mb, int E, int star_deg,
                         int* blocks_per_sm) {
   *blocks_per_sm = 0;
   if (is_packed(nb, Z, E, star_deg, early_term)) {
-    const PackedShape s = packed_shape(nb, Z, E);
+    const PackedShape s = flood_shape(nb, Z, E);
     *lanes = s.lanes;
     *smem = s.smem;
     *lanes_per_thread = kLanesPerThread;
@@ -955,10 +515,9 @@ int minsum_flood_launch(const void* chan, int chan_is_f32, float scale,
     return ldpc::launch_instance(
         kOneLane, [=](int l) { return smem_bytes(nb, Z, mb, E, star_deg, l); },
         p, early_term, mc, stream);
-  if (!ptab || ptab_words != mb + nb + 2 + 2 * E || ptab_words > kTabWords ||
-      qmax > 127 || Z > 2047 || size_t(E) * Z >= (size_t(1) << 21))
+  if (!packed_args_ok(ptab, ptab_words, nb, Z, mb, E, qmax, nthr))
     return int(cudaErrorInvalidValue);
-  const PackedShape s = packed_shape(nb, Z, E);
+  const PackedShape s = flood_shape(nb, Z, E);
   static thread_local PackedArgs a;   // 32 KB, off the stack; copied at launch
   static_assert(sizeof(a.t) == 4 * kTabWords, "table words");
   a.p = p;

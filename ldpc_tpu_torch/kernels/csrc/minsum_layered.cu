@@ -1,74 +1,118 @@
-// Fixed-point min-sum layered decoder for NVIDIA Hopper (sm_90a).
+// Fixed-point min-sum and min* layered decoder for NVIDIA Hopper (sm_90a).
 //
 // Replaces ldpc_tpu/kernels/minsum_pallas.py::make_pallas_decoder.kernel in
-// its layered forms (K3): fixed iterations (layered_iter over cn_sweep,
-// then the hard decision and syndrome_ok) and per-lane early termination
-// (run_et with latch_hard and syndrome_ok, entered with the channel
-// state's syndrome), both with the fused-IO stages (quant32 in,
-// emit_counts out). Bit-exact with golden.decoder.decode_fixed(schedule=
+// its layered forms (K3): fixed iterations (layered_iter :823 over cn_sweep
+// :615, then the hard decision and syndrome_ok :602) and per-lane early
+// termination (run_et :830 with latch_hard :644 and syndrome_ok, entered
+// with the channel state's syndrome), both with the fused-IO stages
+// (quant32 :566 in, emit_counts :590 out); with the min* update (K5,
+// _cn_minstar :159 through cn_upd :333); and the layered forms of the
+// Monte-Carlo megakernel (the mc branch :432-558, reached from pallas_call
+// :990; K1-MC). Bit-exact with golden.decoder.decode_fixed(schedule=
 // "layered") and with the plain torch version beside the wrapper
 // (ldpc_tpu_torch/ops/decode_ref.py::make_layered_decoder).
 //
-// What bounds it on the H100: shared-memory traffic, integer ALU work and
-// block barriers. A codeword brings about 4n bytes of float LLRs in and a
-// few bytes of counters out, against up to max_iter * E * Z check-node
-// edge updates (20 * 79 * 81 = 127,980 for the 802.11n n=1944 rate 5/6
-// code), each a few shared-memory accesses, and one barrier per layer.
-// Device memory is touched once per codeword.
+// What bounds it on the H100: not device memory (a codeword brings about 4n
+// bytes of float LLRs in and a few bytes of counters out) but the
+// shared-memory pipe, integer instruction throughput and one block barrier a
+// layer: up to max_iter * E * Z check-node edge updates (20 * 79 * 81 =
+// 127,980 for the 802.11n n=1944 rate 5/6 code).
 //
-// Design. One block decodes `lanes` codewords; thread (x, y) = (codeword
-// lane, row y in [0, Z)) owns check row y of every layer (base row). The
-// state lives in shared memory with the lane index innermost:
-//   post  int16 [n][lanes]        posteriors, initialised from the
-//                                 quantized channel (no separate channel
-//                                 buffer); int16 is lossless since
-//                                 |post| <= 128 + dv_max * qmax, which the
-//                                 wrapper checks is < 2^15
-//   c2v   int8  [E * Z][lanes]    check-to-variable messages, entry-major
-// One layer: thread y reads post[j][(y + s) mod Z] - c2v[e][y] for every
-// entry (j, s) of the base row, runs the CN update of cn_minsum.cuh (the
-// row read twice: reduce, then emit), writes c2v[e][y] = new and
-// post[j][(y + s) mod Z] += new - old, then all threads meet at
-// __syncthreads() before the next layer reads what this one wrote.
-// With the min* update (template STAR, K5; cn_minstar.cuh) the two reads of
-// the row are the suffix pass, backwards into an int8 scratch of star_deg
-// slots per row, and the prefix pass that emits; the writes are the same.
-// No atomics: a base row holds at most one circulant per base column, so
-// within a layer the Z rows of column j touch the permutation
-// (y + s) mod Z of post[j][.], and each address is read and written by one
-// thread only. The lane axis is masked at the ragged edge, so any batch
-// size works.
+// Two kernel templates share the library.
 //
-// Early termination (template ET, a compile-time branch). Before the
-// first iteration every lane checks the channel state: a lane whose hard
-// bits already satisfy every check is done with iters = 0. After each
-// iteration k (1-based), every thread of a lane that is not done checks
-// its rows of every base row and marks the lane's flag with k when one is
-// unsatisfied (all writers store the same value, so no atomics); after a
-// barrier a lane whose flag is not k is done. iters counts the iterations
-// a lane ran while not done. A done lane skips its layer updates from
-// then on, which freezes its posteriors, and so its hard bits, at its
-// first success (latch_hard's effect). At the top of each iteration the
-// block leaves the loop once no lane is active: __syncthreads_or gives
-// every thread the same answer, so no thread waits at a barrier that the
-// others skipped (the whole-tile skip of the TPU kernel). The flag stamps
-// increase with k, so no reset is needed between iterations.
+// layered_packed_kernel<LPT, DMAX, STAR, ET, MC>: every instance (the
+// min-sum family or min*, fixed or early-terminating, fused IO or the
+// megakernel) wherever a block of four lanes fits, laid out for this card
+// with the packed parts of cn_packed.cuh (those of flood_packed_kernel):
+//  * Thread (x, y) owns codeword lanes 4x .. 4x + 3 of check row y of every
+//    base row. Shared memory, one block of L lanes, lane index innermost:
+//      s_flag, s_bits int32 [L]    ET's flag stamp or the final syndrome's
+//                                  flag, info-bit errors
+//      post  int16 [n][L]          posteriors, from the quantized channel
+//                                  (no channel buffer); |post| <= 128 +
+//                                  dv_max * qmax, which the wrapper checks
+//                                  is < 2^15, so the 16x2 adds never leave
+//                                  their half
+//      c2v   int8  [E * Z][L]      check-to-variable messages, negated,
+//                                  entry-major
+//    so four lanes' posteriors are one 8-byte access and their messages one
+//    4-byte access.
+//  * The entry tables are uniform across the block and travel in the
+//    kernel's parameter space (PackedArgs, as the flooding kernel's), with
+//    each entry's posterior as a byte offset (the launch computes it for
+//    the block's lanes), so an address is a few integer operations.
+//  * One layer: thread y reads, for each entry (col, s) of the base row,
+//    the posterior pair post[col][(y + s) mod Z] and its negated old
+//    message once, keeps raw = post - old (two 16x2 words, unclipped) and
+//    its row byte (min(|raw|, qmax) | sign << 7 a lane) in registers (DMAX
+//    slots, DMAX (8, 16, 20, 24) >= the largest base-row degree; a row past
+//    24 is read twice), reduces the row, then emits from registers: the new
+//    negated message bytes and the new bytes (PackedEmit for the min-sum
+//    family) and post = raw + new (one 16x2 add a pair), one message store
+//    and one posterior store an entry. A base row holds at most one circulant per base
+//    column, so within a layer each posterior address is read and written
+//    by one thread only; no atomics, one barrier a layer.
+//  * min* (STAR, K5): the suffix pass walks the register row backwards and
+//    keeps suf[j] of the four lanes as one byte word a slot; the prefix pass
+//    walks it forwards and emits out[i] = bp2(pre[i-1], suf[i+1]), the
+//    grouping of cn_minstar.cuh (3d - 6 combines in entry order), with bp2
+//    on packed lanes (star_bp2: magnitudes as 16x2 pairs, signs as a
+//    byte word). Padded slots never enter the row.
+//    Rows above 24 entries keep the one-lane template.
+//  * Iteration 1 takes every message as 0 without reading it (each entry
+//    belongs to one layer), so the buffer is never zeroed and the MC
+//    prologue borrows it for the codeword bits.
+//  * Early termination (ET) on four lanes: `act` holds 0xff in byte k while
+//    lane k runs. Before the first iteration and after each iteration k the
+//    syndrome pass XORs the posterior pairs of each check row (one 8-byte
+//    load an entry; the parity of four lanes' signs at once) and stops once
+//    every running lane has an unsatisfied row; a thread stamps the flag of
+//    each such lane with k (every writer stores the same value), and after
+//    a barrier a running lane whose flag is not k is done with iters = k.
+//    Its hard bits or info-bit errors are written there and then, from that
+//    state (latch_hard's effect: packed_outputs), and it goes on through
+//    the layers with the other lanes of its word, whose arithmetic it
+//    shares, but nothing reads its state again; so no lane is masked in the
+//    layer loop. A thread whose four lanes are done skips its layers, and
+//    the block leaves the loop once no lane runs (__syncthreads_or gives
+//    every thread the same answer).
+//  * Lanes past the batch are masked in their data, never in their
+//    barriers; device-memory words of chan, info and hard are vectors of
+//    four lanes where aligned and whole, else single lanes.
+//  * Lanes per block follow packed_shape over this state, up to 256
+//    threads a block (the launch bound, which leaves ptxas up to 255
+//    registers for the register row; 42-135 used, no spills).
+//
+// minsum_layered_kernel<ET, MC, STAR>: the earlier one-lane-a-thread
+// layout, kept for codes whose block of four lanes does not fit (DVB-S2
+// n=16,200, NR BG1 Z=384, NR BG1 Z=128 rate 1/3) and for min* rows above 24
+// entries. Thread (x, y) = (codeword lane, row y); the tables sit in shared
+// memory; the row is read twice (reduce, then emit: c2v[e][y] = new and
+// post[j][(y + s) mod Z] += new - old), and with min* the two reads are
+// the suffix pass into an int8 scratch of star_deg slots per row and the
+// prefix pass that emits. Early termination as above, one lane a thread:
+// the flag stamps increase with k, so no reset is needed between
+// iterations.
 //
 // Monte-Carlo megakernel (template MC, K1-MC on the layered schedule;
 // mc_stage.cuh): the posteriors start from the in-kernel prologue (Philox
 // or injected words -> info bits -> structured encode -> BPSK/AWGN/demap/
 // quantize) instead of device memory, the codeword bits borrow the c2v
-// buffer before it is zeroed, and the error count draws each info bit
-// again.
+// buffer (the one-lane template zeroes it after the prologue; the packed
+// kernel never reads it in iteration 1), and the error count draws each
+// info bit again.
 
 #include "cn_minsum.cuh"
 #include "cn_minstar.cuh"
+#include "cn_packed.cuh"
 #include "mc_stage.cuh"
 
 namespace {
 
-using ldpc::align16;
-using ldpc::Params;
+using namespace ldpc;
+
+// ---------------------------------------------------------------------------
+// The one-lane-a-thread template.
 
 inline size_t smem_bytes(int nb, int Z, int mb, int E, int star_deg, int lanes) {
   const size_t n = size_t(nb) * Z;
@@ -230,20 +274,342 @@ const ldpc::Kernel kernels[2][2][2] = {
      {minsum_layered_kernel<false, true, true>,
       minsum_layered_kernel<true, true, true>}}};
 
+// ---------------------------------------------------------------------------
+// The packed instance.
+
+// The launch bound: up to 256 threads a block, at least one block an SM.
+// Without the second figure ptxas held some instances at 64 registers and
+// spilled 4 B around the Monte-Carlo stage's Philox draws; with it no
+// instance spills, and each stays within the registers its blocks an SM
+// allow (at most 135 a thread).
+constexpr int kLayeredMaxThreads = 256;
+// The DMAX instances: a row of 19-20 entries (802.11n rate 5/6) would pay
+// for 4-5 padded slots at 24.
+constexpr int kLayeredRowDegrees[4] = {8, 16, 20, 24};
+
+// The DMAX instance for a largest base-row degree (4: the two-pass row).
+inline int layered_row_instance(int max_deg) {
+  for (int i = 0; i < 4; ++i)
+    if (max_deg <= kLayeredRowDegrees[i]) return i;
+  return 4;
+}
+
+inline size_t layered_packed_smem(int nb, int Z, int E, int lanes) {
+  const size_t n = size_t(nb) * Z;
+  return align16(8 * size_t(lanes)) + align16(2 * n * lanes)
+       + align16(size_t(E) * Z * lanes);
+}
+
+// packed_shape of cn_packed.cuh for this kernel's state.
+inline PackedShape layered_shape(int nb, int Z, int E) {
+  return packed_shape(Z, kLayeredMaxThreads,
+                      [=](int l) { return layered_packed_smem(nb, Z, E, l); });
+}
+
+// The packed kernel takes a code wherever a block of four lanes fits, min*
+// where its rows (star_deg: the largest base-row degree) fit the largest
+// register row; the one-lane template takes the rest.
+inline bool is_packed(int nb, int Z, int E, int star_deg) {
+  return layered_shape(nb, Z, E).lanes > 0 && layered_row_instance(star_deg) < 4;
+}
+
+// The packed kernel's parameter tables: packed_tables' words (o_ent: the
+// entries (col * Z) << 11 | shift by base row), then the entries as byte
+// offsets, post_off[E] = (2 * lanes * (col * Z + shift)) << 11 | (Z - shift):
+// entry (col, shift) of check row y is posterior byte 2 * lanes * (col * Z
+// + (y + shift) mod Z), the offset plus 2 * lanes * y, less 2 * lanes * Z
+// where y >= Z - shift.
+__host__ __device__ inline int offsets_at(int nb, int mb, int E) {
+  return mb + nb + 2 + 2 * E;
+}
+inline int layered_tab_words(int nb, int mb, int E) {
+  return offsets_at(nb, mb, E) + E;
+}
+
+template <int LPT, int DMAX, bool STAR, bool ET, bool MC>
+__global__ void __launch_bounds__(kLayeredMaxThreads, 1)
+layered_packed_kernel(const __grid_constant__ PackedArgs a) {
+  static_assert(LPT == 2 || LPT == 4, "lanes a thread: 2 or 4");
+  static_assert(DMAX > 0 || !STAR, "min* keeps its row in registers");
+  extern __shared__ __align__(16) unsigned char smem[];
+  const Params& p = a.p;
+  const uint32_t* tw = a.t.w;
+  const int L = p.lanes, Z = p.Z, nb = p.nb, mb = p.mb, E = p.E;
+  const int n = nb * Z, ZL = Z * L;
+  const uint32_t* const off = tw + offsets_at(nb, mb, E);
+  const uint32_t (&tc)[2 * kMaxThresholds] = a.star;   // min* constants
+  const uint32_t q2 = uint32_t(p.qmax) * 0x00010001u;
+
+  int32_t* s_flag = reinterpret_cast<int32_t*>(smem);
+  int32_t* s_bits = s_flag + L;
+  unsigned char* cursor = smem + align16(8 * size_t(L));
+  int16_t* post = reinterpret_cast<int16_t*>(cursor);
+  cursor += align16(2 * size_t(n) * L);
+  int8_t* c2v = reinterpret_cast<int8_t*>(cursor);   // negated messages
+
+  const int row = threadIdx.y;
+  const int lane0 = threadIdx.x * LPT;
+  const int tid = row * blockDim.x + threadIdx.x;
+  const long long b0 = (long long)blockIdx.x * L + lane0;
+  const int nvalid = int(min((long long)LPT, max(p.B - b0, 0LL)));
+  int16_t* const post_l = post + lane0;
+  int8_t* const msg_row = c2v + row * L + lane0;   // + e * Z * L: entry e
+
+  for (int i = tid; i < L; i += blockDim.x * blockDim.y) {
+    s_flag[i] = ET ? -1 : 0;
+    s_bits[i] = 0;
+  }
+
+  // Channel in: this thread owns row `row` of every base column.
+  if constexpr (MC) {
+    mc_prologue_lanes<LPT>(p, tw, c2v, post, nvalid, b0, row, lane0);
+  } else {
+    for (int j = 0; j < nb; ++j) {
+      const int v = j * Z + row;
+      put_lanes<LPT>(post_l + v * L,
+                     load_chan_lanes<LPT>(p, size_t(v) * p.B + b0, nvalid));
+    }
+  }
+  __syncthreads();
+
+  // The posterior pair of entry e of this thread's check row.
+  unsigned char* const post_row =
+      reinterpret_cast<unsigned char*>(post_l) + 2 * row * L;
+  auto post_of = [&](int e) {
+    const uint32_t w = off[e];
+    return reinterpret_cast<int16_t*>(
+        post_row + (w >> 11) - (row >= int(w & 0x7ffu) ? 2 * ZL : 0));
+  };
+
+  // ET: byte k of act is 0xff while lane k runs (lanes past the batch never
+  // do); iters[k], the iterations lane k ran.
+  uint32_t act = 0;
+  int iters[LPT];
+#pragma unroll
+  for (int k = 0; k < LPT; ++k) {
+    iters[k] = ET ? 0 : p.max_iter;
+    if (k < nvalid) act |= 0xffu << (8 * k);
+  }
+
+  // State k: each running lane with an unsatisfied check row among this
+  // thread's gets its flag stamped with k (the XOR of its posteriors over a
+  // row carries the parity of their signs in bit 15 of its half; the pass
+  // stops once every running lane has one); after the barrier a running
+  // lane that no thread stamped is done, with iters = k, and its outputs
+  // are written from this state (latch_hard's effect). A done lane goes on
+  // through the layers with the others of its word, but nothing reads its
+  // state again.
+  auto check = [&](int k) {
+    if (act) {
+      const uint32_t need = act & 0x80808080u;
+      uint32_t un = 0;
+      for (int li = 0; li < mb && (un & need) != need; ++li) {
+        uint32_t x[2] = {0u, 0u};
+        for (int e = tw[li]; e < int(tw[li + 1]); ++e) {
+          uint32_t t[2];
+          ld16<LPT>(post_of(e), t[0], t[1]);
+          x[0] ^= t[0];
+          x[1] ^= t[1];
+        }
+        un |= bytes_of(x[0], x[1], 0x7531);
+      }
+      un &= need;
+#pragma unroll
+      for (int q = 0; q < LPT; ++q)
+        if ((un >> (8 * q + 7)) & 1) s_flag[lane0 + q] = k;
+    }
+    __syncthreads();
+    uint32_t fin = 0;
+#pragma unroll
+    for (int q = 0; q < LPT; ++q) {
+      if ((act >> (8 * q)) & 1) {
+        iters[q] = k;
+        if (s_flag[lane0 + q] != k) fin |= 0xffu << (8 * q);
+      }
+    }
+    if (fin) {
+      act &= ~fin;
+      packed_outputs<LPT, MC>(p, post, s_bits, nvalid, b0, row, lane0, fin);
+    }
+  };
+
+  if constexpr (ET) check(0);
+  for (int it = 0; it < p.max_iter; ++it) {
+    if constexpr (ET) {
+      if (!__syncthreads_or(act != 0)) break;
+    }
+    // One layer a base row li; every thread meets the barrier after it.
+    for (int li = 0; li < mb; ++li) {
+      if (!ET || act) {
+        const int e0 = tw[li], d = int(tw[li + 1]) - e0;
+        int8_t* const m0 = msg_row + e0 * ZL;
+        // Entry i's stores: its negated new message bytes msg, and the
+        // posterior raw + new (nv: the new message bytes).
+        auto put = [&](int i, uint32_t msg, uint32_t nv,
+                       const uint32_t (&r)[2]) {
+          st8<LPT>(m0 + i * ZL, msg);
+          st16<LPT>(post_of(e0 + i), __vadd2(r[0], widen_lo(nv)),
+                    __vadd2(r[1], widen_hi(nv)));
+        };
+        if constexpr (DMAX > 0) {
+          // The row read once, into registers, in groups of four slots:
+          // a group past the row's degree is skipped (one uniform branch),
+          // and within a group entries past d repeat the last one's loads
+          // and take no part in the row or the stores.
+          uint32_t raw[DMAX][2];
+          uint32_t rb[DMAX];   // min-sum: row bytes; min*: suffix bytes
+          PackedRow<LPT> cn;
+#pragma unroll
+          for (int i = 0; i < DMAX; ++i) {
+            if ((i & ~3) >= d) break;
+            const int ei = min(i, d - 1);
+            uint32_t t[2];
+            ld16<LPT>(post_of(e0 + ei), t[0], t[1]);
+            const uint32_t nw = it ? ld8<LPT>(m0 + ei * ZL) : 0u;
+            if constexpr (STAR) {
+              raw[i][0] = __vadd2(t[0], widen_lo(nw));
+              raw[i][1] = LPT == 4 ? __vadd2(t[1], widen_hi(nw)) : 0u;
+              rb[i] = 0u;
+            } else {
+              rb[i] = cn.template entry<true>(t, nw, q2, i < d, raw[i]);
+            }
+          }
+          if constexpr (STAR) {
+            auto leaf = [&](int i) { return star_leaf<LPT>(raw[i], q2); };
+            const int nthr = p.nthr;
+            // suf[d - 1] = leaf[d - 1], suf[j] = bp2(leaf[j], suf[j + 1])
+            // for j = d - 2 .. 1, as bytes
+            StarVal acc{};
+#pragma unroll
+            for (int j = DMAX - 1; j >= 1; --j) {
+              if (j < d) {
+                acc = j == d - 1 ? leaf(j)
+                                 : star_bp2<LPT>(leaf(j), acc, tc, nthr, q2);
+                rb[j] = star_pack(acc);
+              }
+            }
+            // out[0] = suf[1], out[i] = bp2(pre[i - 1], suf[i + 1]),
+            // out[d - 1] = pre[d - 2]; pre[0] = leaf[0], pre[i] =
+            // bp2(pre[i - 1], leaf[i])
+            StarVal pre{};
+#pragma unroll
+            for (int i = 0; i < DMAX; ++i) {
+              if (i < d) {
+                StarVal out;
+                if (i == 0) out = star_unpack(rb[1]);
+                else if (i == d - 1) out = pre;
+                else out = star_bp2<LPT>(pre, star_unpack(rb[min(i + 1, DMAX - 1)]),
+                                         tc, nthr, q2);
+                if (i < d - 1)
+                  pre = i == 0 ? leaf(0) : star_bp2<LPT>(pre, leaf(i), tc, nthr, q2);
+                uint32_t msg, nv;
+                star_bytes(out, msg, nv);
+                put(i, msg, nv, raw[i]);
+              }
+            }
+          } else {
+            const PackedEmit em(cn, p);
+#pragma unroll
+            for (int i = 0; i < DMAX; ++i) {
+              if (i < d) {
+                uint32_t msg, nv;
+                em.emit(rb[i], msg, nv);
+                put(i, msg, nv, raw[i]);
+              }
+            }
+          }
+        } else {
+          // rows longer than every register instance: read twice
+          PackedRow<LPT> cn;
+          for (int i = 0; i < d; ++i) {
+            uint32_t t[2];
+            ld16<LPT>(post_of(e0 + i), t[0], t[1]);
+            cn.template entry<true>(t, it ? ld8<LPT>(m0 + i * ZL) : 0u, q2);
+          }
+          const PackedEmit em(cn, p);
+          for (int i = 0; i < d; ++i) {
+            uint32_t t[2], raw[2], msg, nv;
+            ld16<LPT>(post_of(e0 + i), t[0], t[1]);
+            em.emit(cn.template entry<false>(
+                        t, it ? ld8<LPT>(m0 + i * ZL) : 0u, q2, true, raw),
+                    msg, nv);
+            put(i, msg, nv, raw);
+          }
+        }
+      }
+      __syncthreads();
+    }
+    if constexpr (ET) check(it + 1);
+  }
+
+  // Outputs of the lanes not yet written, from the final posteriors.
+  packed_finish<LPT, ET, MC>(p, tw, post, s_flag, s_bits, nvalid, b0, row,
+                             lane0, iters, act);
+}
+
+using PackedKernel = void (*)(PackedArgs);
+
+template <int DMAX, bool STAR>
+PackedKernel packed_instance(bool et, bool mc) {
+  constexpr int P = kLanesPerThread;
+  if (et)
+    return mc ? layered_packed_kernel<P, DMAX, STAR, true, true>
+              : layered_packed_kernel<P, DMAX, STAR, true, false>;
+  return mc ? layered_packed_kernel<P, DMAX, STAR, false, true>
+            : layered_packed_kernel<P, DMAX, STAR, false, false>;
+}
+
+// The instance for the largest base-row degree (DMAX 8, 16, 20, 24, else
+// the row read twice; min* only up to 24), the update, ET and MC.
+inline PackedKernel packed_kernel(int max_deg, bool star, bool et, bool mc) {
+  switch (layered_row_instance(max_deg)) {
+    case 0:
+      return star ? packed_instance<8, true>(et, mc)
+                  : packed_instance<8, false>(et, mc);
+    case 1:
+      return star ? packed_instance<16, true>(et, mc)
+                  : packed_instance<16, false>(et, mc);
+    case 2:
+      return star ? packed_instance<20, true>(et, mc)
+                  : packed_instance<20, false>(et, mc);
+    case 3:
+      return star ? packed_instance<24, true>(et, mc)
+                  : packed_instance<24, false>(et, mc);
+    default:
+      return packed_instance<0, false>(et, mc);
+  }
+}
+
 }  // namespace
 
 extern "C" {
 
 // The launch shape of one instance for one code: lanes per block, dynamic
-// shared-memory bytes, codeword lanes a thread (1 here) and the blocks an
-// SM keeps resident (cudaOccupancyMaxActiveBlocksPerMultiprocessor).
-// Returns cudaErrorInvalidConfiguration, lanes 0, when no block shape fits
-// (Z > 1024 or state above 227 KB per codeword).
+// shared-memory bytes, codeword lanes a thread, and the blocks an SM keeps
+// resident (cudaOccupancyMaxActiveBlocksPerMultiprocessor, registers
+// included). Where a block of four lanes fits (and for min* its rows fit
+// a register row) the instance is the packed kernel, and max_row_deg (the
+// largest base-row degree) picks its row instance. Returns
+// cudaErrorInvalidConfiguration, lanes 0, when no block shape fits (Z >
+// 1024 or state above 227 KB per codeword).
 int minsum_layered_config(int nb, int Z, int mb, int E, int star_deg,
-                          int early_term, int mc, int* lanes, int* smem,
-                          int* lanes_per_thread, int* blocks_per_sm) {
-  *lanes_per_thread = 1;
+                          int early_term, int mc, int max_row_deg, int* lanes,
+                          int* smem, int* lanes_per_thread,
+                          int* blocks_per_sm) {
   *blocks_per_sm = 0;
+  if (is_packed(nb, Z, E, star_deg)) {
+    const PackedShape s = layered_shape(nb, Z, E);
+    *lanes = s.lanes;
+    *smem = s.smem;
+    *lanes_per_thread = kLanesPerThread;
+    const PackedKernel k =
+        packed_kernel(max_row_deg, star_deg > 0, early_term != 0, mc != 0);
+    const cudaError_t err = prepare(k, s.smem);
+    if (err != cudaSuccess) return int(err);
+    return occupancy(k, s.lanes / kLanesPerThread * Z, s.smem,
+                     blocks_per_sm);
+  }
+  *lanes_per_thread = 1;
   const int cfg = ldpc::decoder_config(
       Z, [=](int l) { return smem_bytes(nb, Z, mb, E, star_deg, l); }, lanes,
       smem);
@@ -257,12 +623,15 @@ const char* minsum_layered_error_string(int err) {
 }
 
 // Launches on `stream` and returns cudaGetLastError() (0 on success). All
-// pointers but `mc` are device pointers; chan/info/hard/bits/frame may be
-// null. With `mc` (host memory) not null it runs the Monte-Carlo megakernel
-// (K1-MC): the channel comes from the seed (key0, key1) or the injected
-// words, and chan/info are not read. star_deg > 0 (the largest base-row
-// degree) selects the min* update with the nthr thresholds at `thr` (host
-// memory; beta and alpha are then not read).
+// pointers but `mc`, `thr` and `ptab` are device pointers; chan/info/hard/
+// bits/frame may be null. With `mc` (host memory) not null it runs the
+// Monte-Carlo megakernel (K1-MC): the channel comes from the seed (key0,
+// key1) or the injected words, and chan/info are not read. star_deg > 0 (the
+// largest base-row degree) selects the min* update with the nthr thresholds
+// at `thr` (host memory; beta and alpha are then not read). The packed
+// kernel takes its entry tables from `ptab` (host memory, ptab_words uint32
+// words, packed_tables' layout) into its parameters; tables above kTabWords
+// words, or qmax above 127, are refused.
 int minsum_layered_launch(const void* chan, int chan_is_f32, float scale,
                           const void* info, int kb, void* hard, void* bits,
                           void* frame, void* iters, void* conv,
@@ -270,14 +639,42 @@ int minsum_layered_launch(const void* chan, int chan_is_f32, float scale,
                           int E, int max_iter, int early_term, int qmax,
                           int beta, int alpha_num, int alpha_shift,
                           int star_deg, const int* thr, int nthr,
-                          const ldpc::Mc* mc, void* stream) {
-  return ldpc::launch_instance(
-      kernels, [=](int l) { return smem_bytes(nb, Z, mb, E, star_deg, l); },
-      ldpc::make_params(chan, chan_is_f32, scale, info, kb, hard, bits,
-                        frame, iters, conv, tables, B, nb, Z, mb, E,
-                        max_iter, qmax, beta, alpha_num, alpha_shift,
-                        star_deg, thr, nthr),
-      early_term, mc, stream);
+                          const ldpc::Mc* mc, const uint32_t* ptab,
+                          int ptab_words, void* stream) {
+  const Params p = ldpc::make_params(
+      chan, chan_is_f32, scale, info, kb, hard, bits, frame, iters, conv,
+      tables, B, nb, Z, mb, E, max_iter, qmax, beta, alpha_num, alpha_shift,
+      star_deg, thr, nthr);
+  if (!is_packed(nb, Z, E, star_deg))
+    return ldpc::launch_instance(
+        kernels, [=](int l) { return smem_bytes(nb, Z, mb, E, star_deg, l); },
+        p, early_term, mc, stream);
+  const PackedShape s = layered_shape(nb, Z, E);
+  if (!packed_args_ok(ptab, ptab_words, nb, Z, mb, E, qmax, nthr) ||
+      layered_tab_words(nb, mb, E) > kTabWords ||
+      2 * size_t(s.lanes) * (size_t(nb) + 1) * Z >= (size_t(1) << 21))
+    return int(cudaErrorInvalidValue);
+  static thread_local PackedArgs a;   // 32 KB, off the stack; copied at launch
+  a.p = p;
+  a.p.lanes = s.lanes;
+  if (mc) a.p.mc = *mc;
+  memcpy(a.t.w, ptab, 4 * size_t(ptab_words));
+  uint32_t* const off = a.t.w + offsets_at(nb, mb, E);
+  for (int e = 0; e < E; ++e) {
+    const uint32_t w = ptab[mb + nb + 2 + e], shift = w & 0x7ffu;
+    off[e] = (2 * uint32_t(s.lanes) * ((w >> 11) + shift)) << 11 | (Z - shift);
+  }
+  star_constants(p, a.star);
+  const PackedKernel k = packed_kernel(packed_max_degree(ptab, mb),
+                                       star_deg > 0, early_term != 0,
+                                       mc != nullptr);
+  const cudaError_t err = prepare(k, s.smem);
+  if (err != cudaSuccess) return int(err);
+  if (B <= 0) return 0;
+  const dim3 block(s.lanes / kLanesPerThread, Z);
+  const dim3 grid((B + s.lanes - 1) / s.lanes);
+  k<<<grid, block, s.smem, static_cast<cudaStream_t>(stream)>>>(a);
+  return int(cudaGetLastError());
 }
 
 }  // extern "C"

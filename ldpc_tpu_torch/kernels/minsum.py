@@ -37,8 +37,9 @@ decoder + counting):
                                                        iters, conv), (B,)
   decode(seed, sigma, gain, words=(W, B) int32)    (inject_random=True)
   decode(seed, sigma_lane=(B,), gain_lane=(B,))    (mc_lane_sigma=True)
-The module also counts `mc_launches` and, for launches of the min*
-instances, `star_launches`, per library.
+The module also counts `mc_launches`, for launches of the min*
+instances `star_launches`, and for launches of a packed instance (four
+lanes a thread, `csrc/cn_packed.cuh`) `packed_launches`, per library.
 """
 from __future__ import annotations
 
@@ -75,32 +76,30 @@ MAX_THRESHOLDS = 8      # ldpc::kMaxThresholds of csrc/cn_minsum.cuh
 MAX_THREADS = 1024      # ldpc::kMaxThreads
 MAX_SMEM = 232448       # ldpc::kMaxSmem, the 227 KB opt-in of sm_90
 PREFERRED_SMEM = 113 * 1024     # ldpc::kPreferredSmem, two blocks per SM
-# The packed fixed-iteration flooding instance (flood_packed_kernel of
-# csrc/minsum_flood.cu): an SM's shared memory for blocks, the runtime's
-# reserve per resident block, warps and blocks an SM keeps, its lanes a
-# thread, the row-degree (DMAX) instances and the table words its parameters
-# hold.
+# The packed instances (csrc/cn_packed.cuh; flood_packed_kernel of
+# csrc/minsum_flood.cu, layered_packed_kernel of csrc/minsum_layered.cu):
+# an SM's shared memory for blocks, the runtime's reserve per resident
+# block, warps and blocks an SM keeps, their lanes a thread, the row-degree
+# (DMAX) instances, the table words their parameters hold, and the layered
+# kernel's launch bound (threads a block).
 SM_SMEM = 233472
 BLOCK_RESERVE = 1024
 SM_WARPS = 64
 SM_BLOCKS = 32
 LANES_PER_THREAD = 4
 ROW_DEGREES = (8, 16, 24)
+LAYERED_ROW_DEGREES = (8, 16, 20, 24)
 TAB_WORDS = 8000
+LAYERED_MAX_THREADS = 256
 
 kernel_launches = 0
 plain_calls = 0
 library_launches = dict.fromkeys(SOURCES, 0)
 mc_launches = dict.fromkeys(SOURCES, 0)
 star_launches = dict.fromkeys(SOURCES, 0)
+packed_launches = dict.fromkeys(SOURCES, 0)
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-# What each library's <name>_launch takes between `mc` and the stream (the
-# flooding library's packed instance: its entry tables in host memory and
-# their words), and how many int arguments <name>_config takes before its
-# four outputs (the flooding library's last: the largest base-row degree).
-LAUNCH_TABLES = {"minsum_flood": [_P, _I], "minsum_layered": []}
-CONFIG_INTS = {"minsum_flood": 8, "minsum_layered": 7}
 
 
 def reset_counters() -> None:
@@ -111,6 +110,7 @@ def reset_counters() -> None:
         library_launches[lib] = 0
         mc_launches[lib] = 0
         star_launches[lib] = 0
+        packed_launches[lib] = 0
 
 
 class McArgs(ctypes.Structure):
@@ -122,17 +122,20 @@ class McArgs(ctypes.Structure):
 
 def load_library(name: str, rebuild: bool = False) -> build.Library:
     """Build (first use) and bind kernel library `name` (a value of
-    LIBRARIES); both export <name>_launch, _config and _error_string."""
+    LIBRARIES); both export <name>_launch, _config and _error_string with
+    the same arguments: the launch takes the packed instance's entry tables
+    (host memory) and their words between `mc` and the stream, the config
+    the largest base-row degree before its four outputs."""
     lib = build.load(name, rebuild=rebuild)
     c = lib.cdll
     launch = getattr(c, f"{name}_launch")
     launch.argtypes = [_P, _I, _F, _P, _I, _P, _P, _P, _P, _P, _P,
                        _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                        _I, ctypes.POINTER(_I), _I,
-                       ctypes.POINTER(McArgs), *LAUNCH_TABLES[name], _P]
+                       ctypes.POINTER(McArgs), _P, _I, _P]
     launch.restype = _I
     config = getattr(c, f"{name}_config")
-    config.argtypes = [_I] * CONFIG_INTS[name] + [ctypes.POINTER(_I)] * 4
+    config.argtypes = [_I] * 8 + [ctypes.POINTER(_I)] * 4
     config.restype = _I
     err = getattr(c, f"{name}_error_string")
     err.argtypes = [_I]
@@ -158,7 +161,7 @@ def kernel_tables(ct: CodeTensors) -> np.ndarray:
 
 
 def packed_tables(ct: CodeTensors) -> np.ndarray:
-    """The packed flooding instance's uint32 entry tables (its kernel
+    """The packed instances' uint32 entry tables (their kernel
     parameters): layer_ptr[mb+1], col_ptr[nb+1], ent[E] = (col * Z) << 11 |
     shift by base row, col_ent[E] = (e * Z) << 11 | shift by base
     column."""
@@ -190,35 +193,45 @@ def base_degrees(ct: CodeTensors) -> Tuple[int, int]:
 
 def is_packed(ct: CodeTensors, schedule: str, star_deg: int,
               early_term: bool) -> bool:
-    """Whether this code and instance take the packed flooding kernel
-    (is_packed of csrc/minsum_flood.cu): flooding, fixed iterations, the
-    min-sum family, and a block of four lanes fits; else the one-lane
-    template decodes it."""
-    return (schedule == "flooding" and star_deg == 0 and not early_term
-            and packed_shape(ct)[0] > 0)
+    """Whether this code and instance take a packed kernel (is_packed of
+    csrc/minsum_flood.cu and csrc/minsum_layered.cu), else the one-lane
+    template decodes it. Flooding: fixed iterations, the min-sum family, and
+    a block of four lanes fits. Layered: every instance where a block of four
+    lanes fits, min* only where its rows (star_deg) fit the largest register
+    row."""
+    if schedule == "flooding":
+        return (star_deg == 0 and not early_term
+                and packed_shape(ct)[0] > 0)
+    return (packed_shape(ct, "layered")[0] > 0
+            and star_deg <= LAYERED_ROW_DEGREES[-1])
 
 
-def packed_smem_bytes(ct: CodeTensors, lanes: int) -> int:
-    """Dynamic shared memory of one block of the packed flooding instance
-    (packed_smem of csrc/minsum_flood.cu): two words a lane, int16 totals,
-    the int8 channel and int8 messages; no tables."""
-    return (align16(8 * lanes) + align16(2 * ct.n * lanes)
-            + align16(ct.n * lanes) + align16(ct.n_entries * ct.Z * lanes))
+def packed_smem_bytes(ct: CodeTensors, lanes: int,
+                      schedule: str = "flooding") -> int:
+    """Dynamic shared memory of one block of a packed instance (packed_smem
+    of csrc/minsum_flood.cu, layered_packed_smem of csrc/minsum_layered.cu):
+    two words a lane, int16 totals or posteriors, for flooding the int8
+    channel, and the int8 messages; no tables."""
+    chan = align16(ct.n * lanes) if schedule == "flooding" else 0
+    return (align16(8 * lanes) + align16(2 * ct.n * lanes) + chan
+            + align16(ct.n_entries * ct.Z * lanes))
 
 
-def packed_shape(ct: CodeTensors) -> Tuple[int, int, int, int]:
+def packed_shape(ct: CodeTensors, schedule: str = "flooding"
+                 ) -> Tuple[int, int, int, int]:
     """(lanes per block, lanes a thread, shared-memory bytes, blocks an SM
-    holds by shared memory, warps and blocks) of the packed flooding
-    instance, as packed_shape of csrc/minsum_flood.cu gives them: of the
+    holds by shared memory, warps and blocks) of the schedule's packed
+    instance, as packed_shape of csrc/cn_packed.cuh gives them: of the
     block shapes (lanes a multiple of LANES_PER_THREAD, lanes /
-    LANES_PER_THREAD * Z <= 1024 threads, state within MAX_SMEM) the fewest
-    lanes that keep at least 9/10 of the most codewords an SM holds. Zeros
-    when no block fits."""
+    LANES_PER_THREAD * Z threads within MAX_THREADS, or LAYERED_MAX_THREADS
+    for layered, state within MAX_SMEM) the fewest lanes that keep at least
+    9/10 of the most codewords an SM holds. Zeros when no block fits."""
     lpt, shapes = LANES_PER_THREAD, []
+    max_threads = MAX_THREADS if schedule == "flooding" else LAYERED_MAX_THREADS
     k = 1
-    while k * ct.Z <= MAX_THREADS:
+    while k * ct.Z <= max_threads:
         lanes = k * lpt
-        smem = packed_smem_bytes(ct, lanes)
+        smem = packed_smem_bytes(ct, lanes, schedule)
         if smem > MAX_SMEM:
             break
         warps = -(-k * ct.Z // 32)
@@ -232,12 +245,13 @@ def packed_shape(ct: CodeTensors) -> Tuple[int, int, int, int]:
     return next(s for s in shapes if 10 * s[3] * s[0] >= 9 * most)
 
 
-def row_degree_instance(ct: CodeTensors) -> int:
+def row_degree_instance(ct: CodeTensors, schedule: str = "flooding") -> int:
     """The packed instance's register row (DMAX) for this code: the least
-    of ROW_DEGREES >= its largest base-row degree, 0 (the row read twice)
-    above them."""
+    of ROW_DEGREES (LAYERED_ROW_DEGREES for layered) >= its largest
+    base-row degree, 0 (the row read twice) above them."""
     d = max(len(row) for row in ct.entries)
-    return next((r for r in ROW_DEGREES if d <= r), 0)
+    rows = ROW_DEGREES if schedule == "flooding" else LAYERED_ROW_DEGREES
+    return next((r for r in rows if d <= r), 0)
 
 
 def onchip_smem_bytes(ct: CodeTensors, schedule: str, star_deg: int,
@@ -246,10 +260,10 @@ def onchip_smem_bytes(ct: CodeTensors, schedule: str, star_deg: int,
     on-chip kernels (smem_bytes of csrc/minsum_flood.cu and
     minsum_layered.cu): the tables, two words per lane, int16 totals or
     posteriors, for flooding the int8 channel, the int8 messages and the
-    min* scratch; the packed flooding instance keeps no tables
+    min* scratch; the packed instances keep no tables and no scratch
     (`packed_smem_bytes`)."""
     if is_packed(ct, schedule, star_deg, early_term):
-        return packed_smem_bytes(ct, lanes)
+        return packed_smem_bytes(ct, lanes, schedule)
     return (align16(4 * table_words(ct)) + align16(8 * lanes)
             + align16(2 * ct.n * lanes)
             + (align16(ct.n * lanes) if schedule == "flooding" else 0)
@@ -260,13 +274,13 @@ def onchip_smem_bytes(ct: CodeTensors, schedule: str, star_deg: int,
 def pick_lanes(ct: CodeTensors, schedule: str, star_deg: int = 0,
                early_term: bool = False) -> int:
     """Codeword lanes per block of the on-chip kernels for this code,
-    without building them: for the packed flooding instance
-    `packed_shape`; else ldpc::pick_lanes of csrc/cn_minsum.cuh, the most
-    lanes (a power of two <= 32, lanes * Z <= 1024 threads) whose state
-    fits 113 KB, else the 227 KB opt-in. 0 when one block's state does not
-    fit one SM's shared memory."""
+    without building them: for a packed instance `packed_shape`; else
+    ldpc::pick_lanes of csrc/cn_minsum.cuh, the most lanes (a power of two
+    <= 32, lanes * Z <= 1024 threads) whose state fits 113 KB, else the
+    227 KB opt-in. 0 when one block's state does not fit one SM's shared
+    memory."""
     if is_packed(ct, schedule, star_deg, early_term):
-        return packed_shape(ct)[0]
+        return packed_shape(ct, schedule)[0]
     for limit in (PREFERRED_SMEM, MAX_SMEM):
         lanes = 32
         while lanes >= 1:
@@ -356,22 +370,13 @@ class MinsumDecoder:
         # the min* instances' scratch degree; 0 selects the min-sum update
         self.star_deg = star_degree(ct, dec)
         self._kernel_domain = kernel_domain(ct, quant)
-        # the packed flooding instance: its entry tables travel in the
-        # kernel's parameters
+        # a packed instance: its entry tables travel in the kernel's
+        # parameters (the one-lane template takes none)
         self.packed = is_packed(ct, dec.schedule, self.star_deg,
                                 dec.early_term)
         self._ptab = packed_tables(ct) if self.packed else None
-        # what the flooding library's launch and config take beyond the
-        # layered library's (LAUNCH_TABLES, CONFIG_INTS): the packed
-        # instance's tables (none for its other instances), the largest
-        # base-row degree
-        self._launch_tables: Tuple = ()
-        self._config_ints: Tuple = ()
-        if dec.schedule == "flooding":
-            self._launch_tables = (
-                (None, 0) if self._ptab is None
-                else (self._ptab.ctypes.data, len(self._ptab)))
-            self._config_ints = (max(len(row) for row in ct.entries),)
+        self._launch_tables = ((None, 0) if self._ptab is None
+                               else (self._ptab.ctypes.data, len(self._ptab)))
 
     @property
     def counting(self) -> bool:
@@ -451,13 +456,12 @@ class MinsumDecoder:
         if self._kernel_domain is not None:
             raise NotImplementedError(self._kernel_domain)
         ct = self.ct
-        if self.packed and (len(self._ptab) > TAB_WORDS
+        if self.packed and (self.param_words() > TAB_WORDS
                             or ct.n_entries * ct.Z >= 1 << 21):
             raise ValueError(
-                f"{ct.code.name}: {len(self._ptab)} words of entry tables "
+                f"{ct.code.name}: {self.param_words()} words of entry tables "
                 f"(E * Z = {ct.n_entries * ct.Z}) exceed the {TAB_WORDS} "
-                f"words (and 2**21) the packed flooding kernel's parameters "
-                f"hold")
+                f"words (and 2**21) the packed kernel's parameters hold")
         if dev.type != "cuda":
             raise ValueError(f"the CUDA kernel needs CUDA tensors, got {dev}")
         if B >= 2 ** 31:
@@ -499,9 +503,18 @@ class MinsumDecoder:
             mc_launches[name] += 1
         if self.minstar is not None:
             star_launches[name] += 1
+        if self.packed:
+            packed_launches[name] += 1
         if self.counting:
             return bits, frame, iters, conv
         return hard, iters, conv
+
+    def param_words(self) -> int:
+        """Table words of the packed instance's parameters: `packed_tables`,
+        and for layered the entries' posterior offsets (layered_tab_words of
+        csrc/minsum_layered.cu)."""
+        extra = self.ct.n_entries if self.dec.schedule == "layered" else 0
+        return len(self._ptab) + extra
 
     @property
     def alpha_pair(self) -> Tuple[int, int]:
@@ -529,7 +542,8 @@ class MinsumDecoder:
         err = getattr(lib, f"{self.library}_config")(
             self.ct.nb, self.ct.Z, self.ct.mb, self.ct.n_entries,
             self.star_deg, int(self.dec.early_term), int(mc),
-            *self._config_ints, *(ctypes.byref(o) for o in out))
+            max(len(row) for row in self.ct.entries),
+            *(ctypes.byref(o) for o in out))
         check_launch(lib, self.library, err)
         return tuple(o.value for o in out)
 

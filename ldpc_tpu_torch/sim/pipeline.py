@@ -139,6 +139,21 @@ def explicit_two_phase(cfg: SimConfig) -> bool:
                 and dc.phase1_iters < dc.max_iter)
 
 
+def stream_first(ct: CodeTensors, cfg: SimConfig) -> bool:
+    """Whether `auto` takes the streaming library for a layered
+    min-sum-family configuration that an on-chip kernel also admits: where
+    no packed layered block takes the code (K3 would be the one-lane
+    template) and the streaming library's instance is the pipelined kernel.
+    Measured (chip_smoke.py, NVIDIA H100 80GB HBM3, 700.00 W, DVB-S2
+    n=16,200 rate 1/2, 1,024 codewords at 1.4 dB, in turns, CUDA-event
+    medians): fixed-20 pipelined 2.0744 ms against K3 behind its transposes
+    3.5663, with early termination 1.3248 against 2.6821."""
+    dc = cfg.decoder
+    return (dc.schedule == "layered" and dc.algorithm in MIN_SUM_FAMILY
+            and not minsum.is_packed(ct, "layered", 0, dc.early_term)
+            and stream.instance_auto(ct, dc.early_term) == "pipelined")
+
+
 def resolve_route(ct: CodeTensors, cfg: SimConfig,
                   backend: str = "auto") -> str:
     """The decoder route of (code, config) on the H100, in place of the
@@ -146,7 +161,8 @@ def resolve_route(ct: CodeTensors, cfg: SimConfig,
 
       "float"   the float algorithms, whatever `backend` says;
       "onchip"  K1/K2/K3/K5, where one codeword's state fits an SM's
-                shared memory (`MinsumDecoder.onchip_domain`);
+                shared memory (`MinsumDecoder.onchip_domain`), except where
+                `stream_first` holds;
       "stream"  else, for layered min-sum-family configs inside its domain,
                 the streaming library (`kernels/minsum_stream`), which
                 picks its kernel by its own rule (`instance_auto`);
@@ -155,7 +171,8 @@ def resolve_route(ct: CodeTensors, cfg: SimConfig,
                 codes).
 
     `backend` forces a route: "stream", "qc", or the reference's names
-    "pallas" (a kernel: on-chip, else stream, never a plain decoder),
+    "pallas" (a kernel: on-chip, else stream, never a plain decoder; it
+    keeps K3 where `auto` streams),
     "qc-jnp" (= "qc") and "jnp" (route "ref": the plain edge-gather
     decoder, `ops/decode_ref`). A forced route that cannot run raises
     ValueError; nothing falls back. The rule reads shapes only, so it is
@@ -180,7 +197,8 @@ def resolve_route(ct: CodeTensors, cfg: SimConfig,
     else:
         stream_why = stream.stream_domain(ct, cfg.quant.qmax)
     if b in ("auto", "pallas"):
-        if onchip_why is None:
+        if onchip_why is None and not (b == "auto" and stream_why is None
+                                       and stream_first(ct, cfg)):
             return "onchip"
         if stream_why is None:
             return "stream"

@@ -407,7 +407,7 @@ def test_row_degree_instance_reads_long_rows_twice():
 ])
 def test_packed_constants_mirror_the_source(py, cu):
     import re
-    src = open(minsum.build.CSRC / "minsum_flood.cu").read()
+    src = open(minsum.build.CSRC / "cn_packed.cuh").read()
     m = re.search(r"constexpr int " + re.escape(cu) + r" = \{?([0-9, ]+)\}?;",
                   src)
     assert m, cu

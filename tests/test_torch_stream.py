@@ -25,7 +25,7 @@ from ldpc_tpu_torch import PRESETS, DecoderConfig, QuantConfig
 from ldpc_tpu_torch.codes import build_code, from_reference
 from ldpc_tpu_torch.kernels import minsum, minsum_stream as tstream
 from ldpc_tpu_torch.sim.pipeline import (resolve_route, select_decoder,
-                                         use_transposed)
+                                         stream_first, use_transposed)
 
 torch.set_num_threads(2)
 
@@ -237,18 +237,28 @@ def test_admission_rule_on_cpu_code_tensors():
             select_decoder(long_ct, cfg, backend="stream")
         with pytest.raises(ValueError, match="no kernel"):
             select_decoder(long_ct, cfg, backend="pallas")
-    # n=16,200 (86,760 B) and NR BG1 Z=384 (114,432 B) fit an SM: K3 takes
-    # them, behind transposes (the step is batch first: n > 4096)
+    # n=16,200 (86,760 B) and NR BG1 Z=384 (114,432 B) fit an SM, but no
+    # block of four lanes: K3 would be the one-lane template, behind
+    # transposes (the step is batch first: n > 4096). `auto` keeps it for
+    # NR BG1 and streams n=16,200, whose streaming instance, the pipelined
+    # kernel, beats that K3 (stream_first); "pallas" keeps K3 for both
     short_cfg, short_ct = _ct("dvbs2-64800-r12", 16200)
     nr_cfg, nr_ct = _ct("nr-bg1-layered")
     # forced through the library: rows of 7 take the pipelined kernel's
     # 8-entry row; NR BG1's rows of up to 22 would take its 24-entry row,
     # which loses to two resident blocks of the template an SM
-    for cfg, ct, lanes, forced_label in (
-            (short_cfg, short_ct, 1, "torch-plain-stream-pipelined-et"),
-            (nr_cfg, nr_ct, 2, "torch-plain-stream-resident-et")):
+    for cfg, ct, lanes, auto_label, forced_label in (
+            (short_cfg, short_ct, 1, "torch-plain-stream-pipelined",
+             "torch-plain-stream-pipelined-et"),
+            (nr_cfg, nr_ct, 2, "torch-plain-layered-bf",
+             "torch-plain-stream-resident-et")):
         assert minsum.pick_lanes(ct, "layered") == lanes
+        assert not minsum.is_packed(ct, "layered", 0, False)
         dec, label = select_decoder(ct, cfg, batch=64)
+        assert label == auto_label
+        assert stream_first(ct, cfg) == (auto_label != "torch-plain-"
+                                         "layered-bf")
+        dec, label = select_decoder(ct, cfg, batch=64, backend="pallas")
         assert label == "torch-plain-layered-bf"
         assert dec.inner.library == "minsum_layered"
         assert not use_transposed(ct, cfg, "onchip")

@@ -9,16 +9,19 @@ Phases, each printing its lines; any failure raises and exits non-zero:
    card's `nvidia-smi` name and power limit;
 2. build: compiles the four kernel libraries fresh with nvcc for sm_90a,
    at the same time (`microbench.cu`: the six microbenchmark kernels S1-S6;
-   `minsum_flood.cu`: K1/K1-IO/K2 and the flooding K1-MC
-   instance; `minsum_layered.cu`: K3, K5 layered and the layered K1-MC
-   instance, in the packed kernel `layered_packed_kernel` wherever a block
-   of four lanes fits and the one-lane template elsewhere; both include
+   `minsum_flood.cu`: K1/K1-IO, K2, K5 flooding and the flooding K1-MC
+   instances, in the packed kernel `flood_packed_kernel`; `minsum_layered.cu`:
+   K3, K5 layered and the layered K1-MC instances, in the packed kernel
+   `layered_packed_kernel`; each packed kernel wherever a block of four
+   lanes fits (min* up to rows of 24), the one-lane template elsewhere; both
+   include
    `cn_minstar.cuh`, the min* update K5 that doubles their instances,
    `cn_packed.cuh` (the packed parts both libraries share), `mc_stage.cuh`
    and `philox.cuh`; `minsum_stream.cu`: the streaming layered decoders
    that answer K6b-K6f, the pipelined kernel and the template it began
    with), and prints each build's time and ptxas' register/spill report,
-   and `cuobjdump -sass` counts of the packed flooding instance, of the
+   and `cuobjdump -sass` counts of the packed flooding instances (K1
+   beside K2 and K5's loops), of the
    packed layered instances of the main paths beside the one-lane
    template's (their layer loops) and of every streaming instance (the
    pipelined kernel's layer loop beside the template's);
@@ -27,8 +30,14 @@ Phases, each printing its lines; any failure raises and exits non-zero:
    decoder a sweep launches below at that sweep's batch, B=16,384.
    Flooding, fixed iterations (K1, K1-IO): 802.11n n=648 at B=16,384 in
    hard-output and fused-IO modes, offset beta=2, normalized alpha=3/4,
-   n=1944 rate 3/4. Flooding with early termination (K2): n=648 at 2.0 dB
-   fused-IO B=16,384, offset beta=2 with max_iter 1. Layered (K3): n=1944
+   n=1944 rate 3/4. Flooding with early termination (K2, in the packed
+   kernel): n=648 at 2.0 dB fused-IO B=16,384, min-sum and
+   `wifi-648-oms-flood-et`'s decoder (OMS beta=2), offset beta=2 with
+   max_iter 1, at the ragged batches 1, 3, 5, 4,099, 16,385, 6 bits, NMS,
+   n=1944 rate 3/4 and 5/6, the (3,30) array code (rows read twice) and NR
+   BG1 Z=384 (the one-lane template); with K5 flooding, ET and fixed, at
+   the same ragged batches and n=1944, max_iter 1, T=(), min* on rows of 30
+   and on DVB-S2 n=16,200 (the one-lane template). Layered (K3): n=1944
    rate 5/6 OMS at 3.0 dB fused-IO B=16,384 with early termination, the
    same code at 20 fixed iterations with B=4,099, n=648 normalized
    alpha=3/4 with max_iter 7, and n=1944 rate 3/4 OMS with early
@@ -59,8 +68,11 @@ Phases, each printing its lines; any failure raises and exits non-zero:
    MC instances with injected words (n=648 layered, early termination)
    and with Philox (n=648 layered and flooding with early termination,
    the two instances the min* device-RNG sweeps launch, and flooding
-   fixed-20), B=16,384; the packed layered MC instances at B = 1, 3, 5
-   and 4,099 (n=1944 rate 5/6 OMS and n=648 min*, with early termination,
+   fixed-20), B=16,384, the flooding min* MC instance at B = 1, 3, 5,
+   4,099 and with injected words at 5; K2's megakernel
+   (`wifi-648-oms-flood-et` with rng=device) with injected words and
+   Philox at B=16,384 and at the ragged batches, NMS at 4,099; the packed
+   layered MC instances at B = 1, 3, 5 and 4,099 (n=1944 rate 5/6 OMS and n=648 min*, with early termination,
    Philox), fixed-20 at 4,099, and min* with injected words at 5; then the
    streaming library (K6b-K6f) against its
    plain version, tolerance 0 on hard bits, iters and conv, 10 iterations:
@@ -123,7 +135,15 @@ Phases, each printing its lines; any failure raises and exits non-zero:
    other min* instances on their steps, 32,768 frames at 2.0 dB each: 4a
    with rng="device" (the layered min* MC instance) against the same
    file, and flooding min* with host and with device RNG, which no file
-   records, each held to the other's rows. Slice 5, the batch-first step
+   records, each held to the other's rows; `wifi-648-oms-flood-et` (K2's
+   main path: the canonical code, 8-bit offset min-sum beta_lsb=2,
+   flooding, early termination, at most 20 iterations) at 1.0, 1.5 and
+   2.0 dB (131,072 frames; the file has 16,384) and 2.5 dB (229,376, the
+   file's), one run a point, against `results/wifi648_oms.json`, with host
+   RNG and again with rng=device (K2's megakernel); their 8 BER and
+   iteration rows at the family-wise z = 3.227 (the file's 1.0 dB point
+   lies 2.3 of its standard errors below the reference package's own
+   131,072-frame estimate). Slice 5, the batch-first step
    on long and rate-matched codes: `dvbs2-64800-r12-stream` (preset
    `dvbs2-64800-r12`: n=64,800, batch 1,024, 20 fixed iterations; 8,192
    frames at 1.0 and 1.25 dB against `results/dvbs2_r12_stream.json`) and
@@ -183,7 +203,9 @@ Phases, each printing its lines; any failure raises and exits non-zero:
 9. times: kernels with CUDA events (warm-up, median, plain and kernel in
    turns), each of the decoder object its main path launched and at that
    batch (run_fused's per-lane megakernel at 18,432, K3 of
-   `qam16-1944-chain` on 16-QAM LLRs at 6.0 dB); K5 beside the min-sum
+   `qam16-1944-chain` on 16-QAM LLRs at 6.0 dB; K2 as the min-sum ET
+   decoder at 2.0 dB, as `wifi-648-oms-flood-et` launched it and its
+   megakernel as the device-RNG twin launched it); K5 beside the min-sum
    instance on the same inputs in turns (layered and flooding with early
    termination at 2.0 dB, layered and flooding fixed-20); steps with the
    host clock and a sync (info bits/s), the device-RNG steps against the
@@ -250,20 +272,24 @@ STREAM_BATCH = 1024         # the long-codeword cells' batch
 
 class Slice(typing.NamedTuple):
     """One sweep of the main paths: `Sweep(cfg, device="cuda", batch=batch,
-    decoder_backend=backend).run(points, max_frames=frames)`."""
+    decoder_backend=backend).run(points, max_frames=frames)`; with frames a
+    tuple (one count a point), one run a point on the same sweep."""
     label: str
     what: str               # the configuration (see slice_config)
     schedule: typing.Optional[str]    # None: the configuration's own
     rng: str
     ref: str                # a file of results/ or another slice's label
     points: tuple
-    frames: int             # per point
+    frames: typing.Union[int, tuple]    # per point
     backend: str = "auto"   # the decoder route to force
     batch: int = BATCH
     expect: typing.Optional[str] = None     # the sweep's backend label
     equal_to: typing.Optional[str] = None   # a slice with the same draws
+    z: float = 2.576        # of the per-frame z-tests (BER, iterations)
 
 
+OMS_ET = "wifi-648-oms-flood-et"   # results/wifi648_oms.json's configuration
+OMS_ET_Z = statistics.NormalDist().inv_cdf(1 - 0.005 / 8)   # 3.227
 S64800, S16200 = "dvbs2-64800-r12-stream", "dvbs2-16200-r12-resident-et"
 S89 = "dvbs2-64800-r89"     # rows of degree 27-28: the template streams
 S1689 = "dvbs2-16200-r89"   # rows of 27-28, posteriors of 32 KB: resident
@@ -287,6 +313,21 @@ SLICES = (
           "min* flooding, MC", (2.0,), 32768),
     Slice("min* flooding, MC", "wifi-648-minstar", "flooding", "device",
           "min* flooding", (2.0,), 32768),
+    # K2's main path: flooding offset min-sum with early termination, host
+    # RNG and the device-RNG megakernel. The file has 16,384 frames at
+    # 1.0-2.0 dB and 229,376 at 2.5 dB. Its 1.0 dB point (BER 4.6396e-2)
+    # lies about 2.3 of its own standard errors below what the reference
+    # package itself gives on 131,072 frames (4.735e-2: `python -m
+    # ldpc_tpu.cli sweep` on the CPU, PERF.md section 7), so these
+    # slices run 131,072 frames there and hold their 8 BER and iteration
+    # rows at the family-wise z of 8 rows sharing 1%, as slice 6 holds its
+    # 36 rows
+    Slice(OMS_ET, OMS_ET, None, "host", "wifi648_oms.json",
+          (1.0, 1.5, 2.0, 2.5), (131072, 131072, 131072, 229376),
+          z=OMS_ET_Z),
+    Slice(OMS_ET + ", MC", OMS_ET, None, "device", "wifi648_oms.json",
+          (1.0, 1.5, 2.0, 2.5), (131072, 131072, 131072, 229376),
+          z=OMS_ET_Z),
     # slice 5, the long-codeword regime: the batch-first step, decoded by
     # the streaming library where no on-chip kernel takes the code
     Slice("5a " + S64800, S64800, None, "host", "dvbs2_r12_stream.json",
@@ -377,6 +418,16 @@ SASS_OPS = ("LDS", "STS", "LDC", "ULDC", "LD", "LDG", "STG", "LDGSTS", "BAR")
 # termination at the 20-entry row, n=1944 rate 5/6; K3 and K5 with early
 # termination at the 8-entry row, n=648) and the one-lane template's
 # early-terminating min-sum instance (<ET, MC, STAR>), K3's layout before
+# the flooding library's functions whose SASS is counted: the packed
+# instances at n=648's 8-entry row, fixed min-sum (K1: <LPT, DMAX, MC>),
+# and <LPT, DMAX, STAR, ET, MC> min-sum with early termination (K2), min*
+# fixed and with early termination (K5), and the one-lane template's fixed
+# min-sum instance (<ET, MC, STAR>), K1's layout before the packed kernel
+SASS_FLOOD = ("flood_packed_kernelILi4ELi8ELb0EE",
+              "flood_packed_kernelILi4ELi8ELb0ELb1ELb0E",
+              "flood_packed_kernelILi4ELi8ELb1ELb0ELb0E",
+              "flood_packed_kernelILi4ELi8ELb1ELb1ELb0E",
+              "minsum_flood_kernelILb0ELb0ELb0E")
 SASS_LAYERED = ("layered_packed_kernelILi4ELi20ELb0ELb1ELb0E",
                 "layered_packed_kernelILi4ELi8ELb0ELb1ELb0E",
                 "layered_packed_kernelILi4ELi8ELb1ELb1ELb0E",
@@ -510,17 +561,17 @@ def sass_counts(path):
 
 def print_sass(minsum, stream):
     """Shared-memory and constant-bank loads of the flooding library's
-    fixed min-sum instances, the packed one (row degree 8, the canonical
-    code's) and the one-lane template's (K1's layout before the packed
-    kernel, unchanged), in the whole function and in each innermost loop;
+    functions of SASS_FLOOD (the packed instances at row degree 8, the
+    canonical code's: K1 beside the new K2 and K5 loops, and the one-lane
+    template's fixed instance), in the whole function and in each innermost
+    loop;
     the layered library's functions of SASS_LAYERED (the packed kernel's
     layer loop beside the one-lane template's); and every instance of the
     streaming library, the pipelined kernel's (its layer loop: LDGSTS, LDS,
     STS, STG, LDC) beside the template's."""
     path = minsum.load_library("minsum_flood").path
     for fn, c in sass_counts(path).items():
-        if ("flood_packed_kernelILi4ELi8ELb0E" in fn
-                or "minsum_flood_kernelILb0ELb0ELb0E" in fn):
+        if any(k in fn for k in SASS_FLOOD):
             print(f"  sass {fn}: {json.dumps(c)}", flush=True)
     for fn, c in sass_counts(minsum.load_library("minsum_layered").path
                              ).items():
@@ -528,6 +579,17 @@ def print_sass(minsum, stream):
             print(f"  sass {fn}: {json.dumps(c)}", flush=True)
     for fn, c in sass_counts(stream.load_library().path).items():
         print(f"  sass {fn}: {json.dumps(c)}", flush=True)
+
+
+def tally_key(d):
+    """The kernels line's record a min-sum decoder's worst error goes to:
+    its library's, or for the early-terminating min-sum family on the
+    flooding schedule (K2) `minsum_flood_et`; min* keys by library in its
+    own tally."""
+    if (d.library == "minsum_flood" and d.dec.early_term
+            and d.minstar is None):
+        return "minsum_flood_et"
+    return d.library
 
 
 def max_abs_err(a, b):
@@ -651,14 +713,21 @@ def slice_config(port, what, rng, schedule=None, **run):
     fixed and with early termination, at n=64,800 and n=16,200);
     `nr-bg1-z384-stream` (preset `nr-bg1-layered`); and NR BG1 Z=128 rate
     1/3 with early termination, the configuration of
-    results/nr_bg1_z128_r13.json. `schedule` replaces the configuration's
-    own."""
+    results/nr_bg1_z128_r13.json; `wifi-648-oms-flood-et`, the canonical
+    preset with offset min-sum beta_lsb=2 and early termination (flooding,
+    20 iterations at most), the configuration of results/wifi648_oms.json.
+    `schedule` replaces the configuration's own."""
     star = what == "wifi-648-minstar"
-    code_kw, dec_kw = {}, {}
+    code_kw, dec_kw, quant_kw = {}, {}, {}
     if star:
         preset = "wifi-648-r12-minsum"
         dec_kw = dict(algorithm="min-star", schedule="layered",
                       early_term=True)
+        quant_kw = dict(beta_lsb=0)
+    elif what == OMS_ET:
+        preset = "wifi-648-r12-minsum"
+        dec_kw = dict(algorithm="offset-min-sum", early_term=True)
+        quant_kw = dict(beta_lsb=2)
     elif what.startswith("dvbs2-"):
         preset = "dvbs2-64800-r12"
         dec_kw = dict(early_term=what.endswith("-et"))
@@ -673,9 +742,8 @@ def slice_config(port, what, rng, schedule=None, **run):
     else:
         preset = what
     cfg = port.PRESETS[preset]
-    if star:
-        cfg = dataclasses.replace(
-            cfg, quant=dataclasses.replace(cfg.quant, beta_lsb=0))
+    cfg = dataclasses.replace(
+        cfg, quant=dataclasses.replace(cfg.quant, **quant_kw))
     if schedule:
         dec_kw["schedule"] = schedule
     if what == "multihost-qam-chain":
@@ -686,10 +754,11 @@ def slice_config(port, what, rng, schedule=None, **run):
         run=dataclasses.replace(cfg.run, rng=rng, **run))
 
 
-def rows_compatible(row, r, k, var_bits, var_iters):
+def rows_compatible(row, r, k, var_bits, var_iters, z=2.576):
     """(ok_b, ok_f, ok_i, ok_c, bits_wilson) of one port row against one
     reference row: FER and converged rate by Wilson intervals, BER and
-    iterations by per-frame z-tests with the per-frame variances given."""
+    iterations by per-frame z-tests at `z` with the per-frame variances
+    given."""
     from ldpc_tpu_torch.sim.stats import mean_compatible, rates_compatible
     ok_f = rates_compatible(row["frame_errs"], row["frames"],
                             r["frame_errs"], r["frames"])
@@ -703,10 +772,10 @@ def rows_compatible(row, r, k, var_bits, var_iters):
     # means with their per-frame variance, from batches that hold failed
     # frames (the caller's).
     ok_b = mean_compatible(row["bit_errs"], row["frames"],
-                           r["bit_errs"], r["frames"], var_bits)
+                           r["bit_errs"], r["frames"], var_bits, z=z)
     ok_i = mean_compatible(row["avg_iters"] * row["frames"],
                            row["frames"], r["avg_iters"] * r["frames"],
-                           r["frames"], var_iters)
+                           r["frames"], var_iters, z=z)
     return ok_b, ok_f, ok_i, ok_c, bits_wilson
 
 
@@ -754,8 +823,9 @@ def instance_of(d):
 
 def instance_name(d):
     """The kernel template instance decoder d launches: the packed kernel
-    of its library <lanes a thread, register row, (min*, ET,) MC> or the
-    one-lane template <ET, MC, min*>."""
+    of its library <lanes a thread, register row, min*, ET, MC> (the
+    flooding library's fixed min-sum family: <lanes a thread, register row,
+    MC>) or the one-lane template <ET, MC, min*>."""
     from ldpc_tpu_torch.kernels import minsum
     mc = hasattr(d, "cb")                  # the megakernel (McDecoder)
     d = getattr(d, "inner", d)             # behind the batch-first transposes
@@ -768,7 +838,8 @@ def instance_name(d):
     if not d.packed:
         return f"minsum_{lib}_kernel<{b(et)}, {b(mc)}, {b(star)}>"
     dmax = minsum.row_degree_instance(d.ct, d.dec.schedule)
-    args = ((minsum.LANES_PER_THREAD, dmax, b(mc)) if lib == "flood" else
+    args = ((minsum.LANES_PER_THREAD, dmax, b(mc))
+            if lib == "flood" and not (et or star) else
             (minsum.LANES_PER_THREAD, dmax, b(star), b(et), b(mc)))
     return f"{lib}_packed_kernel<{', '.join(map(str, args))}>"
 
@@ -847,21 +918,27 @@ def run_slice(port, minsum, stream, sl):
     if sl.expect and sweep.backend != sl.expect:
         raise AssertionError(f"{sl.label}: backend {sweep.backend}, "
                              f"expected {sl.expect}")
+    frames = (dict(zip(sl.points, sl.frames)) if isinstance(sl.frames, tuple)
+              else dict.fromkeys(sl.points, sl.frames))
+    runs = ([[pt] for pt in sl.points] if isinstance(sl.frames, tuple)
+            else [list(sl.points)])
     minsum.reset_counters()
     stream.reset_counters()
     t0 = time.perf_counter()
-    res = sweep.run(list(sl.points), target_frame_errors=10 ** 9,
-                    max_frames=sl.frames)
+    rows = {}
+    for pts in runs:
+        res = sweep.run(pts, target_frame_errors=10 ** 9,
+                        max_frames=frames[pts[0]])
+        rows.update((row["ebn0_db"], row) for row in res.rows())
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = launch_counts(minsum, stream, sweep, sl.label,
                              sl.rng == "device")
     print(f"  {len(sl.points)} points of {sl.frames} frames in {wall:.2f} s",
           flush=True)
-    rows = {row["ebn0_db"]: row for row in res.rows()}
     for row in rows.values():
         if not (np.isfinite(row["ber"]) and np.isfinite(row["fer"])
-                and row["frames"] >= sl.frames):
+                and row["frames"] >= frames[row["ebn0_db"]]):
             raise AssertionError(f"{sl.label}: rates not finite or frames "
                                  f"short at {row['ebn0_db']} dB")
     return sweep, launches, rows
@@ -871,21 +948,23 @@ COUNTERS = ("frames", "bit_errs", "frame_errs", "avg_iters",
             "early_term_rate")
 
 
-def hold_slice(label, sweep, rows, ref, ref_name, equal=None):
+def hold_slice(label, sweep, rows, ref, ref_name, equal=None, z=2.576):
     """Holds a slice's rows to the reference rows `ref` (by Eb/N0; a
     recorded waterfall or another slice's run, named `ref_name`): FER and
     converged rate by Wilson intervals, BER and iterations by per-frame
     z-tests with the variances of `lane_variances` (batch 0 re-drawn, and
     further batches where one of the rows holds bit errors and batch 0
-    none). `equal`: the rows of a slice that saw the same draws, whose
-    counters must be these exactly."""
-    print(f"{label} against {ref_name}:", flush=True)
+    none); `z`, that of the per-frame z-tests. `equal`: the rows of a
+    slice that saw the same draws, whose counters must be these exactly."""
+    print(f"{label} against {ref_name}"
+          + (f" (per-frame z-tests at z = {z:.3f})" if z != 2.576 else "")
+          + ":", flush=True)
     for si, row in enumerate(rows.values()):
         r = ref[row["ebn0_db"]]
         var_b, var_i, count, failed = lane_variances(
             sweep, si, row["ebn0_db"],
             need_failed=bool(row["bit_errs"] or r["bit_errs"]))
-        oks = rows_compatible(row, r, sweep.code.k_eff, var_b, var_i)
+        oks = rows_compatible(row, r, sweep.code.k_eff, var_b, var_i, z)
         auto = sweep.auto_choice.get(si)
         print_row(row, r, var_b, var_i, oks,
                   f"; bit-error variance from {count} frames, {failed} "
@@ -932,7 +1011,10 @@ def check_mc_kernels(port, minsum, dev):
     B=16,384 for the scalar forms, the fused sweep's batch for the
     per-lane form. The min* MC instances the same way (inject and Philox,
     scalar sigma; layered and flooding with early termination, as slice 4
-    drives them, and flooding fixed-20). Returns (worst error per library,
+    drives them, and flooding fixed-20), and the flooding min-sum family's
+    early-terminating instance (K2's megakernel: `wifi-648-oms-flood-et`
+    with rng=device) with injected words and Philox at B=16,384 and at the
+    ragged batches. Returns (worst error per library and `tally_key`,
     name -> (decoder, arguments, keyword arguments) to time, worst error
     per library of the min* instances)."""
     from ldpc_tpu_torch.codes import build_code, from_reference
@@ -965,7 +1047,8 @@ def check_mc_kernels(port, minsum, dev):
         if not same:
             raise AssertionError(f"K1-MC kernel != plain on {label}")
         tally = star_worst if d.decoder.minstar is not None else worst
-        tally[d.library] = max(tally.get(d.library, 0.0), err)
+        key = tally_key(d.decoder)
+        tally[key] = max(tally.get(key, 0.0), err)
 
     s20 = np.float32(sigma_for(2.0, wifi.code.rate, "bpsk"))
     g20 = gain_for(s20, cfg648.quant.scale)
@@ -1037,6 +1120,31 @@ def check_mc_kernels(port, minsum, dev):
         compare(f"K1-MC n1944 r{rate} flooding OMS fixed-20 {db} dB Philox "
                 f"(register row {minsum.row_degree_instance(ct)})", d,
                 d.kernel(seed + 7, s, g), d.plain(seed + 7, s, g))
+    # K2's megakernel (the flooding min-sum family with early termination):
+    # the decoder of wifi-648-oms-flood-et with rng=device, injected words
+    # and Philox at its batch and at ragged batches; NMS at 4,099
+    oms_et = slice_config(port, OMS_ET, "device")
+    d = make(wifi, oms_et, inject_random=True)
+    compare("K1-MC n648 flooding OMS ET 2.0 dB inject", d,
+            d.kernel(0, s20, g20, words=words),
+            d.plain(0, s20, g20, words=words))
+    d = make(wifi, oms_et)
+    compare("K1-MC n648 flooding OMS ET 2.0 dB Philox", d,
+            d.kernel(seed + 20, s20, g20), d.plain(seed + 20, s20, g20))
+    timed["oms flood et"] = (d, (seed + 20, s20, g20), {})
+    for B in RAGGED:
+        d = make(wifi, oms_et, batch=B)
+        compare("K1-MC n648 flooding OMS ET 2.0 dB Philox", d,
+                d.kernel(seed + 21 + B, s20, g20),
+                d.plain(seed + 21 + B, s20, g20))
+    d = make(wifi, oms_et, batch=5, inject_random=True)
+    compare("K1-MC n648 flooding OMS ET 2.0 dB inject", d,
+            d.kernel(0, s20, g20, words=w5), d.plain(0, s20, g20, words=w5))
+    nms_et = dataclasses.replace(oms_et, decoder=dataclasses.replace(
+        oms_et.decoder, algorithm="normalized-min-sum"))
+    d = make(wifi, nms_et, batch=4099)
+    compare("K1-MC n648 flooding NMS ET 2.0 dB Philox", d,
+            d.kernel(seed + 22, s20, g20), d.plain(seed + 22, s20, g20))
     # the min* MC instances (K5 inside K1-MC)
     star = {sched: slice_config(port, "wifi-648-minstar", "device", sched)
             for sched in ("layered", "flooding")}
@@ -1057,6 +1165,16 @@ def check_mc_kernels(port, minsum, dev):
     d = make(wifi, fixed)
     compare("K1-MC min* n648 flooding fixed-20 2.0 dB Philox", d,
             d.kernel(seed + 5, s20, g20), d.plain(seed + 5, s20, g20))
+    # the packed flooding min* MC instances at ragged batches, and with
+    # injected words
+    for B in RAGGED[:-1]:
+        d = make(wifi, star["flooding"], batch=B)
+        compare("K1-MC min* n648 flooding ET 2.0 dB Philox", d,
+                d.kernel(seed + 15 + B, s20, g20),
+                d.plain(seed + 15 + B, s20, g20))
+    d = make(wifi, star["flooding"], batch=5, inject_random=True)
+    compare("K1-MC min* n648 flooding ET 2.0 dB inject", d,
+            d.kernel(0, s20, g20, words=w5), d.plain(0, s20, g20, words=w5))
     # the packed layered MC instances at ragged and tiny batches, with
     # early termination and fixed, min-sum and min*, Philox and injected
     # words
@@ -1705,6 +1823,7 @@ def main():
     sig = {(ct, db): float(sigma_for(db, ct.code.rate, "bpsk"))
            for ct, db in ((r56, 3.0), (r56, 3.5), (wifi, 2.0))}
     qam = slice_config(port, "multihost-qam-chain", "host")
+    oms_et = slice_config(port, OMS_ET, "host")
     gen = torch.Generator(device=dev)
     gen.manual_seed(7)
     # (label, code, decoder cfg, quant cfg, B, fused, sigma of BPSK LLRs or
@@ -1734,6 +1853,9 @@ def main():
          dec_cfg(base_dec, **et), base_q, BATCH, True, sig[wifi, 2.0]),
         ("K2 n648 offset beta=2 ET max_iter 1 hard B=3000", wifi,
          dec_cfg(oms[0], max_iter=1, **et), oms[1], 3000, False, None),
+        # K2's main path: wifi-648-oms-flood-et's decoder at its batch
+        ("K2 n648 OMS beta=2 ET fused-IO 2.0 dB B=16384", wifi,
+         oms_et.decoder, oms_et.quant, BATCH, True, sig[wifi, 2.0]),
     ]
     # K5: min* in every form; thresholds (8, 3, 0) at scale 4, () at scale
     # 0.5 (int8 input, so the scale only picks the thresholds), 6 bits
@@ -1805,6 +1927,51 @@ def main():
         ("K1 NR BG1 Z=384 (one-lane template) hard B=3",
          long_code("nr-bg1-layered"), base_dec, base_q, 3, False, None),
     ]
+    # the packed flooding instance's early-terminating and min* forms (K2,
+    # K5 flooding) at ragged and tiny batches; on n=1944 rate 3/4 (the
+    # 16-entry register row) and 5/6 (rows of 19-20 in the 24-entry row);
+    # 6 bits, NMS, max_iter 1; the (3,30) array code (min-sum ET reads its
+    # rows twice; min* on rows of 30 keeps the one-lane template); and the
+    # codes with no block of four lanes, which keep the one-lane template
+    star_fl_et = dec_cfg(star_fl, **et)
+    for B in RAGGED:
+        cases += [
+            (f"K2 n648 OMS beta=2 ET fused-IO 2.0 dB B={B}", wifi,
+             oms_et.decoder, oms_et.quant, B, True, sig[wifi, 2.0]),
+            (f"K5 n648 min* flooding ET fused-IO 2.0 dB B={B}", wifi,
+             star_fl_et, base_q, B, True, sig[wifi, 2.0]),
+            (f"K5 n648 min* flooding fixed-20 hard B={B}", wifi, star_fl,
+             base_q, B, False, None)]
+    cases += [
+        ("K2 n1944 r3/4 OMS ET fused-IO sigma 0.65 B=4099", n1944,
+         dec_cfg(oms[0], **et), oms[1], 4099, True, 0.65),
+        ("K2 n1944 r5/6 min-sum ET hard B=4099", r56,
+         dec_cfg(base_dec, **et), base_q, 4099, False, None),
+        ("K5 n1944 r3/4 min* flooding ET hard B=3000", n1944, star_fl_et,
+         base_q, 3000, False, None),
+        ("K5 n1944 r5/6 min* flooding ET fused-IO 3.0 dB B=4099", r56,
+         star_fl_et, base_q, 4099, True, sig[r56, 3.0]),
+        ("K2 n648 OMS beta=2 6-bit ET hard B=2000", wifi, oms_et.decoder,
+         dataclasses.replace(oms_et.quant, bits=6), 2000, False, None),
+        ("K2 n648 normalized alpha=3/4 ET fused-IO B=4099", wifi,
+         dec_cfg(nms[0], **et), nms[1], 4099, True, 0.8),
+        ("K5 n648 min* flooding ET max_iter 1 hard B=999", wifi,
+         dec_cfg(star_fl_et, max_iter=1), base_q, 999, False, None),
+        ("K5 n648 min* T=() flooding fixed-20 hard B=999", wifi, star_fl,
+         q_none, 999, False, None),
+        ("K2 array 3x30 z31 flooding ET (row degree 30, read twice) hard "
+         "B=4099", bare_tensors(array_qc(3, 30, 31), dev),
+         dec_cfg(base_dec, **et), base_q, 4099, False, None),
+        ("K5 array 3x30 z31 min* flooding ET (one-lane template) hard B=999",
+         bare_tensors(array_qc(3, 30, 31), dev), star_fl_et, base_q, 999,
+         False, None),
+        ("K2 NR BG1 Z=384 (one-lane template) ET hard B=3",
+         long_code("nr-bg1-layered"), dec_cfg(base_dec, **et), base_q, 3,
+         False, None),
+        ("K5 DVB-S2 n=16,200 min* flooding (one-lane template) hard B=5",
+         long_code("dvbs2-64800-r12", 16200), dec_cfg(star_fl, max_iter=5),
+         base_q, 5, False, None),
+    ]
     # the packed layered instance (K3, K5 layered) at ragged and tiny
     # batches; its fixed forms (fused IO at the main paths' batch, the
     # 16-entry row, the 8-entry row in hard-output form); the row read
@@ -1835,7 +2002,7 @@ def main():
          bare_tensors(array_qc(3, 30, 31), dev), star_et, base_q, 999, False,
          None),
     ]
-    worst = dict.fromkeys(libs, 0.0)
+    worst = dict.fromkeys(libs + ["minsum_flood_et"], 0.0)
     star_worst = dict.fromkeys(libs, 0.0)
     held = {}   # label -> the decoder held to its plain version at B=BATCH
     for label, ct, dc, qc, B, fused, sigma in cases:
@@ -1868,7 +2035,8 @@ def main():
         if (d.minstar is not None) != label.startswith("K5"):
             raise AssertionError(f"{label}: thresholds {d.minstar}")
         tally = star_worst if d.minstar is not None else worst
-        tally[d.library] = max(tally[d.library], err)
+        key = tally_key(d)
+        tally[key] = max(tally.get(key, 0.0), err)
         if B == BATCH:
             held[label] = d
     for ct, dc in ((wifi, dec_cfg(base_dec, **et)), (r56, lay),
@@ -1917,7 +2085,7 @@ def main():
     for sl in SLICES:
         ref = rows[sl.ref] if sl.ref in rows else read_ref(sl.ref)
         hold_slice(sl.label, sweeps[sl.label], rows[sl.label], ref, sl.ref,
-                   rows[sl.equal_to] if sl.equal_to else None)
+                   rows[sl.equal_to] if sl.equal_to else None, sl.z)
     # every decoder a sweep launched was held to its plain version above,
     # as that instance and at that batch
     for label, checked in (
@@ -1934,6 +2102,8 @@ def main():
             ("min* flooding",
              held["K5 n648 min* flooding ET fused-IO 2.0 dB B=16384"]),
             ("min* flooding, MC", mc_timed["star flood"][0]),
+            (OMS_ET, held["K2 n648 OMS beta=2 ET fused-IO 2.0 dB B=16384"]),
+            (OMS_ET + ", MC", mc_timed["oms flood et"][0]),
             *((label, d) for label, (d, _) in stream_held.items())):
         same_instance(sweeps[label].run_batch.decoder, checked, label)
 
@@ -2018,6 +2188,14 @@ def main():
     timing["K2"] = timed_call(
         k2, a20, f"K2 decode of {BATCH} codewords (n648 min-sum, ET, "
         f"fused-IO, 2.0 dB)")
+    timing["K2 OMS"] = timed_call(
+        sweeps[OMS_ET].run_batch.decoder, a20,
+        f"K2 decode of {BATCH} codewords (n648 OMS beta=2, ET, fused-IO, "
+        f"2.0 dB: {OMS_ET}'s launch)")
+    timing["K2 MC"] = timed_mc(
+        "oms flood et", sweeps[OMS_ET + ", MC"].run_batch.decoder,
+        f"K1-MC step of {BATCH} codewords (n648 flooding OMS beta=2, ET, "
+        f"Philox, 2.0 dB: {OMS_ET}, MC's launch)")
     k3 = oms_sweep.run_batch.decoder
     for db in (3.0, 3.5):
         timing[f"K3 {db}"] = timed_call(
@@ -2123,10 +2301,18 @@ def main():
         f"codewords", extra={"K3 behind its transposes": d5c})
     nr_cfg = sweeps[l5d + ", stream"].cfg
     for et, db in ((False, 1.0), (True, 1.25)):
+        q_nr = bf_chain(d5ds.ct, nr_cfg, db, STREAM_BATCH, gen)
         timing[f"turns nr384 {'ET' if et else 'fixed'}"] = in_turns(
-            d5ds, et, bf_chain(d5ds.ct, nr_cfg, db, STREAM_BATCH, gen),
+            d5ds, et, q_nr,
             f"NR BG1 Z=384 OMS {'ET' if et else 'fixed-20'} at {db} dB, "
             f"{STREAM_BATCH} codewords")
+        # the bound of the template's resident instance (K6d, K6e) on it
+        variant = "stream-resident-et" if et else "stream-resident"
+        d_res = probe_stream.decoders(d5ds.ct, d5ds.max_iter, d5ds.beta,
+                                      d5ds.qmax, d5ds.alpha, et)[variant]
+        b_ms, b_by = bound_of(d_res, (q_nr,), {})
+        print(f"  bound of {variant} on this call: {b_ms:.4f} ms by {b_by}",
+              flush=True)
     # rows of 22-23 (rate 5/6): the pipelined kernel's 24-entry register row
     cfg56 = slice_config(port, S64800, "host")
     cfg56 = dataclasses.replace(cfg56, code=dataclasses.replace(
@@ -2329,6 +2515,13 @@ def main():
         record("minsum_layered_onelane", "minsum_layered",
                launches[l5c + ", K3"],
                worst["minsum_layered"], timing["K3 16200"], d5c),
+        # K2: its main path since the packed kernel took it
+        record("minsum_flood_et", "minsum_flood", launches[OMS_ET],
+               worst["minsum_flood_et"], timing["K2 OMS"],
+               sweeps[OMS_ET].run_batch.decoder),
+        record("minsum_flood_et_mc", "minsum_flood", launches[OMS_ET + ", MC"],
+               mc_worst["minsum_flood_et"], timing["K2 MC"],
+               sweeps[OMS_ET + ", MC"].run_batch.decoder),
         record("minsum_flood_mc", "minsum_flood", fused_launches,
                mc_worst["minsum_flood"], timing["K1-MC flood lanes"],
                fused_dec),

@@ -1,9 +1,9 @@
 // The packed datapath shared by the packed decoder kernels of both
-// schedules (minsum_flood.cu: flood_packed_kernel, K1/K1-IO/K1-MC flooding;
-// minsum_layered.cu: layered_packed_kernel, K3, K5 layered and the layered
-// K1-MC): a thread owns LPT codeword lanes (LPT = 4 in the libraries; the
-// parts also build LPT = 2) of one check row, the state keeps the lane index
-// innermost, so the lanes' int8 messages are one 32-bit word and their int16
+// schedules (minsum_flood.cu: flood_packed_kernel, K1/K1-IO, K2, K5 flooding
+// and the flooding K1-MC; minsum_layered.cu: layered_packed_kernel, K3, K5
+// layered and the layered K1-MC): a thread owns LPT codeword lanes (LPT =
+// 4 in the libraries; the parts also build LPT = 2) of one check row, the
+// state keeps the lane index innermost, so the lanes' int8 messages are one 32-bit word and their int16
 // totals or posteriors two words of 16x2 pairs, and the entry tables travel
 // in the kernel's parameter space.
 //
@@ -46,7 +46,7 @@ struct PackedTab {
 
 struct PackedArgs {
   Params p;
-  uint32_t star[2 * kMaxThresholds];   // min*'s threshold constants (layered)
+  uint32_t star[2 * kMaxThresholds];   // min*'s threshold constants
   PackedTab t;
 };
 static_assert(sizeof(PackedArgs) <= 32764, "kernel parameters above 32,764 B");

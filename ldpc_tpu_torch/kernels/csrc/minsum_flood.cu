@@ -1,4 +1,4 @@
-// Fixed-point min-sum flooding decoder for NVIDIA Hopper (sm_90a).
+// Fixed-point min-sum and min* flooding decoder for NVIDIA Hopper (sm_90a).
 //
 // Replaces ldpc_tpu/kernels/minsum_pallas.py::make_pallas_decoder.kernel
 // (:390, reached from pallas_call :1076) in its flooding forms: fixed
@@ -7,7 +7,8 @@
 // latch_hard; K2), both with the fused-IO stages (quant32 :566 in,
 // emit_counts :590 out; K1-IO), and the flooding forms of the Monte-Carlo
 // megakernel (the mc branch :432-558, reached from pallas_call :990;
-// K1-MC). Bit-exact with golden.decoder.decode_fixed(schedule="flooding")
+// K1-MC); each with the min* update (K5: _cn_minstar :159 through cn_upd
+// :333). Bit-exact with golden.decoder.decode_fixed(schedule="flooding")
 // and with the plain torch version beside the wrapper
 // (ldpc_tpu_torch/ops/decode_ref.py).
 //
@@ -19,9 +20,14 @@
 //
 // Two kernel templates share the library.
 //
-// flood_packed_kernel<LPT, DMAX, MC>: the fixed-iteration min-sum family
-// (K1, K1-IO, K1-MC flooding) wherever a block of four lanes fits, laid out
-// for this card:
+// flood_packed_kernel: every instance (the min-sum family or min*, fixed or
+// early-terminating, fused IO or the megakernel) wherever a block of four
+// lanes fits, min* for rows up to 24 entries, one body (flood_packed<LPT,
+// DMAX, STAR, ET, MC>) under two launch bounds: flood_packed_kernel<LPT,
+// DMAX, MC> for the fixed min-sum family (K1, K1-IO, K1-MC; up to 1,024
+// threads, whose 64 registers these instances fit without spilling) and
+// flood_packed_kernel<LPT, DMAX, STAR, ET, MC> for early termination or
+// min* (K2, K5 and their K1-MC forms). Laid out for this card:
 //  * Thread (x, y) owns LPT codeword lanes (4x .. 4x + 3) of row y of every
 //    base row and column. The state keeps the lane index innermost (below),
 //    so one LPT-lane word is one shared-memory access and a warp's access
@@ -32,7 +38,8 @@
 //  * The entry tables are uniform across the block, so they travel in the
 //    kernel's parameter space (the constant bank: `PackedTab`, up to
 //    kTabWords words, CUDA >= 12.1) instead of shared memory: no table
-//    lookup goes through the shared-memory pipe.
+//    lookup goes through the shared-memory pipe; so do min*'s threshold
+//    constants (PackedArgs::star).
 //  * The check row is read once. The reduce pass keeps each entry's
 //    value in a register as one byte a lane, min(|raw|, qmax) in 7 bits
 //    plus the sign of raw (DMAX registers, DMAX >= the largest base-row
@@ -41,14 +48,29 @@
 //    Per edge a thread makes one totals load, one message load and one
 //    message store. A code whose rows are longer than the largest DMAX
 //    instance takes DMAX = 0, which reads the row twice.
+//  * min* (STAR, K5): that row byte is the min* leaf. The suffix pass walks
+//    the register row backwards and keeps suf[j] of the four lanes as one
+//    byte word a slot (DMAX more registers); the prefix pass walks it
+//    forwards and emits out[i] = bp2(pre[i-1], suf[i+1]), the grouping of
+//    cn_minstar.cuh (3d - 6 combines in entry order), with bp2 on packed
+//    lanes (star_bp2 of cn_packed.cuh). Flooding stores only the message
+//    (the V phase rebuilds the totals), so no raw value is kept. Padded
+//    slots never enter the row. Rows above 24 entries keep the one-lane
+//    template.
 //  * The arithmetic runs on 16x2 pairs (__vadd2, __vmins2, __vmaxs2: one
 //    instruction each on sm_90), and the messages are stored negated, so a
 //    row's raw value tot - c2v is one add.
 //  * Lanes per block follow the state (packed_shape): of the shapes whose
 //    state fits, the fewest lanes keeping 9/10 of the most codewords an SM
-//    holds; for n=648 that is twelve one-warp blocks of 4 lanes an SM.
+//    holds; for n=648 that is twelve one-warp blocks of 4 lanes an SM. The
+//    fixed min-sum instances take up to 1,024 threads a block (64
+//    registers); the ET and min* instances are launch-bounded at
+//    kFloodEtStarThreads (256) and one block an SM, which leaves ptxas the
+//    registers of the row and the suffixes (the layered packed kernel's
+//    bound).
 // Shared memory, one block of L lanes:
-//   s_flag, s_bits int32 [L]       final syndrome flag, info-bit errors
+//   s_flag, s_bits int32 [L]       ET's flag stamp or the final syndrome's
+//                                   flag, info-bit errors
 //   tot   int16 [n][L]              totals chan + sum(c2v); int16 is lossless
 //                                   since |tot| <= (dv_max + 1) * qmax, which
 //                                   the wrapper checks is < 2^15
@@ -66,21 +88,37 @@
 // their barriers. Device-memory words of chan, info and hard are vectors of
 // LPT lanes where aligned and whole, else single lanes.
 //
-// minsum_flood_kernel<ET, MC, STAR>: the earlier one-lane-a-thread layout,
-// kept for early termination (K2), min* (K5, cn_minstar.cuh) and the fixed
-// min-sum family on a code that admits no block of four lanes (DVB-S2
-// n=16,200, NR BG1 Z=384); the tables sit in shared memory there. Thread
-// (x, y) = (codeword lane, row y). The row is read twice (once to reduce,
-// once to emit); with min* the two reads are the suffix pass into an int8
-// scratch of star_deg slots per row and the prefix pass that emits.
+// Early termination (ET, K2) with the syndrome fused into the C phase, as
+// the reference fuses it into the sweep (cn_sweep(with_synd=True)): the C
+// phase of iteration k loads the totals of state k for every entry anyway,
+// so it XORs them over each row (bits 15 and 31 of the 16x2 pairs: the
+// parity of the lanes' hard bits) and stamps s_flag with k for each running
+// lane with an unsatisfied row. `act` holds 0xff in byte q while lane q
+// runs. After the C barrier a running lane that no thread stamped is done,
+// with iters = k; its hard bits or info-bit errors are written there and
+// then from the totals, which still hold state k (packed_outputs reads only
+// the thread's own rows, which only its own next V phase overwrites:
+// latch_hard's effect). It goes on through the loop with the other lanes of
+// its word, but nothing reads its state again. State 0 is checked by the C
+// phase of iteration 0 (a noiseless lane: iters 0); state max_iter gets one
+// closing syndrome pass, as the reference's final pass. A thread whose four
+// lanes are done skips both phases, and the block leaves the loop once no
+// lane runs (__syncthreads_or at the V phase's barrier gives every thread
+// the same answer): one XOR pair an entry, and no barrier beyond the fixed
+// form's two an iteration.
 //
-// Early termination (template ET). After the V phase of iteration k the
-// totals are state k; every thread of a lane that is not done checks its
-// check rows and marks the lane's flag with k when one is unsatisfied, and
-// after a barrier a lane whose flag is not k is done, with iters = k. A done
-// lane skips both phases from then on, which freezes its totals at its first
-// success (latch_hard's effect). The block leaves the loop once no lane is
-// active (__syncthreads_or gives every thread the same answer).
+// minsum_flood_kernel<ET, MC, STAR>: the earlier one-lane-a-thread layout,
+// kept for codes that admit no block of four lanes (DVB-S2 n=16,200, NR BG1
+// Z=384) and for min* on rows above 24 entries; the tables sit in shared
+// memory there. Thread (x, y) = (codeword lane, row y). The row is read
+// twice (once to reduce, once to emit); with min* the two reads are the
+// suffix pass into an int8 scratch of star_deg slots per row and the prefix
+// pass that emits. Early termination there: after the V phase of iteration
+// k the totals are state k; every thread of a lane that is not done checks
+// its check rows and marks the lane's flag with k when one is unsatisfied,
+// and after a barrier a lane whose flag is not k is done, with iters = k. A
+// done lane skips both phases from then on, which freezes its totals at its
+// first success. The block leaves the loop once no lane is active.
 //
 // Monte-Carlo megakernel (template MC, K1-MC; mc_stage.cuh): the channel
 // comes from the in-kernel prologue (Philox or injected words -> info bits
@@ -92,8 +130,9 @@
 // tables.
 //
 // The packed parts (the parameter block, the shape rule, the word helpers,
-// PackedRow and PackedEmit, mc_prologue_lanes, packed_finish) live in
-// cn_packed.cuh, which the layered library's packed kernel shares.
+// PackedRow and PackedEmit, star_bp2, mc_prologue_lanes, packed_outputs,
+// packed_finish) live in cn_packed.cuh, which the layered library's packed
+// kernel shares.
 
 #include "cn_minsum.cuh"
 #include "cn_minstar.cuh"
@@ -105,7 +144,17 @@ namespace {
 using namespace ldpc;
 
 // ---------------------------------------------------------------------------
-// The packed fixed-iteration instance.
+// The packed instances.
+
+// The ET and min* instances' launch bound: up to 256 threads a block, at
+// least one block an SM, so ptxas may give a thread up to 255 registers for
+// the register row, the min* suffixes and the early-termination state. The
+// fixed min-sum instances keep 1,024 threads (kMaxThreads: 64 registers).
+constexpr int kFloodEtStarThreads = 256;
+
+inline int flood_max_threads(int star_deg, int early_term) {
+  return star_deg > 0 || early_term ? kFloodEtStarThreads : kMaxThreads;
+}
 
 inline size_t packed_smem(int nb, int Z, int E, int lanes) {
   const size_t n = size_t(nb) * Z;
@@ -113,23 +162,26 @@ inline size_t packed_smem(int nb, int Z, int E, int lanes) {
        + align16(n * lanes) + align16(size_t(E) * Z * lanes);
 }
 
-// packed_shape of cn_packed.cuh for this kernel's state, up to 1,024
-// threads a block.
-inline PackedShape flood_shape(int nb, int Z, int E) {
-  return packed_shape(Z, kMaxThreads,
+// packed_shape of cn_packed.cuh for this kernel's state, up to the
+// instance's threads a block.
+inline PackedShape flood_shape(int nb, int Z, int E, int star_deg,
+                               int early_term) {
+  return packed_shape(Z, flood_max_threads(star_deg, early_term),
                       [=](int l) { return packed_smem(nb, Z, E, l); });
 }
 
-template <int LPT, int DMAX, bool MC>
-__global__ void __launch_bounds__(1024)
-flood_packed_kernel(const __grid_constant__ PackedArgs a) {
+// The body of every packed instance; `a` is the kernel's parameter block.
+template <int LPT, int DMAX, bool STAR, bool ET, bool MC>
+__device__ __forceinline__ void flood_packed(const PackedArgs& a) {
   static_assert(LPT == 2 || LPT == 4, "lanes a thread: 2 or 4");
+  static_assert(DMAX > 0 || !STAR, "min* keeps its row in registers");
   extern __shared__ __align__(16) unsigned char smem[];
   const Params& p = a.p;
   const uint32_t* tw = a.t.w;
   const int L = p.lanes, Z = p.Z, nb = p.nb, mb = p.mb, E = p.E;
   const int n = nb * Z, ZL = Z * L;
   const int o_col = mb + 1, o_ent = mb + nb + 2, o_cent = o_ent + E;
+  const uint32_t (&tc)[2 * kMaxThresholds] = a.star;   // min* constants
   const uint32_t q2 = uint32_t(p.qmax) * 0x00010001u;
 
   int32_t* s_flag = reinterpret_cast<int32_t*>(smem);
@@ -150,7 +202,7 @@ flood_packed_kernel(const __grid_constant__ PackedArgs a) {
   int8_t* const msg_row = c2v + row * L + lane0;   // + e * Z * L: entry e
 
   for (int i = tid; i < L; i += blockDim.x * blockDim.y) {
-    s_flag[i] = 0;
+    s_flag[i] = ET ? -1 : 0;
     s_bits[i] = 0;
   }
 
@@ -173,101 +225,267 @@ flood_packed_kernel(const __grid_constant__ PackedArgs a) {
     ld16<LPT>(tot_l + (int(en >> 11) + c) * L, t[0], t[1]);
   };
 
+  // ET: byte q of act is 0xff while lane q runs (lanes past the batch never
+  // do); iters[q], the iterations lane q ran (the fixed form sets them
+  // after the loop).
+  uint32_t act = 0;
+  int iters[LPT];
+  if constexpr (ET) {
+#pragma unroll
+    for (int k = 0; k < LPT; ++k) {
+      iters[k] = p.max_iter;
+      if (k < nvalid) act |= 0xffu << (8 * k);
+    }
+  }
+
+  // State k: `un` holds, in bit 7 of byte q, whether one of this thread's
+  // check rows is unsatisfied for lane q; each running such lane gets its
+  // flag stamped with k (every writer stores the same value). After the
+  // barrier a running lane that no thread stamped is done, with iters = k,
+  // and its outputs are written from the totals of state k.
+  auto stamp = [&](uint32_t un, int k) {
+    un &= act & 0x80808080u;
+#pragma unroll
+    for (int q = 0; q < LPT; ++q)
+      if ((un >> (8 * q + 7)) & 1) s_flag[lane0 + q] = k;
+  };
+  auto decide = [&](int k) {
+    uint32_t fin = 0;
+#pragma unroll
+    for (int q = 0; q < LPT; ++q) {
+      if ((act >> (8 * q)) & 1) {
+        iters[q] = k;
+        if (s_flag[lane0 + q] != k) fin |= 0xffu << (8 * q);
+      }
+    }
+    if (fin) {
+      act &= ~fin;
+      packed_outputs<LPT, MC>(p, tot, s_bits, nvalid, b0, row, lane0, fin);
+    }
+  };
+
   for (int it = 0;; ++it) {
     // V phase: totals of the current messages (state `it`), chan - the sum
     // of the negated messages; c2v = 0 at 0.
-    for (int j = 0; j < nb; ++j) {
-      const int v = j * Z + row;
-      const uint32_t ch = ld8<LPT>(chan + v * L + lane0);
-      uint32_t lo = widen_lo(ch), hi = LPT == 4 ? widen_hi(ch) : 0u;
-      if (it) {
-        uint32_t s_lo = 0, s_hi = 0;
-        const int q1 = tw[o_col + j + 1];
-        for (int q = tw[o_col + j]; q < q1; ++q) {
-          const uint32_t ce = tw[o_cent + q];   // eZ << 11 | shift
-          int r = row - int(ce & 0x7ffu);
-          if (r < 0) r += Z;
-          const uint32_t m = ld8<LPT>(c2v + (int(ce >> 11) + r) * L + lane0);
-          s_lo = __vadd2(s_lo, widen_lo(m));
-          if constexpr (LPT == 4) s_hi = __vadd2(s_hi, widen_hi(m));
+    if (!ET || act) {
+      for (int j = 0; j < nb; ++j) {
+        const int v = j * Z + row;
+        const uint32_t ch = ld8<LPT>(chan + v * L + lane0);
+        uint32_t lo = widen_lo(ch), hi = LPT == 4 ? widen_hi(ch) : 0u;
+        if (it) {
+          uint32_t s_lo = 0, s_hi = 0;
+          const int q1 = tw[o_col + j + 1];
+          for (int q = tw[o_col + j]; q < q1; ++q) {
+            const uint32_t ce = tw[o_cent + q];   // eZ << 11 | shift
+            int r = row - int(ce & 0x7ffu);
+            if (r < 0) r += Z;
+            const uint32_t m = ld8<LPT>(c2v + (int(ce >> 11) + r) * L + lane0);
+            s_lo = __vadd2(s_lo, widen_lo(m));
+            if constexpr (LPT == 4) s_hi = __vadd2(s_hi, widen_hi(m));
+          }
+          lo = __vadd2(lo, __vneg2(s_lo));
+          if constexpr (LPT == 4) hi = __vadd2(hi, __vneg2(s_hi));
         }
-        lo = __vadd2(lo, __vneg2(s_lo));
-        if constexpr (LPT == 4) hi = __vadd2(hi, __vneg2(s_hi));
+        st16<LPT>(tot + v * L + lane0, lo, hi);
       }
-      st16<LPT>(tot + v * L + lane0, lo, hi);
     }
-    __syncthreads();
-    if (it == p.max_iter) break;
+    if constexpr (ET) {
+      if (!__syncthreads_or(act != 0)) break;
+    } else {
+      __syncthreads();
+    }
+    if (it == p.max_iter) {
+      if constexpr (ET) {
+        // The closing syndrome pass of state max_iter; it stops once every
+        // running lane has an unsatisfied row.
+        const uint32_t need = act & 0x80808080u;
+        uint32_t un = 0;
+        for (int li = 0; li < mb && (un & need) != need; ++li) {
+          uint32_t x[2] = {0u, 0u};
+          for (int e = tw[li]; e < int(tw[li + 1]); ++e) {
+            uint32_t t[2];
+            tot_of(tw[o_ent + e], t);
+            x[0] ^= t[0];
+            x[1] ^= t[1];
+          }
+          un |= bytes_of(x[0], x[1], 0x7531);
+        }
+        stamp(un, it);
+        __syncthreads();
+        decide(it);
+      }
+      break;
+    }
 
-    // C phase: check row `row` of every base row.
-    for (int li = 0; li < mb; ++li) {
-      const int e0 = tw[li], d = int(tw[li + 1]) - e0;
-      int8_t* const m0 = msg_row + e0 * ZL;
-      PackedRow<LPT> cn;
-      if constexpr (DMAX > 0) {
-        // the row in registers; entries past d repeat the last one's loads
-        // and are left out of the reduction and the stores
-        uint32_t rb[DMAX];
+    // C phase: check row `row` of every base row; with ET the parity of
+    // each row's state-`it` hard bits on the way.
+    uint32_t un = 0;
+    if (!ET || act) {
+      for (int li = 0; li < mb; ++li) {
+        const int e0 = tw[li], d = int(tw[li + 1]) - e0;
+        int8_t* const m0 = msg_row + e0 * ZL;
+        uint32_t x[2] = {0u, 0u};   // ET: the XOR of the row's totals
+        PackedRow<LPT> cn;
+        if constexpr (DMAX > 0) {
+          // the row in registers; entries past d repeat the last one's
+          // loads and are left out of the reduction and the stores (the ET
+          // and min* instances skip a group of four slots past d: one
+          // uniform branch)
+          uint32_t rb[DMAX];   // row bytes: min-sum's, or min*'s leaves
 #pragma unroll
-        for (int i = 0; i < DMAX; ++i) {
-          const int ei = min(i, d - 1);
-          uint32_t t[2];
-          tot_of(tw[o_ent + e0 + ei], t);
-          const uint32_t nw = it ? ld8<LPT>(m0 + ei * ZL) : 0u;
-          rb[i] = cn.template entry<true>(t, nw, q2, i < d);
-        }
-        const PackedEmit em(cn, p);
+          for (int i = 0; i < DMAX; ++i) {
+            if constexpr (STAR || ET) {
+              if ((i & ~3) >= d) break;
+            }
+            const int ei = min(i, d - 1);
+            uint32_t t[2];
+            tot_of(tw[o_ent + e0 + ei], t);
+            const uint32_t nw = it ? ld8<LPT>(m0 + ei * ZL) : 0u;
+            rb[i] = cn.template entry<!STAR>(t, nw, q2, i < d);
+            if constexpr (ET) {
+              if (i < d) {
+                x[0] ^= t[0];
+                x[1] ^= t[1];
+              }
+            }
+          }
+          if constexpr (STAR) {
+            const int nthr = p.nthr;
+            // suf[d - 1] = leaf[d - 1], suf[j] = bp2(leaf[j], suf[j + 1])
+            // for j = d - 2 .. 1, as bytes
+            uint32_t sf[DMAX];
+            StarVal acc{};
 #pragma unroll
-        for (int i = 0; i < DMAX; ++i)
-          if (i < d) st8<LPT>(m0 + i * ZL, em.emit(rb[i]));
-      } else {
-        // rows longer than every register instance: read twice
-        for (int i = 0; i < d; ++i) {
-          uint32_t t[2];
-          tot_of(tw[o_ent + e0 + i], t);
-          cn.template entry<true>(t, it ? ld8<LPT>(m0 + i * ZL) : 0u, q2);
+            for (int j = DMAX - 1; j >= 1; --j) {
+              if (j < d) {
+                const StarVal lf = star_unpack(rb[j]);
+                acc = j == d - 1 ? lf : star_bp2<LPT>(lf, acc, tc, nthr, q2);
+                sf[j] = star_pack(acc);
+              }
+            }
+            // out[0] = suf[1], out[i] = bp2(pre[i - 1], suf[i + 1]),
+            // out[d - 1] = pre[d - 2]; pre[0] = leaf[0], pre[i] =
+            // bp2(pre[i - 1], leaf[i])
+            StarVal pre{};
+#pragma unroll
+            for (int i = 0; i < DMAX; ++i) {
+              if (i < d) {
+                StarVal out;
+                if (i == 0) out = star_unpack(sf[1]);
+                else if (i == d - 1) out = pre;
+                else out = star_bp2<LPT>(pre, star_unpack(sf[min(i + 1, DMAX - 1)]),
+                                         tc, nthr, q2);
+                if (i < d - 1)
+                  pre = i == 0 ? star_unpack(rb[0])
+                               : star_bp2<LPT>(pre, star_unpack(rb[i]), tc, nthr, q2);
+                uint32_t msg, nv;
+                star_bytes(out, msg, nv);
+                st8<LPT>(m0 + i * ZL, msg);
+              }
+            }
+          } else {
+            const PackedEmit em(cn, p);
+#pragma unroll
+            for (int i = 0; i < DMAX; ++i)
+              if (i < d) st8<LPT>(m0 + i * ZL, em.emit(rb[i]));
+          }
+        } else {
+          // rows longer than every register instance: read twice
+          for (int i = 0; i < d; ++i) {
+            uint32_t t[2];
+            tot_of(tw[o_ent + e0 + i], t);
+            cn.template entry<true>(t, it ? ld8<LPT>(m0 + i * ZL) : 0u, q2);
+            if constexpr (ET) {
+              x[0] ^= t[0];
+              x[1] ^= t[1];
+            }
+          }
+          const PackedEmit em(cn, p);
+          for (int i = 0; i < d; ++i) {
+            uint32_t t[2];
+            tot_of(tw[o_ent + e0 + i], t);
+            const uint32_t w = cn.template entry<false>(
+                t, it ? ld8<LPT>(m0 + i * ZL) : 0u, q2);
+            st8<LPT>(m0 + i * ZL, em.emit(w));
+          }
         }
-        const PackedEmit em(cn, p);
-        for (int i = 0; i < d; ++i) {
-          uint32_t t[2];
-          tot_of(tw[o_ent + e0 + i], t);
-          const uint32_t w = cn.template entry<false>(
-              t, it ? ld8<LPT>(m0 + i * ZL) : 0u, q2);
-          st8<LPT>(m0 + i * ZL, em.emit(w));
-        }
+        if constexpr (ET) un |= bytes_of(x[0], x[1], 0x7531);
       }
     }
+    if constexpr (ET) stamp(un, it);
     __syncthreads();
+    if constexpr (ET) decide(it);
   }
 
-  // Outputs from the final totals: hard bits or info-bit errors, and the
-  // syndrome of the hard bits.
-  int iters[LPT];
+  // Outputs of the lanes not yet written (fixed: every lane of the batch),
+  // from the final totals; the fixed form also takes the syndrome here.
+  if constexpr (!ET) {
 #pragma unroll
-  for (int k = 0; k < LPT; ++k) iters[k] = p.max_iter;
-  packed_finish<LPT, false, MC>(p, tw, tot, s_flag, s_bits, nvalid, b0, row,
-                                lane0, iters, 0u);
+    for (int k = 0; k < LPT; ++k) iters[k] = p.max_iter;
+  }
+  packed_finish<LPT, ET, MC>(p, tw, tot, s_flag, s_bits, nvalid, b0, row,
+                             lane0, iters, act);
+}
+
+// The fixed min-sum family (K1, K1-IO, K1-MC flooding), up to 1,024
+// threads a block.
+template <int LPT, int DMAX, bool MC>
+__global__ void __launch_bounds__(kMaxThreads)
+flood_packed_kernel(const __grid_constant__ PackedArgs a) {
+  flood_packed<LPT, DMAX, false, false, MC>(a);
+}
+
+// Early termination or min* (K2, K5 flooding, their K1-MC forms), up to
+// kFloodEtStarThreads threads a block and at least one block an SM.
+template <int LPT, int DMAX, bool STAR, bool ET, bool MC>
+__global__ void __launch_bounds__(kFloodEtStarThreads, 1)
+flood_packed_kernel(const __grid_constant__ PackedArgs a) {
+  static_assert(STAR || ET, "the fixed min-sum family takes <LPT, DMAX, MC>");
+  flood_packed<LPT, DMAX, STAR, ET, MC>(a);
 }
 
 using PackedKernel = void (*)(PackedArgs);
 
-// [DMAX 8, 16, 24, 0][MC], at kLanesPerThread lanes a thread
-const PackedKernel kPacked[4][2] = {
-    {flood_packed_kernel<kLanesPerThread, 8, false>,
-     flood_packed_kernel<kLanesPerThread, 8, true>},
-    {flood_packed_kernel<kLanesPerThread, 16, false>,
-     flood_packed_kernel<kLanesPerThread, 16, true>},
-    {flood_packed_kernel<kLanesPerThread, 24, false>,
-     flood_packed_kernel<kLanesPerThread, 24, true>},
-    {flood_packed_kernel<kLanesPerThread, 0, false>,
-     flood_packed_kernel<kLanesPerThread, 0, true>}};
+// (Each specialization is named in an assignment: the template name is
+// overloaded, and a conditional expression gives no target type.)
+template <int DMAX, bool STAR>
+PackedKernel packed_instance(bool et, bool mc) {
+  constexpr int P = kLanesPerThread;
+  PackedKernel k;
+  if (et) {
+    if (mc) k = flood_packed_kernel<P, DMAX, STAR, true, true>;
+    else k = flood_packed_kernel<P, DMAX, STAR, true, false>;
+  } else if constexpr (STAR) {
+    if (mc) k = flood_packed_kernel<P, DMAX, true, false, true>;
+    else k = flood_packed_kernel<P, DMAX, true, false, false>;
+  } else {
+    if (mc) k = flood_packed_kernel<P, DMAX, true>;
+    else k = flood_packed_kernel<P, DMAX, false>;
+  }
+  return k;
+}
 
-inline PackedKernel packed_kernel(int max_deg, bool mc) {
-  return kPacked[row_instance(max_deg)][mc];
+// The instance for the largest base-row degree (DMAX 8, 16, 24, else the
+// row read twice; min* only up to 24), the update, ET and MC.
+inline PackedKernel packed_kernel(int max_deg, bool star, bool et, bool mc) {
+  switch (row_instance(max_deg)) {
+    case 0:
+      return star ? packed_instance<8, true>(et, mc)
+                  : packed_instance<8, false>(et, mc);
+    case 1:
+      return star ? packed_instance<16, true>(et, mc)
+                  : packed_instance<16, false>(et, mc);
+    case 2:
+      return star ? packed_instance<24, true>(et, mc)
+                  : packed_instance<24, false>(et, mc);
+    default:
+      return packed_instance<0, false>(et, mc);
+  }
 }
 
 // ---------------------------------------------------------------------------
-// The one-lane-a-thread template: early termination (K2) and min* (K5).
+// The one-lane-a-thread template: codes that admit no block of four lanes,
+// and min* on rows above 24 entries.
 
 inline size_t smem_bytes(int nb, int Z, int mb, int E, int star_deg, int lanes) {
   const size_t n = size_t(nb) * Z;
@@ -429,8 +647,8 @@ __global__ void minsum_flood_kernel(Params p) {
   }
 }
 
-// kernels[STAR][MC][ET]; the fixed min-sum entries ([0][.][0]) launch only
-// for a code whose state admits no block of four lanes (is_packed).
+// kernels[STAR][MC][ET]; they launch only for a code and update that no
+// packed instance takes (is_packed).
 const ldpc::Kernel kOneLane[2][2][2] = {
     {{minsum_flood_kernel<false, false, false>,
       minsum_flood_kernel<true, false, false>},
@@ -441,10 +659,13 @@ const ldpc::Kernel kOneLane[2][2][2] = {
      {minsum_flood_kernel<false, true, true>,
       minsum_flood_kernel<true, true, true>}}};
 
-// The fixed min-sum family takes the packed kernel wherever a block of
-// four lanes fits, and the one-lane template elsewhere.
+// The packed kernel takes a code wherever a block of four lanes fits (up to
+// the instance's threads a block), min* where its rows (star_deg: the
+// largest base-row degree) fit the largest register row; the one-lane
+// template takes the rest.
 inline bool is_packed(int nb, int Z, int E, int star_deg, int early_term) {
-  return star_deg == 0 && !early_term && flood_shape(nb, Z, E).lanes > 0;
+  return flood_shape(nb, Z, E, star_deg, early_term).lanes > 0
+      && row_instance(star_deg) < 3;
 }
 
 }  // namespace
@@ -454,8 +675,8 @@ extern "C" {
 // The launch shape of one instance for one code: lanes per block, dynamic
 // shared-memory bytes, codeword lanes a thread, and the blocks an SM keeps
 // resident (cudaOccupancyMaxActiveBlocksPerMultiprocessor, registers
-// included). The fixed min-sum instance (star_deg 0, early_term 0) is the
-// packed kernel where a block of four lanes fits, and max_row_deg (the
+// included). Where a block of four lanes fits (and for min* its rows fit a
+// register row) the instance is the packed kernel, and max_row_deg (the
 // largest base-row degree) picks its row instance. Returns
 // cudaErrorInvalidConfiguration, lanes 0, when no block shape fits.
 int minsum_flood_config(int nb, int Z, int mb, int E, int star_deg,
@@ -464,11 +685,12 @@ int minsum_flood_config(int nb, int Z, int mb, int E, int star_deg,
                         int* blocks_per_sm) {
   *blocks_per_sm = 0;
   if (is_packed(nb, Z, E, star_deg, early_term)) {
-    const PackedShape s = flood_shape(nb, Z, E);
+    const PackedShape s = flood_shape(nb, Z, E, star_deg, early_term);
     *lanes = s.lanes;
     *smem = s.smem;
     *lanes_per_thread = kLanesPerThread;
-    const PackedKernel k = packed_kernel(max_row_deg, mc != 0);
+    const PackedKernel k =
+        packed_kernel(max_row_deg, star_deg > 0, early_term != 0, mc != 0);
     const cudaError_t err = prepare(k, s.smem);
     if (err != cudaSuccess) return int(err);
     return ldpc::occupancy(k, s.lanes / kLanesPerThread * Z, s.smem,
@@ -493,11 +715,11 @@ const char* minsum_flood_error_string(int err) {
 // Monte-Carlo megakernel (K1-MC): the channel comes from the seed (key0,
 // key1) or the injected words, and chan/info are not read. star_deg > 0 (the
 // largest base-row degree) selects the min* update with the nthr thresholds
-// at `thr` (host memory; beta and alpha are then not read). The fixed
-// min-sum instance, where a block of four lanes fits, takes its entry
-// tables from `ptab` (host memory, ptab_words uint32 words, packed_tables'
-// layout) into its parameters; tables above kTabWords words, or qmax above
-// 127, are refused.
+// at `thr` (host memory; beta and alpha are then not read). The packed
+// kernel takes its entry tables from `ptab` (host memory, ptab_words uint32
+// words, packed_tables' layout) into its parameters, and min*'s threshold
+// constants; tables above kTabWords words, or qmax above 127, are
+// refused.
 int minsum_flood_launch(const void* chan, int chan_is_f32, float scale,
                         const void* info, int kb, void* hard, void* bits,
                         void* frame, void* iters, void* conv,
@@ -517,14 +739,16 @@ int minsum_flood_launch(const void* chan, int chan_is_f32, float scale,
         p, early_term, mc, stream);
   if (!packed_args_ok(ptab, ptab_words, nb, Z, mb, E, qmax, nthr))
     return int(cudaErrorInvalidValue);
-  const PackedShape s = flood_shape(nb, Z, E);
+  const PackedShape s = flood_shape(nb, Z, E, star_deg, early_term);
   static thread_local PackedArgs a;   // 32 KB, off the stack; copied at launch
   static_assert(sizeof(a.t) == 4 * kTabWords, "table words");
   a.p = p;
   a.p.lanes = s.lanes;
   if (mc) a.p.mc = *mc;
   memcpy(a.t.w, ptab, 4 * size_t(ptab_words));
+  star_constants(p, a.star);
   const PackedKernel k = packed_kernel(packed_max_degree(ptab, mb),
+                                       star_deg > 0, early_term != 0,
                                        mc != nullptr);
   const cudaError_t err = prepare(k, s.smem);
   if (err != cudaSuccess) return int(err);

@@ -80,8 +80,10 @@ PREFERRED_SMEM = 113 * 1024     # ldpc::kPreferredSmem, two blocks per SM
 # csrc/minsum_flood.cu, layered_packed_kernel of csrc/minsum_layered.cu):
 # an SM's shared memory for blocks, the runtime's reserve per resident
 # block, warps and blocks an SM keeps, their lanes a thread, the row-degree
-# (DMAX) instances, the table words their parameters hold, and the layered
-# kernel's launch bound (threads a block).
+# (DMAX) instances, the table words their parameters hold, the layered
+# kernel's launch bound (threads a block) and the flooding kernel's for its
+# early-terminating and min* instances (its fixed min-sum instances take
+# MAX_THREADS).
 SM_SMEM = 233472
 BLOCK_RESERVE = 1024
 SM_WARPS = 64
@@ -91,6 +93,7 @@ ROW_DEGREES = (8, 16, 24)
 LAYERED_ROW_DEGREES = (8, 16, 20, 24)
 TAB_WORDS = 8000
 LAYERED_MAX_THREADS = 256
+FLOOD_ET_STAR_THREADS = 256
 
 kernel_launches = 0
 plain_calls = 0
@@ -195,15 +198,20 @@ def is_packed(ct: CodeTensors, schedule: str, star_deg: int,
               early_term: bool) -> bool:
     """Whether this code and instance take a packed kernel (is_packed of
     csrc/minsum_flood.cu and csrc/minsum_layered.cu), else the one-lane
-    template decodes it. Flooding: fixed iterations, the min-sum family, and
-    a block of four lanes fits. Layered: every instance where a block of four
-    lanes fits, min* only where its rows (star_deg) fit the largest register
-    row."""
-    if schedule == "flooding":
-        return (star_deg == 0 and not early_term
-                and packed_shape(ct)[0] > 0)
-    return (packed_shape(ct, "layered")[0] > 0
-            and star_deg <= LAYERED_ROW_DEGREES[-1])
+    template decodes it. Both schedules: every instance where a block of
+    four lanes fits (for flooding within the instance's threads a block,
+    `flood_max_threads`), min* only where its rows (star_deg) fit the
+    largest register row."""
+    rows = ROW_DEGREES if schedule == "flooding" else LAYERED_ROW_DEGREES
+    return (packed_shape(ct, schedule, star_deg, early_term)[0] > 0
+            and star_deg <= rows[-1])
+
+
+def flood_max_threads(star_deg: int, early_term: bool) -> int:
+    """Threads a block of the packed flooding instance (the launch bound of
+    flood_packed_kernel): MAX_THREADS for the fixed min-sum family,
+    FLOOD_ET_STAR_THREADS with early termination or min*."""
+    return FLOOD_ET_STAR_THREADS if star_deg or early_term else MAX_THREADS
 
 
 def packed_smem_bytes(ct: CodeTensors, lanes: int,
@@ -217,17 +225,20 @@ def packed_smem_bytes(ct: CodeTensors, lanes: int,
             + align16(ct.n_entries * ct.Z * lanes))
 
 
-def packed_shape(ct: CodeTensors, schedule: str = "flooding"
+def packed_shape(ct: CodeTensors, schedule: str = "flooding",
+                 star_deg: int = 0, early_term: bool = False
                  ) -> Tuple[int, int, int, int]:
     """(lanes per block, lanes a thread, shared-memory bytes, blocks an SM
     holds by shared memory, warps and blocks) of the schedule's packed
     instance, as packed_shape of csrc/cn_packed.cuh gives them: of the
     block shapes (lanes a multiple of LANES_PER_THREAD, lanes /
-    LANES_PER_THREAD * Z threads within MAX_THREADS, or LAYERED_MAX_THREADS
-    for layered, state within MAX_SMEM) the fewest lanes that keep at least
-    9/10 of the most codewords an SM holds. Zeros when no block fits."""
+    LANES_PER_THREAD * Z threads within the instance's bound, state within
+    MAX_SMEM) the fewest lanes that keep at least 9/10 of the most codewords
+    an SM holds. The bound: LAYERED_MAX_THREADS for layered, else
+    `flood_max_threads(star_deg, early_term)`. Zeros when no block fits."""
     lpt, shapes = LANES_PER_THREAD, []
-    max_threads = MAX_THREADS if schedule == "flooding" else LAYERED_MAX_THREADS
+    max_threads = (flood_max_threads(star_deg, early_term)
+                   if schedule == "flooding" else LAYERED_MAX_THREADS)
     k = 1
     while k * ct.Z <= max_threads:
         lanes = k * lpt
@@ -280,7 +291,7 @@ def pick_lanes(ct: CodeTensors, schedule: str, star_deg: int = 0,
     227 KB opt-in. 0 when one block's state does not fit one SM's shared
     memory."""
     if is_packed(ct, schedule, star_deg, early_term):
-        return packed_shape(ct, schedule)[0]
+        return packed_shape(ct, schedule, star_deg, early_term)[0]
     for limit in (PREFERRED_SMEM, MAX_SMEM):
         lanes = 32
         while lanes >= 1:

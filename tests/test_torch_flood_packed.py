@@ -417,10 +417,11 @@ def test_packed_constants_mirror_the_source(py, cu):
 
 
 @pytest.mark.parametrize("early_term,algorithm,want", [
-    # the one-lane-a-thread template keeps its rule: tables in shared
-    # memory, power-of-two lanes, 113 KB for two blocks an SM
-    (True, "min-sum", (16, 70464)),
-    (False, "min-star", (16, 73920)),
+    # since the early-terminating and min* instances joined the packed
+    # kernel, n=648 takes its block of four lanes (27 threads, within their
+    # launch bound of 256) with the fixed instance's state, 17,312 B
+    (True, "min-sum", (4, 17312)),
+    (False, "min-star", (4, 17312)),
 ])
 def test_other_flooding_instances_keep_their_rule(early_term, algorithm,
                                                   want):
@@ -431,7 +432,15 @@ def test_other_flooding_instances_keep_their_rule(early_term, algorithm,
     lanes = minsum.pick_lanes(ct, "flooding", star, early_term)
     assert (lanes, minsum.onchip_smem_bytes(ct, "flooding", star, lanes,
                                             early_term)) == want
-    assert not minsum.is_packed(ct, "flooding", star, early_term)
+    assert minsum.is_packed(ct, "flooding", star, early_term)
+    # the one-lane-a-thread template keeps its rule (tables in shared
+    # memory, power-of-two lanes, 113 KB for two blocks an SM) on a code
+    # with no block of four lanes: NR BG1 Z=384
+    nr = from_reference(build_code(PRESETS["nr-bg1-layered"]), "cpu")
+    star = minsum.star_degree(nr, dec)
+    assert not minsum.is_packed(nr, "flooding", star, early_term)
+    assert minsum.pick_lanes(nr, "flooding", star, early_term) == (
+        _old_pick_lanes(nr, "flooding", star)) > 0
 
 
 def _old_pick_lanes(ct, schedule, star_deg):

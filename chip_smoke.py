@@ -18,13 +18,15 @@ Phases, each printing its lines; any failure raises and exits non-zero:
    `cn_minstar.cuh`, the min* update K5 that doubles their instances,
    `cn_packed.cuh` (the packed parts both libraries share), `mc_stage.cuh`
    and `philox.cuh`; `minsum_stream.cu`: the streaming layered decoders
-   that answer K6b-K6f, the pipelined kernel and the template it began
-   with), and prints each build's time and ptxas' register/spill report,
+   that answer K6b-K6f, the pipelined kernel, the packed resident kernel
+   and the template they began with), and prints each build's time and
+   ptxas' register/spill report,
    and `cuobjdump -sass` counts of the packed flooding instances (K1
    beside K2 and K5's loops), of the
    packed layered instances of the main paths beside the one-lane
    template's (their layer loops) and of every streaming instance (the
-   pipelined kernel's layer loop beside the template's);
+   pipelined kernel's and the packed resident kernel's layer loops beside
+   the template's);
 3. kernel vs plain: each CUDA kernel against its plain torch version on
    the card, tolerance 0 on every output (an integer program), and every
    decoder a sweep launches below at that sweep's batch, B=16,384.
@@ -78,16 +80,19 @@ Phases, each printing its lines; any failure raises and exits non-zero:
    plain version, tolerance 0 on hard bits, iters and conv, 10 iterations:
    DVB-S2 n=64,800 (B=32), n=16,200 (B=128) and NR BG1 Z=384 (B=64, its
    punctured variables at LLR 0), OMS beta=2 and NMS alpha=3/4, fixed and
-   with early termination: the template's two placements of the
-   posteriors and the pipelined kernel (NR BG1's rows of 22 at its 24-entry
-   register row), and on DVB-S2 n=16,200 rate 8/9 (B=64, rows of 27-28)
-   the template's two placements only, each code's set of instances stated
+   with early termination: the template's streamed placement, the
+   pipelined kernel (NR BG1's rows of 22 at its 24-entry register row) and
+   the resident instance (the packed resident kernel where its block fits,
+   else the template), and on DVB-S2 n=16,200 rate 8/9 (B=64, rows of 27-28) all but
+   the pipelined kernel, each code's set of instances stated
    (`STREAM_INSTANCES`), equal the plain version and each other, and K3
    behind its batch-first transposes where K3 admits the code; an odd
-   batch (B - 1
-   codewords: a block is one codeword, so every batch is whole blocks) and
-   an all-zero noiseless batch (with early termination: iters 0). Then
-   every decoder a slice-5 sweep launches, as `select_decoder` builds it,
+   batch (B - 1 codewords) and an all-zero noiseless batch (with early
+   termination: iters 0). The packed resident kernel (K6d, K6e) on NR BG1
+   Z=384, n=16,200 and n=16,200 rate 8/9, fixed and with early
+   termination, at B = 1, 3, 5, 256 (two lanes a thread), 1,024 and 4,099
+   (four lanes, the last block partial): its lanes follow the batch.
+   Then every decoder a slice-5 sweep launches, as `select_decoder` builds it,
    at that sweep's batch on its step's own LLRs (n=64,800 at B=1,024 among
    them), and the pipelined instance at the CLI preset's batch of 8,192
    against the template's `stream-resident` instance (kernel against
@@ -116,7 +121,8 @@ Phases, each printing its lines; any failure raises and exits non-zero:
    schedule's on-chip library, its MC instance exactly with rng="device",
    min* launches exactly for min*, its packed instance exactly where a
    block of four lanes takes the code and the one-lane template elsewhere;
-   or one instance of the streaming library) and 0 plain calls; then each
+   or one instance of the streaming library, in its packed resident kernel
+   exactly when the decoder is packed) and 0 plain calls; then each
    is held to its reference: FER and
    the converged rate by Wilson intervals (z=2.576), BER and average
    iterations by per-frame z-tests with the variances of batch 0,
@@ -150,22 +156,24 @@ Phases, each printing its lines; any failure raises and exits non-zero:
    `-stream-et` (early termination; 1.0, 1.25 and 1.5 dB against
    `results/dvbs2_64800_et.json`), through the pipelined kernel only;
    `dvbs2-16200-r12-resident-et` (16,384 frames at 1.4 and 2.2 dB against
-   `results/dvbs2_16200_et.json`) on the route `auto` picks (the pipelined
-   ET instance: no block of four lanes takes the code,
+   `results/dvbs2_16200_et.json`) on the route `auto` picks (the packed
+   resident kernel's ET instance, four lanes a thread at this batch: no
+   block of four lanes of K3 takes the code,
    `pipeline.stream_first`) and forced to K3 (backend "pallas": the
    one-lane template behind transposes), equal counters on equal draws;
    `nr-bg1-z384-stream` (preset
-   `nr-bg1-layered`, batch 256), which no file records: auto, the
-   streaming library and the plain QC decoder give equal counters on
-   equal draws; NR BG1 Z=128 rate 1/3 with early termination against
+   `nr-bg1-layered`, batch 256), which no file records: auto (the packed
+   resident kernel, `pipeline.stream_first`), K3 forced (`pallas`: the
+   one-lane template behind transposes) and the plain QC decoder give
+   equal counters on equal draws; NR BG1 Z=128 rate 1/3 with early termination against
    `results/nr_bg1_z128_r13.json` (32,768 frames at 0.5 and 1.0 dB);
    DVB-S2 n=64,800 rate 8/9 (rows of 27-28, which the template's
    streaming instances `stream` and `stream-et` take), fixed and with
    early termination, batch 256, 512 frames at 3.0 and 3.5 dB, and DVB-S2
-   n=16,200 rate 8/9 forced through the library (the template's resident
-   instances `stream-resident` and `stream-resident-et`), batch 256, 512
-   frames at 3.5 and 4.0 dB, each equal to the plain QC decoder's
-   counters on equal draws.
+   n=16,200 rate 8/9 forced through the library (the resident instances
+   `stream-resident` and `stream-resident-et`: the packed resident kernel),
+   batch 256, 512 frames at 3.5 and 4.0 dB, each equal to the plain QC
+   decoder's counters on equal draws.
    Then each sweep's decoder
    must be the instance (library, code, decoder and quantizer
    configuration, thresholds, IO mode, batch) that phases 3 and 4 held to
@@ -211,13 +219,17 @@ Phases, each printing its lines; any failure raises and exits non-zero:
    host clock and a sync (info bits/s), the device-RNG steps against the
    host-RNG steps in turns, slice 4's steps with their decode kernel's
    share; the streaming library's kernels in turns (old, new, new, old;
-   `probe_stream.in_turns`) at n=64,800, n=16,200 (with K3 behind its
+   `probe_stream.in_turns`, the resident instance's kernels forced
+   beside the instances) at n=64,800, n=16,200 (with K3 behind its
    transposes, fixed-20 and with early termination: the one-lane template
-   there) and NR BG1 Z=384,
-   B=1,024, fixed-20 and with early termination, and n=64,800 rate 5/6
-   fixed-20: the pipelined kernel beside the template's two placements
-   (what `minsum_stream.instance_auto` rests on), each instance as its
-   sweep launched it, and slice 5's steps with their kernel's share; the
+   there), B=1,024, fixed-20 and with early termination, NR BG1 Z=384 and
+   n=16,200 rate 8/9 at B = 1,024 and 256 (with K3 behind its transposes;
+   the mean of a block's most iterations beside the mean iterations; the
+   packed resident kernel's operation and message-traffic bounds), and
+   n=64,800 rate 5/6 fixed-20: what `minsum_stream.instance_auto` and
+   `pipeline.stream_first` rest on; each instance as its sweep launched
+   it (K6d also as slice 5d launched it, beside K3 forced), and slice 5's
+   steps with their kernel's share; the
    six
    microbenchmark kernels against their plain versions in turns, each at
    the shape the entry point gives it (the sweeps at B = 16,384 and the
@@ -337,23 +349,25 @@ SLICES = (
           "dvbs2_64800_et.json", (1.0, 1.25, 1.5), 8192, batch=STREAM_BATCH,
           expect="cuda-stream-pipelined-et"),
     # n=16,200 admits no block of four lanes: `auto` streams it through the
-    # pipelined kernel (pipeline.stream_first); "pallas" forces K3, the
-    # one-lane template behind the batch-first transposes
+    # packed resident kernel (pipeline.stream_first; four lanes a thread at
+    # this batch); "pallas" forces K3, the one-lane template behind the
+    # batch-first transposes
     Slice("5c " + S16200, S16200, None, "host", "dvbs2_16200_et.json",
           (1.4, 2.2), 16384, batch=STREAM_BATCH,
-          expect="cuda-stream-pipelined-et"),
+          expect="cuda-stream-resident-et"),
     Slice("5c " + S16200 + ", K3", S16200, None, "host",
           "dvbs2_16200_et.json", (1.4, 2.2), 16384, backend="pallas",
           batch=STREAM_BATCH, expect="cuda-minsum-layered-bf",
           equal_to="5c " + S16200),
     # NR BG1 Z=384 (rate matching: 768 punctured variables) has no recorded
-    # waterfall: auto (K3 behind transposes), the streaming library and the
+    # waterfall: auto (the packed resident kernel, pipeline.stream_first),
+    # K3 (forced "pallas": the one-lane template behind transposes) and the
     # plain QC decoder are held to each other on equal draws
-    Slice("5d " + NR384, NR384, None, "host", "5d " + NR384 + ", stream",
-          (1.0, 2.0), 512, batch=256, expect="cuda-minsum-layered-bf"),
-    Slice("5d " + NR384 + ", stream", NR384, None, "host", "5d " + NR384,
-          (1.0, 2.0), 512, backend="stream", batch=256,
-          expect="cuda-stream-resident", equal_to="5d " + NR384),
+    Slice("5d " + NR384, NR384, None, "host", "5d " + NR384 + ", K3",
+          (1.0, 2.0), 512, batch=256, expect="cuda-stream-resident"),
+    Slice("5d " + NR384 + ", K3", NR384, None, "host", "5d " + NR384,
+          (1.0, 2.0), 512, backend="pallas", batch=256,
+          expect="cuda-minsum-layered-bf", equal_to="5d " + NR384),
     Slice("5d " + NR384 + ", plain", NR384, None, "host", "5d " + NR384,
           (1.0, 2.0), 512, backend="qc", batch=256, expect="torch-qc",
           equal_to="5d " + NR384),
@@ -375,9 +389,9 @@ SLICES = (
     Slice("5f " + S89 + "-et, plain", S89 + "-et", None, "host",
           "5f " + S89 + "-et", (3.0, 3.5), 512, backend="qc", batch=256,
           expect="torch-qc", equal_to="5f " + S89 + "-et"),
-    # DVB-S2 n=16,200 rate 8/9 (rows of 27-28; 32 KB of posteriors, two
-    # blocks an SM) forced through the library: the template's resident
-    # instances, held to the plain QC decoder on equal draws
+    # DVB-S2 n=16,200 rate 8/9 (rows of 27-28) forced through the library:
+    # the resident instances (the packed resident kernel, two lanes a
+    # thread at this batch), held to the plain QC decoder on equal draws
     Slice("5g " + S1689, S1689, None, "host", "5g " + S1689 + ", plain",
           (3.5, 4.0), 512, backend="stream", batch=256,
           expect="cuda-stream-resident"),
@@ -807,10 +821,11 @@ def instance_of(d):
     quantizer), the code, fused IO, whether it stands behind the
     batch-first transposes, and for the megakernel the batch and the
     per-lane form. The streaming library: its instance, the code, the CN
-    parameters (a block is one codeword at any batch)."""
+    parameters and the resident instances' kernel (its lanes a thread
+    follow the batch, which every caller here holds equal)."""
     if hasattr(d, "variant"):
-        return ("minsum_stream", d.variant, d.ct.code.name, d.max_iter,
-                d.beta, d.alpha, d.qmax)
+        return ("minsum_stream", d.variant, d.packed,
+                d.ct.code.name, d.max_iter, d.beta, d.alpha, d.qmax)
     behind_transposes = hasattr(d, "inner")
     if behind_transposes:
         d = d.inner
@@ -858,7 +873,8 @@ def launch_counts(minsum, stream, sweep, label, mc):
     exactly when `mc`, in its packed instance (four lanes a thread) exactly
     when a block of four lanes takes the code (`minsum.is_packed`), else in
     the one-lane template; a streaming route through its instance of the
-    streaming library only; both with no plain call. A plain route (forced,
+    streaming library only, in the packed resident kernel exactly when the
+    decoder is packed; both with no plain call. A plain route (forced,
     to compare with) launches no kernel. Returns the route's launches."""
     launches = dict(minsum.library_launches)
     mc_launches = dict(minsum.mc_launches)
@@ -877,10 +893,17 @@ def launch_counts(minsum, stream, sweep, label, mc):
         return 0
     if backend.startswith("cuda-stream"):
         variant = backend[len("cuda-"):]
+        packed = getattr(sweep.run_batch.decoder, "packed", False)
+        print(f"  of them the packed resident kernel's: "
+              f"{stream.packed_launches}", flush=True)
         if (inst[variant] <= 0 or plain != 0 or any(launches.values())
-                or stream.kernel_launches != inst[variant]):
+                or stream.kernel_launches != inst[variant]
+                or stream.packed_launches != (inst[variant] if packed
+                                              else 0)):
             raise AssertionError(f"{label} did not run through the "
-                                 f"{variant} instance only")
+                                 f"{variant} instance "
+                                 f"({'packed' if packed else 'template'}) "
+                                 f"only")
         return inst[variant]
     dc = sweep.cfg.decoder
     lib = minsum.LIBRARIES[dc.schedule]
@@ -1226,13 +1249,15 @@ def hold_to_plain(label, d, q, worst):
     err = max_abs_err(out_k, out_p)
     same = all(torch.equal(a, b) for a, b in zip(out_k, out_p))
     key = getattr(d, "variant", None) or d.library
+    B = q.shape[0]
     if hasattr(d, "variant"):
-        smem, dmax, blocks = d.launch_shape()
-        if smem != d.smem_bytes():
+        smem, dmax, blocks = d.launch_shape(B)
+        if smem != d.smem_bytes(B):
             raise AssertionError(f"{key}: the library's {smem} B is not "
-                                 f"the wrapper's {d.smem_bytes()} B")
-        shape = f"{smem} B smem/block" + (
-            f", register row {dmax}, {blocks} blocks/SM" if dmax else "")
+                                 f"the wrapper's {d.smem_bytes(B)} B")
+        what = "lanes/thread" if d.packed else "register row"
+        shape = f"{d.kernel_name(B)}, {smem} B smem/block" + (
+            f", {what} {dmax}, {blocks} blocks/SM" if dmax else "")
     else:
         shape = f"{d.inner.launch_config()[0]} lanes/block"
     print(f"{label} B={q.shape[0]}: max_abs_err {err:g} equal {same} "
@@ -1251,13 +1276,17 @@ def check_stream_kernels(port, minsum, stream, dev, worst):
     and NR BG1 Z=384 (B=64, 768 punctured variables at LLR 0), OMS beta=2
     and NMS alpha=3/4, fixed iterations and early termination, and DVB-S2
     n=16,200 rate 8/9 (B=64): every instance that takes the code, which
-    must be the set `STREAM_INSTANCES` states (the template's two
-    placements of the posteriors; the pipelined kernel where its register
-    row holds the rows, NR BG1's rows of 22 at its 24-entry row), against
-    the plain version, hence against each other, and against K3 behind its
+    must be the set `STREAM_INSTANCES` states (the template's streamed
+    placement; the pipelined kernel where its register row holds the rows,
+    NR BG1's rows of 22 at its 24-entry row; the resident instance, on the
+    packed resident kernel where its block fits) against the plain
+    version, hence against each other, and against K3 behind its
     transposes where K3 admits the code;
     an odd batch (B - 1 codewords); an all-zero noiseless batch
-    (converged, iters 0 with early termination). Then every decoder a
+    (converged, iters 0 with early termination). Then the packed resident
+    kernel on NR BG1 Z=384, n=16,200 and n=16,200 rate 8/9, fixed and with
+    early termination, at B = 1, 3, 5, 256 (two lanes a thread), 1,024 and
+    4,099 (four), against plain. Then every decoder a
     sweep of slice 5 launches, as `select_decoder` builds it, at that
     sweep's batch and on its step's own LLRs; and the pipelined instance at
     the batch the CLI's preset gives it, 8,192 codewords of n=64,800,
@@ -1295,15 +1324,16 @@ def check_stream_kernels(port, minsum, stream, dev, worst):
                                              cfg.quant.qmax, alpha, et)
                 want_set = {v + "-et" if et else v
                             for v in STREAM_INSTANCES[what]}
-                if set(decs) != want_set:
+                got_set = {d.variant for d in decs.values()}
+                if got_set != want_set:
                     raise AssertionError(f"{what_dec}: the instances that "
-                                         f"take the code are {set(decs)}, "
+                                         f"take the code are {got_set}, "
                                          f"expected {want_set}")
-                decs = list(decs.values())
-                plain = decs[0].plain(q)
-                for d in decs:
+                plain = next(iter(decs.values())).plain(q)
+                for name, d in decs.items():
                     ids = "/".join(k for k, _ in stream.REPLACES[d.variant])
-                    out = hold_to_plain(f"{ids} {what_dec}", d, q, worst)
+                    out = hold_to_plain(f"{ids} {name} {what_dec}", d, q,
+                                        worst)
                     if not all(torch.equal(a, b) for a, b in zip(out, plain)):
                         raise AssertionError(f"{d.variant} differs from the "
                                              f"other instance on {what_dec}")
@@ -1342,6 +1372,30 @@ def check_stream_kernels(port, minsum, stream, dev, worst):
                           f"instances {ok}", flush=True)
                     if not ok:
                         raise AssertionError(f"K3 != stream on {what_dec}")
+    # the packed resident kernel (K6d, K6e) on the codes it takes, at the
+    # main paths' batches 256 (two lanes a thread) and 1,024 (four) and the
+    # ragged batches 1, 3, 5 (two) and 4,099 (four, the last block
+    # partial): == plain on hard bits, iters and conv (its own draws: the
+    # slices' inputs below stay those of the parent commit's script)
+    gen_r = torch.Generator(device=dev)
+    gen_r.manual_seed(56)
+    for what, db in ((NR384, 1.25), (S16200, 1.6), (S1689, 3.75)):
+        ct, cfg = cts[what], cfgs[what]
+        beta, alpha = cn_params(cfg.decoder, cfg.quant)
+        for et in (False, True):
+            d = stream.make_stream_decoder(
+                ct, max_iter=iters, beta=beta, qmax=cfg.quant.qmax,
+                alpha=alpha, early_term=et, resident=True)
+            for B in (1, 3, 5, 256, 1024, 4099):
+                q = bf_chain(ct, cfg, db, B, gen_r)
+                lanes = d.lanes_for(B, dev)
+                if lanes != (2 if B <= 256 else 4):
+                    raise AssertionError(f"{what}: {lanes} lanes a thread at "
+                                         f"B = {B}")
+                hold_to_plain(
+                    f"{'K6e' if et else 'K6d'} lanes={lanes} {what} OMS "
+                    f"{'ET' if et else 'fixed'}-{iters} {db} dB", d, q,
+                    worst)
     held = {}
     for sl in SLICES:
         if not sl.label.startswith("5") or sl.backend == "qc":
@@ -2263,25 +2317,41 @@ def main():
     d5b = stream_held[l5b][0]
     d5cs, q5c = stream_held[l5c]
     d5c = stream_held[l5c + ", K3"][0]
-    d5ds = stream_held[l5d + ", stream"][0]
+    d5ds, q5d = stream_held[l5d]
     d5f, q5f = stream_held[l5f]
     d5fe, q5fe = stream_held[l5fe]
     d5g, q5g = stream_held[l5g]
     d5ge, q5ge = stream_held[l5ge]
     if (d5a.variant, d5b.variant, d5cs.variant, d5ds.variant, d5f.variant,
             d5fe.variant, d5g.variant, d5ge.variant) != (
-            "stream-pipelined", "stream-pipelined-et", "stream-pipelined-et",
+            "stream-pipelined", "stream-pipelined-et", "stream-resident-et",
             "stream-resident", "stream", "stream-et", "stream-resident",
             "stream-resident-et"):
         raise AssertionError("slice 5's sweeps did not cover the instances")
     q5b = bf_chain(d5b.ct, sweeps[l5b].cfg, 1.25, STREAM_BATCH, gen)
 
     def in_turns(d, early_term, q, what, extra=None):
-        """Every instance of the library that takes d's code, on q, in
+        """Every instance of the library that takes d's code on q, in
         turns: old, new, old, old, new, old."""
         decs = probe_stream.decoders(d.ct, d.max_iter, d.beta, d.qmax,
                                      d.alpha, early_term)
         return probe_stream.in_turns(decs, q, what, gpu, reps=5, extra=extra)
+
+    def k3_of(ct, cfg, early_term):
+        """K3 (the one-lane template) behind its transposes, for the
+        configuration `cfg` of code ct: the route `pallas` forces."""
+        return BatchFirstDecoder(minsum.make_decoder(
+            ct, dataclasses.replace(cfg.decoder, early_term=early_term),
+            cfg.quant))
+
+    def message_bound(d, q):
+        """ms to move the int8 messages once each way for the iterations
+        this call's lanes ran (E Z bytes a codeword and iteration), at
+        3.35 TB/s: the bound if no message stays in the L2."""
+        out = d.kernel(q)
+        torch.cuda.synchronize()
+        its = int(out[1].to(torch.int64).sum())
+        return 2 * its * d.ct.n_entries * d.ct.Z / 3.35e9
 
     timing["turns 64800 fixed"] = in_turns(
         d5a, False, q5a, f"n=64,800 OMS fixed-20 at 1.0 dB, {STREAM_BATCH} "
@@ -2299,20 +2369,33 @@ def main():
     timing["turns 16200 ET"] = in_turns(
         d5cs, True, q5c, f"n=16,200 OMS ET at 1.4 dB, {STREAM_BATCH} "
         f"codewords", extra={"K3 behind its transposes": d5c})
-    nr_cfg = sweeps[l5d + ", stream"].cfg
-    for et, db in ((False, 1.0), (True, 1.25)):
-        q_nr = bf_chain(d5ds.ct, nr_cfg, db, STREAM_BATCH, gen)
-        timing[f"turns nr384 {'ET' if et else 'fixed'}"] = in_turns(
-            d5ds, et, q_nr,
-            f"NR BG1 Z=384 OMS {'ET' if et else 'fixed-20'} at {db} dB, "
-            f"{STREAM_BATCH} codewords")
-        # the bound of the template's resident instance (K6d, K6e) on it
-        variant = "stream-resident-et" if et else "stream-resident"
-        d_res = probe_stream.decoders(d5ds.ct, d5ds.max_iter, d5ds.beta,
-                                      d5ds.qmax, d5ds.alpha, et)[variant]
-        b_ms, b_by = bound_of(d_res, (q_nr,), {})
-        print(f"  bound of {variant} on this call: {b_ms:.4f} ms by {b_by}",
-              flush=True)
+    # NR BG1 Z=384 and n=16,200 rate 8/9, B = 1,024 and 256: the packed
+    # resident kernel (K6d, K6e) beside the template it replaces, the other
+    # instances and K3 behind its transposes (the one-lane template, what
+    # `pipeline.stream_first` weighs); each call's bounds: operations, and
+    # the message traffic if none stays in the L2
+    for code_label, d_main, cfg_main, points in (
+            ("NR BG1 Z=384", d5ds, sweeps[l5d].cfg, (1.0, 1.25)),
+            ("n=16,200 rate 8/9", d5g, sweeps[l5g].cfg, (3.5, 3.75))):
+        for B in (STREAM_BATCH, 256):
+            for et, db in zip((False, True), points):
+                q_t = bf_chain(d_main.ct, cfg_main, db, B, gen)
+                key = (f"turns {code_label} {'ET' if et else 'fixed'} "
+                       f"B={B}")
+                timing[key] = in_turns(
+                    d_main, et, q_t,
+                    f"{code_label} OMS {'ET' if et else 'fixed-20'} at {db} "
+                    f"dB, {B} codewords",
+                    extra={"K3 behind its transposes": k3_of(
+                        d_main.ct, cfg_main, et)})
+                variant = "stream-resident-et" if et else "stream-resident"
+                d_res = probe_stream.decoders(
+                    d_main.ct, d_main.max_iter, d_main.beta, d_main.qmax,
+                    d_main.alpha, et)[variant]
+                b_ms, b_by = bound_of(d_res, (q_t,), {})
+                print(f"  bound of {variant} ({d_res.kernel_name(B)}) on "
+                      f"this call: {b_ms:.4f} ms by {b_by}; message traffic "
+                      f"{message_bound(d_res, q_t):.4f} ms", flush=True)
     # rows of 22-23 (rate 5/6): the pipelined kernel's 24-entry register row
     cfg56 = slice_config(port, S64800, "host")
     cfg56 = dataclasses.replace(cfg56, code=dataclasses.replace(
@@ -2355,9 +2438,18 @@ def main():
         d5ge, (q5ge,), f"K6e stream-resident-et decode of {q5ge.shape[0]} "
         f"codewords (n=16,200 rate 8/9 OMS, ET, 3.5 dB: {l5ge}'s launch)",
         plain_reps=1)
+    timing["K6 nr384"] = timed_call(
+        d5ds, (q5d,), f"K6d stream-resident ({d5ds.kernel_name(256)}) "
+        f"decode of {q5d.shape[0]} codewords (NR BG1 Z=384 OMS, 20 fixed "
+        f"iterations, 1.0 dB: {l5d}'s launch, `auto`)", plain_reps=1)
+    timing["K3 nr384"] = timed_call(
+        stream_held[l5d + ", K3"][0], (q5d,), f"K3 behind its transposes, "
+        f"decode of {q5d.shape[0]} codewords (NR BG1 Z=384 OMS, 20 fixed "
+        f"iterations, 1.0 dB: {l5d}, K3's launch)", plain_reps=1)
     timing["K6 16200 stream"] = timed_call(
-        d5cs, (q5c,), f"K6f stream-pipelined-et decode of {STREAM_BATCH} "
-        f"codewords (n=16,200 OMS, ET, 1.4 dB: {l5c}'s launch)",
+        d5cs, (q5c,), f"K6e {d5cs.variant} ({d5cs.kernel_name(STREAM_BATCH)}) "
+        f"decode of {STREAM_BATCH} codewords (n=16,200 OMS, ET, 1.4 dB: "
+        f"{l5c}'s launch)",
         plain_reps=1)
     timing["K3 16200"] = timed_call(
         d5c, (q5c,), f"K3 behind its transposes, decode of {STREAM_BATCH} "
@@ -2404,7 +2496,9 @@ def main():
                                (l5b, 1, 1.25, "K6 stream-pipelined-et"),
                                (l5c + ", K3", 0, 1.4, "K3 16200"),
                                (l5c, 0, 1.4,
-                                "K6 16200 stream")):
+                                "K6 16200 stream"),
+                               (l5d, 0, 1.0, "K6 nr384"),
+                               (l5d + ", K3", 0, 1.0, "K3 nr384")):
         sw = sweeps[label]
         ms = [report_step(f"{label} {db} dB rng=host", sw.run_batch,
                           sw.generator(si, 0), sw._sigma(db), sw.code.k_eff,
@@ -2482,7 +2576,14 @@ def main():
                 "plain_ms": t[1], "bound_ms": t[2], "bound_by": t[3],
                 "library_ms": None}
 
-    # the main path of each instance: the sweep that launched it
+    # the main path of each instance: the sweep that launched it, its
+    # decoder and input
+    stream_dec = {"stream-pipelined": d5a, "stream-pipelined-et": d5b,
+                  "stream": d5f, "stream-et": d5fe, "stream-resident": d5g,
+                  "stream-resident-et": d5ge}
+    stream_in = {"stream-pipelined": q5a, "stream-pipelined-et": q5b,
+                 "stream": q5f, "stream-et": q5fe, "stream-resident": q5g,
+                 "stream-resident-et": q5ge}
     stream_launched = {"stream-pipelined": launches[l5a],
                        "stream-pipelined-et": launches[l5b],
                        "stream": launches[l5f], "stream-et": launches[l5fe],
@@ -2491,7 +2592,8 @@ def main():
     stream_records = [
         {"name": ("minsum_stream_pipelined_" if "pipelined" in variant
                   else "minsum_stream_") + kid,
-         "instance": variant, "route": "cuda",
+         "instance": stream_dec[variant].kernel_name(
+             stream_in[variant].shape[0]), "route": "cuda",
          "source": stream.SOURCE, "replaces": site,
          "launches": stream_launched[variant],
          "max_abs_err": worst[variant], "ms": t[0], "plain_ms": t[1],

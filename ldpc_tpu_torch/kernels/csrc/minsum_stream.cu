@@ -1,6 +1,6 @@
 // Fixed-point layered min-sum decoders for codewords too long for the
-// on-chip kernels (minsum_layered.cu), for NVIDIA Hopper (sm_90a). Two
-// kernels, one library; both bit-exact with
+// on-chip kernels (minsum_layered.cu), for NVIDIA Hopper (sm_90a). Three
+// kernels, one library; all bit-exact with
 // golden.decoder.decode_fixed(schedule="layered") and with the plain torch
 // version beside the wrapper (ldpc_tpu_torch/ops/decode_qc.py).
 //
@@ -63,10 +63,10 @@
 // 2. minsum_stream_kernel<RESIDENT, ET> (instances `stream`,
 //    `stream-resident`, `stream-resident-et`, `stream-et`; K6b/K6c, K6d, K6e,
 //    K6f): the template the library began with, which the route keeps for
-//    the other codes: the posteriors in shared memory where two blocks fit
-//    an SM (K6d, K6e: NR BG1 Z=384, DVB-S2 n=16,200 rate 8/9), else
-//    posteriors and messages in device memory (K6b/K6c, K6f: rows longer
-//    than 24, DVB-S2 n=64,800 rate 8/9).
+//    the other codes: posteriors and messages in device memory (K6b/K6c,
+//    K6f: rows longer than 24, DVB-S2 n=64,800 rate 8/9), and the posteriors
+//    in shared memory (K6d, K6e) only for the codes no block of the packed
+//    resident kernel (3.) takes (n=64,800: 129,600 B of posteriors a lane).
 //    One block owns one whole codeword, thread y check row y; the state is
 //    codeword major with the row index innermost,
 //      post int16 [B][nb * Z]   (device memory; shared memory when RESIDENT)
@@ -80,7 +80,53 @@
 //    hard-bit byte a variable in shared memory when the posteriors stream
 //    (K6f's int8 hard-bit state).
 //
-// Both: a base row has at most one circulant per base column, so within a
+// 3. resident_packed_kernel<LPT, ET> (instances `stream-resident`,
+//    `stream-resident-et` wherever its block fits; K6d, K6e): the
+//    posteriors of LPT = 2 or 4 codeword lanes on chip for the whole decode,
+//    each layer's messages copied in ahead, the check row on packed lanes.
+//
+//    What bounds it on the H100. NR BG1 Z=384 (24 base rows of degree 5-7
+//    and 21-22, 206 circulants) at B = 1,024 and 20 iterations needs 1.94e10
+//    integer operations (12 an edge: 0.29 ms at the data sheet's 67e12/s)
+//    and moves 3.24 GB
+//    of int8 messages (0.97 ms at 3.35 TB/s if none stays in L2). The
+//    template's one lane a thread issues every min, sign and offset once a
+//    codeword, loads two table words an entry from shared memory, reads
+//    each layer's messages from device memory on the step's dependent chain
+//    and meets a full barrier a layer, in two 384-thread blocks an SM.
+//
+//    Design. One block decodes LPT codeword lanes; thread y owns check row y
+//    of every base row for all of them (blockDim = Z), with the lane index
+//    innermost as in the packed on-chip kernels (cn_packed.cuh):
+//      post int16 [n][LPT]      shared memory, 16x2 pairs (ld16/st16)
+//      msg  4-byte words        device memory, (block, word, row): a base
+//                               row of d entries has ceil(d LPT / 4) words,
+//                               EPW = 4 / LPT entries a word, negated
+//    so a warp's message access is 128 contiguous bytes, and the row is
+//    computed by PackedRow/PackedEmit, two lanes an instruction. The tables
+//    (layer_ptr, each row's first word, each entry's posterior byte offset)
+//    ride in the parameters and are read with uniform loads. Each thread
+//    copies its own words of layer step t + kResidentAhead into a ring of
+//    kResidentStages stages in shared memory with cp.async and waits for
+//    step t's with cp.async.wait_group; the block's barrier between steps
+//    is the pipelined kernel's split mbarrier. A row of up to kResidentRow
+//    entries sits in registers (groups of four slots, a group past the
+//    degree skipped); a longer row (NR BG1's 21-22, DVB-S2 rate 8/9's
+//    27-28) is reduced in one pass and emitted in a second that reads its
+//    posteriors and ring words again from shared memory. Early termination
+//    checks the resident posteriors' signs in packed form: the block
+//    votes every kResidentVote base rows which lanes have an unsatisfied
+//    row (an OR into a shared word between two barriers, so no thread ORs
+//    into it before every thread has read it) and stops once every running
+//    lane has one; a lane writes its outputs at
+//    its first success and runs on unread; __syncthreads_or lets the block
+//    leave once every lane is done. Lanes past the batch are masked in their
+//    data, never in their barriers. The wrapper picks LPT by the batch
+//    (minsum_stream.py::resident_lanes): four lanes halve the instructions
+//    a codeword, two keep twice the blocks (B = 256 is 64 blocks of four on
+//    132 SMs).
+//
+// All: a base row has at most one circulant per base column, so within a
 // layer every address is read and written by one thread only (no atomics);
 // state 0 (the channel) is checked under early termination, a codeword whose
 // hard bits satisfy every check is done (its hard bits latch at the first
@@ -90,6 +136,7 @@
 #include <string.h>
 
 #include "cn_minsum.cuh"
+#include "cn_packed.cuh"
 
 namespace {
 
@@ -599,6 +646,371 @@ inline PipelinedKernel pipelined_kernel(int dmax, bool et) {
             : stream_pipelined_kernel<24, false>;
 }
 
+// ---------------------------------------------------------------------------
+// The packed resident kernel (3. above).
+
+constexpr int kResidentRow = 8;           // entries a row keeps in registers
+constexpr int kResidentAhead = 1;         // layer steps copied in ahead
+constexpr int kResidentStages = kResidentAhead + 1;
+constexpr int kResidentMaxThreads = 512;  // Z: the launch bound
+constexpr int kResidentVote = 8;          // base rows between the block's
+                                          // syndrome votes
+
+// Table words (uint32), by base row: layer_ptr[mb + 1]; wptr[mb + 1], the
+// message words before each base row (a row of d entries has
+// resident_words(d, LPT) words of four bytes, LPT lanes an entry); off[E] =
+// (2 LPT (col Z + shift)) << 11 | (Z - shift), the posterior byte offset
+// of entry e for row 0 (row y adds 2 LPT y, less 2 LPT Z where y >= Z -
+// shift). kernels/minsum_stream.py::resident_tables builds them.
+struct ResidentArgs {
+  Params p;           // chan int8 (B, n); hard (B, n); iters, conv (B,)
+  unsigned char* msg; // scratch (ceil(B / LPT), wptr[mb], Z, 4 bytes)
+  int wmax;           // the most message words of a base row
+  uint32_t tab[ldpc::kTabWords];
+};
+static_assert(sizeof(ResidentArgs) <= 32764, "kernel parameters above 32,764 B");
+
+inline int resident_words(int d, int lpt) {
+  return (d * lpt + 3) / 4;
+}
+
+// The syndrome vote's word, the posteriors, the ring (kResidentStages layer
+// steps of wmax words of every row) and the block's mbarrier.
+inline size_t resident_smem(int nb, int Z, int lpt, int wmax) {
+  return align16(4)
+       + align16(2 * size_t(nb) * Z * lpt)
+       + align16(size_t(kResidentStages) * wmax * Z * 4)
+       + 16;
+}
+
+// Whether a block of LPT lanes takes the code: Z threads within the launch
+// bound, more base rows than the ring looks ahead, the tables in the
+// parameters, posterior offsets within an entry word's 21 bits, the block
+// in shared memory.
+inline bool resident_fits(int nb, int Z, int mb, int E, int lpt, int wmax) {
+  return (lpt == 2 || lpt == 4) && Z > 0 && Z <= kResidentMaxThreads
+      && mb > kResidentAhead && 2 * (mb + 1) + E <= ldpc::kTabWords
+      && 2 * size_t(lpt) * (size_t(nb) + 1) * Z < (size_t(1) << 21)
+      && resident_smem(nb, Z, lpt, wmax) <= size_t(ldpc::kMaxSmem);
+}
+
+// The most message words of a base row, or -1 when the tables are not
+// resident_tables' layout for LPT lanes.
+inline int resident_wmax(const uint32_t* tab, int words, int mb, int E,
+                         int lpt) {
+  if (!tab || words != 2 * (mb + 1) + E || tab[0] != 0 || tab[mb] != uint32_t(E)
+      || tab[mb + 1] != 0)
+    return -1;
+  int wmax = 0;
+  for (int l = 0; l < mb; ++l) {
+    const int d = int(tab[l + 1]) - int(tab[l]);
+    const int w = int(tab[mb + 2 + l]) - int(tab[mb + 1 + l]);
+    if (d < 2 || w != resident_words(d, lpt)) return -1;
+    wmax = std::max(wmax, w);
+  }
+  return wmax;
+}
+
+// Hard bits of the block's lanes whose byte of `mask` is set, from the
+// posteriors [n][LPT], to hard (B, n): the thread's own rows of every base
+// column.
+template <int LPT>
+__device__ void resident_outputs(const Params& p, const int16_t* post,
+                                 long long b0, int row, uint32_t mask) {
+  const int Z = p.Z;
+  const size_t n = size_t(p.nb) * Z;
+  for (int j = 0; j < p.nb; ++j) {
+    const int v = j * Z + row;
+    uint32_t lo, hi;
+    ldpc::ld16<LPT>(post + v * LPT, lo, hi);
+    const uint32_t h = (ldpc::bytes_of(lo, hi, 0x7531) >> 7) & 0x01010101u;
+#pragma unroll
+    for (int k = 0; k < LPT; ++k)
+      if ((mask >> (8 * k)) & 1) p.hard[(b0 + k) * n + v] = uint8_t(h >> (8 * k));
+  }
+}
+
+template <int LPT, bool ET>
+__global__ void __launch_bounds__(kResidentMaxThreads, LPT == 2 ? 2 : 1)
+resident_packed_kernel(const __grid_constant__ ResidentArgs a) {
+  static_assert(LPT == 2 || LPT == 4, "lanes a thread: 2 or 4");
+  constexpr int EPW = 4 / LPT;              // entries a message word
+  constexpr int D = kResidentRow;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const Params& p = a.p;
+  const uint32_t* __restrict__ tw = a.tab;
+  const int Z = p.Z, nb = p.nb, mb = p.mb, wmax = a.wmax;
+  const int n = nb * Z;
+  const uint32_t* __restrict__ wptr = tw + mb + 1;
+  const uint32_t* __restrict__ off = wptr + mb + 1;
+  const uint32_t q2 = uint32_t(p.qmax) * 0x00010001u;
+  const int row = threadIdx.x;                       // blockDim.x == Z
+  const long long b0 = (long long)blockIdx.x * LPT;  // the block's lanes
+  const int nvalid = int(min((long long)LPT, (long long)p.B - b0));
+  const size_t ZW = size_t(Z) * 4;                   // a word of every row
+
+  // the lanes with an unsatisfied row found by the vote in progress (bit 7
+  // of each lane's byte); 0 between votes
+  uint32_t* s_un = reinterpret_cast<uint32_t*>(smem);
+  int16_t* post = reinterpret_cast<int16_t*>(smem + align16(4));
+  unsigned char* const ring =
+      smem + align16(4) + align16(2 * size_t(n) * LPT);
+  unsigned char* const my_ring = ring + 4 * row;     // + (s wmax + w) ZW
+  const uint32_t bar = static_cast<uint32_t>(__cvta_generic_to_shared(
+      ring + align16(size_t(kResidentStages) * wmax * ZW)));
+  unsigned char* const my_msg =
+      a.msg + size_t(blockIdx.x) * wptr[mb] * ZW + 4 * row;   // + w ZW
+
+  if (row == 0) {
+    *s_un = 0u;
+    mbar_init(bar, Z);
+  }
+
+  // Channel in: this thread owns row `row` of every base column.
+  const int8_t* __restrict__ chan = static_cast<const int8_t*>(p.chan);
+  for (int j = 0; j < nb; ++j) {
+    const int v = j * Z + row;
+    uint32_t w = 0;
+#pragma unroll
+    for (int k = 0; k < LPT; ++k)
+      if (k < nvalid) w |= uint32_t(uint8_t(chan[(b0 + k) * n + v])) << (8 * k);
+    ldpc::put_lanes<LPT>(post + v * LPT, w);
+  }
+
+  // The ring: the next step to copy in (iteration f_it, base row f_l) and
+  // its stage. Every step commits one group, empty in the first iteration
+  // (every message is still 0) and past the last.
+  int f_it = 0, f_l = 0, f_stage = 0;
+  auto copy_next = [&]() {
+    if (f_it >= 1 && f_it < p.max_iter) {
+      const unsigned char* src = my_msg + size_t(wptr[f_l]) * ZW;
+      unsigned char* dst = my_ring + size_t(f_stage) * wmax * ZW;
+      const int nw = int(wptr[f_l + 1] - wptr[f_l]);
+      for (int w = 0; w < nw; ++w) cp_async_ca<4>(dst + w * ZW, src + w * ZW);
+    }
+    cp_async_commit();
+    if (++f_l == mb) { f_l = 0; ++f_it; }
+    if (++f_stage == kResidentStages) f_stage = 0;
+  };
+  for (int i = 0; i < kResidentAhead; ++i) copy_next();
+  __syncthreads();
+
+  // The block's barrier between layer steps, split (the pipelined
+  // kernel's): a thread arrives when its posterior writes are done and
+  // waits for that phase only before its next posterior read.
+  uint32_t phase = 0;
+  bool pending = false;
+  auto settle = [&]() {
+    if (pending) {
+      while (!mbar_test(bar, phase)) {}
+      phase ^= 1u;
+      pending = false;
+    }
+  };
+
+  // The posterior pair of entry e of this thread's check row.
+  unsigned char* const post_row =
+      reinterpret_cast<unsigned char*>(post) + 2 * LPT * row;
+  const int ZL2 = 2 * LPT * Z;
+  auto post_of = [&](int e) {
+    const uint32_t w = off[e];
+    return reinterpret_cast<int16_t*>(
+        post_row + (w >> 11) - (row >= int(w & 0x7ffu) ? ZL2 : 0));
+  };
+
+  // ET: byte k of act is 0xff while lane k runs (lanes past the batch never
+  // do); iters[k], the iterations lane k ran. Every thread holds the same
+  // lanes, so act is the same in every thread of the block.
+  uint32_t act = 0;
+  int iters[LPT];
+#pragma unroll
+  for (int k = 0; k < LPT; ++k) {
+    iters[k] = ET ? 0 : p.max_iter;
+    if (k < nvalid) act |= 0xffu << (8 * k);
+  }
+
+  // Which lanes of `need` (bit 7 of each lane's byte) have an unsatisfied
+  // check row in the block, by vote: in each round every thread XORs the
+  // posteriors of its rows of kResidentVote base rows (the parity of a
+  // lane's signs lands in bit 15 of its half) and ORs what it found into
+  // s_un; after the barrier every thread reads the same lanes, and a second
+  // barrier keeps the next round's ORs behind every thread's read, so every
+  // thread leaves after the same round, once every lane of `need` has one.
+  // Every thread returns the same word.
+  auto unsat_lanes = [&](uint32_t need) {
+    uint32_t found = 0;
+    for (int l0 = 0; l0 < mb && (found & need) != need; l0 += kResidentVote) {
+      uint32_t un = 0;
+      for (int l = l0; l < min(l0 + kResidentVote, mb); ++l) {
+        uint32_t x[2] = {0u, 0u};
+#pragma unroll 4
+        for (int e = int(tw[l]); e < int(tw[l + 1]); ++e) {
+          uint32_t t[2];
+          ldpc::ld16<LPT>(post_of(e), t[0], t[1]);
+          x[0] ^= t[0];
+          x[1] ^= t[1];
+        }
+        un |= ldpc::bytes_of(x[0], x[1], 0x7531);
+      }
+      un &= need & ~found;
+      if (un) atomicOr(s_un, un);
+      __syncthreads();
+      found = *s_un;
+      __syncthreads();   // every thread has read s_un
+    }
+    // the next vote's ORs follow a block barrier (__syncthreads_or)
+    if (row == 0) *s_un = 0u;
+    return found & need;
+  };
+
+  // State k: a running lane with no unsatisfied row is done, with iters =
+  // k, and its hard bits are written from this state. A done lane goes on
+  // through the layers with the others of its word, but nothing reads its
+  // state again.
+  auto check = [&](int k) {
+    const uint32_t un = unsat_lanes(act & 0x80808080u);
+    uint32_t fin = 0;
+#pragma unroll
+    for (int q = 0; q < LPT; ++q) {
+      if ((act >> (8 * q)) & 1) {
+        iters[q] = k;
+        if (!((un >> (8 * q + 7)) & 1)) fin |= 0xffu << (8 * q);
+      }
+    }
+    if (fin) {
+      act &= ~fin;
+      resident_outputs<LPT>(p, post, b0, row, fin);
+    }
+  };
+
+  if constexpr (ET) check(0);
+  int stage = 0;   // this step's stage of the ring
+  for (int it = 0; it < p.max_iter; ++it) {
+    if constexpr (ET) {
+      // every thread has written its outputs before the layers write again
+      if (!__syncthreads_or(act != 0)) break;
+    }
+    for (int l = 0; l < mb; ++l) {
+      cp_async_wait<kResidentAhead - 1>();   // this step's copy has landed
+      copy_next();                           // step + ahead, into the stage
+                                             // the step before read
+      const unsigned char* const slot = my_ring + size_t(stage) * wmax * ZW;
+      if (++stage == kResidentStages) stage = 0;
+      const int e0 = int(tw[l]), d = int(tw[l + 1]) - e0;
+      unsigned char* const dst = my_msg + size_t(wptr[l]) * ZW;
+      // entry i's negated old message: LPT bytes of its word in the slot
+      auto old_of = [&](int i) -> uint32_t {
+        return it ? ldpc::ld8<LPT>(reinterpret_cast<const int8_t*>(
+                        slot + (i / EPW) * ZW + (i % EPW) * LPT))
+                  : 0u;
+      };
+      if (d <= D) {
+        // The row in registers, in groups of four slots: a group past the
+        // row's degree is skipped (one uniform branch), and within a group
+        // entries past d repeat the last one's loads and take no part in
+        // the row or the stores.
+        uint32_t old[D], raw[D][2], rb[D];
+        int16_t* pa[D];
+#pragma unroll
+        for (int i = 0; i < D; ++i) {
+          if ((i & ~3) >= d) break;
+          const int ei = min(i, d - 1);
+          old[i] = old_of(ei);
+          pa[i] = post_of(e0 + ei);
+        }
+        settle();   // the step before has written every posterior
+        ldpc::PackedRow<LPT> cn;
+#pragma unroll
+        for (int i = 0; i < D; ++i) {
+          if ((i & ~3) >= d) break;
+          uint32_t t[2];
+          ldpc::ld16<LPT>(pa[i], t[0], t[1]);
+          rb[i] = cn.template entry<true>(t, old[i], q2, i < d, raw[i]);
+        }
+        const ldpc::PackedEmit em(cn, p);
+        uint32_t word[D / EPW];
+#pragma unroll
+        for (int w = 0; w < D / EPW; ++w) word[w] = 0u;
+#pragma unroll
+        for (int i = 0; i < D; ++i) {
+          if (i < d) {
+            uint32_t msg, nv;
+            em.emit(rb[i], msg, nv);
+            ldpc::st16<LPT>(pa[i], __vadd2(raw[i][0], ldpc::widen_lo(nv)),
+                            __vadd2(raw[i][1], ldpc::widen_hi(nv)));
+            word[i / EPW] |= LPT == 4 ? msg : (msg & 0xffffu) << (16 * (i % EPW));
+          }
+        }
+#pragma unroll
+        for (int w = 0; w < D / EPW; ++w)
+          if (w * EPW < d) *reinterpret_cast<uint32_t*>(dst + w * ZW) = word[w];
+      } else {
+        // Rows longer than the register row: a reduce pass, then an emit
+        // pass that reads the posterior and the ring slot again (shared
+        // memory only).
+        settle();
+        ldpc::PackedRow<LPT> cn;
+        for (int i = 0; i < d; ++i) {
+          uint32_t t[2];
+          ldpc::ld16<LPT>(post_of(e0 + i), t[0], t[1]);
+          cn.template entry<true>(t, old_of(i), q2);
+        }
+        const ldpc::PackedEmit em(cn, p);
+        for (int w = 0; w * EPW < d; ++w) {
+          uint32_t word = 0u;
+#pragma unroll
+          for (int k = 0; k < EPW; ++k) {
+            const int i = w * EPW + k;
+            if (i < d) {
+              int16_t* const pa = post_of(e0 + i);
+              uint32_t t[2], raw[2], msg, nv;
+              ldpc::ld16<LPT>(pa, t[0], t[1]);
+              em.emit(cn.template entry<false>(t, old_of(i), q2, true, raw),
+                      msg, nv);
+              ldpc::st16<LPT>(pa, __vadd2(raw[0], ldpc::widen_lo(nv)),
+                              __vadd2(raw[1], ldpc::widen_hi(nv)));
+              word |= LPT == 4 ? msg : (msg & 0xffffu) << (16 * k);
+            }
+          }
+          *reinterpret_cast<uint32_t*>(dst + w * ZW) = word;
+        }
+      }
+      // Orders this step's posterior reads and writes before the next
+      // step's by the other threads of the block.
+      mbar_arrive(bar);
+      pending = true;
+    }
+    if constexpr (ET) {
+      settle();
+      check(it + 1);
+    }
+  }
+  cp_async_wait<0>();
+  settle();
+
+  // Outputs of the lanes not yet written, from the final posteriors; the
+  // fixed form takes the syndrome here (every lane's unsatisfied rows in
+  // `un`; with ET the lanes still running are the unconverged ones).
+  const uint32_t un = ET ? act : unsat_lanes(act & 0x80808080u);
+  if (act) resident_outputs<LPT>(p, post, b0, row, act);
+  if (row == 0) {
+#pragma unroll
+    for (int k = 0; k < LPT; ++k) {
+      if (k >= nvalid) break;
+      p.iters[b0 + k] = iters[k];
+      p.conv[b0 + k] = ((un >> (8 * k + 7)) & 1) == 0;
+    }
+  }
+}
+
+using ResidentKernel = void (*)(ResidentArgs);
+
+inline ResidentKernel resident_kernel(int lpt, bool et) {
+  if (lpt == 2)
+    return et ? resident_packed_kernel<2, true> : resident_packed_kernel<2, false>;
+  return et ? resident_packed_kernel<4, true> : resident_packed_kernel<4, false>;
+}
+
 }  // namespace
 
 extern "C" {
@@ -696,6 +1108,62 @@ int minsum_stream_pipelined_launch(const void* chan, void* hard, void* iters,
   if (err != cudaSuccess) return int(err);
   if (B <= 0) return 0;
   kern<<<unsigned(B), Z, smem, static_cast<cudaStream_t>(stream)>>>(a);
+  return int(cudaGetLastError());
+}
+
+// The packed resident kernel's block for one code at LPT lanes a thread
+// (`ptab`: resident_tables' words for those lanes, host memory): dynamic
+// shared-memory bytes and the blocks an SM keeps resident; an error when
+// the tables are not that layout or the block does not take the code.
+int minsum_stream_resident_config(int nb, int Z, int mb, int E,
+                                  const uint32_t* ptab, int ptab_words,
+                                  int lanes, int early_term, int* smem,
+                                  int* blocks) {
+  *smem = 0;
+  *blocks = 0;
+  const int wmax = resident_wmax(ptab, ptab_words, mb, E, lanes);
+  if (wmax < 0) return int(cudaErrorInvalidValue);
+  if (!resident_fits(nb, Z, mb, E, lanes, wmax))
+    return int(cudaErrorInvalidConfiguration);
+  *smem = int(resident_smem(nb, Z, lanes, wmax));
+  const ResidentKernel k = resident_kernel(lanes, early_term != 0);
+  const cudaError_t err = ldpc::prepare(k, *smem);
+  if (err != cudaSuccess) return int(err);
+  return ldpc::occupancy(k, Z, *smem, blocks);
+}
+
+// Launches the packed resident kernel (`lanes` codewords a block, one
+// thread a check row) on `stream` and returns cudaGetLastError() (0 on
+// success). chan int8 (B, n), hard uint8 (B, n), iters int32 (B,), conv
+// uint8 (B,) and msg (ceil(B / lanes), wptr[mb], Z, 4 bytes), scratch the
+// kernel overwrites, are device pointers; the tables `ptab` (host memory,
+// resident_tables' layout for `lanes`) are copied into the parameters.
+// qmax above 127 is refused (the messages are bytes).
+int minsum_stream_resident_launch(const void* chan, void* hard, void* iters,
+                                  void* conv, const uint32_t* ptab,
+                                  int ptab_words, void* msg, int B, int nb,
+                                  int Z, int mb, int E, int max_iter,
+                                  int early_term, int lanes, int qmax,
+                                  int beta, int alpha_num, int alpha_shift,
+                                  void* stream) {
+  const int wmax = resident_wmax(ptab, ptab_words, mb, E, lanes);
+  if (wmax < 0 || qmax > 127) return int(cudaErrorInvalidValue);
+  if (!resident_fits(nb, Z, mb, E, lanes, wmax))
+    return int(cudaErrorInvalidConfiguration);
+  static thread_local ResidentArgs a;   // 32 KB, off the stack; copied at launch
+  a.p = ldpc::make_params(chan, 0, 0.f, nullptr, 0, hard, nullptr, nullptr,
+                          iters, conv, nullptr, B, nb, Z, mb, E, max_iter,
+                          qmax, beta, alpha_num, alpha_shift, 0, nullptr, 0);
+  a.msg = static_cast<unsigned char*>(msg);
+  a.wmax = wmax;
+  memcpy(a.tab, ptab, 4 * size_t(ptab_words));
+  const ResidentKernel kern = resident_kernel(lanes, early_term != 0);
+  const int smem = int(resident_smem(nb, Z, lanes, wmax));
+  const cudaError_t err = ldpc::prepare(kern, smem);
+  if (err != cudaSuccess) return int(err);
+  if (B <= 0) return 0;
+  kern<<<unsigned((B + lanes - 1) / lanes), Z, smem,
+         static_cast<cudaStream_t>(stream)>>>(a);
   return int(cudaGetLastError());
 }
 

@@ -4,19 +4,24 @@ turns on the same inputs, which is what `minsum_stream.instance_auto`
 rests on. `decoders` and `in_turns` are also what `chip_smoke.py` times the
 library with.
 
-    python -m ldpc_tpu_torch.kernels.probe_stream [--batch 1024] [--reps 5]
+    python -m ldpc_tpu_torch.kernels.probe_stream [--batch 256 1024] [--reps 5]
 
 The instances: the pipelined kernel (`stream-pipelined`,
-`stream-pipelined-et`) and the template (`stream`, `stream-et` with the
-posteriors in device memory, `stream-resident`, `stream-resident-et` in
-shared memory), each where its rule takes the code. Correctness: 10
-iterations on DVB-S2 n=64,800 (B=64), n=16,200 (B=128) and NR BG1 Z=384
-(B=64), fixed and with early termination, every instance against the plain
-version, tolerance 0. Times: B = `--batch` on the same three codes, 20
-iterations, fixed at the cell's Eb/N0 and with early termination 0.25 dB
-above, each kernel's CUDA-event median (min, max) over `--reps` runs a
-turn, the kernels in turns a, b, c, c, b, a. Prints the card's
-`nvidia-smi` name and power limit beside every time.
+`stream-pipelined-et`), the template (`stream`, `stream-et` with the
+posteriors in device memory) and the resident instances
+(`stream-resident`, `stream-resident-et`: the packed resident kernel where
+its block fits, at the lanes a thread the batch gives it, else the
+template with the posteriors in shared memory), each where its rule takes
+the code. Correctness: 10 iterations on DVB-S2 n=64,800 (B=64), n=16,200 (B=128),
+NR BG1 Z=384 (B=64) and n=16,200 rate 8/9 (B=64), fixed and with early
+termination, every instance and kernel against the plain version at B
+and at the ragged batches 1, 3, 5 and B - 1, tolerance 0. Times: each B
+of `--batch` on the same four codes, 20 iterations, fixed at the cell's
+Eb/N0 and with early termination 0.25 dB above, each kernel's CUDA-event
+median (min, max) over `--reps` runs a turn, the kernels in turns a, b,
+c, c, b, a (`chip_smoke.py` times K3 beside them), the mean iterations
+and the mean of a block's most iterations at 2 and 4 lanes. Prints the card's `nvidia-smi` name and power
+limit beside every time.
 """
 from __future__ import annotations
 
@@ -50,18 +55,33 @@ def decoders(ct: CodeTensors, max_iter: int, beta: int, qmax: int, alpha,
     """Every instance of the library whose rule takes the code, by
     variant, in the order old, new, old: the template with the posteriors
     in device memory (`block_fits`), the pipelined kernel
-    (`pipelined_fits`), the template with the posteriors in shared memory."""
+    (`pipelined_fits`), the resident instance (the packed resident kernel
+    where it fits, else the template with the posteriors in shared
+    memory)."""
     kws = [dict(resident=False)] if ms.block_fits(ct, False,
                                                   early_term) else []
     if ms.pipelined_fits(ct):
         kws.append(dict(pipelined=True))
-    if ms.block_fits(ct, True, early_term):
+    if ms.block_fits(ct, True, early_term) or ms.resident_packed_fits(ct, 2):
         kws.append(dict(resident=True))
-    decs = (ms.make_stream_decoder(ct, max_iter=max_iter, beta=beta,
+    decs = {}
+    for kw in kws:
+        d = ms.make_stream_decoder(ct, max_iter=max_iter, beta=beta,
                                    qmax=qmax, alpha=alpha,
                                    early_term=early_term, **kw)
-            for kw in kws)
-    return {d.variant: d for d in decs}
+        decs[d.variant] = d
+    return decs
+
+
+def block_max_iters(iters: torch.Tensor, lanes: int) -> float:
+    """The mean over blocks of `lanes` consecutive codewords of their most
+    iterations: what early termination costs a block that waits for its
+    slowest lane."""
+    it = iters.to(torch.float64)
+    pad = (-it.numel()) % lanes
+    if pad:
+        it = torch.cat([it, it.new_zeros(pad)])
+    return float(it.view(-1, lanes).max(dim=1).values.mean())
 
 
 def in_turns(decs: Dict[str, ms.StreamDecoder], q: torch.Tensor, what: str,
@@ -72,18 +92,21 @@ def in_turns(decs: Dict[str, ms.StreamDecoder], q: torch.Tensor, what: str,
     decoders with a `kernel`, timed only). Prints each median with its min
     and max; returns name -> median ms."""
     ref = None
-    for d in decs.values():
+    for name, d in decs.items():
         out = d.kernel(q)
         ref = out if ref is None else ref
         if not all(torch.equal(a, b) for a, b in zip(out, ref)):
-            raise AssertionError(f"{what}: {d.variant} differs from "
+            raise AssertionError(f"{what}: {name} differs from "
                                  f"{next(iter(decs))}")
     fns = {name: (lambda d=d: d.kernel(q))
            for name, d in {**decs, **(extra or {})}.items()}
     times = in_turns_ms(fns, reps)
     med = {name: statistics.median(t) for name, t in times.items()}
-    print(f"[{gpu}] {what} (mean iters {float(ref[1].double().mean()):.2f}"
-          f"): " + ", ".join(
+    its = ref[1]
+    print(f"[{gpu}] {what} (mean iters {float(its.double().mean()):.2f}; "
+          f"mean of a block's most iterations at 2 lanes "
+          f"{block_max_iters(its, 2):.2f}, at 4 lanes "
+          f"{block_max_iters(its, 4):.2f}): " + ", ".join(
               f"{name} {med[name]:.4f} ms (runs {len(t)}, min {min(t):.4f}, "
               f"max {max(t):.4f})" for name, t in times.items()), flush=True)
     return med
@@ -91,7 +114,7 @@ def in_turns(decs: Dict[str, ms.StreamDecoder], q: torch.Tensor, what: str,
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__)
-    ap.add_argument("--batch", type=int, default=1024)
+    ap.add_argument("--batch", type=int, nargs="+", default=[256, 1024])
     ap.add_argument("--reps", type=int, default=5)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -112,9 +135,12 @@ def main(argv=None) -> int:
     base = PRESETS["dvbs2-64800-r12"]
     short = dataclasses.replace(base, code=dataclasses.replace(
         base.code, n=16200))
+    short89 = dataclasses.replace(base, code=dataclasses.replace(
+        base.code, n=16200, rate="8/9"))
     nr = PRESETS["nr-bg1-layered"]
     cases = (("dvbs2-64800", base, 1.0, 64), ("dvbs2-16200", short, 1.4, 128),
-             ("nr-bg1-z384", nr, 1.0, 64))
+             ("nr-bg1-z384", nr, 1.0, 64),
+             ("dvbs2-16200-r89", short89, 3.5, 64))
     for name, cfg, db, B in cases:
         ct = from_reference(build_code(cfg), dev)
         beta, alpha = cn_params(cfg.decoder, cfg.quant)
@@ -125,26 +151,33 @@ def main(argv=None) -> int:
         for et in (False, True):
             decs = decoders(ct, 10, beta, cfg.quant.qmax, alpha, et)
             plain = next(iter(decs.values())).plain(q)
-            for d in decs.values():
-                smem, dmax, blocks = d.launch_shape()
-                if smem != d.smem_bytes():
+            for label, d in decs.items():
+                smem, dmax, blocks = d.launch_shape(B)
+                if smem != d.smem_bytes(B):
                     raise AssertionError(f"{name}: the library's block of "
                                          f"{smem} B is not the wrapper's")
                 out = d.kernel(q)
                 torch.cuda.synchronize()
                 same = all(torch.equal(a, b) for a, b in zip(out, plain))
-                print(f"  {d.variant}: == plain {same} (mean iters "
+                for b in (1, 3, 5, B - 1):
+                    part = d.kernel(q[:b].contiguous())
+                    same &= all(torch.equal(x, y[:b])
+                                for x, y in zip(part, plain))
+                torch.cuda.synchronize()
+                print(f"  {label} ({d.kernel_name(B)}): == plain {same} at "
+                      f"B = {B}, 1, 3, 5, {B - 1} (mean iters "
                       f"{float(out[1].double().mean()):.2f}, converged "
                       f"{int(out[2].sum())}/{B}; {smem} B smem, register row "
-                      f"{dmax}, {blocks} blocks/SM)", flush=True)
+                      f"or lanes {dmax}, {blocks} blocks/SM)", flush=True)
                 if not same:
-                    raise AssertionError(f"{name} {d.variant} != plain")
-        for et, point in ((False, db), (True, db + 0.25)):
-            q = channel_q(ct, cfg, point, args.batch, gen)
-            in_turns(decoders(ct, cfg.decoder.max_iter, beta, cfg.quant.qmax,
-                              alpha, et), q,
-                     f"{name} B={args.batch} {'ET' if et else 'fixed'} at "
-                     f"{point} dB", gpu, args.reps)
+                    raise AssertionError(f"{name} {label} != plain")
+        for Bt in args.batch:
+            for et, point in ((False, db), (True, db + 0.25)):
+                q = channel_q(ct, cfg, point, Bt, gen)
+                in_turns(decoders(ct, cfg.decoder.max_iter, beta,
+                                  cfg.quant.qmax, alpha, et), q,
+                         f"{name} B={Bt} {'ET' if et else 'fixed'} at "
+                         f"{point} dB", gpu, args.reps)
     return 0
 
 

@@ -143,15 +143,33 @@ def stream_first(ct: CodeTensors, cfg: SimConfig) -> bool:
     """Whether `auto` takes the streaming library for a layered
     min-sum-family configuration that an on-chip kernel also admits: where
     no packed layered block takes the code (K3 would be the one-lane
-    template) and the streaming library's instance is the pipelined kernel.
-    Measured (chip_smoke.py, NVIDIA H100 80GB HBM3, 700.00 W, DVB-S2
-    n=16,200 rate 1/2, 1,024 codewords at 1.4 dB, in turns, CUDA-event
-    medians): fixed-20 pipelined 2.0744 ms against K3 behind its transposes
-    3.5663, with early termination 1.3248 against 2.6821."""
+    template) and the library's own rule (`instance_auto`) picks a
+    redesigned kernel for it, the packed resident kernel or the pipelined
+    kernel. Measured (chip_smoke.py, two runs, NVIDIA H100 80GB HBM3,
+    700.00 W, in turns, CUDA-event medians, OMS; the streaming library's
+    kernel at the instance's lanes against K3 behind its transposes):
+    DVB-S2 n=16,200 at B = 1,024 fixed-20 1.5702, 1.5943 (packed resident)
+    against 3.4186, 3.4549 ms, with early termination at 1.4 dB 1.2483,
+    1.2565 against 2.6211, 2.6142; NR BG1 Z=384 at B = 1,024 fixed-20
+    2.2425, 2.1109 against 4.1532, 4.1293, with early termination at
+    1.25 dB 2.0783, 2.0230 against 3.8336, 3.8257; at B = 256 (two lanes)
+    early termination 1.0983, 1.0276 against 1.3179, 1.2388, and fixed-20
+    a tie, 1.0521, 1.0840 against 1.0736, 1.1502 (as slice 5d launched
+    them 0.9904, 0.9999 against 1.0709, 1.0497); n=16,200 rate 8/9 at
+    B = 1,024 1.4528, 1.3491 against 2.5725, 2.4925 and with early
+    termination 1.3771, 1.4086 against 1.7520, 1.7516, at B = 256 0.6645,
+    0.6249 against 0.7228, 0.6860, and with early termination a tie,
+    0.7671, 0.7156 against 0.7728, 0.6975 (the two-lane block waits for
+    its slower lane, K3's one-lane blocks do not). The route rests on the
+    wins at B = 1,024 and with early termination."""
     dc = cfg.decoder
-    return (dc.schedule == "layered" and dc.algorithm in MIN_SUM_FAMILY
-            and not minsum.is_packed(ct, "layered", 0, dc.early_term)
-            and stream.instance_auto(ct, dc.early_term) == "pipelined")
+    if (dc.schedule != "layered" or dc.algorithm not in MIN_SUM_FAMILY
+            or minsum.is_packed(ct, "layered", 0, dc.early_term)):
+        return False
+    auto = stream.instance_auto(ct, dc.early_term)
+    # the resident instance is the packed kernel wherever its block fits
+    return auto == "pipelined" or (auto == "resident"
+                                   and stream.resident_packed_fits(ct, 2))
 
 
 def resolve_route(ct: CodeTensors, cfg: SimConfig,
@@ -438,8 +456,8 @@ def select_decoder(ct: CodeTensors, cfg: SimConfig,
                 return build(dc, mc_batch=batch,
                              mc_lane_sigma=n_points > 1), label + "-mc"
     elif route == "stream":
-        def build(dec_cfg):
-            return stream.make_decoder(ct, dec_cfg, cfg.quant)
+        def build(dec_cfg, at=batch):
+            return stream.make_decoder(ct, dec_cfg, cfg.quant, batch=at)
 
         label = (("cuda-" if cuda else "torch-plain-")
                  + build(dc).variant)
@@ -462,6 +480,11 @@ def select_decoder(ct: CodeTensors, cfg: SimConfig,
         tile = dec.batch_tile
         want = max(int(batch * dc.phase2_frac), tile)
         cap = min(batch, -(-want // tile) * tile)
+        if route == "stream":
+            # phase 2 decodes `cap` codewords: its kernel is the one
+            # measured fastest at that batch
+            dec = build(dc, at=cap)
+            label = (("cuda-" if cuda else "torch-plain-") + dec.variant)
         return (TwoPhaseDecoder(dec_p1, dec, cap, batch_first=batch_first),
                 label + "-2phase")
     return dec, label

@@ -239,18 +239,19 @@ def test_admission_rule_on_cpu_code_tensors():
             select_decoder(long_ct, cfg, backend="pallas")
     # n=16,200 (86,760 B) and NR BG1 Z=384 (114,432 B) fit an SM, but no
     # block of four lanes: K3 would be the one-lane template, behind
-    # transposes (the step is batch first: n > 4096). `auto` keeps it for
-    # NR BG1 and streams n=16,200, whose streaming instance, the pipelined
-    # kernel, beats that K3 (stream_first); "pallas" keeps K3 for both
+    # transposes (the step is batch first: n > 4096). `auto` streams both
+    # (stream_first): n=16,200 through the pipelined kernel (rows of 7: its
+    # 8-entry row), NR BG1 through the packed resident kernel; each was
+    # measured faster than that K3. "pallas" keeps K3 for both
     short_cfg, short_ct = _ct("dvbs2-64800-r12", 16200)
     nr_cfg, nr_ct = _ct("nr-bg1-layered")
     # forced through the library: rows of 7 take the pipelined kernel's
     # 8-entry row; NR BG1's rows of up to 22 would take its 24-entry row,
-    # which loses to two resident blocks of the template an SM
+    # which loses to the packed resident kernel
     for cfg, ct, lanes, auto_label, forced_label in (
             (short_cfg, short_ct, 1, "torch-plain-stream-pipelined",
              "torch-plain-stream-pipelined-et"),
-            (nr_cfg, nr_ct, 2, "torch-plain-layered-bf",
+            (nr_cfg, nr_ct, 2, "torch-plain-stream-resident",
              "torch-plain-stream-resident-et")):
         assert minsum.pick_lanes(ct, "layered") == lanes
         assert not minsum.is_packed(ct, "layered", 0, False)
@@ -266,6 +267,21 @@ def test_admission_rule_on_cpu_code_tensors():
                                        backend="stream")
         assert label == forced_label and forced.resident
         assert forced.pipelined == ("pipelined" in forced_label)
+        assert forced.packed == ("resident" in forced_label)
+    # the batch reaches the rule: n=16,200 takes the packed resident
+    # kernel where it runs four lanes a thread (B = 1,024), the pipelined
+    # kernel at B = 256 (two lanes); NR BG1 takes the packed kernel at both
+    # batches, two lanes a thread at B = 256
+    for cfg, ct, B, et, variant, lanes in (
+            (short_cfg, short_ct, 1024, False, "stream-resident", 4),
+            (short_cfg, short_ct, 256, False, "stream-pipelined", 1),
+            (short_cfg, short_ct, 1024, True, "stream-resident-et", 4),
+            (short_cfg, short_ct, 256, True, "stream-pipelined-et", 1),
+            (nr_cfg, nr_ct, 256, False, "stream-resident", 2),
+            (nr_cfg, nr_ct, 1024, True, "stream-resident-et", 4)):
+        dec, label = select_decoder(ct, _with(cfg, early_term=et), batch=B)
+        assert label == "torch-plain-" + variant
+        assert dec.variant == variant and dec.lanes_for(B) == lanes
     assert len(nr_ct.code.punct_vns) == 768
     # the canonical code stays on the transposed on-chip path
     wifi_cfg, wifi_ct = _ct("wifi-648-r12-minsum")
@@ -275,8 +291,9 @@ def test_admission_rule_on_cpu_code_tensors():
                           backend="stream")[
         1] == "torch-plain-stream-pipelined"
     # rows of 27-28 (n=16,200 rate 8/9), longer than the pipelined
-    # kernel's register row: the template, posteriors on chip (34 KB a
-    # block, two an SM)
+    # kernel's register row: the packed resident kernel (two lanes a
+    # thread: 105,152 B a block, two an SM), which `auto` also takes
+    # before K3's one-lane template
     r89_cfg = _preset("dvbs2-64800-r12", n=16200, rate="8/9")
     r89_ct = from_reference(build_code(r89_cfg), "cpu")
     assert tstream.max_row_degree(r89_ct) == 28
@@ -285,6 +302,12 @@ def test_admission_rule_on_cpu_code_tensors():
                         (True, "stream-resident-et")):
         assert select_decoder(r89_ct, _with(r89_cfg, early_term=et),
                               backend="stream")[0].variant == variant
+        assert stream_first(r89_ct, _with(r89_cfg, early_term=et))
+        for B, lanes in ((256, 2), (1024, 4)):
+            dec, label = select_decoder(
+                r89_ct, _with(r89_cfg, early_term=et), batch=B)
+            assert label == "torch-plain-" + variant and dec.packed
+            assert dec.lanes_for(B) == lanes
     for unknown in ("mosaic", "onchip", "stream-resident", "ref"):
         with pytest.raises(ValueError, match="unknown decoder backend"):
             select_decoder(wifi_ct, wifi_cfg, backend=unknown)
@@ -292,11 +315,18 @@ def test_admission_rule_on_cpu_code_tensors():
 
 def test_two_phase_capacity_follows_the_stream_block():
     """The reference rounds the two-phase capacity to the stream kernel's
-    128-lane tile; here a block is one codeword, so the granularity is 1,
-    and the label carries the instance."""
+    128-lane tile; here a block is one codeword, or masks its packed lanes
+    past the batch, so the granularity is 1, and the label carries the
+    instance of phase 2, chosen at the capacity it decodes: at 204
+    codewords the pipelined kernel (the packed resident kernel would run
+    two lanes a thread there), while phase 1 decodes the whole batch of
+    2,048 on the packed resident kernel, four lanes a thread."""
     cfg, ct = _ct("dvbs2-64800-r12", 16200)
     cfg = _with(cfg, early_term=True, phase1_iters=4, phase2_frac=0.1)
     dec, label = select_decoder(ct, cfg, batch=2048, backend="stream")
     assert label == "torch-plain-stream-pipelined-et-2phase"
+    assert dec.dec_full.variant == "stream-pipelined-et"
+    assert dec.dec_full.batch_tile == 1
+    assert dec.dec_p1.packed and dec.dec_p1.lanes_for(2048) == 4
     assert dec.batch_first and dec.capacity == 204
     assert dec.dec_p1.max_iter == 4 and dec.dec_full.max_iter == 20

@@ -83,9 +83,11 @@ Phases, each printing its lines; any failure raises and exits non-zero:
    with early termination: the template's streamed placement, the
    pipelined kernel (NR BG1's rows of 22 at its 24-entry register row) and
    the resident instance (the packed resident kernel where its block fits,
-   else the template), and on DVB-S2 n=16,200 rate 8/9 (B=64, rows of 27-28) all but
-   the pipelined kernel, each code's set of instances stated
-   (`STREAM_INSTANCES`), equal the plain version and each other, and K3
+   else the template), and on DVB-S2 n=64,800 rate 8/9 (B=32) and n=16,200
+   rate 8/9 (B=64; rows of 27-28 at the pipelined kernel's 28-entry
+   register row) and the (3,30) array code (B=64, rows of 30 at its
+   32-entry row; LLRs of the all-zeros word), each code's set of instances
+   stated (`STREAM_INSTANCES`), equal the plain version and each other, and K3
    behind its batch-first transposes where K3 admits the code; an odd
    batch (B - 1 codewords) and an all-zero noiseless batch (with early
    termination: iters 0). The packed resident kernel (K6d, K6e) on NR BG1
@@ -167,12 +169,14 @@ Phases, each printing its lines; any failure raises and exits non-zero:
    one-lane template behind transposes) and the plain QC decoder give
    equal counters on equal draws; NR BG1 Z=128 rate 1/3 with early termination against
    `results/nr_bg1_z128_r13.json` (32,768 frames at 0.5 and 1.0 dB);
-   DVB-S2 n=64,800 rate 8/9 (rows of 27-28, which the template's
-   streaming instances `stream` and `stream-et` take), fixed and with
+   DVB-S2 n=64,800 rate 8/9 (rows of 27-28, which the pipelined kernel's
+   28-entry register row takes: `stream-pipelined` and
+   `stream-pipelined-et`, the pipelined kernel only), fixed and with
    early termination, batch 256, 512 frames at 3.0 and 3.5 dB, and DVB-S2
-   n=16,200 rate 8/9 forced through the library (the resident instances
-   `stream-resident` and `stream-resident-et`: the packed resident kernel),
-   batch 256, 512 frames at 3.5 and 4.0 dB, each equal to the plain QC
+   n=16,200 rate 8/9 forced through the library (at batch 256 the
+   pipelined kernel's 28-entry row too: the packed resident kernel would
+   run two lanes a thread), 512 frames at 3.5 and 4.0 dB, each equal to
+   the plain QC
    decoder's counters on equal draws.
    Then each sweep's decoder
    must be the instance (library, code, decoder and quantizer
@@ -225,11 +229,17 @@ Phases, each printing its lines; any failure raises and exits non-zero:
    there), B=1,024, fixed-20 and with early termination, NR BG1 Z=384 and
    n=16,200 rate 8/9 at B = 1,024 and 256 (with K3 behind its transposes;
    the mean of a block's most iterations beside the mean iterations; the
-   packed resident kernel's operation and message-traffic bounds), and
-   n=64,800 rate 5/6 fixed-20: what `minsum_stream.instance_auto` and
+   packed resident kernel's operation and message-traffic bounds),
+   n=64,800 rate 5/6 fixed-20, and n=64,800 rate 8/9 at B = 256 (slice
+   5f's input) and 1,024, fixed-20 and with early termination (the
+   pipelined kernel's 28-entry row beside the template's `stream`,
+   `stream-et` it replaces on that route, with its bounds): what
+   `minsum_stream.instance_auto` and
    `pipeline.stream_first` rest on; each instance as its sweep launched
-   it (K6d also as slice 5d launched it, beside K3 forced), and slice 5's
-   steps with their kernel's share; the
+   it (K6d as slice 5d launched it, beside K3 forced, K6e as slice 5c
+   did; the template's
+   `stream`, `stream-et` as a forced `resident=False` call on slice 5f's
+   input launches them), and slice 5's steps with their kernel's share; the
    six
    microbenchmark kernels against their plain versions in turns, each at
    the shape the entry point gives it (the sweeps at B = 16,384 and the
@@ -238,8 +248,11 @@ Phases, each printing its lines; any failure raises and exits non-zero:
    sweep's time a sweep beside K1's time an iteration.
 
 Each kernel record carries `launches` of the main path named beside it,
-the kernel template instance that path launched (`instance`), and `ms`,
-`plain_ms`, `bound_ms` of the decoder that path launched.
+the kernel template instance that path launched (`instance`; the
+streaming library's records also name the path, `launched_by`: for the
+template's `stream`, `stream-et` a forced `resident=False` call on slice
+5f's input), and `ms`, `plain_ms`, `bound_ms` of the decoder that path
+launched.
 `bound_ms` is the least time the card could take for the timed call: the
 larger of its bytes (every input tensor read once, every output written
 once) over 3.35 TB/s and its integer operations over 67e12/s, the data
@@ -303,8 +316,8 @@ class Slice(typing.NamedTuple):
 OMS_ET = "wifi-648-oms-flood-et"   # results/wifi648_oms.json's configuration
 OMS_ET_Z = statistics.NormalDist().inv_cdf(1 - 0.005 / 8)   # 3.227
 S64800, S16200 = "dvbs2-64800-r12-stream", "dvbs2-16200-r12-resident-et"
-S89 = "dvbs2-64800-r89"     # rows of degree 27-28: the template streams
-S1689 = "dvbs2-16200-r89"   # rows of 27-28, posteriors of 32 KB: resident
+S89 = "dvbs2-64800-r89"     # rows of degree 27-28: the 28-entry register row
+S1689 = "dvbs2-16200-r89"   # rows of 27-28, posteriors of 32 KB
 NR384, NR128 = "nr-bg1-z384-stream", "nr-bg1-z128-r13"
 SLICES = (
     Slice("wifi-648-r12-minsum", "wifi-648-r12-minsum", None, "host",
@@ -374,33 +387,34 @@ SLICES = (
     # the statistical anchor of rate matching: NR BG1 Z=128 rate 1/3
     Slice("5e " + NR128, NR128, None, "host", "nr_bg1_z128_r13.json",
           (0.5, 1.0), 32768, batch=4096, expect="cuda-minsum-layered-bf"),
-    # DVB-S2 n=64,800 rate 8/9 (rows of 27-28, longer than the pipelined
-    # kernel's register row) has no recorded waterfall: the template's
-    # streaming instances, fixed and with early termination, are held to the
-    # plain QC decoder on equal draws
+    # DVB-S2 n=64,800 rate 8/9 (rows of 27-28: the pipelined kernel's
+    # 28-entry register row) has no recorded waterfall: the pipelined
+    # kernel, fixed and with early termination, is held to the plain QC
+    # decoder on equal draws
     Slice("5f " + S89, S89, None, "host", "5f " + S89 + ", plain",
-          (3.0, 3.5), 512, batch=256, expect="cuda-stream"),
+          (3.0, 3.5), 512, batch=256, expect="cuda-stream-pipelined"),
     Slice("5f " + S89 + ", plain", S89, None, "host", "5f " + S89,
           (3.0, 3.5), 512, backend="qc", batch=256, expect="torch-qc",
           equal_to="5f " + S89),
     Slice("5f " + S89 + "-et", S89 + "-et", None, "host",
           "5f " + S89 + "-et, plain", (3.0, 3.5), 512, batch=256,
-          expect="cuda-stream-et"),
+          expect="cuda-stream-pipelined-et"),
     Slice("5f " + S89 + "-et, plain", S89 + "-et", None, "host",
           "5f " + S89 + "-et", (3.0, 3.5), 512, backend="qc", batch=256,
           expect="torch-qc", equal_to="5f " + S89 + "-et"),
     # DVB-S2 n=16,200 rate 8/9 (rows of 27-28) forced through the library:
-    # the resident instances (the packed resident kernel, two lanes a
-    # thread at this batch), held to the plain QC decoder on equal draws
+    # at this batch the pipelined kernel's 28-entry row (the packed
+    # resident kernel would run two lanes a thread), held to the plain QC
+    # decoder on equal draws
     Slice("5g " + S1689, S1689, None, "host", "5g " + S1689 + ", plain",
           (3.5, 4.0), 512, backend="stream", batch=256,
-          expect="cuda-stream-resident"),
+          expect="cuda-stream-pipelined"),
     Slice("5g " + S1689 + ", plain", S1689, None, "host", "5g " + S1689,
           (3.5, 4.0), 512, backend="qc", batch=256, expect="torch-qc",
           equal_to="5g " + S1689),
     Slice("5g " + S1689 + "-et", S1689 + "-et", None, "host",
           "5g " + S1689 + "-et, plain", (3.5, 4.0), 512, backend="stream",
-          batch=256, expect="cuda-stream-resident-et"),
+          batch=256, expect="cuda-stream-pipelined-et"),
     Slice("5g " + S1689 + "-et, plain", S1689 + "-et", None, "host",
           "5g " + S1689 + "-et", (3.5, 4.0), 512, backend="qc", batch=256,
           expect="torch-qc", equal_to="5g " + S1689 + "-et"),
@@ -408,12 +422,15 @@ SLICES = (
 # The streaming library's instances (`minsum_stream.StreamDecoder.variant`,
 # fixed form) that take each code of check_stream_kernels: the template's
 # two placements, and the pipelined kernel where its register row holds the
-# code's rows (24 entries).
+# code's rows (32 entries; ARRAY30: the (3,30) array code).
+ARRAY30 = "array-3x30"
 STREAM_INSTANCES = {
     S64800: {"stream", "stream-pipelined", "stream-resident"},
     S16200: {"stream", "stream-pipelined", "stream-resident"},
     NR384: {"stream", "stream-pipelined", "stream-resident"},
-    S1689: {"stream", "stream-resident"},
+    S89: {"stream", "stream-pipelined", "stream-resident"},
+    S1689: {"stream", "stream-pipelined", "stream-resident"},
+    ARRAY30: {"stream", "stream-pipelined", "stream-resident"},
 }
 MINSUM_OPS_PER_EDGE = 12
 FUSED = dict(preset="wifi-648-r12-minsum", ref="wifi648_fused_mc.json",
@@ -1274,12 +1291,15 @@ def check_stream_kernels(port, minsum, stream, dev, worst):
     """The streaming library (K6b-K6f) == its plain version, tolerance 0.
     The matrix, at 10 iterations: DVB-S2 n=64,800 (B=32), n=16,200 (B=128)
     and NR BG1 Z=384 (B=64, 768 punctured variables at LLR 0), OMS beta=2
-    and NMS alpha=3/4, fixed iterations and early termination, and DVB-S2
-    n=16,200 rate 8/9 (B=64): every instance that takes the code, which
-    must be the set `STREAM_INSTANCES` states (the template's streamed
-    placement; the pipelined kernel where its register row holds the rows,
-    NR BG1's rows of 22 at its 24-entry row; the resident instance, on the
-    packed resident kernel where its block fits) against the plain
+    and NMS alpha=3/4, fixed iterations and early termination, DVB-S2
+    n=64,800 rate 8/9 (B=32), n=16,200 rate 8/9 (B=64) and the (3,30) array
+    code (B=64, LLRs of the all-zeros word): every instance that takes the
+    code, which must be the set `STREAM_INSTANCES` states (the template's
+    streamed placement; the pipelined kernel where its register row holds
+    the rows, NR BG1's rows of 22 at its 24-entry row, rate 8/9's 27-28 at
+    its 28-entry row, the array code's 30 at its 32-entry row; the
+    resident instance, on the packed resident kernel where its block fits,
+    else the template) against the plain
     version, hence against each other, and against K3 behind its
     transposes where K3 admits the code;
     an odd batch (B - 1 codewords); an all-zero noiseless batch
@@ -1295,6 +1315,7 @@ def check_stream_kernels(port, minsum, stream, dev, worst):
     library for K3); returns label -> (the decoder held, its input)."""
     from ldpc_tpu_torch import oracle
     from ldpc_tpu_torch.codes import build_code, from_reference
+    from ldpc_tpu_torch.codes.toy import array_qc
     from ldpc_tpu_torch.config import cn_params
     from ldpc_tpu_torch.kernels import probe_stream
     from ldpc_tpu_torch.sim.pipeline import BatchFirstDecoder, select_decoder
@@ -1307,11 +1328,17 @@ def check_stream_kernels(port, minsum, stream, dev, worst):
            for w in (S64800, S16200, NR384, NR128, S89, S1689)}
     for w in (S64800, S89, S1689):
         cts[w + "-et"] = cts[w]
+    # the (3,30) array code has no systematic form: LLRs of the all-zeros
+    # word, decoded as rate 8/9's configuration decodes
+    cts[ARRAY30] = bare_tensors(array_qc(3, 30, 31), dev)
+    cfgs[ARRAY30] = cfgs[S1689]
     iters = 10
     for what, db, B in ((S64800, 1.6, 32), (S16200, 1.6, 128),
-                        (NR384, 1.5, 64), (S1689, 4.0, 64)):
+                        (NR384, 1.5, 64), (S89, 3.0, 32), (S1689, 4.0, 64),
+                        (ARRAY30, 2.5, 64)):
         ct, cfg = cts[what], cfgs[what]
-        q = bf_chain(ct, cfg, db, B, gen)
+        q = (probe_stream.channel_q(ct, cfg, db, B, gen) if what == ARRAY30
+             else bf_chain(ct, cfg, db, B, gen))
         zero = torch.full((B, ct.n), 8, dtype=torch.int8, device=dev)
         for alg in ("offset-min-sum", "normalized-min-sum"):
             for et in (False, True):
@@ -1337,7 +1364,7 @@ def check_stream_kernels(port, minsum, stream, dev, worst):
                     if not all(torch.equal(a, b) for a, b in zip(out, plain)):
                         raise AssertionError(f"{d.variant} differs from the "
                                              f"other instance on {what_dec}")
-                    if what != NR384:
+                    if what not in (NR384, ARRAY30):
                         want = oracle.decode_batch(
                             q[:8].cpu().numpy(), ct.code, max_iter=iters,
                             beta=d.beta, qmax=d.qmax, schedule="layered",
@@ -2320,14 +2347,42 @@ def main():
     d5ds, q5d = stream_held[l5d]
     d5f, q5f = stream_held[l5f]
     d5fe, q5fe = stream_held[l5fe]
-    d5g, q5g = stream_held[l5g]
-    d5ge, q5ge = stream_held[l5ge]
+    d5g = stream_held[l5g][0]
+    d5ge = stream_held[l5ge][0]
     if (d5a.variant, d5b.variant, d5cs.variant, d5ds.variant, d5f.variant,
             d5fe.variant, d5g.variant, d5ge.variant) != (
             "stream-pipelined", "stream-pipelined-et", "stream-resident-et",
-            "stream-resident", "stream", "stream-et", "stream-resident",
-            "stream-resident-et"):
+            "stream-resident", "stream-pipelined", "stream-pipelined-et",
+            "stream-pipelined", "stream-pipelined-et"):
         raise AssertionError("slice 5's sweeps did not cover the instances")
+    if {d.kernel_name(256) for d in (d5f, d5fe, d5g, d5ge)} != {
+            "stream_pipelined_kernel<28, false>",
+            "stream_pipelined_kernel<28, true>"}:
+        raise AssertionError("slices 5f and 5g did not launch the 28-entry "
+                             "row")
+    # the template's streamed instances, which slice 5f launched before the
+    # pipelined kernel's 28-entry row took its code: a forced call
+    # (`resident=False`) on 5f's input, its launches counted from 0, its
+    # outputs those of 5f's decoder
+    d5t = {et: stream.make_decoder(d.ct, sweeps[l].cfg.decoder,
+                                   sweeps[l].cfg.quant, resident=False)
+           for et, d, l in ((False, d5f, l5f), (True, d5fe, l5fe))}
+    forced_launches = {}
+    for et, q in ((False, q5f), (True, q5fe)):
+        d = d5t[et]
+        stream.reset_counters()
+        out = d.kernel(q)
+        torch.cuda.synchronize()
+        forced_launches[d.variant] = stream.instance_launches[d.variant]
+        only = stream.kernel_launches == forced_launches[d.variant] == 1
+        want = (d5fe if et else d5f).kernel(q)
+        ok = only and all(torch.equal(a, b) for a, b in zip(out, want))
+        print(f"forced {d.variant} ({d.kernel_name(q.shape[0])}) on "
+              f"{l5fe if et else l5f}'s input, B={q.shape[0]}: launches "
+              f"{forced_launches[d.variant]}, == the pipelined kernel {ok}",
+              flush=True)
+        if not ok:
+            raise AssertionError(f"forced {d.variant} on slice 5f")
     q5b = bf_chain(d5b.ct, sweeps[l5b].cfg, 1.25, STREAM_BATCH, gen)
 
     def in_turns(d, early_term, q, what, extra=None):
@@ -2396,6 +2451,27 @@ def main():
                 print(f"  bound of {variant} ({d_res.kernel_name(B)}) on "
                       f"this call: {b_ms:.4f} ms by {b_by}; message traffic "
                       f"{message_bound(d_res, q_t):.4f} ms", flush=True)
+    # n=64,800 rate 8/9 (rows of 27-28), B = 256 (slice 5f's input) and
+    # 1,024, fixed-20 and with early termination at 3.0 dB: the pipelined
+    # kernel's 28-entry row beside the template's `stream`, `stream-et`
+    # (the parent's route) and its resident instance; each call's bounds
+    for B in (256, STREAM_BATCH):
+        for et in (False, True):
+            d = d5fe if et else d5f
+            q_t = ((q5fe if et else q5f) if B == 256 else
+                   bf_chain(d.ct, sweeps[l5f].cfg, 3.0, B, gen))
+            timing[f"turns 64800 r89 {'ET' if et else 'fixed'} B={B}"] = \
+                in_turns(d, et, q_t, f"n=64,800 rate 8/9 OMS "
+                         f"{'ET' if et else 'fixed-20'} at 3.0 dB, {B} "
+                         f"codewords")
+            b_ms, b_by = bound_of(d, (q_t,), {})
+            exact = message_bound(d, q_t)
+            w = stream.row_bytes(d.ct)
+            print(f"  bound of {d.variant} ({d.kernel_name(B)}) on this "
+                  f"call: {b_ms:.4f} ms by {b_by}; message traffic "
+                  f"{exact:.4f} ms exact, "
+                  f"{exact * w * d.ct.mb / d.ct.n_entries:.4f} ms as stored "
+                  f"({w}-byte rows)", flush=True)
     # rows of 22-23 (rate 5/6): the pipelined kernel's 24-entry register row
     cfg56 = slice_config(port, S64800, "host")
     cfg56 = dataclasses.replace(cfg56, code=dataclasses.replace(
@@ -2422,22 +2498,24 @@ def main():
         d5b, (q5b,), f"K6f stream-pipelined-et decode of {STREAM_BATCH} "
         f"codewords (n=64,800 OMS, ET, 1.25 dB: {l5b}'s launch)",
         plain_reps=1)
+    timing["K6 stream-pipelined r89"] = timed_call(
+        d5f, (q5f,), f"K6b/K6c stream-pipelined "
+        f"({d5f.kernel_name(q5f.shape[0])}) decode of {q5f.shape[0]} "
+        f"codewords (n=64,800 rate 8/9 OMS, 20 fixed iterations, 3.0 dB: "
+        f"{l5f}'s launch)", plain_reps=1)
+    timing["K6 stream-pipelined-et r89"] = timed_call(
+        d5fe, (q5fe,), f"K6f stream-pipelined-et "
+        f"({d5fe.kernel_name(q5fe.shape[0])}) decode of {q5fe.shape[0]} "
+        f"codewords (n=64,800 rate 8/9 OMS, ET, 3.0 dB: {l5fe}'s launch)",
+        plain_reps=1)
     timing["K6 stream"] = timed_call(
-        d5f, (q5f,), f"K6b/K6c stream decode of {q5f.shape[0]} codewords "
-        f"(n=64,800 rate 8/9 OMS, 20 fixed iterations, 3.0 dB: {l5f}'s "
-        f"launch)", plain_reps=1)
+        d5t[False], (q5f,), f"K6b/K6c stream decode of {q5f.shape[0]} "
+        f"codewords (n=64,800 rate 8/9 OMS, 20 fixed iterations, 3.0 dB: "
+        f"the forced call on {l5f}'s input)", plain_reps=1)
     timing["K6 stream-et"] = timed_call(
-        d5fe, (q5fe,), f"K6f stream-et decode of {q5fe.shape[0]} codewords "
-        f"(n=64,800 rate 8/9 OMS, ET, 3.0 dB: {l5fe}'s launch)",
-        plain_reps=1)
-    timing["K6 stream-resident"] = timed_call(
-        d5g, (q5g,), f"K6d stream-resident decode of {q5g.shape[0]} "
-        f"codewords (n=16,200 rate 8/9 OMS, 20 fixed iterations, 3.5 dB: "
-        f"{l5g}'s launch)", plain_reps=1)
-    timing["K6 stream-resident-et"] = timed_call(
-        d5ge, (q5ge,), f"K6e stream-resident-et decode of {q5ge.shape[0]} "
-        f"codewords (n=16,200 rate 8/9 OMS, ET, 3.5 dB: {l5ge}'s launch)",
-        plain_reps=1)
+        d5t[True], (q5fe,), f"K6f stream-et decode of {q5fe.shape[0]} "
+        f"codewords (n=64,800 rate 8/9 OMS, ET, 3.0 dB: the forced call on "
+        f"{l5fe}'s input)", plain_reps=1)
     timing["K6 nr384"] = timed_call(
         d5ds, (q5d,), f"K6d stream-resident ({d5ds.kernel_name(256)}) "
         f"decode of {q5d.shape[0]} codewords (NR BG1 Z=384 OMS, 20 fixed "
@@ -2498,7 +2576,8 @@ def main():
                                (l5c, 0, 1.4,
                                 "K6 16200 stream"),
                                (l5d, 0, 1.0, "K6 nr384"),
-                               (l5d + ", K3", 0, 1.0, "K3 nr384")):
+                               (l5d + ", K3", 0, 1.0, "K3 nr384"),
+                               (l5f, 0, 3.0, "K6 stream-pipelined r89")):
         sw = sweeps[label]
         ms = [report_step(f"{label} {db} dB rng=host", sw.run_batch,
                           sw.generator(si, 0), sw._sigma(db), sw.code.k_eff,
@@ -2576,32 +2655,42 @@ def main():
                 "plain_ms": t[1], "bound_ms": t[2], "bound_by": t[3],
                 "library_ms": None}
 
-    # the main path of each instance: the sweep that launched it, its
-    # decoder and input
-    stream_dec = {"stream-pipelined": d5a, "stream-pipelined-et": d5b,
-                  "stream": d5f, "stream-et": d5fe, "stream-resident": d5g,
-                  "stream-resident-et": d5ge}
-    stream_in = {"stream-pipelined": q5a, "stream-pipelined-et": q5b,
-                 "stream": q5f, "stream-et": q5fe, "stream-resident": q5g,
-                 "stream-resident-et": q5ge}
-    stream_launched = {"stream-pipelined": launches[l5a],
-                       "stream-pipelined-et": launches[l5b],
-                       "stream": launches[l5f], "stream-et": launches[l5fe],
-                       "stream-resident": launches[l5g],
-                       "stream-resident-et": launches[l5ge]}
+    # the main path of each instance: the sweep that launched it (for the
+    # template's `stream`, `stream-et`: the forced call on 5f's input, under
+    # the records' names of before), its decoder and input; the pipelined
+    # kernel's 28-entry row is a record of its own, named by its register row
+    stream_runs = {     # record name prefix -> (variant, decoder, input,
+        # launches, timing key, what launched it)
+        "minsum_stream_pipelined_": (
+            ("stream-pipelined", d5a, q5a, launches[l5a],
+             "K6 stream-pipelined", l5a),
+            ("stream-pipelined-et", d5b, q5b, launches[l5b],
+             "K6 stream-pipelined-et", l5b)),
+        "minsum_stream_pipelined28_": (
+            ("stream-pipelined", d5f, q5f, launches[l5f],
+             "K6 stream-pipelined r89", l5f),
+            ("stream-pipelined-et", d5fe, q5fe, launches[l5fe],
+             "K6 stream-pipelined-et r89", l5fe)),
+        "minsum_stream_": (
+            ("stream", d5t[False], q5f, forced_launches["stream"],
+             "K6 stream", f"resident=False forced on {l5f}'s input"),
+            ("stream-et", d5t[True], q5fe, forced_launches["stream-et"],
+             "K6 stream-et", f"resident=False forced on {l5fe}'s input"),
+            ("stream-resident", d5ds, q5d, launches[l5d], "K6 nr384",
+             l5d),
+            ("stream-resident-et", d5cs, q5c, launches[l5c],
+             "K6 16200 stream", l5c)),
+    }
     stream_records = [
-        {"name": ("minsum_stream_pipelined_" if "pipelined" in variant
-                  else "minsum_stream_") + kid,
-         "instance": stream_dec[variant].kernel_name(
-             stream_in[variant].shape[0]), "route": "cuda",
-         "source": stream.SOURCE, "replaces": site,
-         "launches": stream_launched[variant],
+        {"name": prefix + kid, "instance": d.kernel_name(q.shape[0]),
+         "launched_by": by, "route": "cuda", "source": stream.SOURCE,
+         "replaces": site, "launches": launched,
          "max_abs_err": worst[variant], "ms": t[0], "plain_ms": t[1],
          "bound_ms": t[2], "bound_by": t[3], "library_ms": None}
-        for variant, sites in stream.REPLACES.items()
-        if variant in stream_launched
-        for kid, site in sites
-        for t in (timing[f"K6 {variant}"],)]
+        for prefix, runs in stream_runs.items()
+        for variant, d, q, launched, key, by in runs
+        for kid, site in stream.REPLACES[variant]
+        for t in (timing[key],)]
 
     # launches: of the main path named; ms, plain_ms, bound_ms: of the
     # decoder object that path launched, at its batch

@@ -15,10 +15,12 @@
 //
 // 1. stream_pipelined_kernel<DMAX, ET> (instances `stream-pipelined`,
 //    `stream-pipelined-et`): K6b/K6c and K6f as the route takes them, for
-//    codes whose rows fit its 8-entry register row, and for rows up to 24
-//    where two blocks of the template would not fit an SM (DVB-S2
-//    n=64,800: 129,600 B of int16 posteriors, 631 circulants, 90 layers of
-//    Z = 360 rows of degree 7 or 8; minsum_stream.py::instance_auto).
+//    codes whose rows fit its 8-entry register row, and for rows up to 32
+//    (register rows of 24, 28 and 32 entries) where no block of the packed
+//    resident kernel (3.) fits (DVB-S2 n=64,800: 129,600 B of int16
+//    posteriors; rate 1/2: 631 circulants, 90 layers of Z = 360 rows of
+//    degree 7 or 8; rate 8/9: 541 circulants, 20 layers of rows of 27 or
+//    28; minsum_stream.py::instance_auto).
 //
 //    What bounds it on the H100. Not bytes: 1,024 such codewords at 20
 //    iterations move 9.30 GB of int8 messages, 2.8 ms at 3.35 TB/s, and the
@@ -41,16 +43,24 @@
 //    cp.async.wait_group: a thread reads only its own rows, so nothing else
 //    guards the ring. The first iteration takes old = 0 and copies nothing,
 //    so the scratch needs no zeroing. A layer step is straight-line code
-//    for its row degree (a body for each degree 2-8; the 24-entry register
-//    row keeps a run-time guard): the tables (layer_ptr, base2, thr) ride
-//    in the kernel's parameters and are read with uniform loads (ULDC);
-//    the row's v2c values and posterior addresses stay in registers between
-//    the reduction and the emit; the new messages leave in one coalesced
-//    store a thread that nothing in the same iteration reads back. The
+//    for its row degree (a body for each degree 2-8, and for 27 and 28 in
+//    the 28-entry register row; other rows of the 24-, 28- and 32-entry
+//    rows keep a run-time guard an entry, under a launch bound of 512
+//    threads (128 registers) at 24, 384 (168) at 28, which one block an SM
+//    of 360 threads leaves free anyway, and 256 (255) at 32): the tables
+//    (layer_ptr, base2, thr) ride in the kernel's parameters, read with
+//    uniform loads (ULDC) in the bodies of degree 2-8 and with constant
+//    loads (LDC) in the longer rows; the row's v2c values and posterior
+//    addresses stay in registers between the reduction and the emit; the
+//    new messages leave in one coalesced store a thread that nothing in
+//    the same iteration reads back. The
 //    block's barrier is split (an mbarrier): a thread arrives when its
 //    posterior writes are done and waits only before its next posterior
 //    read, so its next step's ring read, table loads and addresses overlap
-//    the wait. Messages are stored as int8, DMAX bytes a row. (One uint32
+//    the wait. Messages are stored as int8, DMAX bytes a row (on rows of
+//    27-28, 28-byte rows in seven 4-byte copies beat 32-byte rows, and a
+//    reduce pass with an emit pass that reads the posteriors again lost to
+//    the register row: PERF.md section 6). (One uint32
 //    word a check row, min1o, min2o, the position of a minimum and a sign
 //    an entry, halves those bytes; it was built and timed, and lost at
 //    every shape: the kernel is bound by issued instructions, and the
@@ -63,10 +73,11 @@
 // 2. minsum_stream_kernel<RESIDENT, ET> (instances `stream`,
 //    `stream-resident`, `stream-resident-et`, `stream-et`; K6b/K6c, K6d, K6e,
 //    K6f): the template the library began with, which the route keeps for
-//    the other codes: posteriors and messages in device memory (K6b/K6c,
-//    K6f: rows longer than 24, DVB-S2 n=64,800 rate 8/9), and the posteriors
-//    in shared memory (K6d, K6e) only for the codes no block of the packed
-//    resident kernel (3.) takes (n=64,800: 129,600 B of posteriors a lane).
+//    the codes no other kernel takes: posteriors and messages in device
+//    memory (K6b/K6c, K6f: forced, `resident=False`, or rows longer than
+//    32, or of 29-32 at Z above 256), and the posteriors in shared memory
+//    (K6d, K6e) for the codes no block of the packed resident kernel (3.)
+//    takes (n=64,800: 129,600 B of posteriors a lane).
 //    One block owns one whole codeword, thread y check row y; the state is
 //    codeword major with the row index innermost,
 //      post int16 [B][nb * Z]   (device memory; shared memory when RESIDENT)
@@ -306,12 +317,17 @@ static_assert(sizeof(RingArgs) <= 32764, "kernel parameters above 32,764 B");
 
 // The register row of the instance a largest base-row degree takes; 0: none.
 inline int pipelined_dmax(int max_deg) {
-  return max_deg <= 8 ? 8 : max_deg <= 24 ? 24 : 0;
+  return max_deg <= 8 ? 8 : max_deg <= 24 ? 24 : max_deg <= 28 ? 28
+       : max_deg <= 32 ? 32 : 0;
 }
 
 // The threads a block of the register row's instance may have (its
-// __launch_bounds__: 64 registers a thread at 1024, 128 at 512).
-inline int pipelined_threads(int dmax) { return dmax <= 8 ? 1024 : 512; }
+// __launch_bounds__: 64 registers a thread at 1024, 128 at 512, 168 at 384,
+// which holds Z = 360 and NR's 384; the 32-entry row spilled there with
+// early termination, and keeps 255 registers at 256).
+__host__ __device__ constexpr int pipelined_threads(int dmax) {
+  return dmax <= 8 ? 1024 : dmax <= 24 ? 512 : dmax <= 28 ? 384 : 256;
+}
 
 // The posteriors, the ring (kRingStages layer steps of Z rows of DMAX int8
 // messages) and the block's mbarrier.
@@ -447,11 +463,12 @@ __device__ __forceinline__ uint32_t pack4(int a, int b, int c, int d) {
 }
 
 template <int DMAX, bool ET>
-__global__ void __launch_bounds__(DMAX <= 8 ? 1024 : 512)
+__global__ void __launch_bounds__(pipelined_threads(DMAX))
 stream_pipelined_kernel(const __grid_constant__ RingArgs a) {
-  static_assert(DMAX % 8 == 0, "whole 8-byte copies a row");
+  static_assert(DMAX % 4 == 0, "whole words a row");
   constexpr int W = DMAX;                   // bytes a check row
-  constexpr int CP = 8;                     // bytes a cp.async
+  // bytes a cp.async and a store (a row of 28 bytes: seven words)
+  constexpr int CP = W % 8 == 0 ? 8 : 4;
   extern __shared__ __align__(16) unsigned char smem[];
   const Params& p = a.p;
   const uint32_t* __restrict__ tw = a.tab;
@@ -531,7 +548,7 @@ stream_pipelined_kernel(const __grid_constant__ RingArgs a) {
     int raw[D], addr[D];
     // the addresses before the wait; for the 24-entry row after it, which
     // keeps the row within its 128 registers
-    if constexpr (GUARD) settle();
+    if constexpr (GUARD && DMAX == 24) settle();
 #pragma unroll
     for (int k = 0; k < D; ++k)
       if (!GUARD || k < d)
@@ -565,12 +582,19 @@ stream_pipelined_kernel(const __grid_constant__ RingArgs a) {
         post_at(post, addr[k]) = int16_t(raw[k] + nwv[k]);
       }
     }
+    uint32_t nw4[W / 4];
 #pragma unroll
-    for (int i = 0; i < W / 8; ++i)
-      reinterpret_cast<uint2*>(dst)[i] = make_uint2(
-          pack4(nwv[8 * i], nwv[8 * i + 1], nwv[8 * i + 2], nwv[8 * i + 3]),
-          pack4(nwv[8 * i + 4], nwv[8 * i + 5], nwv[8 * i + 6],
-                nwv[8 * i + 7]));
+    for (int i = 0; i < W / 4; ++i)
+      nw4[i] = pack4(nwv[4 * i], nwv[4 * i + 1], nwv[4 * i + 2],
+                     nwv[4 * i + 3]);
+#pragma unroll
+    for (int i = 0; i < W / CP; ++i) {
+      if constexpr (CP == 8)
+        reinterpret_cast<uint2*>(dst)[i] = make_uint2(nw4[2 * i],
+                                                      nw4[2 * i + 1]);
+      else
+        reinterpret_cast<uint32_t*>(dst)[i] = nw4[i];
+    }
   };
 
   // done and iters are the same in every thread of the block.
@@ -606,6 +630,14 @@ stream_pipelined_kernel(const __grid_constant__ RingArgs a) {
           case 7: layer(Deg<7>{}, e0, d, wv, dst); break;
           default: layer(Deg<8>{}, e0, d, wv, dst); break;
         }
+      } else if constexpr (DMAX == 28) {
+        // DVB-S2 rate 8/9's rows of 27 and 28: straight-line bodies (the
+        // guarded body took 1.6-1.8x as long on them); other rows guarded
+        switch (d) {
+          case 27: layer(Deg<27>{}, e0, d, wv, dst); break;
+          case 28: layer(Deg<28>{}, e0, d, wv, dst); break;
+          default: layer(Deg<DMAX, true>{}, e0, d, wv, dst); break;
+        }
       } else {
         layer(Deg<DMAX, true>{}, e0, d, wv, dst);
       }
@@ -639,11 +671,20 @@ stream_pipelined_kernel(const __grid_constant__ RingArgs a) {
 using PipelinedKernel = void (*)(RingArgs);
 
 inline PipelinedKernel pipelined_kernel(int dmax, bool et) {
-  if (dmax == 8)
-    return et ? stream_pipelined_kernel<8, true>
-              : stream_pipelined_kernel<8, false>;
-  return et ? stream_pipelined_kernel<24, true>
-            : stream_pipelined_kernel<24, false>;
+  switch (dmax) {
+    case 8:
+      return et ? stream_pipelined_kernel<8, true>
+                : stream_pipelined_kernel<8, false>;
+    case 24:
+      return et ? stream_pipelined_kernel<24, true>
+                : stream_pipelined_kernel<24, false>;
+    case 28:
+      return et ? stream_pipelined_kernel<28, true>
+                : stream_pipelined_kernel<28, false>;
+    default:
+      return et ? stream_pipelined_kernel<32, true>
+                : stream_pipelined_kernel<32, false>;
+  }
 }
 
 // ---------------------------------------------------------------------------

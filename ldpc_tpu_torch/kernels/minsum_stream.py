@@ -14,7 +14,8 @@ the messages live in device memory. `make_stream_decoder` returns a
       - the pipelined kernel (`PIPELINED`, K6b/K6c and K6f): posteriors in
         shared memory, each layer's int8 messages copied in two layer steps
         ahead by cp.async (`stream-pipelined`, `stream-pipelined-et`; rows
-        up to 24);
+        up to 32 in register rows of 8, 24, 28 and 32 entries: DVB-S2
+        n=64,800 at rates 1/2, 5/6 and 8/9);
       - the packed resident kernel (K6d, K6e: `stream-resident`,
         `stream-resident-et` wherever its block fits,
         `resident_packed_fits`): the posteriors of 2 or 4 codeword lanes
@@ -23,9 +24,10 @@ the messages live in device memory. `make_stream_decoder` returns a
         (`resident_lanes` picks the lanes by the batch);
       - the template the library began with (`INSTANCES`): `stream` and
         `stream-et` (posteriors and messages in device memory; K6b/K6c,
-        K6f), and `stream-resident`, `stream-resident-et` (posteriors in
-        shared memory, messages read on the critical path) for the codes
-        no packed resident block takes (DVB-S2 n=64,800);
+        K6f) where forced (`resident=False`) or where rows exceed 32, and
+        `stream-resident`, `stream-resident-et` (posteriors in shared
+        memory, messages read on the critical path) for the codes no packed
+        resident block takes (DVB-S2 n=64,800);
   * `plain`: the plain torch version, `ops/decode_qc` (layered), on tensors
     of any device.
 
@@ -96,6 +98,8 @@ REPLACES = {
 RING_AHEAD = 2              # kRingAhead: layer steps copied in ahead
 RING_STAGES = RING_AHEAD + 1
 RING_TAB_WORDS = 4096       # kRingTabWords: table words in the parameters
+# its register rows (pipelined_dmax) -> their launch bounds (threads)
+PIPELINED_ROWS = {8: 1024, 24: 512, 28: 384, 32: 256}
 # The packed resident kernel's constants (csrc/minsum_stream.cu)
 RESIDENT_ROW = 8            # kResidentRow: entries a row keeps in registers
 RESIDENT_AHEAD = 1          # kResidentAhead: layer steps copied in ahead
@@ -186,9 +190,15 @@ def max_row_degree(ct: CodeTensors) -> int:
 
 def pipelined_dmax(ct: CodeTensors) -> int:
     """The pipelined kernel's register row for this code (pipelined_dmax
-    of the library): 8 or 24 entries, 0 when a row is longer."""
+    of the library): 8, 24, 28 or 32 entries, 0 when a row is longer."""
     d = max_row_degree(ct)
-    return 8 if d <= 8 else 24 if d <= 24 else 0
+    return next((w for w in PIPELINED_ROWS if d <= w), 0)
+
+
+def pipelined_threads(dmax: int) -> int:
+    """The threads a block of the register row's instance may have (its
+    launch bound; pipelined_threads of the library)."""
+    return PIPELINED_ROWS[dmax]
 
 
 def row_bytes(ct: CodeTensors) -> int:
@@ -206,12 +216,12 @@ def pipelined_smem(ct: CodeTensors) -> int:
 
 def pipelined_fits(ct: CodeTensors) -> bool:
     """Whether the pipelined kernel takes the code (pipelined_fits of the
-    library): a register row (degree <= 24), Z threads within its launch
-    bound (1024 at row 8, 512 at 24), more base rows than the ring looks
-    ahead, the tables (mb + 1 + 2 E words) in the parameters, the block in
-    shared memory."""
+    library): a register row (degree <= 32), Z threads within its launch
+    bound (`pipelined_threads`), more base rows than the ring looks ahead,
+    the tables (mb + 1 + 2 E words) in the parameters, the block in shared
+    memory."""
     dmax = pipelined_dmax(ct)
-    return (dmax > 0 and 0 < ct.Z <= (1024 if dmax == 8 else 512)
+    return (dmax > 0 and 0 < ct.Z <= pipelined_threads(dmax)
             and ct.mb > RING_AHEAD
             and ct.mb + 1 + 2 * ct.n_entries <= RING_TAB_WORDS
             and pipelined_smem(ct) <= MAX_SMEM)
@@ -231,6 +241,17 @@ def _sms_of(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
+def straight_rows(ct: CodeTensors) -> bool:
+    """Whether every base row of the code takes a straight-line body of
+    the pipelined kernel (degrees 2-8 at its 8-entry register row, 27 and
+    28 at its 28-entry row) rather than the guarded body, a guard an
+    entry (the guarded 28-entry row took 1.6-1.8x as long on DVB-S2 rate
+    8/9: PERF.md section 6)."""
+    dmax = pipelined_dmax(ct)
+    return dmax == 8 or (dmax == 28
+                         and {len(row) for row in ct.entries} <= {27, 28})
+
+
 def instance_auto(ct: CodeTensors, early_term: bool,
                   batch: Optional[int] = None) -> str:
     """The kernel that decodes a batch of `batch` on the card of `ct`
@@ -240,35 +261,42 @@ def instance_auto(ct: CodeTensors, early_term: bool,
 
       * "resident" on the packed resident kernel, where its block fits and
         either the batch gives it four lanes a thread (`resident_lanes`)
-        or the pipelined kernel's 8-entry register row does not hold the
-        rows;
+        or the pipelined kernel has no straight-line body for the rows
+        (`straight_rows`);
       * else "pipelined" where its block takes the code (one codeword a
-        block; the 8- or 24-entry register row);
+        block; the 8-, 24-, 28- or 32-entry register row);
       * else the template: "resident" where a block of it leaves room for
         two an SM (`resident_auto`), else "stream" (posteriors in device
         memory).
 
-    Measured (chip_smoke.py, two runs, NVIDIA H100 80GB HBM3, 700.00 W,
-    the instances in turns, CUDA-event medians, OMS; the packed resident
+    Measured (chip_smoke.py, NVIDIA H100 80GB HBM3, 700.00 W, the
+    instances in turns, CUDA-event medians, OMS; the packed resident
     kernel at the batch's lanes against the pipelined kernel and the
-    template resident, the template's times at B = 256 and on rate 8/9
-    from an earlier run of the same script): DVB-S2 n=16,200 at B = 1,024
-    (four lanes) fixed-20 1.5702, 1.5943 against 1.9443, 1.9695 and 3.4884, 3.5437 ms,
+    template): DVB-S2 n=16,200 at B = 1,024 (four lanes) fixed-20 1.5702,
+    1.5943 against 1.9443, 1.9695 and the template's 3.4884, 3.5437 ms,
     with early termination at 1.4 dB 1.2483, 1.2565 against 1.2666,
     1.2593 and 2.5079, 2.4948; at B = 256 (two lanes) the pipelined kernel
     won, fixed 0.6235 against 0.8426 and with early termination 0.3863
     against 0.5808 (`probe_stream`, at 1.4 and 1.65 dB); NR BG1 Z=384
-    (rows of 5-7 and 21-22) at B = 1,024 fixed-20 2.2425, 2.1109 against
-    7.9868, 8.0416 and 4.4938, 4.4854, with early termination at 1.25 dB
-    2.0783, 2.0230 against 6.3860, 6.3469 and 3.5010, 3.6239, at B = 256
-    fixed 1.0521, 1.0840 against 2.0348, 2.0846 and 1.3549, 1.3746;
-    n=16,200 rate 8/9 (rows of 27-28: no pipelined block) at B = 1,024
-    fixed 1.4528, 1.3491 against the template's 2.6683, 2.5680.
-    n=64,800 (no packed resident block): fixed-20 pipelined 9.0135,
-    9.1181 against the template's 29.2290, 29.2891 resident and 19.3491,
-    19.5269 streamed."""
+    (rows of 5-7 and 21-22, the guarded 24-entry row) at B = 1,024
+    fixed-20 2.2425, 2.1109 against 7.9868, 8.0416 and 4.4938, 4.4854,
+    with early termination at 1.25 dB 2.0783, 2.0230 against 6.3860,
+    6.3469 and 3.5010, 3.6239, at B = 256 fixed 1.0521, 1.0840 against
+    2.0348, 2.0846 and 1.3549, 1.3746. n=16,200 rate 8/9 (rows of 27-28,
+    the 28-entry row's straight-line bodies) at B = 256 (two lanes) the
+    pipelined kernel won, fixed-20 at 3.5 dB 0.4126 against 0.6825 and
+    with early termination at 3.75 dB 0.4914 against 0.7957; at B = 1,024
+    (four lanes) fixed-20 1.3671 against 1.4312, with early termination
+    1.3792 against the pipelined kernel's 1.1088: the rule keeps four
+    lanes there. n=64,800 (no packed resident block): fixed-20 pipelined
+    9.0135, 9.1181 against the template's 29.2290, 29.2891 resident and
+    19.3491, 19.5269 streamed; at rate 8/9 (3.0 dB) at B = 256 fixed-20
+    1.4089 against the template's 4.9460 streamed and with early
+    termination 1.6877 against 8.3142, at B = 1,024 5.5634 against
+    16.1696 and 6.6311 against 27.1084. Where no kernel above takes the
+    code (rows above 32 with no packed resident block), the template."""
     if resident_packed_fits(ct, 2) and (
-            not (pipelined_fits(ct) and pipelined_dmax(ct) == 8)
+            not (pipelined_fits(ct) and straight_rows(ct))
             or (batch is not None
                 and resident_lanes(ct, batch, ct.device) == 4)):
         return "resident"

@@ -13,10 +13,12 @@ posteriors in device memory) and the resident instances
 its block fits, at the lanes a thread the batch gives it, else the
 template with the posteriors in shared memory), each where its rule takes
 the code. Correctness: 10 iterations on DVB-S2 n=64,800 (B=64), n=16,200 (B=128),
-NR BG1 Z=384 (B=64) and n=16,200 rate 8/9 (B=64), fixed and with early
-termination, every instance and kernel against the plain version at B
-and at the ragged batches 1, 3, 5 and B - 1, tolerance 0. Times: each B
-of `--batch` on the same four codes, 20 iterations, fixed at the cell's
+NR BG1 Z=384 (B=64), n=16,200 rate 8/9 (B=64) and n=64,800 rate 8/9 (B=32:
+rows of 27-28, the pipelined kernel's 28-entry register row beside the
+template's `stream`, `stream-et` and its resident instances), fixed and with
+early termination, every instance and kernel against the plain version at
+B and at the ragged batches 1, 3, 5 and B - 1, tolerance 0. Times: each B
+of `--batch` on the same five codes, 20 iterations, fixed at the cell's
 Eb/N0 and with early termination 0.25 dB above, each kernel's CUDA-event
 median (min, max) over `--reps` runs a turn, the kernels in turns a, b,
 c, c, b, a (`chip_smoke.py` times K3 beside them), the mean iterations
@@ -137,10 +139,13 @@ def main(argv=None) -> int:
         base.code, n=16200))
     short89 = dataclasses.replace(base, code=dataclasses.replace(
         base.code, n=16200, rate="8/9"))
+    long89 = dataclasses.replace(base, code=dataclasses.replace(
+        base.code, rate="8/9"))
     nr = PRESETS["nr-bg1-layered"]
     cases = (("dvbs2-64800", base, 1.0, 64), ("dvbs2-16200", short, 1.4, 128),
              ("nr-bg1-z384", nr, 1.0, 64),
-             ("dvbs2-16200-r89", short89, 3.5, 64))
+             ("dvbs2-16200-r89", short89, 3.5, 64),
+             ("dvbs2-64800-r89", long89, 3.0, 32))
     for name, cfg, db, B in cases:
         ct = from_reference(build_code(cfg), dev)
         beta, alpha = cn_params(cfg.decoder, cfg.quant)

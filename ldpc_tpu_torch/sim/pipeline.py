@@ -157,11 +157,10 @@ def stream_first(ct: CodeTensors, cfg: SimConfig) -> bool:
     a tie, 1.0521, 1.0840 against 1.0736, 1.1502 (as slice 5d launched
     them 0.9904, 0.9999 against 1.0709, 1.0497); n=16,200 rate 8/9 at
     B = 1,024 1.4528, 1.3491 against 2.5725, 2.4925 and with early
-    termination 1.3771, 1.4086 against 1.7520, 1.7516, at B = 256 0.6645,
-    0.6249 against 0.7228, 0.6860, and with early termination a tie,
-    0.7671, 0.7156 against 0.7728, 0.6975 (the two-lane block waits for
-    its slower lane, K3's one-lane blocks do not). The route rests on the
-    wins at B = 1,024 and with early termination."""
+    termination 1.3771, 1.4086 against 1.7520, 1.7516, and at B = 256,
+    where the pipelined kernel's 28-entry row takes it, 0.4126 against
+    0.7304 and with early termination 0.4914 against 0.7979. The route
+    rests on the wins at B = 1,024 and with early termination."""
     dc = cfg.decoder
     if (dc.schedule != "layered" or dc.algorithm not in MIN_SUM_FAMILY
             or minsum.is_packed(ct, "layered", 0, dc.early_term)):

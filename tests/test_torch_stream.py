@@ -290,23 +290,29 @@ def test_admission_rule_on_cpu_code_tensors():
     assert select_decoder(wifi_ct, _with(wifi_cfg, schedule="layered"),
                           backend="stream")[
         1] == "torch-plain-stream-pipelined"
-    # rows of 27-28 (n=16,200 rate 8/9), longer than the pipelined
-    # kernel's register row: the packed resident kernel (two lanes a
-    # thread: 105,152 B a block, two an SM), which `auto` also takes
-    # before K3's one-lane template
+    # rows of 27-28 (n=16,200 rate 8/9): the pipelined kernel's 28-entry
+    # register row (straight-line bodies) where the packed resident kernel
+    # would run two lanes a thread (B = 256, and with no batch given), the
+    # packed resident kernel at four (B = 1,024: 210,272 B a block, one an
+    # SM), as on n=16,200 rate 1/2; `auto` takes either before K3's
+    # one-lane template
     r89_cfg = _preset("dvbs2-64800-r12", n=16200, rate="8/9")
     r89_ct = from_reference(build_code(r89_cfg), "cpu")
     assert tstream.max_row_degree(r89_ct) == 28
-    assert not tstream.pipelined_fits(r89_ct)
-    for et, variant in ((False, "stream-resident"),
-                        (True, "stream-resident-et")):
+    assert tstream.pipelined_fits(r89_ct)
+    assert tstream.pipelined_dmax(r89_ct) == 28
+    assert tstream.straight_rows(r89_ct)
+    for et, sfx in ((False, ""), (True, "-et")):
         assert select_decoder(r89_ct, _with(r89_cfg, early_term=et),
-                              backend="stream")[0].variant == variant
+                              backend="stream")[0].variant == (
+            "stream-pipelined" + sfx)
         assert stream_first(r89_ct, _with(r89_cfg, early_term=et))
-        for B, lanes in ((256, 2), (1024, 4)):
+        for B, variant, lanes in ((256, "stream-pipelined", 1),
+                                  (1024, "stream-resident", 4)):
             dec, label = select_decoder(
                 r89_ct, _with(r89_cfg, early_term=et), batch=B)
-            assert label == "torch-plain-" + variant and dec.packed
+            assert label == "torch-plain-" + variant + sfx
+            assert dec.packed == (lanes == 4)
             assert dec.lanes_for(B) == lanes
     for unknown in ("mosaic", "onchip", "stream-resident", "ref"):
         with pytest.raises(ValueError, match="unknown decoder backend"):

@@ -210,9 +210,33 @@ Phases, each printing its lines; any failure raises and exits non-zero:
    --ebn0 1.5 --max-frames 8192` (the streaming library, no frame error)
    and `sweep --puncture-frac 0.25` (K1 behind the batch-first step),
    whose counters must equal `--decoder-backend qc`'s;
-8. two-phase == single-phase counters on two batches of `wifi-full-oms`
+8. slice 7, error floor (`sim/impsamp.py`, `analysis/`, the CLI's
+   `floor`; `check_floor`), on `scripts/make_error_floor.py`'s
+   normalized-min-sum configuration (802.11n n=648 rate 1/2, 8 bits,
+   beta_lsb 0, layered, early termination, batch 8,192): harvest 131,072
+   frames at 2.2 dB, refine and search the supports, the exact census
+   (a <= 8, b <= 3, dv <= 3; its 2,295 absorbing sets must be the file's),
+   64 supports at depths 1.2-2.4. 7a: one batch each of `make_is_run`,
+   the stratified form and `make_symmetric_run` with injected draws, the
+   decoder (`cuda-minsum-layered-bf`, K3's packed instance behind the
+   batch-first transposes) == its plain version on the batch's own
+   quantized LLRs and the sums == with tolerance 0, then the three runs
+   launch the packed instance three times, nothing plain. 7b: MC
+   (2,007,040 frames) and stratified IS (1,007,616 and 4,005,888) at 2.6
+   and 3.0 dB, each row held to the file's by a two-sided z-test on the
+   difference, both standard errors in quadrature, at z = 3.02 (four rows,
+   1% family-wise), and IS to MC the same way; one launch an IS batch;
+   the IS batch's host-clock time at 3.0 dB beside its pieces' CUDA-event
+   times (chain, weights, decode with and without the transposes, tally)
+   and the kernel's bound. 7c: plain MC through the IS chain on NR BG1
+   Z=128 rate 1/3 (rate matching) at 0.5 dB, 65,536 frames, batch 4,096,
+   against `results/nr_bg1_z128_r13.json` by Wilson intervals. 7d: `python
+   -m ldpc_tpu_torch.cli floor` stratified with `--exact-sets 8,3,3` and
+   with `--symmetric --seeds 1,2`, at small frame counts, one after the
+   other: exit 0, the decoder label `cuda-`, the reference's JSON keys;
+9. two-phase == single-phase counters on two batches of `wifi-full-oms`
    at 3.5 dB;
-9. times: kernels with CUDA events (warm-up, median, plain and kernel in
+10. times: kernels with CUDA events (warm-up, median, plain and kernel in
    turns), each of the decoder object its main path launched and at that
    batch (run_fused's per-lane megakernel at 18,432, K3 of
    `qam16-1944-chain` on 16-QAM LLRs at 6.0 dB; K2 as the min-sum ET
@@ -277,6 +301,7 @@ import concurrent.futures
 import ctypes
 import dataclasses
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -440,6 +465,35 @@ FUSED = dict(preset="wifi-648-r12-minsum", ref="wifi648_fused_mc.json",
 HARD = dict(preset="wifi-648-r12-minsum", ref="bsc_hard_wifi648.json",
             ps=(0.005, 0.01, 0.02, 0.03, 0.04, 0.06), batch=2048,
             frames=4096, max_iter=30, seed=13)
+# slice 7, error floor: scripts/make_error_floor.py's normalized-min-sum run
+# (its 2.6 and 3.0 dB rows of results/error_floor_wifi648.json, the file's
+# frame counts), its four rows held at the Bonferroni z of four two-sided
+# tests at 1% family-wise; 7c, the IS chain's plain Monte Carlo on NR BG1
+# Z=128 rate 1/3 against results/nr_bg1_z128_r13.json at 0.5 dB
+FLOOR = dict(ref="error_floor_wifi648.json", alg="normalized-min-sum",
+             batch=8192, harvest_ebn0=2.2, harvest_frames=131072,
+             harvest_seed=11, points=(2.6, 3.0), mc_frames=2_000_000,
+             is_frames=1_000_000, depths=(1.2, 1.6, 2.0, 2.4), pi0=0.25,
+             mc_seed=21, is_seed=31,
+             z=statistics.NormalDist().inv_cdf(1 - 0.01 / 8))   # 3.023
+FLOOR_NR = dict(ref="nr_bg1_z128_r13.json", ebn0=0.5, frames=65536,
+                batch=4096)
+# the JSON keys `floor` writes (ldpc_tpu/cli.py cmd_floor, _floor_symmetric)
+FLOOR_KEYS = {
+    "is": {"config", "code", "proposal", "points"},
+    "is proposal": {"n_sets", "classes", "delta", "pi0", "stratified",
+                    "allocation"},
+    "is point": {"ebn0_db", "fer", "rel_std", "frames", "raw_hits",
+                 "fer_plain_ci95", "ber"},
+    "symmetric proposal": {"n_orbit_reps", "orbit_multiplier", "delta",
+                           "pi0", "estimator"},
+    "symmetric point": {"ebn0_db", "seeds", "seed_repeatable"},
+    "symmetric seed": {"ebn0_db", "fer", "rel_std", "fer_attributed_zfold",
+                       "fer_unattributed", "rel_std_unattributed",
+                       "raw_hits", "raw_hits_attributed", "frames",
+                       "orbit_multiplier", "fer_plain_ci95", "top_orbits",
+                       "seed"},
+}
 MICRO_BATCHES = (512, 1024, BATCH)   # the reference's two tiles, and K1's
 RAGGED = (1, 3, 5, 4099, 16385)      # batches of the packed flooding kernel
 # the SASS memory instructions counted (LDGSTS: cp.async; BAR: barriers)
@@ -1627,6 +1681,361 @@ def check_cli_long():
         raise AssertionError("CLI --puncture-frac: frames short")
 
 
+def floor_config(port):
+    """scripts/make_error_floor.py's normalized-min-sum configuration:
+    802.11n n=648 rate 1/2, 8 bits at scale 4, beta_lsb 0, layered, at
+    most 20 iterations, early termination."""
+    return port.SimConfig(
+        quant=port.QuantConfig(bits=8, scale=4.0, beta_lsb=0),
+        decoder=port.DecoderConfig(algorithm=FLOOR["alg"], max_iter=20,
+                                   schedule="layered"))
+
+
+def floor_z(a, b):
+    """|a - b| over both standard errors in quadrature (dicts with fer and
+    rel_std; an estimate with no error, rel_std None, holds to nothing)."""
+    if a["rel_std"] is None or b["rel_std"] is None:
+        return float("inf")
+    se = math.hypot(a["fer"] * a["rel_std"], b["fer"] * b["rel_std"])
+    return abs(a["fer"] - b["fer"]) / se
+
+
+def floor_launches(minsum, stream, label, want):
+    """Fails unless the runs since the counters' reset launched the packed
+    layered instance `want` times and nothing else, with no plain call."""
+    lib = "minsum_layered"
+    launches, packed = dict(minsum.library_launches), dict(
+        minsum.packed_launches)
+    plain = minsum.plain_calls + stream.plain_calls
+    print(f"{label}: kernel launches {launches}, packed {packed}, min* "
+          f"{dict(minsum.star_launches)}, MC {dict(minsum.mc_launches)}, "
+          f"streaming {stream.kernel_launches}, plain_calls {plain}",
+          flush=True)
+    others = {k: v for k, v in launches.items() if k != lib}
+    if (launches[lib] != want or packed[lib] != want or plain
+            or any(others.values()) or any(minsum.star_launches.values())
+            or any(minsum.mc_launches.values()) or stream.kernel_launches):
+        raise AssertionError(f"{label}: expected {want} launches of the "
+                             f"packed layered instance and nothing else")
+    return launches[lib]
+
+
+def check_floor(port, minsum, stream, gpu):
+    """Slice 7, error floor (`sim/impsamp.py`, `analysis/`, the CLI's
+    `floor`). 7a: one batch each of `make_is_run`, its stratified form and
+    `make_symmetric_run` on 7b's radial-ladder proposal with injected
+    draws: the decoder (`cuda-...`, K3's packed layered kernel behind the
+    batch-first transposes) equals its plain version on the batch's own
+    quantized LLRs, and so do the sums with tolerance 0; the three runs
+    launch the packed instance three times, nothing plain. 7b: the
+    protocol of scripts/make_error_floor.py for normalized min-sum, at
+    full size, against results/error_floor_wifi648.json (MC and IS at 2.6
+    and 3.0 dB, the file's frames; each row to the file's at z = 3.02, and
+    IS to MC at each point), and the IS batch's time at 3.0 dB beside its
+    decode kernel's. 7c: plain MC through the IS chain on NR BG1 Z=128 rate
+    1/3 at 0.5 dB against results/nr_bg1_z128_r13.json. 7d: the CLI's
+    `floor`, stratified with `--exact-sets 8,3,3` and `--symmetric
+    --seeds 1,2`, at small frame counts. Returns K3's launches on 7b."""
+    from ldpc_tpu_torch.analysis import (classify, dominant_sets,
+                                         enumerate_sets, refine_support,
+                                         search_trapping_sets)
+    from ldpc_tpu_torch.codes import build_code
+    from ldpc_tpu_torch.ops.channel import sigma_for
+    from ldpc_tpu_torch.sim import impsamp
+    from ldpc_tpu_torch.sim.stats import rates_compatible
+    from ldpc_tpu_torch.utils.profiling import event_ms
+    f, dev = FLOOR, torch.device("cuda")
+    B = f["batch"]
+    cfg = floor_config(port)
+    code = build_code(cfg)
+    with open(os.path.join(HERE, "results", f["ref"])) as fh:
+        ref = json.load(fh)["algorithms"][f["alg"]]
+    secs = {}
+
+    def lap(name, t0):
+        torch.cuda.synchronize()
+        secs[name] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    sup = impsamp.harvest_error_supports(
+        code, cfg, f["harvest_ebn0"], frames=f["harvest_frames"], batch=B,
+        seed=f["harvest_seed"], device=dev, max_supports=512)
+    lap("harvest", t0)
+    t0 = time.perf_counter()
+    cores = sorted({refine_support(code, s) for s in sup[:128]
+                    if len(s) <= 24}, key=lambda s: sorted(s))
+    found = search_trapping_sets(code, a_max=10, b_max=4, seeds=cores,
+                                 max_sets=768)
+    lap("refine + search", t0)
+    t0 = time.perf_counter()
+    census = enumerate_sets(code, a_max=8, b_max=3, dv_cap=3, emit_min_a=4,
+                            emit_cap=200_000)
+    absorbing = sorted([(a, b, S) for (a, b, fl, S) in census.sets if fl],
+                       key=lambda t: (t[0] + t[1], t[0]))
+    lap("census", t0)
+    dom = list(dict.fromkeys(
+        [frozenset(S) for (_, _, S) in absorbing[:40]]
+        + [c for c in cores if 3 <= len(c) <= 16]
+        + dominant_sets(found, k=48, min_a=4)))[:64]
+    classes = sorted({classify(code, s) for s in dom})
+    is_sets, is_deltas = impsamp.expand_radial([sorted(s) for s in dom],
+                                               f["depths"])
+    print(f"7b proposal: {len(sup)} harvested failures -> {len(cores)} "
+          f"cores; {len(absorbing)} exact absorbing sets (a<=8 b<=3 dv<=3; "
+          f"the file: {ref['harvest']['exact_absorbing_a8b3']}) -> "
+          f"{len(dom)} supports x {len(f['depths'])} depths = "
+          f"{len(is_sets)} components; classes {classes}", flush=True)
+    if (len(absorbing) != ref["harvest"]["exact_absorbing_a8b3"]
+            or census.emit_truncated or len(dom) != 64 or not sup):
+        raise AssertionError("slice 7: the proposal is not the file's")
+
+    t0 = time.perf_counter()
+    run_mc = impsamp.make_is_run(code, cfg, [], batch=B, device=dev)
+    run_is = impsamp.make_is_run(code, cfg, is_sets, delta=is_deltas,
+                                 batch=B, pi0=f["pi0"], stratify=True,
+                                 device=dev)
+    run_multi = impsamp.make_is_run(code, cfg, is_sets, delta=is_deltas,
+                                    batch=B, pi0=f["pi0"], device=dev)
+    reps = sorted({impsamp.canonical_rotation(code, s) for s in dom})
+    reps_x, reps_d = impsamp.expand_radial(reps, f["depths"])
+    run_sym = impsamp.make_symmetric_run(code, cfg, reps_x, delta=reps_d,
+                                         pi0=f["pi0"], batch=B, device=dev)
+    lap("build runs", t0)
+    for name, run in (("MC", run_mc), ("IS", run_is), ("IS multinomial",
+                                                       run_multi),
+                      ("symmetric", run_sym)):
+        print(f"  {name} run: decoder {run.backend_label} "
+              f"({instance_name(run.decoder)}, {shape_text(run.decoder.inner)}"
+              f")", flush=True)
+        if (run.backend_label != "cuda-minsum-layered-bf"
+                or not run.decoder.inner.packed):
+            raise AssertionError(f"slice 7 {name}: not K3's packed kernel")
+
+    # 7a: the datapath, kernel against plain on each run's own LLRs
+    rng = np.random.default_rng(77)
+    sigma = np.float32(sigma_for(3.0, code.rate, "bpsk"))
+    eps = torch.as_tensor(rng.standard_normal((B, code.n)).astype(
+        np.float32), device=dev)
+
+    def comps(run):
+        """Each lane's mixture component, drawn from the run's mixture."""
+        return torch.as_tensor(rng.choice(run.K + 1, size=B, p=run.pis),
+                               device=dev)
+    cases = {"make_is_run": (run_multi, None, comps(run_multi)),
+             "make_is_run stratified": (
+                 run_is, impsamp._apportion(run_is.pis, B), None),
+             "make_symmetric_run": (run_sym, None, comps(run_sym))}
+    sums = {}
+    for name, (run, counts, comp) in cases.items():
+        q, w, c = run.chain(None, sigma, counts, eps=eps, comp=comp)
+        out_k = run.decoder.kernel(q)
+        out_p = run.decoder.plain(q)
+        same = all(torch.equal(a, b) for a, b in zip(out_k, out_p))
+        s_k, s_p = run.tally(out_k[0], w, c), run.tally(out_p[0], w, c)
+        torch.cuda.synchronize()
+        equal = torch.equal(s_k, s_p)
+        print(f"7a {name} at 3.0 dB, B={B} ({run.backend_label}): hard "
+              f"bits, iters, conv == plain {same} (max_abs_err "
+              f"{max_abs_err(out_k, out_p):g}; failed frames "
+              f"{int(out_k[0].any(dim=1).sum())}, shifted lanes "
+              f"{int((c > 0).sum())}); sums == plain {equal}: "
+              f"{(s_k[:, -1] if name == 'make_symmetric_run' else s_k.sum(dim=1) if s_k.ndim == 2 else s_k).tolist()}",
+              flush=True)
+        if not (same and equal) or int(out_k[0].any(dim=1).sum()) == 0:
+            raise AssertionError(f"slice 7a {name}: kernel != plain")
+        sums[name] = s_k
+    minsum.reset_counters()
+    stream.reset_counters()
+    for name, (run, counts, comp) in cases.items():
+        if not torch.equal(run(None, sigma, counts, eps=eps, comp=comp),
+                           sums[name]):
+            raise AssertionError(f"slice 7a {name}: the run's sums differ")
+    torch.cuda.synchronize()
+    floor_launches(minsum, stream, "7a the three IS batches", len(cases))
+
+    # 7b: the recorded floor, the file's frames
+    minsum.reset_counters()
+    stream.reset_counters()
+    rows = {"mc": {}, "is": {}}
+    n_batches = 0
+    for kind, run, seed in (("mc", run_mc, f["mc_seed"]),
+                            ("is", run_is, f["is_seed"])):
+        t0 = time.perf_counter()
+        for e in f["points"]:
+            frames = (f["mc_frames"] if kind == "mc" else f["is_frames"]
+                      * (4 if 2.8 <= e <= 3.9 else 1))
+            est = impsamp.estimate_fer(code, cfg, [] if kind == "mc"
+                                       else is_sets, e, frames, batch=B,
+                                       seed=seed, run=run)
+            rows[kind][e] = est.to_dict()
+            n_batches += est.frames // B
+        lap(f"{kind.upper()} estimates", t0)
+    k3_launches = floor_launches(minsum, stream, "7b MC and IS",
+                                 n_batches)
+    file_rows = {kind: {r["ebn0_db"]: r for r in ref[kind]}
+                 for kind in ("mc", "is")}
+    bad = []
+    for e in f["points"]:
+        for kind in ("mc", "is"):
+            got, want = rows[kind][e], file_rows[kind][e]
+            z = floor_z(got, want)
+            ok = z <= f["z"] and got["frames"] == want["frames"]
+            print(f"7b {kind.upper()} {e} dB: FER {got['fer']:.4e} (rel. "
+                  f"{got['rel_std']}, {got['frames']} frames, "
+                  f"{got['raw_hits']} raw hits, BER {got['ber']:.4e}); file "
+                  f"{want['fer']:.4e} (rel. {want['rel_std']:.4f}, "
+                  f"{want['frames']} frames); z {z:.3f} <= {f['z']:.3f} {ok}",
+                  flush=True)
+            if not ok:
+                bad.append(f"{kind} {e}")
+        z = floor_z(rows["is"][e], rows["mc"][e])
+        print(f"7b IS against MC at {e} dB: z {z:.3f} <= {f['z']:.3f} "
+              f"{z <= f['z']}", flush=True)
+        if not z <= f["z"]:
+            bad.append(f"is-mc {e}")
+    if bad:
+        raise AssertionError(f"slice 7b disagrees: {bad}")
+
+    # the IS batch at 3.0 dB: host clock (synced) beside its decode kernel
+    sig30 = np.float32(sigma_for(3.0, code.rate, "bpsk"))
+    cj = torch.as_tensor(impsamp._apportion(run_is.pis, B), device=dev)
+
+    def is_batch(i):
+        return run_is(impsamp._generator(dev, f["is_seed"], 3.0, i), sig30,
+                      cj).tolist()
+    for i in range(3):
+        is_batch(i)
+    host = []
+    for i in range(10):
+        t0 = time.perf_counter()
+        is_batch(i)
+        host.append((time.perf_counter() - t0) * 1e3)
+    q, w, c = run_is.chain(impsamp._generator(dev, f["is_seed"], 3.0, 0),
+                           sig30, cj)
+    inner = run_is.decoder.inner
+    q_t = q.T.reshape(inner.ct.nb, inner.ct.Z, B).contiguous()
+    hard = run_is.decoder.kernel(q)[0]
+    z = torch.randn((B, code.n), device=dev)
+    parts = {   # the batch's pieces on the same inputs, CUDA events
+        "chain (draws, shift, weights, demap, quantize)": lambda: (
+            run_is.chain(impsamp._generator(dev, f["is_seed"], 3.0, 0),
+                         sig30, cj)),
+        "of it the weights (matmul, logsumexp)": lambda: (
+            impsamp.mixture_log_weight(z, run_is.M, run_is.sizes,
+                                       run_is.log_pi, 1.0, sig30)),
+        "decode with its batch-first transposes": lambda: (
+            run_is.decoder.kernel(q)),
+        "of it the decode kernel": lambda: inner.kernel(q_t),
+        "tally (errors, sums per stratum)": lambda: run_is.tally(hard, w, c),
+    }
+    part_ms = {}
+    for name, fn in parts.items():
+        for _ in range(3):
+            fn()
+        part_ms[name] = statistics.median(event_ms(fn, 10))
+    k_ms = part_ms["of it the decode kernel"]
+    bf_ms = part_ms["decode with its batch-first transposes"]
+    b_ms, b_by = bound_of(inner, (q_t,), {})
+    h_ms = statistics.median(host)
+    print(f"[{gpu}] 7b IS batch pieces (CUDA events, median of 10): "
+          + "; ".join(f"{n} {t:.4f} ms" for n, t in part_ms.items()),
+          flush=True)
+    print(f"[{gpu}] 7b IS batch at 3.0 dB, B={B}, {run_is.n_comp} "
+          f"components, stratified: {h_ms:.4f} ms host clock, synced, "
+          f"median of 10 (min {min(host):.4f}, max {max(host):.4f}); the "
+          f"decode kernel {instance_name(inner)} {k_ms:.4f} ms (CUDA "
+          f"events, median of 10; {100 * k_ms / h_ms:.1f}% of the batch), "
+          f"with its batch-first transposes {bf_ms:.4f} ms; the remainder "
+          f"(noise, mixture shift, weights, demap, quantize, counting, "
+          f"transposes) {h_ms - k_ms:.4f} ms; the kernel's bound {b_ms:.4f} "
+          f"ms by {b_by}", flush=True)
+
+    # 7c: rate matching, plain MC through the IS chain
+    nf = FLOOR_NR
+    nr_cfg = slice_config(port, NR128, "host")
+    nr_code = build_code(nr_cfg)
+    run_nr = impsamp.make_is_run(nr_code, nr_cfg, [], batch=nf["batch"],
+                                 device=dev)
+    if run_nr.backend_label != "cuda-minsum-layered-bf":
+        raise AssertionError(f"slice 7c: decoder {run_nr.backend_label}")
+    minsum.reset_counters()
+    stream.reset_counters()
+    t0 = time.perf_counter()
+    est = impsamp.estimate_fer(nr_code, nr_cfg, [], nf["ebn0"], nf["frames"],
+                               batch=nf["batch"], seed=nr_cfg.run.seed,
+                               run=run_nr)
+    lap("7c NR MC", t0)
+    floor_launches(minsum, stream, "7c NR BG1 Z=128",
+                   nf["frames"] // nf["batch"])
+    r = read_ref(nf["ref"])[nf["ebn0"]]
+    ok = (est.frames == nf["frames"] and est.raw_hits == round(
+        est.fer * est.frames) and rates_compatible(
+        est.raw_hits, est.frames, r["frame_errs"], r["frames"]))
+    print(f"7c NR BG1 Z=128 r1/3 (n_tx {nr_code.n_tx}, "
+          f"{len(nr_code.punct_vns)} punctured), {run_nr.backend_label}, "
+          f"{nf['ebn0']} dB: FER {est.fer:.5f} ({est.raw_hits}/{est.frames}) "
+          f"against the file's {r['fer']:.5f} ({r['frame_errs']}/"
+          f"{r['frames']}): Wilson intervals (z = 2.576) overlap {ok}",
+          flush=True)
+    if not ok:
+        raise AssertionError("slice 7c disagrees with the file")
+
+    # 7d: the CLI's floor, both estimators, one after the other (the
+    # census's OpenMP threads and a second process's would share the cores)
+    common = ["floor", "--algorithm", FLOOR["alg"], "--beta-lsb", "0",
+              "--schedule", "layered", "--harvest-frames", "16384",
+              "--batch", "4096", "--frames", "16384", "--ebn0", "2.6,3.0",
+              "--delta", "1.2,1.6,2.0,2.4"]
+    runs = {"stratified, --exact-sets 8,3,3": ["--stratified",
+                                               "--exact-sets", "8,3,3"],
+            "--symmetric --seeds 1,2": ["--symmetric", "--seeds", "1,2"]}
+    t0 = time.perf_counter()
+    got = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for i, (name, extra) in enumerate(runs.items()):
+            out = os.path.join(tmp, f"floor{i}.json")
+            proc = subprocess.run(
+                [sys.executable, "-m", "ldpc_tpu_torch.cli", *common, *extra,
+                 "--out", out], cwd=HERE, capture_output=True, text=True,
+                timeout=300)
+            label = [ln for ln in proc.stderr.splitlines()
+                     if ln.startswith("# decoder ")]
+            if proc.returncode != 0 or label != [
+                    "# decoder cuda-minsum-layered-bf"]:
+                raise AssertionError(
+                    f"CLI floor {name} failed ({proc.returncode}, "
+                    f"{label}):\n{proc.stderr[-3000:]}")
+            with open(out) as fh:
+                got[name] = json.load(fh)
+    lap("7d CLI", t0)
+    k = FLOOR_KEYS
+    a, s = got["stratified, --exact-sets 8,3,3"], got[
+        "--symmetric --seeds 1,2"]
+    keys_ok = (set(a) == set(s) == k["is"]
+               and set(a["proposal"]) == k["is proposal"]
+               and all(set(p) == k["is point"] for p in a["points"])
+               and set(s["proposal"]) == k["symmetric proposal"]
+               and all(set(p) == k["symmetric point"]
+                       and len(p["seeds"]) == 2
+                       and all(set(r) == k["symmetric seed"]
+                               for r in p["seeds"]) for p in s["points"]))
+    print(f"7d CLI floor: both command lines exit 0 on "
+          f"cuda-minsum-layered-bf; the reference's keys {keys_ok}; "
+          + "; ".join(f"{p['ebn0_db']} dB FER {p['fer']:.4e} (rel. "
+                      f"{p['rel_std']})" for p in a["points"]) + "; "
+          + "; ".join(f"{p['ebn0_db']} dB by seed "
+                      f"{[r['fer'] for r in p['seeds']]} repeatable "
+                      f"{p['seed_repeatable']}" for p in s["points"]),
+          flush=True)
+    if not keys_ok:
+        raise AssertionError("slice 7d: the CLI's JSON keys")
+    print("7 seconds: " + ", ".join(f"{n} {t:.2f}" for n, t in secs.items()),
+          flush=True)
+    print(f"K3 launches on the floor path (7b): {k3_launches}, one an IS "
+          f"batch", flush=True)
+    return k3_launches
+
+
 def check_microbench(micro, dev):
     """The microbenchmark library (S1-S6) == its plain versions on the card,
     tolerance 0; returns the worst error by kernel name."""
@@ -2201,6 +2610,10 @@ def main():
     phase("CLI: sweep --preset dvbs2-64800-r12, sweep --puncture-frac 0.25")
     torch.cuda.empty_cache()
     check_cli_long()
+    phase("slice 7: error floor (importance sampling on K3: the datapath, "
+          "results/error_floor_wifi648.json at full size, NR BG1 Z=128 "
+          "rate matching, the CLI's floor)")
+    check_floor(port, minsum, stream, gpu)
     loaded = sorted(m for m in sys.modules if m.split(".")[0] == "jax")
     if loaded:
         raise AssertionError(f"jax modules loaded: {loaded[:5]}")

@@ -1,15 +1,19 @@
 """Command-line interface of the port (counterpart of `ldpc_tpu/cli.py`):
-the `sweep` command, with the reference's flag names and defaults.
+the `sweep` and `floor` commands, with the reference's flag names and
+defaults.
 
   python -m ldpc_tpu_torch.cli sweep --preset wifi-648-r12-minsum \\
       --rng device --fused --ebn0 1.0:3.5:0.5 --out results/wifi648_mc
+  python -m ldpc_tpu_torch.cli floor --algorithm normalized-min-sum \\
+      --beta-lsb 0 --schedule layered --delta 1.2,1.6,2.0,2.4 \\
+      --stratified --ebn0 2.6,3.0 --out floor.json
 
 The config flags are the reference's option group, resolved by copies of
 its `_build_config` and `_parse_ebn0` (`ldpc_tpu/cli.py:29,43`). `--device
 cuda|cpu` (default cuda) takes the place of `--platform`; a CUDA request
 without a card raises. The mesh and multi-process flags exist so that
-reference command lines parse, and raise NotImplementedError (ROADMAP
-module item 16). `--decoder-backend` forces a decoder route
+reference command lines parse, and raise NotImplementedError until
+`ldpc_tpu/parallel/mesh.py` is ported. `--decoder-backend` forces a decoder route
 (`sim/pipeline.resolve_route`): stream, qc, or the reference's names
 (pallas, qc-jnp, jnp); a route that cannot run raises. A preset
 that names a mesh (`multihost-qam-chain`) runs on one device: the command
@@ -17,12 +21,26 @@ builds no mesh unless `--mesh` asks for one, as in the reference, and
 records `mesh_shape: null`. The
 checkpoint defaults to `<out>.state`, as in the reference: rerunning an
 interrupted command resumes it.
+
+`floor` is the reference's error-floor command (`cmd_floor`,
+`_floor_symmetric`): harvest decoder failures at the waterfall knee,
+refine and search trapping sets (`analysis/trapping.py`, with
+`--exact-sets` the exhaustive census of `analysis/asenum.py`), then
+estimate FER down the floor with mixture importance sampling
+(`sim/impsamp.py`). Its JSON has the reference's keys. One rule differs on
+purpose: `--symmetric --seeds` marks a point seed-repeatable when every
+seed's rel_std is below 0.7 and every pair of estimates lies within
+2 * hypot(sigma_a, sigma_b) of each other, the standard error of their
+difference twice over; the reference adds the two sigmas
+(`_seeds_agree`).
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import json
 import logging
+import math
 import sys
 from typing import List
 
@@ -121,8 +139,8 @@ def _build_config(args) -> SimConfig:
 
 def _not_ported(flag: str):
     raise NotImplementedError(
-        f"{flag}: meshes and multi-process runs are not ported yet "
-        f"(ROADMAP module item 16)")
+        f"{flag}: meshes and multi-process runs wait for the port of "
+        f"ldpc_tpu/parallel/mesh.py")
 
 
 def cmd_sweep(args) -> int:
@@ -154,6 +172,162 @@ def cmd_sweep(args) -> int:
         print("wrote: " + " ".join(paths))
     else:
         sys.stdout.write(to_csv(res))
+    return 0
+
+
+def _seeds_agree(a: dict, b: dict) -> bool:
+    """Two seeds' estimates of one point agree: |fer_a - fer_b| is within
+    2 * hypot(sigma_a, sigma_b), sigma = fer * rel_std (the standard error
+    of the difference, twice). The reference adds the sigmas instead
+    (`ldpc_tpu/cli.py`, `_floor_symmetric`), a band up to sqrt(2) wider."""
+    sa, sb = a["fer"] * a["rel_std"], b["fer"] * b["rel_std"]
+    return abs(a["fer"] - b["fer"]) <= 2 * math.hypot(sa, sb)
+
+
+def _floor_symmetric(args, cfg, code, dom, deltas, batch) -> int:
+    """floor --symmetric: symmetry-folded mixture IS (one canonical
+    representative per QC orbit, exact M0/M Z-fold:
+    `sim/impsamp.make_symmetric_run`). --seeds runs every listed seed, and
+    a point is marked seed_repeatable when every seed's rel_std is below
+    0.7 (with rel_std ~ 1 an estimate rests on about one event and any
+    pair would agree) and every pair agrees (`_seeds_agree`)."""
+    from .sim.impsamp import (canonical_rotation, estimate_fer_symmetric,
+                              expand_radial, make_symmetric_run)
+
+    if code.Z is None:
+        raise SystemExit("floor --symmetric requires a QC code")
+    reps = sorted(set(canonical_rotation(code, s) for s in dom))
+    print(f"# {len(dom)} proposal sets -> {len(reps)} orbit reps "
+          f"(Z={code.Z} fold)", file=sys.stderr)
+    reps_x, delta_run = expand_radial(reps, deltas)
+    run = make_symmetric_run(code, cfg, reps_x, delta=delta_run,
+                             pi0=args.pi0, batch=batch, device=args.device)
+    print(f"# decoder {run.backend_label}", file=sys.stderr)
+    seeds = ([int(s) for s in str(args.seeds).split(",")]
+             if args.seeds else [cfg.run.seed])
+    points = []
+    for e in _parse_ebn0(args.ebn0):
+        rows = []
+        for seed in seeds:
+            est = estimate_fer_symmetric(code, cfg, reps_x, ebn0_db=e,
+                                         frames=args.frames, batch=batch,
+                                         delta=delta_run, pi0=args.pi0,
+                                         seed=seed, run=run)
+            est["seed"] = seed
+            rows.append(est)
+        conv = all(r["rel_std"] < 0.7 for r in rows) and all(
+            _seeds_agree(a, b)
+            for i, a in enumerate(rows) for b in rows[i + 1:])
+        pt = {"ebn0_db": e, "seeds": rows,
+              "seed_repeatable": bool(conv) if len(rows) > 1 else None}
+        points.append(pt)
+        print(json.dumps({"ebn0_db": e,
+                          "fer_by_seed": [r["fer"] for r in rows],
+                          "seed_repeatable": pt["seed_repeatable"]}),
+              flush=True)
+    if args.out:
+        with open(args.out, "w") as f:
+            json.dump({"config": json.loads(cfg.to_json()),
+                       "code": code.name,
+                       "proposal": {"n_orbit_reps": len(reps),
+                                    "orbit_multiplier": int(code.Z),
+                                    "delta": deltas, "pi0": args.pi0,
+                                    "estimator": "symmetry-folded "
+                                                 "(exact M0/M Z-fold)"},
+                       "points": points}, f, indent=1)
+    return 0
+
+
+def cmd_floor(args) -> int:
+    """Error-floor estimation: harvest decoder failures at the waterfall
+    knee, refine/search trapping sets (analysis/trapping.py), then estimate
+    FER down the floor with defensive mixture importance sampling
+    (sim/impsamp.py). Unbiased; reports relative standard error and what
+    plain MC could have resolved with the same frames."""
+    if args.mesh:
+        _not_ported("--mesh")
+    from .analysis.trapping import (classify, dominant_sets, refine_support,
+                                    search_trapping_sets)
+    from .codes import build_code
+    from .sim.impsamp import (estimate_fer, expand_radial,
+                              harvest_error_supports, make_is_run)
+
+    cfg = _build_config(args)
+    code = build_code(cfg)
+    if (args.allocation != "proportional" or args.pilot_frames > 0) \
+            and not args.stratified:
+        raise SystemExit("floor: --allocation/--pilot-frames require "
+                         "--stratified (lane allocation only exists for "
+                         "the stratified estimator)")
+    batch = args.batch or 8192  # the shared --batch flag defaults to None
+    try:
+        sup = harvest_error_supports(code, cfg, ebn0_db=args.harvest_ebn0,
+                                     frames=args.harvest_frames,
+                                     batch=min(batch, args.harvest_frames),
+                                     seed=cfg.run.seed + 11,
+                                     device=args.device, max_supports=512)
+    except ValueError as e:
+        raise SystemExit(f"floor: {e}")
+    cores = sorted({refine_support(code, s) for s in sup[:128]
+                    if len(s) <= 24}, key=lambda s: sorted(s))
+    found = search_trapping_sets(code, a_max=10, b_max=4, seeds=cores,
+                                 max_sets=768)
+    dom = list(dict.fromkeys(
+        [c for c in cores if 3 <= len(c) <= 16]
+        + dominant_sets(found, k=args.k_sets, min_a=4)))[:args.k_sets]
+    if args.exact_sets:
+        # union in the exhaustive census's sets: absorbing first, then
+        # smallest (a + b, a)
+        from .analysis.asenum import enumerate_sets
+        a_max, b_max, dv_cap = (int(x) for x in args.exact_sets.split(","))
+        r = enumerate_sets(code, a_max=a_max, b_max=b_max, dv_cap=dv_cap,
+                           emit_min_a=3, emit_cap=8192)
+        exact = [frozenset(S) for (_, _, _, S) in sorted(
+            r.sets, key=lambda t: (not t[2], t[0] + t[1], t[0]))]
+        print(f"# exact census: {len(exact)} sets "
+              f"(a<={a_max} b<={b_max} dv<={dv_cap}"
+              f"{', truncated' if r.emit_truncated else ''})",
+              file=sys.stderr)
+        dom = list(dict.fromkeys(dom + exact))[:args.k_sets]
+    classes = sorted({classify(code, s) for s in dom})
+    print(f"# harvested {len(sup)} failures -> {len(dom)} proposal sets, "
+          f"classes {classes[:12]}", file=sys.stderr)
+    if not dom:
+        print("# WARNING: no failures harvested — estimates are plain MC; "
+              "lower --harvest-ebn0 or raise --harvest-frames",
+              file=sys.stderr)
+    deltas = [float(x) for x in str(args.delta).split(",")]
+    if args.symmetric:
+        return _floor_symmetric(args, cfg, code, dom, deltas, batch)
+    if len(deltas) > 1:
+        dom_run, delta_run = expand_radial(dom, deltas)
+        print(f"# radial ladder: {len(dom)} sets x {len(deltas)} depths "
+              f"{deltas} -> {len(dom_run)} components", file=sys.stderr)
+    else:
+        dom_run, delta_run = dom, deltas[0]
+    run = make_is_run(code, cfg, sets=dom_run, delta=delta_run,
+                      pi0=args.pi0, batch=batch, device=args.device,
+                      stratify=args.stratified)
+    print(f"# decoder {run.backend_label}", file=sys.stderr)
+    points = []
+    for e in _parse_ebn0(args.ebn0):
+        est = estimate_fer(code, cfg, sets=dom_run, ebn0_db=e,
+                           frames=args.frames, batch=batch,
+                           seed=cfg.run.seed, run=run,
+                           allocation=args.allocation,
+                           pilot_frames=args.pilot_frames)
+        points.append(est.to_dict())
+        print(json.dumps(points[-1]), flush=True)
+    if args.out:
+        with open(args.out, "w") as f:
+            json.dump({"config": json.loads(cfg.to_json()),
+                       "code": code.name,
+                       "proposal": {"n_sets": len(dom),
+                                    "classes": [list(c) for c in classes],
+                                    "delta": deltas, "pi0": args.pi0,
+                                    "stratified": bool(args.stratified),
+                                    "allocation": args.allocation},
+                       "points": points}, f, indent=1)
     return 0
 
 
@@ -235,7 +409,8 @@ def build_parser() -> argparse.ArgumentParser:
                              "qc"],
                     help="force a decoder route; a route that cannot run "
                          "raises")
-    sw.add_argument("--mesh", default=None, help="not ported (item 16)")
+    sw.add_argument("--mesh", default=None,
+                    help="not ported (parallel/mesh.py)")
     sw.add_argument("--fused", action="store_true",
                     help="advance all SNR points in every batch")
     sw.add_argument("--checkpoint", default=None,
@@ -248,17 +423,69 @@ def build_parser() -> argparse.ArgumentParser:
     sw.add_argument("--superbatches", type=int, default=1,
                     help="only 1: superbatching is not ported")
     sw.add_argument("--coordinator", default=None,
-                    help="not ported (item 16)")
+                    help="not ported (parallel/mesh.py)")
     sw.add_argument("--num-processes", dest="num_processes", type=int,
-                    default=None, help="not ported (item 16)")
+                    default=None, help="not ported (parallel/mesh.py)")
     sw.add_argument("--process-id", dest="process_id", type=int,
-                    default=None, help="not ported (item 16)")
+                    default=None, help="not ported (parallel/mesh.py)")
     sw.add_argument("--out", default=None, help="output prefix (json+csv)")
     sw.add_argument("--plot", action="store_true",
                     help="also write PNG (needs matplotlib)")
     sw.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                     help="where to run: the CUDA kernels or the plain "
                          "torch versions")
+    fl = sub.add_parser(
+        "floor",
+        help="error-floor FER via trapping-set mixture importance "
+             "sampling (harvest -> refine/search -> unbiased IS)")
+    _config_flags(fl)
+    fl.add_argument("--ebn0", default="3.0,3.5,4.0,4.5,5.0",
+                    help="IS estimation points, lo:hi:step or comma list")
+    fl.add_argument("--frames", type=int, default=1_000_000,
+                    help="proposal frames per SNR point")
+    fl.add_argument("--harvest-ebn0", dest="harvest_ebn0", type=float,
+                    default=2.2, help="waterfall-knee SNR for harvesting")
+    fl.add_argument("--harvest-frames", dest="harvest_frames", type=int,
+                    default=131072)
+    fl.add_argument("--delta", default="2.0",
+                    help="mean shift toward each set (2.0 = full flip); a "
+                         "comma list (e.g. 1.2,1.6,2.0) builds a radial "
+                         "ladder: every set at every depth")
+    fl.add_argument("--pi0", type=float, default=0.25,
+                    help="unshifted mixture weight (weights bounded by "
+                         "1/pi0; the defensive component)")
+    fl.add_argument("--k-sets", dest="k_sets", type=int, default=48)
+    fl.add_argument("--exact-sets", dest="exact_sets", default=None,
+                    metavar="A,B,DVCAP",
+                    help="union the exhaustive census's sets into the IS "
+                         "proposal (e.g. 8,2,3); absorbing sets rank "
+                         "first")
+    fl.add_argument("--symmetric", action="store_true",
+                    help="symmetry-folded estimator (QC codes): one "
+                         "canonical representative per orbit, exact "
+                         "M0/M Z-fold; combine with --seeds for the "
+                         "seed-repeatability convergence bar")
+    fl.add_argument("--seeds", default=None,
+                    help="with --symmetric: comma list of seeds; the "
+                         "output marks each point seed_repeatable only "
+                         "when all agree within quoted errors")
+    fl.add_argument("--stratified", action="store_true",
+                    help="deterministic per-component lane allocation "
+                         "(removes multinomial component-count noise)")
+    fl.add_argument("--allocation", default="proportional",
+                    choices=["proportional", "neyman"],
+                    help="stratified lane allocation rule; neyman runs a "
+                         "pilot phase and allocates ~ pi_j * std_j")
+    fl.add_argument("--pilot-frames", dest="pilot_frames", type=int,
+                    default=0,
+                    help="pilot frames per point for --allocation neyman "
+                         "(excluded from the reported estimate)")
+    fl.add_argument("--out", default=None, help="JSON output path")
+    fl.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
+                    help="where to run: the CUDA kernels or the plain "
+                         "torch versions")
+    fl.add_argument("--mesh", default=None,
+                    help="not ported (parallel/mesh.py)")
     return p
 
 
@@ -266,7 +493,7 @@ def main(argv=None) -> int:
     logging.basicConfig(level=logging.INFO,
                         format="%(asctime)s %(name)s %(message)s")
     args = build_parser().parse_args(argv)
-    return {"sweep": cmd_sweep}[args.cmd](args)
+    return {"sweep": cmd_sweep, "floor": cmd_floor}[args.cmd](args)
 
 
 if __name__ == "__main__":

@@ -3,8 +3,9 @@ first (a copy of the lookup half of `ldpc_tpu/codes/imported.py`).
 
 A stored table flips the built code to ``standard_exact=True`` with a
 ``_std`` name suffix, and nothing else in the stack changes. Validating and
-importing a candidate table (`validate_table`, `smoke_decode`, the
-`import-standard` command) is not ported yet (ROADMAP module item 17).
+importing a candidate table waits for the port of the rest of
+`ldpc_tpu/codes/imported.py` (`validate_table`, `smoke_decode`) and of the
+CLI's `import-standard` command.
 
 Registry location: $LDPC_TPU_TABLES or <repo>/imported_tables/, shared with
 the reference: one JSON file per table: {"family", "key", "Z", "base" (list

@@ -601,11 +601,12 @@ def qc_peg_best(kb: int, cb: int, Z: int,
         g = girth(code)
         c6 = count_6cycles(code) if g <= 6 else 0
         if use_absorbing:
-            raise NotImplementedError(
-                "qc_peg_best(use_absorbing=True): the exact absorbing-set "
-                "census (analysis/asenum) is not ported yet (ROADMAP module "
-                "item 17); pass use_absorbing=False")
-        key_abs, n_abs, classes = (), 0, {}
+            from ..analysis.asenum import exact_absorbing_census
+            census = exact_absorbing_census(code)
+            key_abs, n_abs = census["key"], census["total"]
+            classes = census["classes"]
+        else:
+            key_abs, n_abs, classes = (), 0, {}
         row = {"seed": s, "girth": g, "absorbing": n_abs,
                "absorbing_classes": classes, "cycles6": c6}
         table.append(row)
@@ -634,9 +635,91 @@ def as_optimize(code: LDPCCode, a_max: int = 7, b_max: int = 3,
     census per candidate (~0.3 s at wifi-648 geometry with dv_cap=3 —
     cheap enough that the objective is the TRUE spectrum, not a proxy).
     First-improvement restarts the pass. Returns (optimized code, log)."""
-    raise NotImplementedError(
-        "as_optimize: the exact absorbing-set census (analysis/asenum) is "
-        "not ported yet (ROADMAP module item 17)")
+    from ..analysis.asenum import absorbing_spectrum_key, enumerate_sets
+    from .qcstruct import detect_enc_struct
+
+    if code.base is None or code.Z is None:
+        raise ValueError("as_optimize requires a QC code")
+    Z = int(code.Z)
+    B = code.base.copy()
+    st = detect_enc_struct(B)
+    if st is None:
+        raise ValueError("as_optimize requires an IRA-encodable base "
+                         "(parity skeleton is kept fixed)")
+    kb = st.kb
+    rng = np.random.default_rng(seed)
+
+    def census_of(Bc):
+        c = expand_qc(Bc, Z, name="as_opt_probe")
+        r = enumerate_sets(c, a_max=a_max, b_max=b_max, dv_cap=dv_cap,
+                           emit_min_a=3, emit_cap=4096)
+        return c, r
+
+    def key_of(r, g):
+        return (-g, absorbing_spectrum_key(r))
+
+    cur_code, cur_r = census_of(B)
+    g0 = girth(cur_code)
+    cur_key = key_of(cur_r, g0)
+    log = [{"event": "start", "girth": g0,
+            "classes": cur_r.summary()["absorbing"]}]
+    evals = 0
+    improved = True
+    while improved and evals < max_evals:
+        improved = False
+        absorbing = [(a, b, S) for (a, b, f, S) in cur_r.sets if f]
+        if not absorbing:
+            break
+        absorbing.sort(key=lambda t: (t[0] + t[1], t[0]))
+        small = [t for t in absorbing
+                 if (t[0] + t[1], t[0]) == (absorbing[0][0]
+                                            + absorbing[0][1],
+                                            absorbing[0][0])]
+        # candidate edges ranked by participation in the smallest class
+        part: dict = {}
+        for (_, _, S) in small:
+            for v in S:
+                j = int(v) // Z
+                if j >= kb:
+                    continue  # parity skeleton stays fixed
+                for i in range(B.shape[0]):
+                    if B[i, j] >= 0:
+                        part[(i, j)] = part.get((i, j), 0) + 1
+        for (i, j) in sorted(part, key=lambda e: -part[e]):
+            s_old = int(B[i, j])
+            shifts = [s for s in range(Z) if s != s_old]
+            rng.shuffle(shifts)
+            for s_new in shifts:
+                if evals >= max_evals:
+                    break
+                B[i, j] = -1
+                collides = _shift_collides(B, Z, i, j, s_new)
+                B[i, j] = s_new
+                if collides:
+                    B[i, j] = s_old
+                    continue
+                cand_code, cand_r = census_of(B)
+                evals += 1
+                cand_key = key_of(cand_r, girth(cand_code))
+                if cand_key < cur_key:
+                    log.append({"event": "accept", "edge": [int(i), int(j)],
+                                "shift": [s_old, s_new],
+                                "classes": cand_r.summary()["absorbing"],
+                                "evals": evals})
+                    cur_code, cur_r, cur_key = cand_code, cand_r, cand_key
+                    improved = True
+                    break
+                B[i, j] = s_old
+            if improved or evals >= max_evals:
+                break
+    log.append({"event": "done", "evals": evals,
+                "girth": -cur_key[0],
+                "classes": cur_r.summary()["absorbing"]})
+    st2 = detect_enc_struct(B)
+    assert st2 is not None and st2.kb == kb  # skeleton intact
+    final = expand_qc(B, Z, name=(code.name + "-asopt"),
+                      standard_exact=False)
+    return final, log
 
 
 def count_8cycles(code: LDPCCode) -> int:

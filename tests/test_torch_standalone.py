@@ -70,8 +70,19 @@ def test_every_module_and_the_cli_load_nothing_of_the_reference(tmp_path):
         "            'kernels.probe_stream', 'sim.pipeline',\n"
         "            'kernels.microbench', 'ops.decode_hard',\n"
         "            'golden.decoder', 'oracle', 'utils.native',\n"
-        "            'utils.profiling'):\n"
+        "            'utils.profiling', 'analysis.trapping',\n"
+        "            'analysis.asenum', 'sim.impsamp'):\n"
         "    assert 'ldpc_tpu_torch.' + new in names, new\n"
+        "# the error-floor path on the CPU: the census (host C) and an IS\n"
+        "# batch\n"
+        "from ldpc_tpu_torch.analysis import exact_absorbing_census\n"
+        "from ldpc_tpu_torch.codes.toy import toy_qc\n"
+        "from ldpc_tpu_torch.config import SimConfig\n"
+        "from ldpc_tpu_torch.sim import make_is_run\n"
+        "assert exact_absorbing_census(toy_qc(4), a_max=4)['total'] > 0\n"
+        "run = make_is_run(toy_qc(4), SimConfig(), [[0, 1]], batch=4,\n"
+        "                  device='cpu')\n"
+        "assert run(torch.Generator(), 0.8).shape == (4,)\n"
         "# the hard-decision path and the microbenchmarks, on the CPU\n"
         "import numpy as np\n"
         "from ldpc_tpu_torch import oracle\n"
@@ -92,7 +103,7 @@ def test_every_module_and_the_cli_load_nothing_of_the_reference(tmp_path):
     res = _run(["-c", code])
     assert res.returncode == 0, res.stderr
     n_modules, gained = res.stdout.strip().splitlines()[-1].split(" ", 1)
-    assert int(n_modules) >= 39 and gained == "[]"
+    assert int(n_modules) >= 43 and gained == "[]"
     got = json.load(open(out + ".json"))
     assert got["decoder_backend"] == "torch-plain-minstar-layered"
     assert got["results"][0]["frames"] == 32
@@ -307,6 +318,10 @@ def test_golden_encoder_copy_equals_the_reference(rng):
 
 
 def test_peg_helpers_equal_the_reference_and_census_is_refused():
+    """The cycle census, and the two users of the exact absorbing-set
+    census (`qc_peg_best(use_absorbing=True)`, `as_optimize`), which the
+    port refused before `analysis/asenum.py` was ported and now runs: both
+    equal the reference's on the same seeds."""
     code = build_code(_both(**FAMILIES["qcpeg"])[0])
     ref = ref_build_code(_both(**FAMILIES["qcpeg"])[1])
     assert ppeg.girth(code) == rpeg.girth(ref)
@@ -317,10 +332,49 @@ def test_peg_helpers_equal_the_reference_and_census_is_refused():
                                        n_seeds=2, use_absorbing=False)
     np.testing.assert_array_equal(best.base, best_r.base)
     assert table == table_r
-    with pytest.raises(NotImplementedError, match="item 17"):
-        ppeg.qc_peg_best(kb=6, cb=6, Z=5, col_degrees=3, n_seeds=1)
-    with pytest.raises(NotImplementedError, match="item 17"):
-        ppeg.as_optimize(code)
+    best, table = ppeg.qc_peg_best(kb=6, cb=6, Z=5, col_degrees=3, n_seeds=1)
+    best_r, table_r = rpeg.qc_peg_best(kb=6, cb=6, Z=5, col_degrees=3,
+                                       n_seeds=1)
+    assert table == table_r and table[0]["absorbing"] > 0
+    np.testing.assert_array_equal(best.base, best_r.base)
+    # as_optimize runs; its starting census is the reference's (its moves
+    # follow the order the OpenMP threads emit sets in: held equal on one
+    # thread in tests/test_torch_analysis.py)
+    got, log = ppeg.as_optimize(code, a_max=5, max_evals=1)
+    want, log_r = rpeg.as_optimize(ref, a_max=5, max_evals=1)
+    assert log[0] == log_r[0] and log[0]["classes"]
+    assert log[-1]["event"] == log_r[-1]["event"] == "done"
+    assert got.n == want.n and got.name == want.name
+
+
+def test_analysis_copies_equal_the_reference():
+    """`analysis/trapping.py` differs from the reference's in docstrings
+    only; `analysis/asenum.py` also in where its library lives (the port's
+    `csrc/`, built by `utils.native`); `csrc/as_enum.c` is the reference's
+    byte for byte."""
+    def functions(path):
+        tree = ast.parse(open(path).read(), path)
+        out = {}
+        for node in tree.body:
+            if isinstance(node, (ast.FunctionDef, ast.ClassDef)):
+                body = node.body
+                if (body and isinstance(body[0], ast.Expr)
+                        and isinstance(body[0].value, ast.Constant)):
+                    node.body = body[1:] or [ast.Pass()]
+                out[node.name] = ast.dump(node)
+        return out
+
+    for name in ("trapping.py", "asenum.py"):
+        own = os.path.join(PKG, "analysis", name)
+        ref = os.path.join(ROOT, "ldpc_tpu", "analysis", name)
+        if name == "trapping.py":
+            assert _without_docstrings(own) == _without_docstrings(ref)
+            continue
+        got, want = functions(own), functions(ref)
+        assert sorted(got) == sorted(want)
+        assert [n for n in got if got[n] != want[n]] == ["_lib"]
+    assert (open(os.path.join(PKG, "csrc", "as_enum.c")).read()
+            == open(os.path.join(ROOT, "csrc", "as_enum.c")).read())
 
 
 def test_rate_matching_copies_equal_the_reference():

@@ -230,12 +230,15 @@ def test_cli_flags_match_the_reference():
     assert port == ref
 
 
+# the ids are the test's names from before the refusals named the module
+# they wait for
 @pytest.mark.parametrize("flags,match", [
-    (["--mesh", "2"], "item 16"),
-    (["--num-processes", "2"], "item 16"),
-    (["--coordinator", "localhost:1234"], "item 16"),
+    (["--mesh", "2"], "parallel/mesh.py"),
+    (["--num-processes", "2"], "parallel/mesh.py"),
+    (["--coordinator", "localhost:1234"], "parallel/mesh.py"),
     (["--superbatches", "2"], "superbatching"),
-])
+], ids=["flags0-item 16", "flags1-item 16", "flags2-item 16",
+        "flags3-superbatching"])
 def test_cli_refuses_unported_flags(flags, match):
     with pytest.raises(NotImplementedError, match=match):
         cli.main(["sweep", "--preset", "wifi-648-r12-minsum",

@@ -234,9 +234,35 @@ Phases, each printing its lines; any failure raises and exits non-zero:
    -m ldpc_tpu_torch.cli floor` stratified with `--exact-sets 8,3,3` and
    with `--symmetric --seeds 1,2`, at small frame counts, one after the
    other: exit 0, the decoder label `cuda-`, the reference's JSON keys;
-9. two-phase == single-phase counters on two batches of `wifi-full-oms`
+9. slice 8, the design funnel and the table registry (`analysis/de.py`,
+   `exit.py`, `proto_de.py`, `codes/imported.py`, the CLI's `analyze`,
+   `construct`, `import-standard`; `check_design`). 8a: `python -m
+   ldpc_tpu_torch.cli analyze --preset wifi-648-r12-minsum`, and the DE
+   rows of `results/de_thresholds.json` for OMS beta 1, min* and DVB-S2
+   n=64,800 rate 1/2 with `scripts/make_de_thresholds.py`'s calls, each
+   sigma* within 2 * tol = 4e-3 of the file's. 8b: PEXIT on NR BG1 Z=384
+   rate 1/3 and DVB-S2 n=64,800 rate 1/2 within 4e-3 of
+   `results/pexit_screen.json`'s production anchors. 8c: `construct
+   --census 8,3,3` on wifi-648: girth 6, full rank, 2,295 absorbing sets.
+   8d: `import-standard` into a temporary registry (each command line in a
+   process of its own that prints its kernel counters after it): the
+   port's own 802.11n n=648 rate 1/2 table, validated and smoke-decoded on
+   the card by one launch of K3's packed layered kernel, nothing plain;
+   the smoke decode's own batch of 128 then goes through K3 and its plain
+   version in this process, equal with tolerance 0; under the registry
+   the code is `ieee80211n_n648_r12_std`, and a sweep of two batches of
+   4,096 at 2.0 dB on the card holds FER to `results/wifi648_minsum.json`;
+   `--remove`. NR BG1 Z=384's full graph: `imported.smoke_decode` in this
+   process, one launch of the streaming kernel `auto` picks and nothing
+   plain, its batch held to plain the same way; the table stored with
+   `imported.store` (its numpy validation, minutes of one host core, is
+   held to the reference's on the CPU by tier-1), the `_std` code under
+   `nr-bg1-layered`, a two-batch sweep, `--remove`. A table with a
+   4-cycle exits 1 with REJECTED, and the default registry
+   `imported_tables/` gains no file;
+10. two-phase == single-phase counters on two batches of `wifi-full-oms`
    at 3.5 dB;
-10. times: kernels with CUDA events (warm-up, median, plain and kernel in
+11. times: kernels with CUDA events (warm-up, median, plain and kernel in
    turns), each of the decoder object its main path launched and at that
    batch (run_fused's per-lane megakernel at 18,432, K3 of
    `qam16-1944-chain` on 16-QAM LLRs at 6.0 dB; K2 as the min-sum ET
@@ -271,7 +297,9 @@ Phases, each printing its lines; any failure raises and exits non-zero:
    iterations, where its plain version takes a second), and the min-sum
    sweep's time a sweep beside K1's time an iteration.
 
-Each kernel record carries `launches` of the main path named beside it,
+Each kernel record carries `launches` of the main path named beside it
+(K3's and the streaming kernel's that slice 8d's smoke decodes launched
+also `smoke_decode_launches`),
 the kernel template instance that path launched (`instance`; the
 streaming library's records also name the path, `launched_by`: for the
 template's `stream`, `stream-et` a forced `resident=False` call on slice
@@ -298,11 +326,13 @@ Ends with one JSON line of kernel records, the nvidia-smi line, and, last,
 the device line {"ok": true, "device": {"platform": "gpu", ...}}.
 """
 import concurrent.futures
+import contextlib
 import ctypes
 import dataclasses
 import json
 import math
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -2036,6 +2066,438 @@ def check_floor(port, minsum, stream, gpu):
     return k3_launches
 
 
+# Slice 8: the design funnel and the table registry. DE rows of
+# results/de_thresholds.json, each with scripts/make_de_thresholds.py's
+# call (iters 120, tol 2e-3, target 1e-7): (code, decoder label, code
+# builder arguments, beta, beta_lsb, min*, bracket)
+DE_ROWS = (
+    ("wifi648_r12", "oms beta=1 8-bit", ("ieee80211n", 648, "1/2"), 1, 1,
+     False, (0.6, 1.3)),
+    ("wifi648_r12", "min-star 8-bit", ("ieee80211n", 648, "1/2"), 0, 0,
+     True, (0.6, 1.3)),
+    ("dvbs2_64800_r12", "oms beta=2 8-bit", ("dvbs2", 64800, "1/2"), 2, 2,
+     False, (0.6, 1.3)),
+)
+DE_TOL = 2e-3
+DE_HOLD = 2 * DE_TOL          # a bisection's result lies within tol of sigma*
+# results/pexit_screen.json's production anchors
+# (scripts/make_pexit_screen.py:162-168: iters 400, tol 2e-3)
+PEXIT_ROWS = (("nr_bg1_z384_r12", ("5gnr", 1, 384, "1/3")),
+              ("dvbs2_64800_r12", ("dvbs2", 64800, "1/2")))
+CENSUS = "8,3,3"
+# the registry commands, each in a process of its own: the command line
+# through cli.main, then the kernel counters of that process as one JSON
+# line (its counters start at 0 with the process)
+IMPORT_JOB = """
+import json, sys, time
+from ldpc_tpu_torch import cli
+from ldpc_tpu_torch.kernels import minsum, minsum_stream as stream
+t0 = time.perf_counter()
+rc = cli.main(sys.argv[1:])
+print(json.dumps({"rc": rc, "seconds": time.perf_counter() - t0,
+                  "library": minsum.library_launches,
+                  "packed": minsum.packed_launches,
+                  "plain": minsum.plain_calls + stream.plain_calls,
+                  "stream": stream.kernel_launches,
+                  "stream_instances": {k: v for k, v in
+                                       stream.instance_launches.items() if v},
+                  "stream_packed": stream.packed_launches}))
+"""
+REGISTRY_REPORT_KEYS = {"family", "mb", "nb", "Z", "enc_struct", "rank",
+                        "girth", "smoke", "stored", "key"}
+SMOKE_KEYS = {"frames", "ebn0_db", "ber", "uncoded_ber", "conv_rate"}
+
+
+def cli_cmd(*argv):
+    return [sys.executable, "-m", "ldpc_tpu_torch.cli", *argv]
+
+
+def start(cmd, env=None):
+    return subprocess.Popen(cmd, cwd=HERE, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True,
+                            env=None if env is None else {**os.environ,
+                                                          **env})
+
+
+def finish(proc, what, timeout=900, ok_codes=(0,)):
+    """(stdout, stderr) of a started command; fails unless its exit code is
+    one of ok_codes."""
+    try:
+        out, err = proc.communicate(timeout=timeout)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+    if proc.returncode not in ok_codes:
+        raise AssertionError(f"{what} exited {proc.returncode}:\n"
+                             f"{err[-3000:]}")
+    return out, err
+
+
+def import_job(argv, what):
+    """Run one registry command line in a process of its own (IMPORT_JOB);
+    returns (the command's JSON line, the process's counters)."""
+    out, _ = finish(start([sys.executable, "-c", IMPORT_JOB, *argv]), what)
+    lines = out.strip().splitlines()
+    return json.loads(lines[-2]), json.loads(lines[-1])
+
+
+def in_process_counts(minsum, stream, seconds):
+    """This process's kernel counters, with IMPORT_JOB's keys."""
+    return {"rc": 0, "seconds": seconds,
+            "library": dict(minsum.library_launches),
+            "packed": dict(minsum.packed_launches),
+            "plain": minsum.plain_calls + stream.plain_calls,
+            "stream": stream.kernel_launches,
+            "stream_instances": {k: v for k, v in
+                                 stream.instance_launches.items() if v},
+            "stream_packed": stream.packed_launches}
+
+
+def smoke_report(label, sm, counts):
+    """Prints a smoke decode's report and the launches its process (or its
+    window of this process) made; fails unless it passed."""
+    if set(sm) != SMOKE_KEYS:
+        raise AssertionError(f"{label}: smoke report keys {sorted(sm)}")
+    print(f"8d {label}: smoke decode on the card: {sm['frames']} frames at "
+          f"{sm['ebn0_db']} dB, BER {sm['ber']:.4e} against uncoded "
+          f"{sm['uncoded_ber']:.4e}, conv_rate {sm['conv_rate']:.4f}; "
+          f"{counts['seconds']:.1f} s, kernel launches {counts['library']}, "
+          f"packed {counts['packed']}, streaming {counts['stream']} "
+          f"{counts['stream_instances']} (packed resident "
+          f"{counts['stream_packed']}), plain calls {counts['plain']}",
+          flush=True)
+    if sm["ber"] > sm["uncoded_ber"] / 10 or counts["rc"] != 0:
+        raise AssertionError(f"{label}: smoke decode")
+
+
+def hold_smoke(label, Z, base, sm, worst):
+    """The smoke decode's own batch (`imported.smoke_llrs` at its operating
+    point and seed, on the card) through the decoder it picks
+    (`imported.smoke_decoder`): the kernel == the plain version, tolerance
+    0 (hard bits, iterations, convergence flags), and the kernel's BER is
+    the smoke report `sm`'s. Its launches are not counted as the main
+    path's."""
+    from ldpc_tpu_torch.codes import from_reference, imported
+    from ldpc_tpu_torch.codes.code import expand_qc
+    code = expand_qc(base, Z, name="import_smoke")
+    ct = from_reference(code, "cuda")
+    _, sigma = imported.smoke_operating_point(code.k / code.n, sm["ebn0_db"])
+    q = imported.smoke_llrs(ct, sm["frames"], sigma, imported.SMOKE_SEED)
+    dec, name = imported.smoke_decoder(ct, q.shape[0])
+    hard = hold_to_plain(f"8d {label} smoke batch ({name})", dec, q,
+                         worst)[0]
+    ber = float(hard.to(torch.float64).mean())
+    if ber != sm["ber"]:
+        raise AssertionError(f"8d {label}: the held batch's BER {ber} is "
+                             f"not the smoke decode's {sm['ber']}")
+
+
+@contextlib.contextmanager
+def tables_env(path):
+    """LDPC_TPU_TABLES = path in this process, restored after."""
+    old = os.environ.get("LDPC_TPU_TABLES")
+    os.environ["LDPC_TPU_TABLES"] = path
+    try:
+        yield
+    finally:
+        if old is None:
+            del os.environ["LDPC_TPU_TABLES"]
+        else:
+            os.environ["LDPC_TPU_TABLES"] = old
+
+
+def listing(path):
+    return sorted(os.listdir(path)) if os.path.isdir(path) else None
+
+
+def check_registry_sweep(label, argv, env, want_code, ref_name=None):
+    """A short sweep (`python -m ldpc_tpu_torch.cli sweep`) on the code the
+    registry now builds: it must be the `_std` code, run a kernel, decode
+    every frame asked for and, where ref_name is given, hold FER at each
+    point to that result file by Wilson intervals."""
+    from ldpc_tpu_torch.sim.stats import rates_compatible
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "std")
+        finish(start(cli_cmd("sweep", *argv, "--no-checkpoint", "--out",
+                             out), env=env), f"8d sweep {label}")
+        with open(out + ".json") as f:
+            got = json.load(f)
+    ref = read_ref(ref_name) if ref_name else {}
+    oks = []
+    for r in got["results"]:
+        want = ref.get(r["ebn0_db"])
+        ok = want is None or rates_compatible(
+            r["frame_errs"], r["frames"], want["frame_errs"], want["frames"])
+        oks.append(ok)
+        print(f"8d sweep {label} ({got['code']}, {got['decoder_backend']}): "
+              f"{r['ebn0_db']} dB frames {r['frames']} frame_errs "
+              f"{r['frame_errs']} FER {r['fer']:.4e} BER {r['ber']:.4e}"
+              + (f" against {ref_name}'s FER {want['fer']:.4e}: {ok}"
+                 if want else ""), flush=True)
+    if (got["code"] != want_code
+            or not got["decoder_backend"].startswith("cuda-")
+            or not all(oks)):
+        raise AssertionError(f"8d sweep {label}: {got['code']}, "
+                             f"{got['decoder_backend']}, {oks}")
+    return got
+
+
+def check_design(port, minsum, stream, gpu, worst):
+    """Slice 8, the design funnel and the table registry (`analysis/de.py`,
+    `exit.py`, `proto_de.py`, `codes/imported.py`, the CLI's `analyze`,
+    `construct` and `import-standard`). 8a: `python -m ldpc_tpu_torch.cli
+    analyze --preset wifi-648-r12-minsum` with its default flags, and in
+    process the DE rows of results/de_thresholds.json for OMS beta 1, min*
+    (LUT (8, 3, 0)) and DVB-S2 n=64,800 rate 1/2 single-edge, with
+    scripts/make_de_thresholds.py's calls: sigma* within 2 * tol (4e-3) of
+    the file's. 8b: `pexit_threshold_awgn(code, iters=400, tol=2e-3)` on
+    NR BG1 Z=384 rate 1/3 and DVB-S2 n=64,800 rate 1/2 within 4e-3 of
+    results/pexit_screen.json's production anchors. 8c: `construct --preset
+    wifi-648-r12-minsum --census 8,3,3`: girth 6, full rank, the census's
+    classes (2,295 absorbing sets, slice 7's census). 8d: `import-standard`
+    into a temporary registry (`--tables-dir`; the default registry must
+    gain no file): the port's own 802.11n n=648 rate 1/2 table, validated
+    and smoke-decoded on the card by K3's packed layered kernel (one launch,
+    nothing plain); under the registry the built code is the `_std` one,
+    and a two-batch sweep on the card at 2.0 dB holds FER to
+    results/wifi648_minsum.json; `--remove`. For NR BG1 Z=384's full graph
+    `imported.smoke_decode` in process, on the instance `auto` streams it
+    to (one launch of a kernel, nothing plain), then `imported.store`, the
+    `_std` code under `nr-bg1-layered`'s configuration, a two-batch sweep,
+    `--remove`. Each smoke decode's batch is held to plain with tolerance
+    0, its error going to `worst`. A table with a 4-cycle exits non-zero
+    with REJECTED. Returns the smoke decodes' launches by kernel record
+    name."""
+    from ldpc_tpu_torch.analysis import (de, exact_absorbing_census,
+                                         pexit_threshold_awgn)
+    from ldpc_tpu_torch.codes import dvbs2, ieee80211n, nr_bg
+    from ldpc_tpu_torch.config import QuantConfig, minstar_thresholds
+    secs = {}
+    t_all = time.perf_counter()
+    # the two host commands, beside the in-process rows
+    analyze = start(cli_cmd("analyze", "--preset", "wifi-648-r12-minsum"))
+    construct = start(cli_cmd("construct", "--preset", "wifi-648-r12-minsum",
+                              "--census", CENSUS))
+
+    def make(spec):
+        if spec[0] == "ieee80211n":
+            return ieee80211n.make_code(spec[1], spec[2])
+        if spec[0] == "dvbs2":
+            return dvbs2.make_code(spec[1], spec[2])
+        return nr_bg.make_code(spec[1], spec[2], rate=spec[3])
+
+    with open(os.path.join(HERE, "results", "de_thresholds.json")) as f:
+        de_file = {(r["code"], r["decoder"]): r
+                   for r in json.load(f)["thresholds"]}
+    t0 = time.perf_counter()
+    out, _ = finish(analyze, "8a analyze")
+    got = json.loads(out)
+    want = de_file["wifi648_r12", "min-sum 8-bit"]
+    rows = [("analyze --preset wifi-648-r12-minsum (CLI)", got["sigma_star"],
+             got["ebn0_star_db"], want)]
+    if set(got) != {"channel", "code", "rate", "bits", "algorithm",
+                    "sigma_star", "ebn0_star_db", "pe_target", "max_dv",
+                    "max_dc", "note"} or got["code"] != "ieee80211n_n648_r12":
+        raise AssertionError(f"8a analyze: {got}")
+    for name, label, spec, beta, beta_lsb, star, bracket in DE_ROWS:
+        quant = QuantConfig(bits=8, scale=4.0, beta_lsb=beta_lsb)
+        code = make(spec)
+        ms = minstar_thresholds(quant) if star else None
+        want = de_file[name, label]
+        if star and list(ms) != want["lut_thresholds"]:
+            raise AssertionError(f"8a min* LUT {ms}")
+        sigma = de.de_threshold_awgn_spectra(
+            de.spectra_from_code(code), quant, beta=beta, iters=120,
+            tol=DE_TOL, bracket=bracket, target=1e-7, minstar=ms)
+        rate = code.k / code.n
+        rows.append((f"{name} {label}", sigma,
+                     -20.0 * math.log10(sigma * math.sqrt(2 * rate)), want))
+    secs["8a"] = time.perf_counter() - t0
+    for what, sigma, ebn0, want in rows:
+        print(f"8a {what}: sigma* {sigma:.6f} ({ebn0:.3f} dB) against "
+              f"results/de_thresholds.json's {want['sigma_star']} "
+              f"({want['ebn0_star_db']} dB): |diff| "
+              f"{abs(sigma - want['sigma_star']):.2e}", flush=True)
+    if any(abs(sigma - want["sigma_star"]) > DE_HOLD
+           for _, sigma, _, want in rows):
+        raise AssertionError("slice 8a: a DE threshold is off the file's")
+
+    t0 = time.perf_counter()
+    with open(os.path.join(HERE, "results", "pexit_screen.json")) as f:
+        anchors = {r["code"]: r for r in json.load(f)["production_anchors"]}
+    held = []
+    for name, spec in PEXIT_ROWS:
+        code = make(spec)
+        t1 = time.perf_counter()
+        sigma, ebn0 = pexit_threshold_awgn(code, iters=400, tol=DE_TOL)
+        want = anchors[name]
+        held.append(abs(sigma - want["pexit_sigma"]) <= DE_HOLD)
+        print(f"8b PEXIT {name} ({code.name}): sigma* {sigma:.6f} "
+              f"({ebn0:.3f} dB) in {time.perf_counter() - t1:.2f} s against "
+              f"results/pexit_screen.json's {want['pexit_sigma']} "
+              f"({want['pexit_ebn0_db']} dB): |diff| "
+              f"{abs(sigma - want['pexit_sigma']):.2e}", flush=True)
+    secs["8b"] = time.perf_counter() - t0
+    if not all(held):
+        raise AssertionError("slice 8b: a PEXIT threshold is off the file's")
+
+    t0 = time.perf_counter()
+    out, _ = finish(construct, "8c construct")
+    got = json.loads(out)
+    cen = got["absorbing_census"]
+    want_cen = exact_absorbing_census(ieee80211n.make_code(648, "1/2"),
+                                      *(int(x) for x in CENSUS.split(",")))
+    secs["8c"] = time.perf_counter() - t0
+    print(f"8c construct --census {CENSUS}: {got['code']} girth "
+          f"{got['girth']} full_rank {got['full_rank']}; census total "
+          f"{cen['total']} classes {cen['classes']}", flush=True)
+    if (got["girth"] != 6 or not got["full_rank"] or cen["total"] != 2295
+            or cen["classes"] != want_cen["classes"]):
+        raise AssertionError(f"slice 8c: {got}")
+
+    # 8d: the registry, on the card, in a temporary directory
+    default = os.path.join(HERE, "imported_tables")
+    default_before = listing(default)
+    with tempfile.TemporaryDirectory(prefix="ldpc_tables_") as tmp:
+        tables = os.path.join(tmp, "tables")
+        launched = import_standard_on_card(port, minsum, stream, tmp, tables,
+                                           worst, secs)
+    after = listing(default)
+    print(f"8d the default registry {default}: before {default_before}, "
+          f"after {after}", flush=True)
+    if after != default_before:
+        raise AssertionError("slice 8 wrote to the default registry")
+    secs["slice 8"] = time.perf_counter() - t_all
+    print(f"[{gpu}] 8 seconds: " + ", ".join(f"{n} {t:.2f}"
+                                            for n, t in secs.items()),
+          flush=True)
+    return launched
+
+
+def import_standard_on_card(port, minsum, stream, tmp, tables, worst, secs):
+    """Slice 8d in the temporary registry `tables`: the 802.11n import
+    through the CLI, NR BG1 Z=384's smoke decode in process, each smoke
+    batch held to plain, the `_std` sweeps, `--remove`, the 4-cycle
+    table. Returns the smoke decodes' launches by kernel record name."""
+    from ldpc_tpu_torch.codes import build_code, ieee80211n, imported
+    from ldpc_tpu_torch.codes.nr_bg import full_graph
+    t0 = time.perf_counter()
+    env = {"LDPC_TPU_TABLES": tables}
+    wifi = ieee80211n.make_code(648, "1/2")
+    wifi_file = os.path.join(tmp, "wifi648.json")
+    with open(wifi_file, "w") as f:
+        json.dump({"Z": wifi.Z, "base": wifi.base.tolist()}, f)
+    wifi_argv = ["import-standard", "--family", "ieee80211n", "--n", "648",
+                 "--rate", "1/2", "--file", wifi_file, "--tables-dir",
+                 tables]
+    rep, counts = import_job(wifi_argv, "8d import-standard 802.11n")
+    if set(rep) != REGISTRY_REPORT_KEYS:
+        raise AssertionError(f"8d 802.11n: report keys {sorted(rep)}")
+    print(f"8d 802.11n n=648 rate 1/2: validated (rank {rep['rank']}, girth "
+          f"{rep['girth']}, enc_struct {rep['enc_struct']}); stored "
+          f"{os.path.basename(rep['stored'])}", flush=True)
+    smoke_report("802.11n n=648 rate 1/2", rep["smoke"], counts)
+    lib = "minsum_layered"
+    if (counts["library"][lib] != 1 or counts["packed"][lib] != 1
+            or sum(counts["library"].values()) != 1 or counts["plain"]
+            or counts["stream"]):
+        raise AssertionError("8d 802.11n: the smoke decode must launch K3's "
+                             "packed instance once and nothing else")
+    launched = {"minsum_layered": counts["library"][lib]}
+    hold_smoke("802.11n n=648 rate 1/2", wifi.Z, wifi.base, rep["smoke"],
+               worst)
+    with tables_env(tables):
+        std = build_code(port.PRESETS["wifi-648-r12-minsum"])
+    print(f"8d under the registry: {std.name} standard_exact "
+          f"{std.standard_exact}", flush=True)
+    if not (std.name.endswith("_std") and std.standard_exact):
+        raise AssertionError("8d: the built code is not the imported one")
+    check_registry_sweep(
+        "802.11n", ["--preset", "wifi-648-r12-minsum", "--ebn0", "2.0",
+                          "--batch", "4096", "--max-frames", "8192",
+                          "--target-errors", "100000000"],
+        env, "ieee80211n_n648_r12_std", ref_name="wifi648_minsum.json")
+    rm, _ = finish(start(cli_cmd(*wifi_argv[:7], "--remove", "--tables-dir",
+                                 tables)), "8d --remove")
+    if not json.loads(rm)["removed"]:
+        raise AssertionError("8d: --remove")
+    secs["8d 802.11n"] = time.perf_counter() - t0
+
+    # NR BG1 Z=384's full graph (as tests/test_import_standard.py:114):
+    # its smoke decode through `imported.smoke_decode` in this process, the
+    # counters zeroed just before it; the table then stored as
+    # import-standard stores it (its validation, minutes of numpy GF(2)
+    # rank on one host core, is the copy that tier-1 holds to the
+    # reference's on the CPU)
+    t0 = time.perf_counter()
+    g = full_graph(1, 384)
+    minsum.reset_counters()
+    stream.reset_counters()
+    t1 = time.perf_counter()
+    sm = imported.smoke_decode(384, g.base, device="cuda")
+    torch.cuda.synchronize()
+    counts = in_process_counts(minsum, stream, time.perf_counter() - t1)
+    label = "NR BG1 Z=384 (full graph)"
+    smoke_report(label, sm, counts)
+    picked = counts["stream_instances"]
+    print(f"8d the instance auto streams NR BG1 Z=384's smoke decode to: "
+          f"{picked} (packed resident kernel launches "
+          f"{counts['stream_packed']})", flush=True)
+    if (counts["stream"] != 1 or sum(picked.values()) != 1
+            or sum(counts["library"].values()) or counts["plain"]):
+        raise AssertionError("8d NR: the smoke decode must launch one "
+                             "streaming kernel and nothing else")
+    (variant, n), = picked.items()
+    prefix = ("minsum_stream_pipelined_" if "pipelined" in variant
+              else "minsum_stream_")
+    for kid, _ in stream.REPLACES[variant]:
+        launched[prefix + kid] = n
+    hold_smoke(label, 384, g.base, sm, worst)
+    with tables_env(tables):
+        imported.store("5gnr", "bg1_z384", 384, g.base,
+                       meta={"source": "nr_bg.full_graph(1, 384)",
+                             "validation": {"smoke": sm}})
+    nr_cfg = port.PRESETS["nr-bg1-layered"]
+    check_registry_sweep(
+        "NR BG1 Z=384", ["--preset", "nr-bg1-layered", "--ebn0", "1.5",
+                               "--max-frames", str(2 * nr_cfg.run.batch),
+                               "--target-errors", "100000000"],
+        env, "nr_bg1_z384_r12_std")
+    rm, _ = finish(start(cli_cmd("import-standard", "--family", "5gnr",
+                                 "--base-graph", "1", "--z", "384",
+                                 "--remove", "--tables-dir", tables)),
+                   "8d --remove NR")
+    if not json.loads(rm)["removed"]:
+        raise AssertionError("8d: --remove NR")
+    secs["8d NR"] = time.perf_counter() - t0
+
+    # a table with a 4-cycle (tests/test_import_standard.py:55)
+    t0 = time.perf_counter()
+    c = ieee80211n.make_code(648, "3/4")
+    b = c.base.copy()
+    rs = np.argwhere(b >= 0)
+    r1, j1, r2, j2 = next(
+        (r1, j1, r2, j2) for (r1, j1) in rs for (r2, j2) in rs
+        if r2 > r1 and j2 != j1 and b[r1, j2] >= 0 and b[r2, j1] >= 0
+        and b[r2, j2] >= 0)
+    b[r2, j2] = (b[r1, j2] - b[r1, j1] + b[r2, j1]) % c.Z
+    cyc_file = os.path.join(tmp, "cycle.json")
+    with open(cyc_file, "w") as f:
+        json.dump({"Z": c.Z, "base": b.tolist()}, f)
+    proc = start(cli_cmd("import-standard", "--family", "ieee80211n", "--n",
+                         "648", "--rate", "3/4", "--file", cyc_file,
+                         "--tables-dir", tables))
+    _, err = finish(proc, "8d 4-cycle", ok_codes=(1,))
+    said = err.strip().splitlines()[-1]
+    print(f"8d a table with a 4-cycle: exit {proc.returncode}, {said!r}",
+          flush=True)
+    if "REJECTED" not in said or "girth 4" not in said or os.listdir(
+            tables):
+        raise AssertionError("8d: the 4-cycle table was not rejected")
+    secs["8d 4-cycle"] = time.perf_counter() - t0
+    return launched
+
+
 def check_microbench(micro, dev):
     """The microbenchmark library (S1-S6) == its plain versions on the card,
     tolerance 0; returns the worst error by kernel name."""
@@ -2614,6 +3076,9 @@ def main():
           "results/error_floor_wifi648.json at full size, NR BG1 Z=128 "
           "rate matching, the CLI's floor)")
     check_floor(port, minsum, stream, gpu)
+    phase("slice 8: the design funnel and the table registry (DE, PEXIT, "
+          "the census, import-standard with its smoke decode on the card)")
+    smoke_launches = check_design(port, minsum, stream, gpu, worst)
     loaded = sorted(m for m in sys.modules if m.split(".")[0] == "jax")
     if loaded:
         raise AssertionError(f"jax modules loaded: {loaded[:5]}")
@@ -3106,8 +3571,9 @@ def main():
         for t in (timing[key],)]
 
     # launches: of the main path named; ms, plain_ms, bound_ms: of the
-    # decoder object that path launched, at its batch
-    print(json.dumps({"kernels": [
+    # decoder object that path launched, at its batch; the kernels slice
+    # 8d's smoke decodes launched also carry those launches
+    records = [
         record("minsum_flood", "minsum_flood",
                launches["wifi-648-r12-minsum"], worst["minsum_flood"],
                timing["K1"], s648.run_batch.decoder),
@@ -3155,7 +3621,11 @@ def main():
            "max_abs_err": micro_worst[name], "ms": t[0], "plain_ms": t[1],
            "bound_ms": t[2], "bound_by": t[3], "library_ms": None}
           for name in micro.REPLACES
-          for t in (timing["micro " + name],))]}))
+          for t in (timing["micro " + name],))]
+    for rec in records:
+        if rec["name"] in smoke_launches:
+            rec["smoke_decode_launches"] = smoke_launches[rec["name"]]
+    print(json.dumps({"kernels": records}))
     print(gpu)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -1,24 +1,43 @@
 """Command-line interface of the port (counterpart of `ldpc_tpu/cli.py`):
-the `sweep` and `floor` commands, with the reference's flag names and
-defaults.
+the reference's nine commands, with its flag names, defaults, help, notes on
+stderr, exit codes and JSON keys.
+
+  sweep            a BER/FER sweep (on the card, or `--device cpu`);
+  floor            error-floor FER by trapping-set importance sampling;
+  import-standard  validate, smoke-decode (on the card, or `--device cpu`)
+                   and store an exact standard shift table;
+  analyze          design thresholds: quantized density evolution (AWGN,
+                   BSC), `--proto` protograph DE, `--pexit` protograph EXIT,
+                   `--scan-scale` over the quantizer's scale;
+  construct        build a code, report girth, rank and an absorbing-set
+                   census, export alist;
+  codes, presets, config, report
+                   list the 802.11n codes and the presets, print the
+                   resolved config, plot saved results.
 
   python -m ldpc_tpu_torch.cli sweep --preset wifi-648-r12-minsum \\
       --rng device --fused --ebn0 1.0:3.5:0.5 --out results/wifi648_mc
   python -m ldpc_tpu_torch.cli floor --algorithm normalized-min-sum \\
       --beta-lsb 0 --schedule layered --delta 1.2,1.6,2.0,2.4 \\
       --stratified --ebn0 2.6,3.0 --out floor.json
+  python -m ldpc_tpu_torch.cli analyze --preset wifi-648-r12-minsum
+  python -m ldpc_tpu_torch.cli import-standard --family ieee80211n \\
+      --n 648 --rate 1/2 --file table.json --tables-dir /tmp/tables
 
 The config flags are the reference's option group, resolved by copies of
 its `_build_config` and `_parse_ebn0` (`ldpc_tpu/cli.py:29,43`). `--device
-cuda|cpu` (default cuda) takes the place of `--platform`; a CUDA request
-without a card raises. The mesh and multi-process flags exist so that
-reference command lines parse, and raise NotImplementedError until
-`ldpc_tpu/parallel/mesh.py` is ported. `--decoder-backend` forces a decoder route
+cuda|cpu` (default cuda) takes the place of `--platform` on `sweep` and
+`floor`, and of the reference's pin to the CPU on `import-standard`; a CUDA
+request without a card raises. `analyze`, `construct`, `codes`, `presets`,
+`config` and `report` are numpy and host C and take no device. The mesh
+and multi-process flags exist so that reference command lines parse, and
+raise NotImplementedError until `ldpc_tpu/parallel/mesh.py` is ported.
+`--decoder-backend` forces a decoder route
 (`sim/pipeline.resolve_route`): stream, qc, or the reference's names
 (pallas, qc-jnp, jnp); a route that cannot run raises. A preset
-that names a mesh (`multihost-qam-chain`) runs on one device: the command
-builds no mesh unless `--mesh` asks for one, as in the reference, and
-records `mesh_shape: null`. The
+that names a mesh (`multihost-qam-chain`) runs on one device: `sweep` and
+`floor` build no mesh unless `--mesh` asks for one, as in the reference,
+and record `mesh_shape: null`; `config` prints the preset as it is. The
 checkpoint defaults to `<out>.state`, as in the reference: rerunning an
 interrupted command resumes it.
 
@@ -33,6 +52,12 @@ seed's rel_std is below 0.7 and every pair of estimates lies within
 2 * hypot(sigma_a, sigma_b) of each other, the standard error of their
 difference twice over; the reference adds the two sigmas
 (`_seeds_agree`).
+
+The table registry is $LDPC_TPU_TABLES, else <repo>/imported_tables/, the
+directory the reference reads too; `import-standard --tables-dir DIR` sets
+$LDPC_TPU_TABLES for the command. A stored 5gnr table is the base graph of
+every NR code of its (base graph, Z), whatever seed `codes.nr_bg.full_graph`
+is given.
 """
 from __future__ import annotations
 
@@ -131,10 +156,19 @@ def _build_config(args) -> SimConfig:
         run = dataclasses.replace(run, all_zeros=True)
     if args.rng:
         run = dataclasses.replace(run, rng=args.rng)
-    if not getattr(args, "mesh", None) and run.mesh_shape not in (None, (1,)):
-        # one device: the preset's mesh is not built (bench.py does the same)
-        run = dataclasses.replace(run, mesh_shape=None)
     return SimConfig(code=code, channel=chan, quant=quant, decoder=dec, run=run)
+
+
+def _run_config(args) -> SimConfig:
+    """`_build_config` for a command that builds a run on one device: the
+    preset's mesh is not built unless `--mesh` asks for one (bench.py does
+    the same)."""
+    cfg = _build_config(args)
+    if (not getattr(args, "mesh", None)
+            and cfg.run.mesh_shape not in (None, (1,))):
+        cfg = dataclasses.replace(cfg, run=dataclasses.replace(
+            cfg.run, mesh_shape=None))
+    return cfg
 
 
 def _not_ported(flag: str):
@@ -156,7 +190,7 @@ def cmd_sweep(args) -> int:
     from .sim import Sweep
     from .sim.report import plot_waterfall, to_csv, write_outputs
 
-    cfg = _build_config(args)
+    cfg = _run_config(args)
     ckpt = args.checkpoint
     if ckpt is None and args.out and not args.no_checkpoint:
         ckpt = args.out + ".state"
@@ -252,7 +286,7 @@ def cmd_floor(args) -> int:
     from .sim.impsamp import (estimate_fer, expand_radial,
                               harvest_error_supports, make_is_run)
 
-    cfg = _build_config(args)
+    cfg = _run_config(args)
     code = build_code(cfg)
     if (args.allocation != "proportional" or args.pilot_frames > 0) \
             and not args.stratified:
@@ -329,6 +363,388 @@ def cmd_floor(args) -> int:
                                     "allocation": args.allocation},
                        "points": points}, f, indent=1)
     return 0
+
+
+def cmd_presets(args) -> int:
+    for name, cfg in PRESETS.items():
+        c = cfg.code
+        print(f"{name}: {c.family} n={c.n} rate={c.rate} "
+              f"{cfg.channel.modulation} {cfg.decoder.algorithm}/"
+              f"{cfg.decoder.schedule} iters={cfg.decoder.max_iter}")
+    return 0
+
+
+def _analyze_scan_scale(args, cfg) -> int:
+    """Quantizer design scan: the DE threshold as a function of the LLR
+    scale at the configured bit width. One JSON line per scale; the last
+    line names the best. Single-edge lambda/rho DE (fast enough to scan;
+    protograph refinement can follow on the winner via --proto)."""
+    from .analysis import de
+    from .codes import build_code
+    from .config import cn_params
+
+    lo, hi, count = args.scan_scale.split(":")
+    scales = [float(lo) * (float(hi) / float(lo)) ** (i / (int(count) - 1))
+              for i in range(int(count))] if int(count) > 1 else [float(lo)]
+    code = build_code(cfg)
+    sp = de.spectra_from_code(code)
+    rate = code.k_eff / code.n
+    best = None
+    for s in scales:
+        q = dataclasses.replace(cfg.quant, scale=s)
+        if cfg.decoder.algorithm == "min-star":
+            from .config import minstar_thresholds
+            # the LUT re-derives per scale: the scan covers the actual
+            # hardware family (larger scale = more correction thresholds)
+            beta, alpha, ms = 0, None, minstar_thresholds(q)
+        else:
+            beta, alpha = cn_params(cfg.decoder, q)
+            ms = None
+        try:
+            sigma = de.de_threshold_awgn_spectra(
+                sp, q, beta=beta, alpha=alpha, iters=args.iters,
+                tol=args.tol, target=args.target,
+                bracket=tuple(args.bracket), minstar=ms)
+            row = {"scale": round(s, 4), "bits": q.bits,
+                   "sigma_star": round(sigma, 4),
+                   "ebn0_star_db": round(
+                       -20.0 * math.log10(sigma * math.sqrt(2 * rate)), 3)}
+        except (AssertionError, ValueError) as e:
+            row = {"scale": round(s, 4), "bits": q.bits, "error": str(e)}
+        print(json.dumps(row), flush=True)
+        if "ebn0_star_db" in row and (
+                best is None or row["ebn0_star_db"] < best["ebn0_star_db"]):
+            best = row
+    if best is None:
+        raise SystemExit("scan-scale: no scale produced a threshold; widen "
+                         "--bracket or relax --target")
+    print(json.dumps({"best_scale": best["scale"],
+                      "best_ebn0_star_db": best["ebn0_star_db"],
+                      "code": code.name, "bits": cfg.quant.bits,
+                      "algorithm": cfg.decoder.algorithm}))
+    return 0
+
+
+def cmd_construct(args) -> int:
+    """Construct the configured code (any family; the point is qcpeg),
+    report its structural quality (girth and full rank up to n = 8,192,
+    `--census` the exhaustive absorbing-set census), optionally export
+    alist. Numpy and host C."""
+    from .codes import build_code
+    from .codes.code import gf2_rank
+    from .codes.peg import girth
+
+    cfg = _run_config(args)
+    code = build_code(cfg)
+    out = {"code": code.name, "family": cfg.code.family, "n": code.n,
+           "k": code.k, "m": code.m, "Z": code.Z, "edges": code.num_edges,
+           "rate": code.rate, "standard_exact": code.standard_exact}
+    if code.n <= 8192:
+        out["girth"] = girth(code)
+        out["full_rank"] = gf2_rank(code.h_dense()) == code.m
+    if getattr(args, "census", None):
+        from .analysis.asenum import exact_absorbing_census
+        a_max, b_max, dv_cap = (int(x) for x in args.census.split(","))
+        c = exact_absorbing_census(code, a_max=a_max, b_max=b_max,
+                                   dv_cap=dv_cap)
+        del c["key"]  # JSON-unfriendly tuple; classes carry the content
+        out["absorbing_census"] = c
+    if getattr(args, "export_alist", None):
+        from .codes.alist import write_alist
+        write_alist(code, args.export_alist)
+        out["alist"] = args.export_alist
+    print(json.dumps(out))
+    return 0
+
+
+def cmd_import_standard(args) -> int:
+    """One-command exact-table swap-in (codes/imported.py): validate a
+    published standard shift table against the family invariants
+    (dimensions, shift range, GF(2) rank, girth, IRA encodability, degree
+    profile), smoke-decode it on `--device`, and store it in the table
+    registry. Family builders then return the exact table with
+    standard_exact=True."""
+    import os
+
+    from .codes import imported as imp
+
+    if args.tables_dir:
+        os.environ["LDPC_TPU_TABLES"] = args.tables_dir
+    fam = args.family
+    if fam == "ieee80211n":
+        if not (args.n and args.rate):
+            raise SystemExit("import-standard: ieee80211n needs --n --rate")
+        key = f"n{args.n}_r{args.rate.replace('/', '')}"
+    elif fam == "dvbs2":
+        if not (args.n and args.rate):
+            raise SystemExit("import-standard: dvbs2 needs --n --rate")
+        key = f"n{args.n}_r{args.rate.replace('/', '')}"
+    elif fam == "5gnr":
+        if not (args.base_graph and args.z):
+            raise SystemExit("import-standard: 5gnr needs --base-graph --z")
+        key = f"bg{args.base_graph}_z{args.z}"
+    else:
+        raise SystemExit(f"import-standard: unsupported family {fam!r}")
+
+    if args.remove:
+        ok = imp.remove(fam, key)
+        print(json.dumps({"family": fam, "key": key,
+                          "removed": bool(ok)}))
+        return 0 if ok else 1
+
+    if not args.file:
+        raise SystemExit("import-standard: --file is required")
+    Z_file, base = imp.parse_table_file(args.file)
+    Z = args.z or Z_file
+    if Z is None:
+        raise SystemExit("import-standard: lifting size unknown — pass "
+                         "--z or use a JSON file with a 'Z' field")
+    try:
+        report = imp.validate_table(fam, Z, base, n=args.n, rate=args.rate,
+                                    base_graph=args.base_graph)
+        if not args.no_smoke:
+            report["smoke"] = imp.smoke_decode(Z, base, device=args.device)
+    except ValueError as e:
+        raise SystemExit(f"import-standard: REJECTED — {e}")
+    path = imp.store(fam, key, Z, base,
+                     meta={"source": os.path.abspath(args.file),
+                           "validation": report})
+    report.update({"stored": path, "family": fam, "key": key})
+    print(json.dumps(report))
+    return 0
+
+
+def cmd_codes(args) -> int:
+    from .codes.ieee80211n import all_codes
+    export = getattr(args, "export_alist", None)
+    if export:
+        import os
+        from .codes.alist import write_alist
+        os.makedirs(export, exist_ok=True)
+    for code in all_codes():
+        print(f"{code.name}: n={code.n} k={code.k} m={code.m} Z={code.Z} "
+              f"E={code.num_edges} exact={code.standard_exact}")
+        if export:
+            write_alist(code, os.path.join(export, f"{code.name}.alist"))
+    if export:
+        print(f"wrote alist files to {export}/")
+    return 0
+
+
+def cmd_report(args) -> int:
+    import types
+
+    from .sim.report import plot_waterfall
+
+    results = []
+    for path in args.jsons:
+        with open(path) as f:
+            d = json.load(f)
+        results.append(types.SimpleNamespace(
+            code_name=d["code"], decoder_backend=d["decoder_backend"],
+            rows=lambda rows=d["results"]: rows))
+    plot_waterfall(results, args.out, metric=args.metric)
+    print(f"wrote {args.out}")
+    return 0
+
+
+def cmd_config(args) -> int:
+    # the config as resolved, a preset's mesh included: `config` builds
+    # nothing, so it prints what the reference prints
+    print(_build_config(args).to_json())
+    return 0
+
+
+def _analyze_pexit(args, cfg) -> int:
+    """PEXIT threshold (analysis/exit.py): float sum-product under the
+    consistent-Gaussian approximation, per-edge-type MI recursion, the fast
+    design-screening leg of the analysis funnel (PEXIT screen -> exact
+    proto-DE -> Monte-Carlo on the card). Quantizer and fixed-point
+    algorithm flags do not apply and are noted if set."""
+    from .analysis.exit import exit_curves_regular, pexit_threshold_awgn
+    from .codes import build_code
+
+    if args.channel != "awgn":
+        raise SystemExit("analyze: --pexit supports AWGN only")
+    noted = [f for f, v in (("--algorithm", args.algorithm),
+                            ("--bits", args.bits),
+                            ("--beta-lsb", args.beta_lsb)) if v is not None]
+    if noted:
+        print(f"# note: ignored by --pexit (float sum-product ensemble "
+              f"analysis): {' '.join(noted)}", file=sys.stderr)
+    code = build_code(cfg)
+    lo, hi = args.bracket
+    # analyze's default sigma bracket is tuned for quantized DE; PEXIT
+    # (float SP) thresholds sit higher: widen the default high end
+    if tuple(args.bracket) == (0.3, 1.5):
+        hi = 2.4
+    try:
+        sigma, ebn0 = pexit_threshold_awgn(
+            code, iters=max(args.iters, 300), target_pe=args.target,
+            tol=args.tol, bracket=(lo, hi))
+    except (AssertionError, ValueError) as e:
+        raise SystemExit(f"analyze --pexit: {e}")
+    excl = set(map(int, code.punct_vns)) | set(map(int, code.shortened_vns))
+    rate = code.k_eff / (code.n - len(excl))
+    out = {"channel": "awgn-bpsk", "code": code.name,
+           "method": "pexit (protograph EXIT, consistent-Gaussian float "
+                     "sum-product; rate matching modeled per column)",
+           "rate_for_ebn0": rate,
+           "sigma_star": round(sigma, 4),
+           "ebn0_star_db": round(ebn0, 3),
+           "pe_target": args.target,
+           "note": "Gaussian-approximation ensemble asymptote — screening "
+                   "figure; validate finalists with --proto (exact "
+                   "quantized multi-edge-type DE) and silicon MC"}
+    if args.exit_chart:
+        # average-degree EXIT chart at the threshold: the classic tunnel
+        # picture (closing exactly at sigma*)
+        import numpy as np
+
+        from .analysis.de import spectra_from_code
+        sp = spectra_from_code(code)
+        dv = float((np.arange(len(sp.vnode)) * sp.vnode).sum())
+        dc = float((np.arange(len(sp.cnode)) * sp.cnode).sum())
+        Ia, I_ev, I_ec_inv = exit_curves_regular(
+            max(2, int(round(dv))), max(2, int(round(dc))), sigma)
+        with open(args.exit_chart, "w") as f:
+            json.dump({"sigma_n": sigma, "dv": int(round(dv)),
+                       "dc": int(round(dc)),
+                       "I_a": [round(float(x), 6) for x in Ia],
+                       "I_ev": [round(float(x), 6) for x in I_ev],
+                       "I_ec_inv": [round(float(x), 6) for x in I_ec_inv]},
+                      f)
+        out["exit_chart"] = args.exit_chart
+    print(json.dumps(out))
+    return 0
+
+
+def cmd_analyze(args) -> int:
+    """Density-evolution threshold for the configured code
+    (analysis/de.py, proto_de.py, exit.py). Numpy on the host."""
+    from .analysis import de
+    from .codes import build_code
+    from .config import cn_params
+
+    cfg = _run_config(args)
+    if getattr(args, "pexit", False):
+        # dispatch BEFORE the quantized-DE algorithm gate: PEXIT is float
+        # sum-product and merely notes ignored algorithm flags
+        return _analyze_pexit(args, cfg)
+    if cfg.decoder.algorithm not in ("min-sum", "offset-min-sum",
+                                     "normalized-min-sum", "min-star"):
+        raise SystemExit(f"analyze: quantized DE covers the fixed-point "
+                         f"min-sum family and min-star, not "
+                         f"{cfg.decoder.algorithm}")
+    if getattr(args, "scan_scale", None):
+        return _analyze_scan_scale(args, cfg)
+    # DE uses only the code profile + quantizer + CN parameters; note the
+    # decode/sweep flags that parse but cannot affect the computation
+    # (--iters, not --max-iter, bounds the DE recursion).
+    ignored = [f for f, v in (
+        ("--max-iter", args.max_iter), ("--schedule", args.schedule),
+        ("--modulation", args.modulation), ("--batch", args.batch),
+        ("--seed", args.seed), ("--rng", args.rng),
+        ("--phase1-iters", args.phase1_iters),
+        ("--no-early-term", args.no_early_term),
+        ("--all-zeros", args.all_zeros)) if v]
+    if ignored:
+        print(f"# note: ignored by analyze (DE is decoder-parameter-only): "
+              f"{' '.join(ignored)}", file=sys.stderr)
+    code = build_code(cfg)
+    sp = de.spectra_from_code(code)
+    if cfg.decoder.algorithm == "min-star":
+        from .config import minstar_thresholds
+        beta, alpha, minstar = 0, None, minstar_thresholds(cfg.quant)
+    else:
+        beta, alpha = cn_params(cfg.decoder, cfg.quant)
+        minstar = None
+    kw = dict(beta=beta, alpha=alpha, iters=args.iters, tol=args.tol,
+              target=args.target, minstar=minstar)
+    if sp.vnode[1] > 0 and args.min_decision_degree < 2:
+        print("# note: code has degree-1 variables (irreducible decision "
+              "floor); consider --min-decision-degree 2", file=sys.stderr)
+    if args.min_decision_degree > 1:
+        kw["decision_vnode"] = de.decision_weights_min_degree(
+            sp, args.min_decision_degree)
+    try:
+        if args.proto:
+            if args.channel != "awgn":
+                raise SystemExit("analyze: --proto supports AWGN only")
+            if args.min_decision_degree > 1:
+                print("# note: --min-decision-degree ignored with --proto "
+                      "(protograph decision Pe is already over info columns, "
+                      "which excludes the degree-1 parity variables)",
+                      file=sys.stderr)
+            from .analysis.proto_de import proto_de_threshold_awgn
+            lo, hi = args.bracket
+            sigma = proto_de_threshold_awgn(
+                code, cfg.quant, beta=beta, alpha=alpha, iters=args.iters,
+                tol=args.tol, target=args.target, bracket=(lo, hi),
+                minstar=minstar)
+            excl = set(map(int, code.punct_vns)) | set(
+                map(int, code.shortened_vns))
+            rate = code.k_eff / (code.n - len(excl))
+            out = {"channel": "awgn-bpsk", "code": code.name,
+                   "method": "protograph (multi-edge-type, rate matching "
+                             "modeled; decision = info columns)",
+                   "rate_for_ebn0": rate, "bits": cfg.quant.bits,
+                   "algorithm": cfg.decoder.algorithm,
+                   "sigma_star": round(sigma, 4),
+                   "ebn0_star_db": round(
+                       -20.0 * math.log10(sigma * math.sqrt(2 * rate)), 3)}
+            if sigma >= hi - 2 * args.tol:
+                out["bracket_saturated"] = True
+        elif args.channel == "awgn":
+            lo, hi = args.bracket
+            sigma = de.de_threshold_awgn_spectra(
+                sp, cfg.quant, bracket=(lo, hi), **kw)
+            rate = code.k_eff / code.n
+            out = {"channel": "awgn-bpsk", "code": code.name,
+                   "rate": rate, "bits": cfg.quant.bits,
+                   "algorithm": cfg.decoder.algorithm,
+                   "sigma_star": round(sigma, 4),
+                   "ebn0_star_db": round(
+                       -20.0 * math.log10(sigma * math.sqrt(2 * rate)), 3)}
+            if sigma >= hi - 2 * args.tol:
+                out["bracket_saturated"] = True
+                print(f"# WARNING: threshold sits at the bracket's upper "
+                      f"edge ({hi}) — the true sigma* may be larger; "
+                      f"raise --bracket", file=sys.stderr)
+        else:
+            p = de.de_threshold_bsc_spectra(
+                sp, cfg.quant, bracket=(1e-3, 0.4), **kw)
+            out = {"channel": "bsc", "code": code.name,
+                   "algorithm": cfg.decoder.algorithm,
+                   "p_star": round(p, 5)}
+            if p >= 0.4 - 2 * args.tol:
+                out["bracket_saturated"] = True
+    except ValueError as e:
+        # e.g. bit-granular (non-Z-aligned) puncturing, which the
+        # per-column analyses refuse rather than silently over-puncture
+        raise SystemExit(f"analyze: {e}")
+    except AssertionError as e:
+        raise SystemExit(
+            f"analyze: {e} — DE does not reach Pe <= {args.target} at the "
+            f"bracket's easy end; widen --bracket downward, raise --iters, "
+            f"or relax --target (profiles with DE floors, e.g. NR mother "
+            f"codes, need --target 1e-4 --min-decision-degree 2)")
+    out.update({"pe_target": args.target,
+                "max_dv": sp.max_dv, "max_dc": sp.max_dc,
+                "note": ("protograph ensemble asymptote (exact edge types "
+                         "of the structured base)" if args.proto else
+                         "ensemble asymptote over the code's lambda/rho "
+                         "spectra (single edge type)")})
+    print(json.dumps(out))
+    return 0
+
+
+NR_SEED_NOTE = (
+    "A 5gnr table in the registry ($LDPC_TPU_TABLES, else "
+    "<repo>/imported_tables) is the base graph of every NR code of its "
+    "(base graph, Z): codes.nr_bg.full_graph returns it whatever seed it is "
+    "given, as the reference does. Remove it (import-standard --remove) to "
+    "get the generated graphs back.")
 
 
 def _config_flags(q: argparse.ArgumentParser) -> None:
@@ -486,14 +902,105 @@ def build_parser() -> argparse.ArgumentParser:
                          "torch versions")
     fl.add_argument("--mesh", default=None,
                     help="not ported (parallel/mesh.py)")
+    cfgp = sub.add_parser("config", help="print the resolved config JSON")
+    _config_flags(cfgp)
+    co = sub.add_parser(
+        "construct",
+        help="construct a code (e.g. --family qcpeg) and report "
+             "girth/rank; --export-alist FILE writes H",
+        description=NR_SEED_NOTE)
+    _config_flags(co)
+    co.add_argument("--export-alist", dest="export_alist", default=None)
+    co.add_argument("--census", default=None, metavar="A,B,DVCAP",
+                    help="exhaustive absorbing-set census (native-C ESU "
+                         "enumeration, analysis/asenum.py), e.g. 8,3,3 = "
+                         "all connected sets a<=8 b<=3 over VNs of degree "
+                         "<=3")
+    an = sub.add_parser(
+        "analyze", help="density-evolution threshold for the configured "
+                        "code (offline, numpy: analysis/de.py)")
+    _config_flags(an)
+    an.add_argument("--channel", default="awgn", choices=["awgn", "bsc"])
+    an.add_argument("--iters", type=int, default=120)
+    an.add_argument("--tol", type=float, default=2e-3)
+    an.add_argument("--target", type=float, default=1e-7,
+                    help="Pe convergence target (use 1e-4 for profiles "
+                         "with DE floors, e.g. NR mother codes)")
+    an.add_argument("--bracket", type=float, nargs=2, default=[0.3, 1.5],
+                    help="AWGN sigma bisection bracket")
+    an.add_argument("--proto", action="store_true",
+                    help="protograph (multi-edge-type) DE: exact for the "
+                         "structured bases, rate matching modeled, "
+                         "decision over info columns (slower: NR BG1 "
+                         "Z=384 ~2 min)")
+    an.add_argument("--pexit", action="store_true",
+                    help="protograph EXIT (Gaussian-approximation float "
+                         "sum-product, analysis/exit.py): the fast "
+                         "design-screening tool (~35x/threshold vs "
+                         "--proto at production scale); "
+                         "quantizer/algorithm flags do not apply")
+    an.add_argument("--exit-chart", dest="exit_chart", default=None,
+                    help="with --pexit: also write the (I_a, I_ev, "
+                         "I_ec^-1) EXIT chart of the profile's average "
+                         "(dv, dc) at the threshold to this JSON path")
+    an.add_argument("--scan-scale", dest="scan_scale", default=None,
+                    help="quantizer design: scan LLR scales 'lo:hi:count' "
+                         "(geometric) and report the DE threshold per "
+                         "scale + the best")
+    an.add_argument("--min-decision-degree", dest="min_decision_degree",
+                    type=int, default=1,
+                    help="restrict the decision average to variable "
+                         "degrees >= D (2 excludes NR's degree-1 "
+                         "extension parities)")
+    sub.add_parser("presets", help="list named workload presets")
+    cp = sub.add_parser("codes", help="list built-in 802.11n codes")
+    cp.add_argument("--export-alist", dest="export_alist", default=None,
+                    help="also write each code's H to DIR in alist format")
+    rp = sub.add_parser("report", help="plot waterfalls from saved results")
+    rp.add_argument("jsons", nargs="+", help="result .json files")
+    rp.add_argument("--out", required=True, help="output PNG path")
+    rp.add_argument("--metric", default="ber", choices=["ber", "fer"])
+    im = sub.add_parser(
+        "import-standard",
+        help="validate + install a published exact shift table "
+             "(codes/imported.py); family builders then return it with "
+             "standard_exact=True",
+        description=NR_SEED_NOTE)
+    im.add_argument("--family", required=True,
+                    choices=["ieee80211n", "5gnr", "dvbs2"])
+    im.add_argument("--n", type=int, default=None)
+    im.add_argument("--rate", default=None)
+    im.add_argument("--base-graph", dest="base_graph", type=int,
+                    default=None)
+    im.add_argument("--z", type=int, default=None,
+                    help="lifting size (optional for JSON files with 'Z')")
+    im.add_argument("--file", default=None,
+                    help="shift table: JSON {'Z', 'base'} or whitespace "
+                         "grid ('-' = no edge)")
+    im.add_argument("--no-smoke", dest="no_smoke", action="store_true",
+                    help="skip the decode smoke test")
+    im.add_argument("--remove", action="store_true",
+                    help="remove a previously imported table instead")
+    im.add_argument("--tables-dir", dest="tables_dir", default=None,
+                    help="registry directory (default $LDPC_TPU_TABLES or "
+                         "<repo>/imported_tables)")
+    im.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
+                    help="where the smoke decode runs: the CUDA kernels or "
+                         "the plain torch versions")
     return p
+
+
+COMMANDS = {"sweep": cmd_sweep, "floor": cmd_floor, "presets": cmd_presets,
+            "codes": cmd_codes, "config": cmd_config, "report": cmd_report,
+            "analyze": cmd_analyze, "construct": cmd_construct,
+            "import-standard": cmd_import_standard}
 
 
 def main(argv=None) -> int:
     logging.basicConfig(level=logging.INFO,
                         format="%(asctime)s %(name)s %(message)s")
     args = build_parser().parse_args(argv)
-    return {"sweep": cmd_sweep, "floor": cmd_floor}[args.cmd](args)
+    return COMMANDS[args.cmd](args)
 
 
 if __name__ == "__main__":

@@ -75,7 +75,10 @@ Phases, each printing its lines; any failure raises and exits non-zero:
    (`wifi-648-oms-flood-et` with rng=device) with injected words and
    Philox at B=16,384 and at the ragged batches, NMS at 4,099; the packed
    layered MC instances at B = 1, 3, 5 and 4,099 (n=1944 rate 5/6 OMS and n=648 min*, with early termination,
-   Philox), fixed-20 at 4,099, and min* with injected words at 5; then the
+   Philox), fixed-20 at 4,099, and min* with injected words at 5; the
+   flooding fixed-20 and the layered OMS ET instances at lane0 = 8,192
+   (the first lane of rank 1 of slice 9b's two, B = 8,192), also == the
+   second half of a launch of 16,384 lanes from lane 0; then the
    streaming library (K6b-K6f) against its
    plain version, tolerance 0 on hard bits, iters and conv, 10 iterations:
    DVB-S2 n=64,800 (B=32), n=16,200 (B=128) and NR BG1 Z=384 (B=64, its
@@ -260,9 +263,33 @@ Phases, each printing its lines; any failure raises and exits non-zero:
    `nr-bg1-layered`, a two-batch sweep, `--remove`. A table with a
    4-cycle exits 1 with REJECTED, and the default registry
    `imported_tables/` gains no file;
-10. two-phase == single-phase counters on two batches of `wifi-full-oms`
+10. slice 9, the process mesh (`parallel/mesh.py`; `check_mesh`). 9a: a
+   world of one rank over NCCL (TCP coordinator on localhost):
+   `wifi-648-r12-minsum` at B = 16,384, host RNG, 2.0 dB, two batches,
+   == the same `Sweep` with no process group, two K1-IO launches. 9b: two
+   processes on the card over gloo (`chip_smoke.py --mesh-rank R 2
+   HOST:PORT`), 8,192 lanes a rank: host RNG (K1-IO), rng=device (K1-MC,
+   rank 1 from lane 8,192) and the two-point fused device-RNG sweep, each
+   == this process's run, each rank two launches and nothing plain. 9c:
+   `sweep --preset multihost-qam-chain --mesh 2x4 --num-processes 8
+   --coordinator ... --process-id i`, eight processes on the card (gloo),
+   the preset's batch of 4,096 (512 lanes a rank), three batches at
+   5.5 dB: rank 0's JSON == the one-process run without --mesh, each
+   rank's stderr line three packed K3 launches and nothing plain. 9d:
+   `floor --mesh 2` (two processes from torchrun's environment) on
+   wifi-648-nms-floor's configuration, two stratified IS batches at
+   3.0 dB: frames and raw hits ==, FER, rel_std and BER within rtol 1e-6
+   of one process. 9e: the step of 9a with and without the process group
+   in turns, and the global draw's share of a rank's step at W = 1 and 2
+   (host clock, median of 10, synced). 9f: `python -m
+   ldpc_tpu_torch.parallel.dryrun --world 2 --device cuda` (the flagship
+   step on K1-IO, the fused step and the streaming seam, a toy Z=8 code
+   forced onto the streaming library, over a 1x2 mesh, each == one
+   process), beside 9c and 9d. W ranks on one card share its SMs: no
+   scaling is measured;
+11. two-phase == single-phase counters on two batches of `wifi-full-oms`
    at 3.5 dB;
-11. times: kernels with CUDA events (warm-up, median, plain and kernel in
+12. times: kernels with CUDA events (warm-up, median, plain and kernel in
    turns), each of the decoder object its main path launched and at that
    batch (run_fused's per-lane megakernel at 18,432, K3 of
    `qam16-1944-chain` on 16-QAM LLRs at 6.0 dB; K2 as the min-sum ET
@@ -332,7 +359,9 @@ import dataclasses
 import json
 import math
 import os
+import re
 import shutil
+import socket
 import statistics
 import subprocess
 import sys
@@ -1194,6 +1223,24 @@ def check_mc_kernels(port, minsum, dev):
     compare("K1-MC n1944 r5/6 layered OMS ET 3.5 dB Philox", d,
             d.kernel(seed + 1, s35, g35), d.plain(seed + 1, s35, g35))
     timed["layered"] = (d, (seed + 1, s35, g35), {})
+    # lane0: the first lane of a rank's share of a batch split over a
+    # process mesh (slice 9b: rank 1 of two at B = 16,384 counts Philox from
+    # lane 8,192); its lanes are also the second half of the launch of the
+    # whole batch from lane 0
+    half = BATCH // 2
+    for what, ct, cfg, s, g in (
+            ("n648 flooding fixed-20 2.0 dB", wifi, cfg648, s20, g20),
+            ("n1944 r5/6 layered OMS ET 3.5 dB", r56, oms, s35, g35)):
+        d = make(ct, cfg, batch=half)
+        out_k = d.kernel(seed + 3, s, g, lane0=half)
+        compare(f"K1-MC {what} Philox lane0={half}", d, out_k,
+                d.plain(seed + 3, s, g, lane0=half))
+        whole = make(ct, cfg).kernel(seed + 3, s, g)
+        same = all(torch.equal(a[half:], b) for a, b in zip(whole, out_k))
+        print(f"  == lanes [{half}, {BATCH}) of the launch of {BATCH} "
+              f"lanes from lane 0: {same}", flush=True)
+        if not same:
+            raise AssertionError("K1-MC at lane0 != the whole batch's lanes")
     # per-lane sigma, as run_fused runs it: the fused batch, six points,
     # lane b at point b % 6
     sig6 = np.asarray([sigma_for(e, wifi.code.rate, "bpsk")
@@ -2716,6 +2763,324 @@ def check_hard(port, minsum, stream, dev):
                                  f"{h['ref']} at p = {p}")
 
 
+# Slice 9, the process mesh (`parallel/mesh.py`): each run's rows and the
+# same run without a mesh. MESH_RUNS: name -> (rng, Eb/N0 points, fused);
+# two batches of B = 16,384 a run (a point of a fused run: 8,192 lanes a
+# batch), no stop on errors
+MESH_RUNS = {"host": ("host", (2.0,), False),
+             "device": ("device", (2.0,), False),
+             "fused": ("device", (1.5, 2.5), True)}
+MESH_QAM = dict(preset="multihost-qam-chain", mesh="2x4", ranks=8,
+                ebn0="5.5", frames=3 * 4096)
+MESH_FLOOR = ["floor", "--algorithm", "normalized-min-sum", "--beta-lsb",
+              "0", "--schedule", "layered", "--harvest-frames", "16384",
+              "--batch", "8192", "--frames", "16384", "--ebn0", "3.0",
+              "--delta", "1.2,1.6,2.0,2.4", "--stratified"]
+RANK_LINE = re.compile(
+    r"# rank (\d+) of (\d+) \((\w+), mesh \(([\d, ]+)\)\): lanes \[(\d+), "
+    r"(\d+)\), decoder (\S+), kernel launches (\d+) \(packed (\d+), MC "
+    r"(\d+)\), streaming launches (\d+), plain calls (\d+)")
+
+
+def free_port():
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def stop_all(procs):
+    """Kills every process of `procs` still running: a rank that failed
+    leaves its peers waiting in a collective."""
+    for p in procs:
+        if p.poll() is None:
+            p.kill()
+            p.wait()
+
+
+def mesh_sweep(port, name, mesh=None):
+    """MESH_RUNS[name] on `wifi-648-r12-minsum` at B = 16,384 over `mesh`
+    (None: one process): (rows, the sweep)."""
+    from ldpc_tpu_torch.sim import Sweep
+    rng, points, fused = MESH_RUNS[name]
+    cfg = slice_config(port, "wifi-648-r12-minsum", rng)
+    sw = Sweep(cfg, device="cuda", batch=BATCH, mesh=mesh)
+    run = sw.run_fused if fused else sw.run
+    frames = BATCH if fused else 2 * BATCH
+    res = run(list(points), target_frame_errors=10 ** 9, max_frames=frames)
+    return [[p.ebn0_db, p.frames, p.bit_errs, p.frame_errs, p.iter_sum,
+             p.converged, p.batches] for p in res.points], sw
+
+
+def draw_seconds(ct, B, reps=10):
+    """Host-clock seconds (synced) of the host chain's draws of a batch of
+    B codewords on the card: info bits (k, B), then BPSK noise (n, B)."""
+    g = torch.Generator(device="cuda")
+    g.manual_seed(1)
+    out = []
+    for i in range(reps + 3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        torch.randint(0, 2, (ct.k, B), generator=g, device="cuda",
+                      dtype=torch.uint8)
+        torch.randn((ct.n, B), generator=g, device="cuda")
+        torch.cuda.synchronize()
+        if i >= 3:
+            out.append(time.perf_counter() - t0)
+    return out
+
+
+def mesh_rank_main(argv):
+    """One rank of slice 9b (`chip_smoke.py --mesh-rank R WORLD
+    COORDINATOR`): MESH_RUNS over a flat mesh of WORLD ranks on the card,
+    each run's rows, label, first lane and launch counters (reset before
+    it), then the rank's step and the global draw's times; one JSON line."""
+    import torch.distributed as dist
+    rank, world, coordinator = int(argv[0]), int(argv[1]), argv[2]
+    port = import_port()
+    from ldpc_tpu_torch.kernels import minsum
+    from ldpc_tpu_torch.ops.channel import sigma_for
+    from ldpc_tpu_torch.parallel import init_distributed, make_mesh
+    init_distributed(coordinator, world, rank, device="cuda")
+    try:
+        mesh = make_mesh(device="cuda")
+        out = {}
+        for name in MESH_RUNS:
+            minsum.reset_counters()
+            rows, sw = mesh_sweep(port, name, mesh)
+            torch.cuda.synchronize()
+            out[name] = {"rows": rows, "label": sw.backend,
+                         "lane0": sw.run_batch.lane0,
+                         "local": sw.run_batch.local_batch,
+                         "launches": minsum.kernel_launches,
+                         "mc": sum(minsum.mc_launches.values()),
+                         "plain": minsum.plain_calls}
+            if name == "host":
+                s20 = np.float32(sigma_for(2.0, sw.code.rate, "bpsk"))
+                out["step_s"] = step_seconds(sw.run_batch,
+                                             sw.generator(0, 0), s20)
+                out["draw_s"] = draw_seconds(sw.ct, BATCH)
+        print(json.dumps(out), flush=True)
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def check_mesh(port, minsum, gpu):
+    """Slice 9, the process mesh (`parallel/mesh.py`, the mesh plumbing of
+    `sim/` and the CLI). 9a: a world of one rank over NCCL on the card (a
+    TCP coordinator on localhost): `Sweep` on `wifi-648-r12-minsum` at
+    B = 16,384, host RNG, 2.0 dB, two batches, == the same sweep with no
+    process group, through K1-IO only. 9b: a world of two processes on the
+    card over gloo, 8,192 lanes a rank: the host-RNG sweep (K1-IO), the
+    device-RNG sweep (K1-MC; rank 1 counts Philox from lane 8,192) and the
+    two-point fused device-RNG sweep, each == this process's run, each
+    rank's launches its kernel's, nothing plain. 9c: `sweep --preset
+    multihost-qam-chain --mesh 2x4` over eight processes on the card
+    (gloo), the preset's batch of 4,096 (512 lanes a rank, K3's packed
+    instance on each), three batches at 5.5 dB, rank 0's JSON == the same
+    command's one-process run without --mesh, each rank's launches (its
+    stderr line) K3 only. 9d: `floor --mesh 2` on wifi-648-nms-floor's
+    configuration (two processes from torchrun's environment, one card),
+    two stratified IS batches at 3.0 dB: raw hits and frames ==, FER,
+    rel_std and BER within rtol 1e-6 of the one-process run. 9e: the step
+    of 9a with and without the process group, in turns, and the global
+    draw's share of a rank's step at W = 1 and 2 (host clock, median of
+    10, synced). 9f: `python -m ldpc_tpu_torch.parallel.dryrun --world 2
+    --device cuda`, beside 9c and 9d. Returns the times."""
+    import torch.distributed as dist
+
+    from ldpc_tpu_torch.ops.channel import sigma_for
+    from ldpc_tpu_torch.parallel import init_distributed, make_mesh
+    t_all = time.perf_counter()
+    times = {}
+    # 9a: a world of one over NCCL, against no process group
+    one = {}
+    for name in MESH_RUNS:
+        one[name], sw1 = mesh_sweep(port, name)
+        if name == "host":
+            base = sw1
+    backend = init_distributed(f"localhost:{free_port()}", 1, 0,
+                               device="cuda")
+    try:
+        mesh = make_mesh(device="cuda")
+        minsum.reset_counters()
+        rows, swm = mesh_sweep(port, "host", mesh)
+        torch.cuda.synchronize()
+        launched = (minsum.kernel_launches, minsum.plain_calls)
+        ok = (rows == one["host"] and backend == "nccl"
+              and launched == (2, 0))
+        print(f"9a world of one ({backend}, mesh {tuple(mesh.mesh.shape)}) "
+              f"{swm.backend}: {rows} == no process group {one['host']}: "
+              f"{rows == one['host']}; launches {launched[0]}, plain calls "
+              f"{launched[1]}", flush=True)
+        if not ok:
+            raise AssertionError("slice 9a: world of one != no process group")
+        # 9e at W = 1: the step with and without the process group, in turns
+        s20 = np.float32(sigma_for(2.0, base.code.rate, "bpsk"))
+        for turn in ("none", "nccl", "nccl", "none"):
+            sw = base if turn == "none" else swm
+            st = step_seconds(sw.run_batch, sw.generator(0, 0), s20)
+            times.setdefault(turn, []).append(statistics.median(st))
+            print(f"[{gpu}] 9e step ({sw.backend}) of {BATCH} codewords, "
+                  f"process group {turn}: {statistics.median(st) * 1e3:.4f} "
+                  f"ms median of {len(st)} (min {min(st) * 1e3:.4f}, max "
+                  f"{max(st) * 1e3:.4f})", flush=True)
+    finally:
+        dist.destroy_process_group()
+    draw = statistics.median(draw_seconds(base.ct, BATCH))
+    step1 = min(times["none"])
+    times["draw W=1"] = draw
+    print(f"[{gpu}] 9e the global draw of {BATCH} codewords (info bits, "
+          f"BPSK noise): {draw * 1e3:.4f} ms median of 10, "
+          f"{100 * draw / step1:.1f}% of the step at W = 1 "
+          f"({step1 * 1e3:.4f} ms)", flush=True)
+
+    # 9b: two processes on the card over gloo
+    t0 = time.perf_counter()
+    coordinator = f"localhost:{free_port()}"
+    procs = [start([sys.executable, os.path.join(HERE, "chip_smoke.py"),
+                    "--mesh-rank", str(r), "2", coordinator])
+             for r in range(2)]
+    try:
+        ranks = [json.loads(finish(p, f"slice 9b rank {r}", timeout=600
+                                   )[0].strip().splitlines()[-1])
+                 for r, p in enumerate(procs)]
+    finally:
+        stop_all(procs)
+    for name in MESH_RUNS:
+        got = [rk[name] for rk in ranks]
+        kernel = "mc" if MESH_RUNS[name][0] == "device" else "launches"
+        ok = (all(g["rows"] == one[name] for g in got)
+              and [g["lane0"] for g in got] == [0, BATCH // 2]
+              and all(g[kernel] == g["launches"] == 2 and g["plain"] == 0
+                      for g in got))
+        print(f"9b {name} over two ranks ({got[0]['label']}, lanes "
+              f"{[(g['lane0'], g['local']) for g in got]}): {got[0]['rows']} "
+              f"== one process {one[name]}: {ok}; launches a rank "
+              f"{[g['launches'] for g in got]} (MC {[g['mc'] for g in got]}),"
+              f" plain {[g['plain'] for g in got]}", flush=True)
+        if not ok:
+            raise AssertionError(f"slice 9b {name}: {got} != {one[name]}")
+    step2 = statistics.median(ranks[0]["step_s"])
+    draw2 = statistics.median(ranks[0]["draw_s"])
+    times.update({"step W=2": step2, "draw W=2": draw2})
+    print(f"[{gpu}] 9e rank 0 of two (gloo, one card): step of its "
+          f"{BATCH // 2} lanes {step2 * 1e3:.4f} ms median of 10, the "
+          f"global draw {draw2 * 1e3:.4f} ms ({100 * draw2 / step2:.1f}% of "
+          f"the step); {time.perf_counter() - t0:.1f} s", flush=True)
+
+    # 9c and 9d at once: the CLI over eight ranks and floor --mesh 2, each
+    # beside its one-process run
+    t0 = time.perf_counter()
+    q = MESH_QAM
+    with tempfile.TemporaryDirectory() as tmp:
+        common = ["sweep", "--preset", q["preset"], "--ebn0", q["ebn0"],
+                  "--max-frames", str(q["frames"]), "--target-errors",
+                  "1000000000", "--no-checkpoint"]
+        coordinator = f"localhost:{free_port()}"
+        started = []
+        try:
+            qam = [start(cli_cmd(*common, "--mesh", q["mesh"],
+                                 "--num-processes", str(q["ranks"]),
+                                 "--coordinator", coordinator,
+                                 "--process-id", str(r), "--out",
+                                 os.path.join(tmp, f"qam{r}")))
+                   for r in range(q["ranks"])]
+            started += qam
+            qam_one = start(cli_cmd(*common, "--out",
+                                    os.path.join(tmp, "qam")))
+            started.append(qam_one)
+            env = {"WORLD_SIZE": "2", "MASTER_ADDR": "localhost",
+                   "MASTER_PORT": str(free_port())}
+            floor = [start(cli_cmd(*MESH_FLOOR, "--mesh", "2", "--out",
+                                   os.path.join(tmp, f"floor{r}.json")),
+                           env={**env, "RANK": str(r)}) for r in range(2)]
+            started += floor
+            floor_one = start(cli_cmd(*MESH_FLOOR, "--out",
+                                      os.path.join(tmp, "floor.json")))
+            started.append(floor_one)
+            dryrun = start([sys.executable, "-m",
+                            "ldpc_tpu_torch.parallel.dryrun", "--world", "2",
+                            "--device", "cuda", "--timeout", "300"])
+            started.append(dryrun)
+            qam_err = [finish(p, f"slice 9c rank {r}")[1]
+                       for r, p in enumerate(qam)]
+            finish(qam_one, "slice 9c, one process")
+            floor_err = [finish(p, f"slice 9d rank {r}")[1]
+                         for r, p in enumerate(floor)]
+            finish(floor_one, "slice 9d, one process")
+            dry = finish(dryrun, "slice 9f, the dry run", timeout=400)[0]
+        finally:
+            stop_all(started)
+        res = {}
+        for name in ("qam0", "qam", "floor0.json", "floor.json"):
+            path = os.path.join(tmp, name + ("" if "." in name else ".json"))
+            with open(path) as fh:
+                res[name] = json.load(fh)
+        if any(os.path.exists(os.path.join(tmp, f"qam{r}.json"))
+               for r in range(1, q["ranks"])):
+            raise AssertionError("slice 9c: a rank other than 0 wrote")
+    skip = ("wall_s", "info_bps")
+
+    def counters(d):
+        return [{k: v for k, v in r.items() if k not in skip}
+                for r in d["results"]]
+
+    lines = [RANK_LINE.search(e) for e in qam_err]
+    if not all(lines):
+        raise AssertionError("slice 9c: a rank printed no launch line:\n"
+                             + "\n".join(e[-1500:] for e in qam_err))
+    batches = q["frames"] // 4096
+    for m in lines:
+        print(f"9c {m.group(0)[2:]}", flush=True)
+    ok = (counters(res["qam0"]) == counters(res["qam"])
+          and res["qam0"]["config"]["run"]["mesh_shape"] == [2, 4]
+          and [int(m.group(1)) for m in lines] == list(range(q["ranks"]))
+          and all(m.group(3) == "gloo" and m.group(7) == "cuda-minsum-layered"
+                  and int(m.group(8)) == int(m.group(9)) == batches
+                  and int(m.group(12)) == 0 and int(m.group(6)) -
+                  int(m.group(5)) == 512 for m in lines))
+    print(f"9c sweep --preset {q['preset']} --mesh {q['mesh']} over "
+          f"{q['ranks']} processes ({res['qam0']['decoder_backend']}): "
+          f"{counters(res['qam0'])} == one process without --mesh "
+          f"{counters(res['qam'])}: {ok}", flush=True)
+    if not ok:
+        raise AssertionError("slice 9c: the mesh run differs")
+    a, b = res["floor0.json"]["points"], res["floor.json"]["points"]
+    exact = [[p[k] for k in ("ebn0_db", "frames", "raw_hits")] for p in a]
+    close = np.asarray([[p[k] for k in ("fer", "rel_std", "ber")] for p in a])
+    want = np.asarray([[p[k] for k in ("fer", "rel_std", "ber")] for p in b])
+    lines = [RANK_LINE.search(e) for e in floor_err]
+    ok = (exact == [[p[k] for k in ("ebn0_db", "frames", "raw_hits")]
+                    for p in b]
+          and np.allclose(close, want, rtol=1e-6, atol=0)
+          and res["floor0.json"]["proposal"] == res["floor.json"]["proposal"]
+          and all(lines) and all(int(m.group(12)) == 0 for m in lines)
+          # rank 0 also harvested; rank 1 launched the two IS batches
+          and int(lines[1].group(8)) == 2 <= int(lines[0].group(8)))
+    for m in lines:
+        if m:
+            print(f"9d {m.group(0)[2:]}", flush=True)
+    print(f"9d floor --mesh 2 ({res['floor0.json']['proposal']['n_sets']} "
+          f"sets): frames, raw hits {exact} ==, FER/rel_std/BER {close.tolist()}"
+          f" against one process {want.tolist()} (rtol 1e-6): {ok}; 9c and "
+          f"9d {time.perf_counter() - t0:.1f} s", flush=True)
+    if not ok:
+        raise AssertionError("slice 9d: floor --mesh 2 differs")
+    lines = dry.strip().splitlines()
+    ranks = [json.loads(x) for x in lines[:-1]]
+    ok = (lines[-1] == "dryrun_multichip(2) ok" and len(ranks) == 2
+          and ranks[0]["labels"][0] == "cuda-minsum"
+          and ranks[0]["labels"][1].startswith("cuda-stream"))
+    print(f"9f python -m ldpc_tpu_torch.parallel.dryrun --world 2 --device "
+          f"cuda: {lines[-1]}; rank 0 {ranks[0] if ranks else None}: {ok}",
+          flush=True)
+    if not ok:
+        raise AssertionError("slice 9f: the dry run")
+    print(f"slice 9: {time.perf_counter() - t_all:.1f} s", flush=True)
+    return times
+
+
 def main():
     phase("device")
     if not torch.cuda.is_available():
@@ -3079,6 +3444,10 @@ def main():
     phase("slice 8: the design funnel and the table registry (DE, PEXIT, "
           "the census, import-standard with its smoke decode on the card)")
     smoke_launches = check_design(port, minsum, stream, gpu, worst)
+    phase("slice 9: the process mesh (a world of one over NCCL; two, "
+          "eight and two processes on the one card over gloo: the sweeps, "
+          "multihost-qam-chain --mesh 2x4 through the CLI, floor --mesh 2)")
+    check_mesh(port, minsum, gpu)
     loaded = sorted(m for m in sys.modules if m.split(".")[0] == "jax")
     if loaded:
         raise AssertionError(f"jax modules loaded: {loaded[:5]}")
@@ -3633,4 +4002,9 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    # both join a world (9a's world of one here, a 9b rank), so both leave
+    # as every rank does
+    rc = (mesh_rank_main(sys.argv[2:]) if sys.argv[1:2] == ["--mesh-rank"]
+          else main())
+    from ldpc_tpu_torch.parallel import exit_process
+    exit_process(rc or 0)

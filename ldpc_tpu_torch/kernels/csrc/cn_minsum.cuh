@@ -40,8 +40,9 @@ struct Mc {
   const float* gain_lane;   // (B,) per-lane gain, or null
   const int32_t* words;     // injected words (W, B), or null: Philox
   int cb;                   // dual-diagonal core rows of the parity part
+  int64_t lane0;            // global lane of lane 0: Philox counts lane0 + b
 };
-static_assert(sizeof(Mc) == 48, "Mc layout differs from McArgs");
+static_assert(sizeof(Mc) == 56, "Mc layout differs from McArgs");
 
 struct Params {
   const void* chan;

@@ -7,9 +7,10 @@
 // Replaces the mc branch of ldpc_tpu/kernels/minsum_pallas.py::kernel
 // (:432-558): the TPU hardware PRNG becomes Philox4x32-10 (philox.cuh)
 // keyed by the batch seed and counted by (global lane, word / 4), so a
-// lane's draws do not depend on the block shape; inject mode reads the
-// words from a (W, B) int32 tensor instead (the reference's inject_random
-// test hook). Word layout per lane (ops/rng.py::word_layout): kb*Z info
+// lane's draws depend neither on the block shape nor on the rank of a
+// process mesh that launches it (Mc::lane0 is the rank's first lane);
+// inject mode reads the launch's words from a (W, B) int32 tensor instead
+// (the reference's inject_random test hook). Word layout per lane (ops/rng.py::word_layout): kb*Z info
 // words, then nph*Z words n1 and nph*Z words n2 of the Box-Muller pairs,
 // nph = ceil(nb / 2). The plain torch version is ops/mc.py.
 //
@@ -40,10 +41,11 @@
 
 namespace ldpc {
 
-// Word w of lane b: Philox, or the injected tensor.
+// Word w of lane b: Philox at global lane lane0 + b, or the injected
+// tensor (the launch's own lanes).
 __device__ inline uint32_t mc_word(const Params& p, long long b, int w) {
   if (p.mc.words) return uint32_t(p.mc.words[size_t(w) * p.B + b]);
-  return philox_word(p.mc.key0, p.mc.key1, b, w);
+  return philox_word(p.mc.key0, p.mc.key1, p.mc.lane0 + b, w);
 }
 
 // The info bit of (base column j < kb, row) of lane b, drawn again.

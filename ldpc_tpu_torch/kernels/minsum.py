@@ -120,7 +120,8 @@ class McArgs(ctypes.Structure):
     """The Monte-Carlo stage's inputs, `ldpc::Mc` of csrc/cn_minsum.cuh."""
     _fields_ = [("key0", ctypes.c_uint32), ("key1", ctypes.c_uint32),
                 ("sigma", _F), ("gain", _F), ("sigma_lane", _P),
-                ("gain_lane", _P), ("words", _P), ("cb", _I)]
+                ("gain_lane", _P), ("words", _P), ("cb", _I),
+                ("lane0", ctypes.c_int64)]
 
 
 def load_library(name: str, rebuild: bool = False) -> build.Library:
@@ -571,8 +572,10 @@ class McDecoder:
     BPSK/AWGN/demap/quantize -> decode -> per-lane counters, in one launch
     of the `MC` instance of the schedule's library, or plainly.
 
-    Words come from Philox4x32-10 keyed by the 64-bit `seed` (`ops/rng`),
-    or, with inject_random, from `words` (W, B) int32, W =
+    Words come from Philox4x32-10 keyed by the 64-bit `seed` (`ops/rng`)
+    and counted from global lane `lane0` (a rank's first lane of a batch
+    split over a process mesh; 0 otherwise), or, with inject_random, from
+    `words` (W, B) int32 (the launch's own lanes), W =
     `rng.word_layout(kb, nb, Z)[2]`. sigma and gain (= 2 * scale /
     sigma**2, float32) are scalars, or with mc_lane_sigma float32 rows
     (B,) `sigma_lane` and `gain_lane`. Calls dispatch on the device of the
@@ -657,24 +660,25 @@ class McDecoder:
     def __call__(self, seed: int, sigma=None, gain=None, *,
                  words: Optional[torch.Tensor] = None,
                  sigma_lane: Optional[torch.Tensor] = None,
-                 gain_lane: Optional[torch.Tensor] = None
-                 ) -> Tuple[torch.Tensor, ...]:
+                 gain_lane: Optional[torch.Tensor] = None,
+                 lane0: int = 0) -> Tuple[torch.Tensor, ...]:
         dev = self._check(words, sigma_lane, gain_lane)
         fn = self.plain if dev.type == "cpu" else self.kernel
         return fn(seed, sigma, gain, words=words, sigma_lane=sigma_lane,
-                  gain_lane=gain_lane)
+                  gain_lane=gain_lane, lane0=lane0)
 
     def plain(self, seed: int, sigma=None, gain=None, *,
               words: Optional[torch.Tensor] = None,
               sigma_lane: Optional[torch.Tensor] = None,
-              gain_lane: Optional[torch.Tensor] = None
-              ) -> Tuple[torch.Tensor, ...]:
+              gain_lane: Optional[torch.Tensor] = None,
+              lane0: int = 0) -> Tuple[torch.Tensor, ...]:
         """The plain torch version, on the arguments' device."""
         global plain_calls
         dev = self._check(words, sigma_lane, gain_lane)
         plain_calls += 1
         if words is None:
-            words = rng.words(seed, self.n_words, self.batch, dev)
+            words = rng.words(seed, self.n_words, self.batch, dev,
+                              lane0=int(lane0))
         if self.lane_sigma:
             sigma, gain = sigma_lane, gain_lane
         else:
@@ -688,8 +692,8 @@ class McDecoder:
     def kernel(self, seed: int, sigma=None, gain=None, *,
                words: Optional[torch.Tensor] = None,
                sigma_lane: Optional[torch.Tensor] = None,
-               gain_lane: Optional[torch.Tensor] = None
-               ) -> Tuple[torch.Tensor, ...]:
+               gain_lane: Optional[torch.Tensor] = None,
+               lane0: int = 0) -> Tuple[torch.Tensor, ...]:
         """Launch the MC instance on the current stream of the device."""
         dev = self._check(words, sigma_lane, gain_lane)
         for t in (words, sigma_lane, gain_lane):
@@ -703,7 +707,7 @@ class McDecoder:
         mc = McArgs(seed & 0xFFFFFFFF, seed >> 32,
                     float(np.float32(sigma or 0.0)),
                     float(np.float32(gain or 0.0)), ptr(sigma_lane),
-                    ptr(gain_lane), ptr(words), self.cb)
+                    ptr(gain_lane), ptr(words), self.cb, int(lane0))
         return self.decoder.launch(dev, self.batch, mc=mc)
 
 

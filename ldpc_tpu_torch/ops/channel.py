@@ -250,11 +250,13 @@ def modulate_t(bits_t: torch.Tensor, modulation: str) -> torch.Tensor:
     return lut[_keys(bits_t.reshape(-1, 2, m // 2, B), 2)]  # (nsym, 2, B)
 
 
-def _normal(generator: Optional[torch.Generator], x: torch.Tensor
-            ) -> torch.Tensor:
+def standard_normal(generator: Optional[torch.Generator], shape,
+                    device) -> torch.Tensor:
+    """float32 N(0, 1) draws of `shape` from `generator`: the noise that
+    `awgn`/`awgn_t` draw for symbols of that shape."""
     if generator is None:
         raise ValueError("awgn needs a torch.Generator or injected noise")
-    return torch.randn(x.shape, generator=generator, device=x.device,
+    return torch.randn(tuple(shape), generator=generator, device=device,
                        dtype=torch.float32)
 
 
@@ -263,7 +265,8 @@ def awgn(generator: Optional[torch.Generator], x: torch.Tensor, sigma,
     """Batch-first AWGN: x (B, ...) + sigma * N(0, 1). sigma scalar or
     per-codeword (B,). noise: injected standard-normal draws of x's shape
     (tests)."""
-    n = _normal(generator, x) if noise is None else noise
+    n = (standard_normal(generator, x.shape, x.device) if noise is None
+         else noise)
     return x + _bcast_first(_sigma32(sigma, x.device), x) * n
 
 
@@ -271,7 +274,8 @@ def awgn_t(generator: Optional[torch.Generator], x: torch.Tensor, sigma,
            noise: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Batch-last AWGN: x (..., B) + sigma * N(0, 1); sigma scalar or
     per-lane (B,), which broadcasts on the trailing axis."""
-    n = _normal(generator, x) if noise is None else noise
+    n = (standard_normal(generator, x.shape, x.device) if noise is None
+         else noise)
     return x + _sigma32(sigma, x.device) * n
 
 

@@ -38,6 +38,15 @@ allocation). Batch i of a point draws from a generator seeded with
 `sweep.batch_seed(seed, round(ebn0_db * 1000), i)`, so a floor curve's
 points are independent and a run repeats from its seed. The streams are
 not the reference's: port and reference agree statistically, not bitwise.
+
+With a mesh (`parallel.make_mesh`; impsamp.py:231-331, 380, 413-506) the
+frames of a batch are split over the ranks: every rank draws the global
+eps and components from the batch's generator (the stratified lane blocks
+of the global batch), keeps its lanes [lane0, lane0 + B/W), decodes and
+tallies them, and the sums (the per-stratum segmented sums, a stratum's
+lanes possibly spanning ranks) are summed over the ranks
+(`parallel.all_sum`): raw counts are exact at every mesh size, weighted
+sums equal within float32 rounding.
 """
 from __future__ import annotations
 
@@ -54,18 +63,13 @@ from ..config import SimConfig
 from ..device import DeviceLike, resolve_device
 from ..ops import channel as ch
 from ..ops.quantize import quantize
+from ..parallel.mesh import all_sum, shard_lanes
 from .pipeline import SHORTENED_LLR, select_decoder
 from .sweep import batch_seed
 
 # elements of the (B, U, P, Z) boolean gather of the symmetric run's match
 # profile held at once (the supports are taken in chunks below it)
 _GATHER_ELEMS = 1 << 28
-
-
-def _not_ported_mesh():
-    raise NotImplementedError(
-        "mesh=: sharding the IS batch over devices waits for the port of "
-        "parallel/mesh.py")
 
 
 def _check_domain(cfg: SimConfig, code=None) -> None:
@@ -281,19 +285,25 @@ def _log_pi(pi0: float, K: int, device) -> torch.Tensor:
 class _MixtureRun:
     """What make_is_run and make_symmetric_run share: the code on the
     device, the decoder, the mean matrix (uploaded once), and the chain
-    up to the decoder's input. run(rng, sigma, ...) = tally(decoder(q), w,
-    comp) with (q, w, comp) = chain(rng, sigma, ...)."""
+    up to the decoder's input. run(rng, sigma, ...) = the sum over the
+    mesh's ranks of tally(decoder(q), w, comp), (q, w, comp) = chain(rng,
+    sigma, ...) of this rank's lanes. `batch` is the global batch,
+    `lane0` and `local_batch` this rank's lanes of it."""
 
     def __init__(self, code, cfg: SimConfig, sets, deltas: np.ndarray,
                  pi0: float, batch: int, backend: str,
-                 device: DeviceLike):
+                 device: DeviceLike, mesh=None):
         self.cfg = cfg
         self.code = code
         self.batch = batch
+        self.mesh = mesh
+        self.lane0, self.local_batch = ((0, batch) if mesh is None
+                                        else shard_lanes(mesh, batch))
         self.device = resolve_device(device)
         self.ct = from_reference(code, self.device)
         self.decoder, self.backend_label = select_decoder(
-            self.ct, cfg, batch=batch, backend=backend, batch_first=True)
+            self.ct, cfg, batch=self.local_batch, backend=backend,
+            batch_first=True)
         tx_np, short_np = _rate_match(code)
         self.n_ch = code.n if tx_np is None else len(tx_np)
         self.tx_pos = _positions(tx_np, self.device)
@@ -311,9 +321,15 @@ class _MixtureRun:
                 self.pis, dtype=torch.float64, device=self.device), dim=0)
 
     def _draws(self, rng, eps, comp, counts):
-        """(eps (B, n_ch), comp (B,) or None): injected or drawn from rng,
-        eps first, then the components (inverse CDF on uniform draws), or
-        the stratified lane blocks of `counts`."""
+        """(eps (B/W, n_ch), comp (B/W,) or None) of this rank's lanes:
+        the global batch's, injected or drawn from rng, eps first, then the
+        components (inverse CDF on uniform draws), or the stratified lane
+        blocks of `counts`."""
+        eps, comp = self._global_draws(rng, eps, comp, counts)
+        local = slice(self.lane0, self.lane0 + self.local_batch)
+        return eps[local], None if comp is None else comp[local]
+
+    def _global_draws(self, rng, eps, comp, counts):
         B, dev = self.batch, self.device
         if eps is None:
             if rng is None:
@@ -354,8 +370,9 @@ class _MixtureRun:
     def chain(self, rng, sigma, counts=None, *,
               eps: Optional[torch.Tensor] = None,
               comp: Optional[torch.Tensor] = None):
-        """(q (B, n) int8, the decoder's input; w (B,) float32 weights;
-        comp (B,) int64 components, or None without sets)."""
+        """This rank's lanes: (q (B/W, n) int8, the decoder's input; w
+        (B/W,) float32 weights; comp (B/W,) int64 components, or None
+        without sets). The draws are of the global batch."""
         sig = _sigma32(sigma, self.device)
         eps, comp = self._draws(rng, eps, comp, counts)
         z = sig * eps
@@ -368,10 +385,10 @@ class _MixtureRun:
             w = torch.exp(mixture_log_weight(z, self.M, self.sizes,
                                              self.log_pi, 1.0, sig))
         else:
-            w = torch.ones((self.batch,), dtype=torch.float32,
+            w = torch.ones((self.local_batch,), dtype=torch.float32,
                            device=self.device)
         llr = _assemble_llr(z, sig, self.code, self.tx_pos, self.short_pos,
-                            self.batch)
+                            self.local_batch)
         return quantize(llr, self.cfg.quant), w, comp
 
     def __call__(self, rng, sigma, counts=None, *,
@@ -379,7 +396,7 @@ class _MixtureRun:
                  comp: Optional[torch.Tensor] = None) -> torch.Tensor:
         q, w, comp = self.chain(rng, sigma, counts, eps=eps, comp=comp)
         hard, _, _ = self.decoder(q)
-        return self.tally(hard, w, comp)
+        return all_sum(self.tally(hard, w, comp), self.mesh)
 
 
 class ISRun(_MixtureRun):
@@ -390,9 +407,9 @@ class ISRun(_MixtureRun):
     ((B, n_ch) float32) and comp ((B,) int) inject the draws."""
 
     def __init__(self, code, cfg, sets, deltas, pi0, batch, backend, device,
-                 stratify):
+                 stratify, mesh=None):
         super().__init__(code, cfg, sets, deltas, pi0, batch, backend,
-                         device)
+                         device, mesh)
         self.stratified = bool(stratify) and self.K > 0
         self.n_comp = self.K + 1
 
@@ -437,12 +454,11 @@ def make_is_run(code, cfg: SimConfig, sets: Sequence[Sequence[int]],
     multinomial draw, and the sums come per stratum; the weights stay p/q
     against the FULL mixture, and the host combines strata as
     sum_j pi_j * mean_j (stratified IS; Neyman allocation without a
-    rebuild). mesh: not ported."""
+    rebuild). mesh: a `parallel.make_mesh` mesh over which each batch's
+    frames are split (see the module's docstring)."""
     cfg = config_from_reference(cfg)
     code = own_code(code)
     _check_domain(cfg, code)
-    if mesh is not None:
-        _not_ported_mesh()
     if not 0 < pi0 <= 1:
         raise ValueError(f"pi0 must be in (0, 1], got {pi0}")
     if np.any(np.asarray(delta, np.float32) <= 0):
@@ -467,7 +483,7 @@ def make_is_run(code, cfg: SimConfig, sets: Sequence[Sequence[int]],
     if not sets and pi0 < 1:
         pi0 = 1.0
     return ISRun(code, cfg, sets, deltas, pi0, batch, backend, device,
-                 stratify)
+                 stratify, mesh)
 
 
 def canonical_rotation(code, support: Sequence[int]) -> Tuple[int, ...]:
@@ -536,9 +552,10 @@ class SymmetricRun(_MixtureRun):
     Rows: [sum xi (the per-frame FER contribution), sum xi^2, raw fail
     counts, sum w*anyfail]."""
 
-    def __init__(self, code, cfg, reps, deltas, pi0, batch, backend, device):
+    def __init__(self, code, cfg, reps, deltas, pi0, batch, backend, device,
+                 mesh=None):
         super().__init__(code, cfg, reps, deltas, pi0, batch, backend,
-                         device)
+                         device, mesh)
         self.orbit_multiplier = int(code.Z)
         idx, inv, mult = _orbit_index(reps, int(code.Z), code.n)
         self.idx = torch.as_tensor(idx, device=self.device)
@@ -590,12 +607,10 @@ def make_symmetric_run(code, cfg: SimConfig, reps: Sequence[Sequence[int]],
     holds EXACTLY: a failure meeting several representatives or rotations
     is shared fractionally and never counted twice. Rate matching must be
     block-aligned (whole Z-blocks), which `qc_block_cover` enforces.
-    mesh: not ported."""
+    mesh: as make_is_run's."""
     cfg = config_from_reference(cfg)
     code = own_code(code)
     _check_domain(cfg, code)
-    if mesh is not None:
-        _not_ported_mesh()
     if code.Z is None:
         raise ValueError("symmetric IS requires a QC code")
     if not reps:
@@ -606,7 +621,8 @@ def make_symmetric_run(code, cfg: SimConfig, reps: Sequence[Sequence[int]],
         qc_block_cover(code.shortened_vns, int(code.Z), "shortened")
     deltas = np.broadcast_to(np.asarray(delta, np.float32),
                              (len(reps),)).copy()
-    return SymmetricRun(code, cfg, reps, deltas, pi0, batch, backend, device)
+    return SymmetricRun(code, cfg, reps, deltas, pi0, batch, backend, device,
+                        mesh)
 
 
 def _device_of(run, device: DeviceLike) -> torch.device:

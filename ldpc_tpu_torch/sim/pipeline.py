@@ -4,7 +4,8 @@
 
 Ported scope: `make_run_batch` for one Eb/N0 point or for n_points striped
 over the batch (the fused multi-SNR sweep: lane b simulates point
-b % n_points with its own sigma), no mesh, no superbatching; any
+b % n_points with its own sigma), over a process mesh or on one device
+(below), no superbatching; any
 modulation of `ops.channel.MODULATIONS`; rate matching (punctured and
 shortened variables), the all-zeros shortcut; flooding or layered decoding
 with the min-sum family or min*, fixed iterations or early termination,
@@ -33,6 +34,17 @@ three chains:
 
 `select_decoder` is the H100's admission rule (see there). Either way the
 step returns the (5,) counter stack, or (5, n_points).
+
+With a mesh (`parallel.make_mesh`; pipeline.py:482-493, 533-553) each rank
+runs lanes [lane0, lane0 + B/W) of the global batch of B codewords
+(`parallel.shard_lanes`), its decoder built for B/W, and `run_batch`
+returns the global counters (`parallel.all_sum`). The draws keep the
+mesh-size contract: every rank draws the global tensors from the batch's
+generator, in the order and shapes of a run on one device (info bits,
+then the noise of the global symbol shape), and keeps its own lanes; the
+megakernel counts its Philox stream from the global lane (`lane0`). The
+same seed therefore gives the same counters at every mesh size and shape,
+and a mesh of one rank equals the run without a mesh bit for bit.
 """
 from __future__ import annotations
 
@@ -54,6 +66,7 @@ from ..ops.encode import (DENSE_MAX_N, has_qc_struct, make_encoder,
                           make_encoder_t)
 from ..ops.mc import gain_for
 from ..ops.quantize import quantize
+from ..parallel.mesh import all_sum, shard_lanes
 
 MIN_SUM_FAMILY = ("min-sum", "offset-min-sum", "normalized-min-sum")
 FIXED_POINT = MIN_SUM_FAMILY + ("min-star",)
@@ -489,39 +502,49 @@ def select_decoder(ct: CodeTensors, cfg: SimConfig,
     return dec, label
 
 
+
+
 def make_lane_step(ct: CodeTensors, cfg: SimConfig,
                    batch: Optional[int] = None,
                    n_points: int = 1,
-                   backend: str = "auto") -> Callable[..., Tuple]:
+                   backend: str = "auto", mesh=None) -> Callable[..., Tuple]:
     """Returns step(rng, sigma, **draws) -> per-lane (bit_errs, frame_err,
-    iters, conv), each (B,) on ct's device.
+    iters, conv), each (B,) on ct's device, or (B/W,) for this rank's lanes
+    over a mesh of W ranks.
 
     rng: for the host chains a torch.Generator on ct's device, from which
-    it draws the info bits first, then the noise; for the megakernel
-    (step.mc) the int batch seed that keys its Philox stream
-    (`Sweep.draw` gives either). sigma: the noise standard deviation, taken to float32; with
-    n_points > 1 a vector (n_points,), lane b taking sigma[b % n_points].
-    Injected draws (tests), with which no generator is needed: for the
+    it draws the info bits first, then the noise, each of the global
+    batch; for the megakernel (step.mc) the int batch seed that keys its
+    Philox stream (`Sweep.draw` gives either). sigma: the noise standard
+    deviation, taken to float32; with n_points > 1 a vector (n_points,),
+    global lane b taking sigma[b % n_points]. Injected draws (tests), with
+    which no generator is needed, are of the global batch too: for the
     transposed chain (step.transposed) info_t (k, B) uint8 and noise
     float32 of the symbols' shape ((n, B) for BPSK, (n / m, 2, B) for m
     bits per symbol); for the batch-first chain info (B, k) uint8 and noise
     (B, n_tx) or (B, n_tx / m, 2), n_tx the transmitted length; words
     (W, B) int32 for the megakernel. The step carries `decoder`,
-    `backend_label`, `mc` and `transposed`, and a batch-first step `chain`,
-    its part before the decoder: chain(rng, sigma, **draws) -> (info bits
-    (B, k), the decoder's input (B, n))."""
+    `backend_label`, `mc`, `transposed`, `lane0` and `local_batch` (this
+    rank's lanes), and a batch-first step `chain`, its part before the
+    decoder: chain(rng, sigma, **draws) -> (info bits (B/W, k), the
+    decoder's input (B/W, n))."""
     check_in_slice(ct, cfg)
     B = batch or cfg.run.batch
     if n_points < 1 or B % n_points:
         raise ValueError(f"batch {B} not divisible by n_points {n_points}")
+    lane0, Bl = (0, B) if mesh is None else shard_lanes(mesh, B)
+    if Bl % n_points:
+        raise ValueError(f"a rank's batch {Bl} not divisible by n_points "
+                         f"{n_points}")
+    local = slice(lane0, lane0 + Bl)
     mod = cfg.channel.modulation
-    dec, label = select_decoder(ct, cfg, batch=B, n_points=n_points,
+    dec, label = select_decoder(ct, cfg, batch=Bl, n_points=n_points,
                                 backend=backend)
     mc = isinstance(dec, minsum.McDecoder)
     transposed = use_transposed(ct, cfg, resolve_route(ct, cfg, backend))
     dev = ct.device
     n, k, nb, Z = ct.n, ct.k, ct.nb, ct.Z
-    point = torch.arange(B, device=dev) % n_points
+    point = torch.arange(lane0, lane0 + Bl, device=dev) % n_points
     scale = float(cfg.quant.scale)
     m = ch.BITS_PER_SYM[mod]
 
@@ -540,6 +563,12 @@ def make_lane_step(ct: CodeTensors, cfg: SimConfig,
                                   or noise.dtype != torch.float32):
             raise ValueError(f"noise must be {sym_shape} float32")
 
+    def draw_info(rng, shape) -> torch.Tensor:
+        if rng is None:
+            raise ValueError("run_batch needs a torch.Generator")
+        return torch.randint(0, 2, shape, generator=rng, device=dev,
+                             dtype=torch.uint8)
+
     if mc:
         def step(rng, sigma, *, words: Optional[torch.Tensor] = None
                  ) -> Tuple:
@@ -548,12 +577,15 @@ def make_lane_step(ct: CodeTensors, cfg: SimConfig,
             if rng is not None and not isinstance(rng, int):
                 raise TypeError(f"the megakernel takes the int batch seed, "
                                 f"got {type(rng).__name__}")
+            if words is not None:
+                words = words[:, local].contiguous()
             if n_points > 1:
                 sig = lane_sigma(sigma)
                 return dec(rng, words=words, sigma_lane=sig,
-                           gain_lane=gain_for(sig, scale))
+                           gain_lane=gain_for(sig, scale), lane0=lane0)
             s32 = np.float32(sigma)
-            return dec(rng, s32, gain_for(s32, scale), words=words)
+            return dec(rng, s32, gain_for(s32, scale), words=words,
+                       lane0=lane0)
     elif transposed:
         enc_t = make_encoder_t(ct)
         sym_shape = (n, B) if mod == "bpsk" else (n // m, 2, B)
@@ -561,19 +593,19 @@ def make_lane_step(ct: CodeTensors, cfg: SimConfig,
         def step(rng, sigma, *, info_t: Optional[torch.Tensor] = None,
                  noise: Optional[torch.Tensor] = None) -> Tuple:
             if info_t is None:
-                if rng is None:
-                    raise ValueError("run_batch needs a torch.Generator")
-                info_t = torch.randint(0, 2, (k, B), generator=rng,
-                                       device=dev, dtype=torch.uint8)
+                info_t = draw_info(rng, (k, B))
             check_draws("info_t", info_t, (k, B), noise, sym_shape)
+            if noise is None:
+                noise = ch.standard_normal(rng, sym_shape, dev)
+            info_t = info_t[:, local].contiguous()
             sig = lane_sigma(sigma) if n_points > 1 else sigma
             x = ch.modulate_t(enc_t(info_t), mod)
-            y = ch.awgn_t(rng, x, sig, noise=noise)
-            llr = ch.demap_t(y, sig, mod).reshape(nb, Z, B)
+            y = ch.awgn_t(None, x, sig, noise=noise[..., local])
+            llr = ch.demap_t(y, sig, mod).reshape(nb, Z, Bl)
             if dec.counting:
-                return dec(llr, info_t.reshape(ct.kb, Z, B))
+                return dec(llr, info_t.reshape(ct.kb, Z, Bl))
             hard_t, iters, conv = dec(llr)
-            err = hard_t.reshape(n, B)[ct.info_positions] != info_t
+            err = hard_t.reshape(n, Bl)[ct.info_positions] != info_t
             return err.sum(dim=0), err.any(dim=0), iters, conv
     else:
         float_mode = is_float_mode(cfg)
@@ -590,25 +622,27 @@ def make_lane_step(ct: CodeTensors, cfg: SimConfig,
 
         def chain(rng, sigma, *, info: Optional[torch.Tensor] = None,
                   noise: Optional[torch.Tensor] = None) -> Tuple:
-            """(info bits (B, k) as scored, the decoder's input (B, n))."""
+            """(info bits (B/W, k) as scored, the decoder's input
+            (B/W, n))."""
             check_draws("info", info, (B, k), noise, sym_shape)
             if all_zeros:
-                info = torch.zeros((B, k), dtype=torch.uint8, device=dev)
-            elif info is None:
-                if rng is None:
-                    raise ValueError("run_batch needs a torch.Generator")
-                info = torch.randint(0, 2, (B, k), generator=rng,
-                                     device=dev, dtype=torch.uint8)
+                info = torch.zeros((Bl, k), dtype=torch.uint8, device=dev)
+            else:
+                if info is None:
+                    info = draw_info(rng, (B, k))
+                info = info[local]
             if keep is not None:
                 info = info * keep
+            if noise is None:
+                noise = ch.standard_normal(rng, sym_shape, dev)
             sig = lane_sigma(sigma) if n_points > 1 else sigma
-            cw = (torch.zeros((B, n), dtype=torch.uint8, device=dev)
+            cw = (torch.zeros((Bl, n), dtype=torch.uint8, device=dev)
                   if all_zeros else enc(info))
             tx = cw if tx_pos is None else cw[:, tx_pos]
-            y = ch.awgn(rng, ch.modulate(tx, mod), sig, noise=noise)
+            y = ch.awgn(None, ch.modulate(tx, mod), sig, noise=noise[local])
             llr = ch.demap(y, sig, mod)
             if tx_pos is not None:
-                full = torch.zeros((B, n), dtype=llr.dtype, device=dev)
+                full = torch.zeros((Bl, n), dtype=llr.dtype, device=dev)
                 full[:, tx_pos] = llr
                 if short_pos is not None:
                     full[:, short_pos] = SHORTENED_LLR
@@ -628,42 +662,50 @@ def make_lane_step(ct: CodeTensors, cfg: SimConfig,
     step.decoder = dec
     step.mc = mc
     step.transposed = transposed
+    step.lane0, step.local_batch = lane0, Bl
     return step
 
 
 def make_run_batch(ct: CodeTensors, cfg: SimConfig,
                    batch: Optional[int] = None,
                    n_points: int = 1,
-                   backend: str = "auto") -> Callable[..., torch.Tensor]:
+                   backend: str = "auto",
+                   mesh=None) -> Callable[..., torch.Tensor]:
     """Returns run_batch(rng, sigma, **draws) -> int64 tensor on ct's
     device stacking (frames, bit_errs, frame_errs, iter_sum, converged):
-    shape (5,) for one point, (5, n_points) summed per point (lane b
+    shape (5,) for one point, (5, n_points) summed per point (global lane b
     counts for point b % n_points) for a fused sweep. The sums of
-    `make_lane_step`'s per-lane results, with the same arguments and
-    attributes (`backend_label`, `decoder`, `mc`, `transposed`, `chain`:
-    None unless the step is batch first); `backend` forces a decoder route
-    (`resolve_route`)."""
+    `make_lane_step`'s per-lane results, over every rank of `mesh` (the
+    global batch's counters on every rank), with the same arguments and
+    attributes (`backend_label`, `decoder`, `mc`, `transposed`, `lane0`,
+    `local_batch`, `chain`: None unless the step is batch first);
+    `backend` forces a decoder route (`resolve_route`)."""
     B = batch or cfg.run.batch
     step = make_lane_step(ct, cfg, batch=B, n_points=n_points,
-                          backend=backend)
+                          backend=backend, mesh=mesh)
+    Bl = step.local_batch
     dev = ct.device
     i64 = torch.int64
 
     def run_batch(rng, sigma, **draws) -> torch.Tensor:
         bits, frame, iters, conv = step(rng, sigma, **draws)
         lanes = torch.stack([bits.to(i64), frame.to(i64), iters.to(i64),
-                             conv.to(i64)])                       # (4, B)
+                             conv.to(i64)])                      # (4, B/W)
         if n_points == 1:
-            return torch.cat([torch.full((1,), B, dtype=i64, device=dev),
-                              lanes.sum(dim=1)])
-        per = lanes.reshape(4, B // n_points, n_points).sum(dim=1)
-        frames = torch.full((1, n_points), B // n_points, dtype=i64,
-                            device=dev)
-        return torch.cat([frames, per])
+            out = torch.cat([torch.full((1,), Bl, dtype=i64, device=dev),
+                             lanes.sum(dim=1)])
+        else:
+            # lane0 is a multiple of n_points: local lane b is point
+            # b % n_points
+            per = lanes.reshape(4, Bl // n_points, n_points).sum(dim=1)
+            frames = torch.full((1, n_points), Bl // n_points, dtype=i64,
+                                device=dev)
+            out = torch.cat([frames, per])
+        return all_sum(out, mesh)
 
-    run_batch.backend_label = step.backend_label
-    run_batch.decoder = step.decoder
-    run_batch.mc = step.mc
-    run_batch.transposed = step.transposed
+    for name in ("backend_label", "decoder", "mc", "transposed", "lane0",
+                 "local_batch"):
+        setattr(run_batch, name, getattr(step, name))
     run_batch.chain = getattr(step, "chain", None)
+    run_batch.mesh = mesh
     return run_batch

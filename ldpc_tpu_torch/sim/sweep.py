@@ -22,6 +22,17 @@ is written after every consumed batch and a rerun resumes from it; the
 run meta names the port's random streams, so a reference checkpoint is
 refused (`checkpoint.py`).
 
+With a mesh (`parallel.make_mesh`; the reference's `Sweep(mesh=)`,
+sweep.py:188-221) every rank runs its lanes of each batch and reads the
+global counters (`make_run_batch(mesh=)`), so every stopping decision is
+the same on every rank and all ranks stop on the same batch; the AUTO
+choice is made on rank 0 and broadcast; only rank 0 reads and writes the
+checkpoint, and the other ranks take the state it read (their own paths,
+which may differ or be absent, are never read). Counters do not depend on
+the mesh, nor does the run meta, so a checkpoint written over a mesh
+resumes on one device, and back, to the same final counters
+(sweep.py:67-68).
+
 With DecoderConfig.phase1_iters = -1 (AUTO two-phase early termination)
 each point probes its convergence CDF once and runs with the (p1, cap)
 that `tune.pick_two_phase` picks, or single-phase when two-phase is not
@@ -47,6 +58,7 @@ from . import checkpoint as ckpt
 from ..codes import build_code, from_reference
 from ..device import DeviceLike, resolve_device
 from ..ops.channel import sigma_for
+from ..parallel.mesh import is_rank0, on_rank0
 from .pipeline import make_run_batch
 from .stats import SnrPoint
 
@@ -125,7 +137,8 @@ def _config_compatible(stored: dict, cfg: SimConfig) -> bool:
 
 
 class Sweep:
-    """Drives the BER/FER sweep for one SimConfig on one device.
+    """Drives the BER/FER sweep for one SimConfig on one device, or on
+this rank's device of a process mesh.
 
     device: "cuda" (the default: the CUDA kernels) or "cpu" (the plain
     torch versions); a CUDA request without a card raises. batch: codewords
@@ -133,7 +146,9 @@ class Sweep:
     written after every consumed batch; pass the same path again to
     resume. lookahead: batches kept in flight (at least 1).
     decoder_backend: "auto", or a route to force (`pipeline.resolve_route`;
-    a route that cannot run raises). After a run
+    a route that cannot run raises). mesh: a `parallel.make_mesh` mesh
+    over which each batch's lanes are split (every rank constructs the
+    Sweep with the same arguments and runs the same calls). After a run
     with AUTO two-phase, `auto_choice[snr_idx]` holds the (phase1_iters,
     phase2_frac) chosen for that point, (None, None) where single-phase
     was kept."""
@@ -141,8 +156,9 @@ class Sweep:
     def __init__(self, cfg: SimConfig, device: DeviceLike = "cuda",
                  batch: Optional[int] = None,
                  checkpoint_path: Optional[str] = None, lookahead: int = 4,
-                 decoder_backend: str = "auto"):
+                 decoder_backend: str = "auto", mesh=None):
         self.cfg = cfg
+        self.mesh = mesh
         self.decoder_backend = decoder_backend
         self.device = resolve_device(device)
         self.code = build_code(cfg)
@@ -151,7 +167,7 @@ class Sweep:
         self.checkpoint_path = checkpoint_path
         self.lookahead = max(1, lookahead)
         self.run_batch = make_run_batch(self.ct, cfg, batch=self.batch,
-                                        backend=decoder_backend)
+                                        backend=decoder_backend, mesh=mesh)
         self.backend = self.run_batch.backend_label
         self._fused_rb: Dict[int, Callable] = {}
         # phase1_iters == -1: AUTO two-phase early termination. The base
@@ -195,23 +211,31 @@ class Sweep:
         The capacity granularity is the kernel's codeword lanes per block
         (1 for the plain version). The megakernel's base build is returned
         as it is: a two-phase build would leave it for the host chain and
-        change the random stream mid-sweep."""
+        change the random stream mid-sweep. Over a mesh rank 0 probes and
+        picks, every rank takes its choice; the capacity is a share of a
+        rank's batch."""
         from .tune import make_iter_probe, pick_two_phase
         if self.run_batch.mc:
             return self.run_batch
-        if self._probe is None:
-            self._probe = make_iter_probe(self.ct, self.cfg,
-                                          min(self.batch, 2048),
-                                          backend=self.decoder_backend)
-        it = self._probe(self.generator(snr_idx, 2 ** 31 - 2), sigma)
-        it = it.cpu().numpy()
-        g = self.run_batch.decoder.batch_tile
-        p1, frac = pick_two_phase(it, self.cfg.decoder.max_iter,
-                                  tile_frac=min(1.0, g / self.batch))
+
+        def probe_and_pick():
+            if self._probe is None:
+                self._probe = make_iter_probe(self.ct, self.cfg,
+                                              min(self.batch, 2048),
+                                              backend=self.decoder_backend)
+            it = self._probe(self.generator(snr_idx, 2 ** 31 - 2), sigma)
+            it = it.cpu().numpy()
+            g = self.run_batch.decoder.batch_tile
+            choice = pick_two_phase(
+                it, self.cfg.decoder.max_iter,
+                tile_frac=min(1.0, g / self.run_batch.local_batch))
+            log.info("auto two-phase @snr[%d]: unconv@%s -> p1=%s cap=%s",
+                     snr_idx, {t: round(float(np.mean(it > t)), 3)
+                               for t in (2, 4, 6, 8)}, *choice)
+            return choice
+
+        p1, frac = on_rank0(probe_and_pick, self.mesh)
         self.auto_choice[snr_idx] = (p1, frac)
-        log.info("auto two-phase @snr[%d]: unconv@%s -> p1=%s cap=%s",
-                 snr_idx, {t: round(float(np.mean(it > t)), 3)
-                           for t in (2, 4, 6, 8)}, p1, frac)
         if p1 is None:
             return self.run_batch
         key = (p1, round(frac, 4))
@@ -221,7 +245,7 @@ class Sweep:
                     self.cfg.decoder, phase1_iters=p1, phase2_frac=frac))
             self._tuned_rb[key] = make_run_batch(
                 self.ct, cfgv, batch=self.batch,
-                backend=self.decoder_backend)
+                backend=self.decoder_backend, mesh=self.mesh)
         return self._tuned_rb[key]
 
     def _meta(self, key: str, ebn0_list: Sequence[float]) -> Dict:
@@ -234,11 +258,20 @@ class Sweep:
         """Checkpoint load and validation for run()/run_fused() (the
         reference's `Sweep._resume`): refuses to merge counters unless the
         run meta (batch, seed, code, point list, random streams) and the
-        SimConfig match what the checkpoint was written with. Returns
-        (points with their saved counters, raw state or None)."""
-        state = ckpt.load(self.checkpoint_path)
+        SimConfig match what the checkpoint was written with. Over a mesh
+        rank 0 loads and checks, and every rank takes its state or its
+        refusal. Returns (points with their saved counters, raw state or
+        None)."""
+        state = on_rank0(lambda: self._load_checkpoint(meta), self.mesh)
         if state is None:
             return points, None
+        saved = {p.ebn0_db: p for p in state["points"]}
+        return [saved.get(p.ebn0_db, p) for p in points], state
+
+    def _load_checkpoint(self, meta: Dict) -> Optional[Dict]:
+        state = ckpt.load(self.checkpoint_path)
+        if state is None:
+            return None
         core = {k: v for k, v in state.get("meta", {}).items()
                 if k != "fused_batch_idx"}
         if core != meta:
@@ -252,11 +285,10 @@ class Sweep:
                 f"checkpoint {self.checkpoint_path} was written for a "
                 f"different SimConfig; resuming would merge counters from "
                 f"a different simulation. Stored: {state.get('config')}")
-        saved = {p.ebn0_db: p for p in state["points"]}
-        return [saved.get(p.ebn0_db, p) for p in points], state
+        return state
 
     def _save(self, points: List[SnrPoint], meta: Dict) -> None:
-        if self.checkpoint_path:
+        if self.checkpoint_path and is_rank0(self.mesh):
             ckpt.save(self.checkpoint_path, self.cfg.to_json(), points,
                       meta=meta)
 
@@ -330,7 +362,7 @@ class Sweep:
         if n_points not in self._fused_rb:
             self._fused_rb[n_points] = make_run_batch(
                 self.ct, self.cfg, batch=self.batch, n_points=n_points,
-                backend=self.decoder_backend)
+                backend=self.decoder_backend, mesh=self.mesh)
         return self._fused_rb[n_points]
 
     def run_fused(self, ebn0_list: Sequence[float],

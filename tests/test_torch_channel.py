@@ -282,8 +282,12 @@ def test_qam16_cpu_sweep_lands_on_the_recorded_waterfall():
 def test_cli_runs_the_qam_preset_on_one_device(tmp_path):
     """`sweep --preset multihost-qam-chain` without --mesh: one device, the
     preset's (2, 4) mesh dropped and recorded as null, as bench.py's
-    qam16-1944-chain has it; --mesh itself is refused until
-    parallel/mesh.py is ported."""
+    qam16-1944-chain has it. With `--mesh 2x4` over eight processes (gloo,
+    one lane a rank) it runs on the preset's mesh, records it, and rank 0's
+    counters equal the one-device run's."""
+    import subprocess
+    import sys
+
     from ldpc_tpu_torch import cli
     out = str(tmp_path / "qam")
     base = ["sweep", "--preset", "multihost-qam-chain", "--device", "cpu",
@@ -294,5 +298,34 @@ def test_cli_runs_the_qam_preset_on_one_device(tmp_path):
     assert got["config"]["channel"]["modulation"] == "16qam"
     assert got["decoder_backend"] == "torch-plain-layered"
     assert got["results"][0]["frames"] == 16
-    with pytest.raises(NotImplementedError, match="parallel/mesh.py"):
-        cli.main(base + ["--mesh", "2x4"])
+    env = dict(os.environ, PYTHONPATH=ROOT + os.pathsep
+               + os.environ.get("PYTHONPATH", ""), OMP_NUM_THREADS="1")
+    store = f"file://{tmp_path / 'store'}"
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "ldpc_tpu_torch.cli", *base, "--mesh", "2x4",
+         "--num-processes", "8", "--coordinator", store, "--process-id",
+         str(r), "--out", str(tmp_path / f"mesh{r}"), "--no-checkpoint"],
+        cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True) for r in range(8)]
+    errs = []
+    try:
+        for p in procs:
+            errs.append(p.communicate(timeout=240)[1])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    assert [p.returncode for p in procs] == [0] * 8, "".join(errs)[-3000:]
+    assert not any((tmp_path / f"mesh{r}.json").exists() for r in range(1, 8))
+    mesh = json.load(open(tmp_path / "mesh0.json"))
+    assert mesh["config"]["run"]["mesh_shape"] == [2, 4]
+    assert mesh["config"]["run"]["mesh_axes"] == ["dcn", "ici"]
+    skip = ("wall_s", "info_bps")
+    assert ([{k: v for k, v in r.items() if k not in skip}
+             for r in mesh["results"]]
+            == [{k: v for k, v in r.items() if k not in skip}
+                for r in got["results"]])
+    for r, err in enumerate(errs):
+        assert (f"# rank {r} of 8 (gloo, mesh (2, 4)): lanes [{r}, {r + 1}),"
+                f" decoder torch-plain-layered") in err

@@ -461,7 +461,36 @@ def test_estimate_matches_plain_mc_statistically(wifi):
     assert abs(plain.fer - mixed.fer) <= tol
 
 
-def test_refusals_equal_the_reference(wifi, toy):
+WORLD_OF_ONE = r"""
+import sys
+import torch
+import torch.distributed as dist
+from ldpc_tpu_torch.codes.toy import toy_qc
+from ldpc_tpu_torch.config import DecoderConfig, QuantConfig, SimConfig
+from ldpc_tpu_torch.parallel import exit_process, init_distributed, make_mesh
+from ldpc_tpu_torch.sim import impsamp as pimp
+torch.set_num_threads(1)
+cfg = SimConfig(quant=QuantConfig(bits=8, scale=4.0, beta_lsb=0),
+                decoder=DecoderConfig(algorithm="normalized-min-sum",
+                                      max_iter=10, schedule="layered"))
+toy = toy_qc(8)
+init_distributed(sys.argv[1], 1, 0, device="cpu")
+try:
+    mesh = make_mesh(device="cpu")
+    for make in (pimp.make_is_run, pimp.make_symmetric_run):
+        one = make(toy, cfg, [[0, 3]], batch=8, device="cpu", mesh=mesh)
+        ref = make(toy, cfg, [[0, 3]], batch=8, device="cpu")
+        assert (one.lane0, one.local_batch) == (0, 8)
+        g = [torch.Generator().manual_seed(5) for _ in range(2)]
+        assert torch.equal(one(g[0], 0.8), ref(g[1], 0.8))
+        print(make.__name__)
+finally:
+    dist.destroy_process_group()
+exit_process(0)
+"""
+
+
+def test_refusals_equal_the_reference(wifi, toy, tmp_path):
     cfg = _cfg()
     qam = dataclasses.replace(cfg, channel=dataclasses.replace(
         cfg.channel, modulation="16qam"))
@@ -484,9 +513,20 @@ def test_refusals_equal_the_reference(wifi, toy):
     with pytest.raises(ValueError, match="unknown allocation"):
         pimp.estimate_fer(wifi, cfg, [], 3.0, 8, allocation="x",
                           device="cpu")
-    for make in (pimp.make_is_run, pimp.make_symmetric_run):
-        with pytest.raises(NotImplementedError, match="parallel/mesh.py"):
-            make(toy, cfg, [[0]], device="cpu", mesh=object())
+    # a mesh, refused before parallel/mesh.py was ported, now runs: over a
+    # world of one rank (a spawned process, which joins and leaves it as
+    # every rank does) each run equals the run without a mesh
+    # (tests/test_torch_mesh.py holds two ranks)
+    import os
+    import subprocess
+    import sys
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    res = subprocess.run([sys.executable, "-c", WORLD_OF_ONE,
+                          f"file://{tmp_path / 'store'}"], cwd=root,
+                         env=dict(os.environ, PYTHONPATH=root),
+                         capture_output=True, text=True, timeout=180)
+    assert res.returncode == 0, res.stderr[-3000:]
+    assert res.stdout.split() == ["make_is_run", "make_symmetric_run"]
     run = pimp.make_is_run(wifi, cfg, [[1, 2]], batch=8, device="cpu",
                            stratify=True)
     with pytest.raises(ValueError, match="counts"):
@@ -577,7 +617,9 @@ def test_floor_cli_runs_on_the_cpu_with_the_reference_keys(tmp_path, extra):
 
 
 def test_floor_cli_refusals():
-    with pytest.raises(NotImplementedError, match="parallel/mesh.py"):
+    # --mesh runs under a world of processes (torchrun's environment);
+    # without one it exits
+    with pytest.raises(SystemExit, match="a mesh needs a world"):
         cli.main(["floor", "--device", "cpu", "--mesh", "2"])
     with pytest.raises(SystemExit, match="stratified"):
         cli.main(["floor", "--device", "cpu", "--family", "toy", "--Z", "4",

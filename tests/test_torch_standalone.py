@@ -74,8 +74,21 @@ def test_every_module_and_the_cli_load_nothing_of_the_reference(tmp_path):
         "            'utils.profiling', 'analysis.trapping',\n"
         "            'analysis.asenum', 'sim.impsamp', 'analysis.de',\n"
         "            'analysis.exit', 'analysis.proto_de',\n"
-        "            'codes.imported'):\n"
+        "            'codes.imported', 'parallel', 'parallel.mesh',\n"
+        "            'parallel.dryrun'):\n"
         "    assert 'ldpc_tpu_torch.' + new in names, new\n"
+        "# a world of one process and its mesh (gloo on the CPU)\n"
+        "import tempfile, torch.distributed as dist\n"
+        "from ldpc_tpu_torch.parallel import init_distributed, make_mesh\n"
+        "from ldpc_tpu_torch.config import SimConfig as Cfg, CodeConfig\n"
+        "from ldpc_tpu_torch.sim import Sweep\n"
+        "init_distributed('file://' + tempfile.mkdtemp() + '/store', 1, 0,\n"
+        "                 device='cpu')\n"
+        "mesh = make_mesh((1, 1), ('dcn', 'ici'), device='cpu')\n"
+        "res = Sweep(Cfg(code=CodeConfig(family='toy', Z=4)), device='cpu',\n"
+        "            batch=8, mesh=mesh).run([3.0], max_frames=16)\n"
+        "assert res.points[0].frames == 16\n"
+        "dist.destroy_process_group()\n"
         "# the design funnel and the registry commands, on the CPU\n"
         "import contextlib, io, json, os, tempfile\n"
         "tabs = tempfile.mkdtemp()\n"
@@ -135,11 +148,14 @@ def test_every_module_and_the_cli_load_nothing_of_the_reference(tmp_path):
         "recs = microbench.main(['minsum', '--batch', '2', '--iters', '2',\n"
         "                        '4', '--reps', '1', '--device', 'cpu'])\n"
         "assert recs[0]['variant'] == 'minsum'\n"
-        "print(len(names), sorted(foreign() - before))\n")
+        "print(len(names), sorted(foreign() - before))\n"
+        "# this process joined a world: it leaves as every rank does\n"
+        "from ldpc_tpu_torch.parallel import exit_process\n"
+        "exit_process(0)\n")
     res = _run(["-c", code])
     assert res.returncode == 0, res.stderr
     n_modules, gained = res.stdout.strip().splitlines()[-1].split(" ", 1)
-    assert int(n_modules) >= 43 and gained == "[]"
+    assert int(n_modules) >= 46 and gained == "[]"
     got = json.load(open(out + ".json"))
     assert got["decoder_backend"] == "torch-plain-minstar-layered"
     assert got["results"][0]["frames"] == 32

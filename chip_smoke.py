@@ -354,7 +354,6 @@ the device line {"ok": true, "device": {"platform": "gpu", ...}}.
 """
 import concurrent.futures
 import contextlib
-import ctypes
 import dataclasses
 import json
 import math
@@ -703,7 +702,7 @@ def sass_counts(path):
     return out
 
 
-def print_sass(minsum, stream):
+def print_sass(minsum, stream, micro):
     """Shared-memory and constant-bank loads of the flooding library's
     functions of SASS_FLOOD (the packed instances at row degree 8, the
     canonical code's: K1 beside the new K2 and K5 loops, and the one-lane
@@ -712,7 +711,8 @@ def print_sass(minsum, stream):
     the layered library's functions of SASS_LAYERED (the packed kernel's
     layer loop beside the one-lane template's); and every instance of the
     streaming library, the pipelined kernel's (its layer loop: LDGSTS, LDS,
-    STS, STG, LDC) beside the template's."""
+    STS, STG, LDC) beside the template's; and the microbenchmark library's
+    packed S1 and S2 instances (`sweep_kernel`, `minsum_kernel`)."""
     path = minsum.load_library("minsum_flood").path
     for fn, c in sass_counts(path).items():
         if any(k in fn for k in SASS_FLOOD):
@@ -723,6 +723,9 @@ def print_sass(minsum, stream):
             print(f"  sass {fn}: {json.dumps(c)}", flush=True)
     for fn, c in sass_counts(stream.load_library().path).items():
         print(f"  sass {fn}: {json.dumps(c)}", flush=True)
+    for fn, c in sass_counts(micro.load_library().path).items():
+        if "sweep_kernel" in fn or "minsum_kernel" in fn:
+            print(f"  sass {fn}: {json.dumps(c)}", flush=True)
 
 
 def tally_key(d):
@@ -2561,23 +2564,36 @@ def check_microbench(micro, dev):
             raise AssertionError(f"microbench {name} != plain on {label}")
         worst[name] = max(worst[name], err)
 
-    lib = micro.load_library().cdll
-    for c2v_bytes in (0, 2, 4):
-        lanes = micro.pick_lanes(g, c2v_bytes)
-        smem = ctypes.c_longlong(0)
-        lib.microbench_config(g.nb, g.Z, g.mb, g.n_entries, c2v_bytes, lanes,
-                              ctypes.byref(smem))
-        print(f"message bytes {c2v_bytes}: {lanes} lanes a block, "
-              f"{smem.value} B of shared memory", flush=True)
-        if smem.value != micro.smem_bytes(g, c2v_bytes, lanes):
+    for c2v_bytes, what in ((0, "sweep"), (2, "minsum16"), (4, "minsum")):
+        lanes, smem, blocks, resident, regs = micro.library_config(
+            g, c2v_bytes)
+        print(f"{what} (message bytes {c2v_bytes}): {lanes} lanes a block "
+              f"({lanes // micro.LANES_PER_THREAD} x {g.Z} threads, "
+              f"{micro.LANES_PER_THREAD} lanes a thread), {smem} B of shared "
+              f"memory, {blocks} blocks an SM by the rule, {resident} by the "
+              f"occupancy API, {regs} registers", flush=True)
+        if (lanes, smem, blocks) != micro.block_shape(g, c2v_bytes):
             raise AssertionError("the library's block is not the wrapper's")
+        if resident != blocks:
+            raise AssertionError(f"{what}: {resident} resident blocks an SM, "
+                                 f"the rule counts {blocks}")
     for B in (512, 1024, 1001, BATCH):
-        chan = torch.as_tensor(rng.integers(
-            -100, 100, size=(g.nb, g.Z, B)).astype(np.int8)).to(dev)
+        chan_np = rng.integers(-100, 100, size=(g.nb, g.Z, B)).astype(np.int8)
+        chan = torch.as_tensor(chan_np).to(dev)
         for use_rot in (True, False):
             hold("sweep", f"{'rot' if use_rot else 'base'} B={B} 44 sweeps "
                  f"(the totals wrap int32)", micro.sweep(chan, 44, use_rot),
                  micro.sweep_plain(chan, 44, use_rot))
+            # 6 sweeps: past 2^16, within 2^31, so the kernel's 16-bit
+            # totals wrap where the plain version's int32 ones do not
+            top = exact_sweep_max(g, chan_np[:, :, :8], 6, use_rot)
+            if not 2 ** 16 < top < 2 ** 31:
+                raise AssertionError(f"6 sweeps reach {top}: not the 16-bit "
+                                     f"wrap case")
+            hold("sweep", f"{'rot' if use_rot else 'base'} B={B} 6 sweeps "
+                 f"(|total| up to {top}: the 16-bit totals wrap, int32 "
+                 f"not)", micro.sweep(chan, 6, use_rot),
+                 micro.sweep_plain(chan, 6, use_rot))
         for dt in (torch.int32, torch.int16):
             hold("minsum", f"{dt} messages B={B} 20 sweeps",
                  micro.minsum(chan, 20, dt), micro.minsum_plain(chan, 20, dt))
@@ -2614,6 +2630,20 @@ def check_microbench(micro, dev):
     if not torch.equal(g32, g1):
         raise AssertionError("grid32 != grid1")
     return worst
+
+
+def exact_sweep_max(g, chan, iters, use_rot):
+    """The largest |total| of S1's exact (int64) sweeps of chan (nb, Z, b)."""
+    c = chan.astype(np.int64)
+    a, top = c, int(np.abs(c).max())
+    for _ in range(2 * (iters // 2)):
+        dst = c.copy()
+        for row in g.entries:
+            for j, s, _ in row:
+                dst[j] += np.roll(a[j], -(s if use_rot else 0), axis=0)
+        a = dst
+        top = max(top, int(np.abs(a).max()))
+    return top
 
 
 def drive_microbench(micro):
@@ -3108,7 +3138,7 @@ def main():
     print(subprocess.run([kbuild.find_nvcc(), "--version"],
                          capture_output=True, text=True,
                          timeout=60).stdout.strip().splitlines()[-1])
-    print_sass(minsum, stream)
+    print_sass(minsum, stream, micro)
     phase("kernel vs plain (tolerance 0)")
     cfg648 = port.PRESETS["wifi-648-r12-minsum"]
     oms_cfg = port.PRESETS["wifi-full-oms"]
@@ -3875,6 +3905,11 @@ def main():
                   micro.gridstep_cost(mgrid.numel()),
                   f"S6 grid1, {tuple(mgrid.shape)}"),
     }
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    clock_mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.split()[torch.cuda.current_device()])
     for name, (kernel, plain, args, cost, what) in micro_cases.items():
         t = kernel_vs_plain_ms(types.SimpleNamespace(kernel=kernel,
                                                      plain=plain),
@@ -3883,6 +3918,14 @@ def main():
         print(f"  bound {b_ms:.6f} ms by {b_by} ({100 * b_ms / t[0]:.1f}% of "
               f"the kernel's time)", flush=True)
         timing["micro " + name] = t + (b_ms, b_by)
+    for name, nbytes in (("sweep", 0), ("minsum", 4), ("minsum16", 2)):
+        floor_ms = micro.smem_floor_ms(mg, nbytes, BATCH, n_sweeps, sms,
+                                       clock_mhz * 1e6)
+        print(f"[{gpu}] {name}: shared-memory floor {floor_ms:.4f} ms "
+              f"({micro.smem_bytes_per_sweep(mg, nbytes)} B a codeword and "
+              f"sweep, {n_sweeps} sweeps of {BATCH} codewords, "
+              f"{micro.SMEM_BYTES_PER_CLOCK} B a clock on each of {sms} SMs "
+              f"at {clock_mhz:g} MHz)", flush=True)
     s2 = micro_records["minsum", BATCH]
     print(f"[{gpu}] S2 minsum at B={BATCH}: {s2['us_per_sweep']} us a sweep "
           f"(minsum16 {micro_records['minsum16', BATCH]['us_per_sweep']}) "

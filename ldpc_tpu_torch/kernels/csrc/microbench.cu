@@ -21,41 +21,68 @@
 //
 // sweep and minsum (S1, S2). The TPU bodies keep a (24, 27, Bt) int32 state
 // in VMEM and rotate rows with concatenations, in two layouts that ask a
-// sublane question; here there is one layout and no rotation. One block
-// owns `lanes` codewords; thread (x, y) = (lane, row y of every base
-// column), as in minsum_flood.cu. The state lives in shared memory with the
-// lane innermost, so a warp touches contiguous words:
-//   a, b   int32 [n][lanes]         the ping-pong totals
-//   chan   int8  [n][lanes]         the channel values, added every sweep
-//   c2v    int32 or int16 [E * Z][lanes]   messages (minsum only)
-// and a circulant shift is the index (y + s) mod Z.
-//   sweep:  dst[j][y] = chan[j][y] + sum over the entries (j, s) of column
-//     j of src[j][(y + s) mod Z], gathered by the thread that owns
-//     dst[j][y]: no write is shared, one barrier a sweep. The variant without
-//     the rotation runs the same kernel on tables whose shifts are zero, so
-//     the two differ in addresses only (a flag in the kernel would let the
-//     compiler hoist the then constant load out of the column's loop). The totals grow
-//     by about the column degree a sweep and wrap int32 after a few dozen
-//     sweeps, as they do in XLA: all sums are uint32_t.
-//   minsum: the reference accumulates rot(new, Z - s) into the next totals
-//     base row by base row, which on threads would make the writer of
-//     dst[j][y] change with the base row (a barrier a row, 13 a sweep). The
-//     same sums are taken here as minsum_flood.cu takes them: a C phase in
-//     which thread y updates check row y of every base row (only it touches
-//     c2v[.][y], src is read-only), a barrier, and a V phase in which the
-//     owner of dst[j][y] gathers chan + sum c2v[e][(y - s) mod Z]: two
-//     barriers a sweep, no atomics. Integer addition commutes, so the
-//     totals are the reference's. The script keys its message slots by
-//     (column, shift), so entries of different base rows that share both
-//     share a slot (17 pairs in wifi-648): the later row reads as its old
-//     message what the earlier row wrote in the same sweep. That is what
-//     the body computes, so it is kept: an entry reads and writes slot
-//     ent_slot[e], and also writes its own c2v[e], which only the V phase
-//     reads. Thread y alone touches c2v[.][y] in the C phase, base rows in
-//     order, so the sharing needs no barrier. The check-node rule is the script's, not
-//     the decoders': min2 starts at 1 << 14, the sign is bit 31 of the XOR
-//     of the clipped values (a zero counts as positive), and the excluded
-//     minimum is chosen by value (m == min1), not by position.
+// sublane question. Here there is one layout and no rotation, the one the
+// decoders' packed kernels take (csrc/cn_packed.cuh), so that S1 and S2 time
+// the decoders' datapath without a decode around it:
+//  * Thread (x, y) owns four codeword lanes (4x .. 4x + 3) of row y of every
+//    base column (S1, S2's V phase) and of every base row (S2's C phase).
+//    The state keeps the lane index innermost, so one shared access moves
+//    the four lanes: an 8-byte word of int16 totals (16x2 pairs), a 4-byte
+//    word of int8 channel values, a 16-byte (int32 messages) or 8-byte
+//    (int16) word of messages. A circulant shift is the index (y + s) mod Z.
+//    The block shape is the decoders' rule (block_shape: packed_shape of
+//    cn_packed.cuh, copied): of the blocks of 4k lanes and kZ threads within
+//    the launch bound, the fewest lanes that keep 9/10 of the most codewords
+//    an SM holds.
+//  * int16 totals. S1 only adds, so the low byte of its sum mod 2^16 is the
+//    low byte of the sum mod 2^32 that XLA's int32 wrap leaves: the adds wrap
+//    per half (__vadd2, never the saturating __vaddss2). In S2 a message lies
+//    in [-qmax, qmax] (qmax <= 127, rows of degree >= 2), so a total stays
+//    within 128 + 12 * 127 = 1,652 on columns of up to 12 entries: exact.
+//  * The tables travel in the kernel's parameters (SweepArgs::t, the
+//    constant bank) in the packed encoding of kernels/minsum.py::
+//    packed_tables, (col * Z) << 11 | shift, with the slot of each entry: no
+//    table load goes through shared memory. Unrolled at compile time: a
+//    column runs the body of its exact degree (1..kColDeg, a switch on a
+//    degree the whole block shares), its first two gathers loaded before
+//    the previous column's store; a base row runs the body of its exact
+//    degree (2..kRowDeg, the larger first), its totals loaded ahead in
+//    kRowDeg slots. A circulant's row offset is the block's (col * Z + s)
+//    less the thread's wrap. `base` is the same kernel on tables whose
+//    shifts are 0.
+//   sweep: dst[j][y] = chan[j][y] + the sum over the entries (j, s) of
+//     column j of src[j][(y + s) mod Z], gathered by the thread that owns
+//     dst[j][y]: no write is shared, one barrier a sweep, two totals buffers.
+//   minsum: the reference adds rot(new, Z - s) into the next totals base row
+//     by base row, which on threads would make the writer of dst[j][y]
+//     change with the base row (a barrier a row). The same sums are taken as
+//     the decoders take them: a C phase in which thread y updates check row
+//     y of every base row (only it touches the messages of row y), a
+//     barrier, and a V phase in which the owner of tot[j][y] gathers chan -
+//     the sum of the negated messages n[e][(y - s) mod Z] (stored negated,
+//     n = -c2v, as the decoders store them, so that v2c = tot + n is one
+//     add): two barriers a sweep, no atomics, one totals buffer (the V phase
+//     writes what the C phase has finished reading). Integer addition
+//     commutes, so the totals are the reference's. The C phase reads a row
+//     once: the clipped v2c of an entry
+//     is one byte a lane (min(|v|, qmax) in 7 bits, the sign of v in bit 7),
+//     so a row of up to kRowDeg entries sits in kRowDeg registers and the
+//     emit computes the four lanes' new messages at once from them (SWAR on
+//     bytes). The next row's totals are loaded before this row's stores (the
+//     C phase writes no totals); its messages are not (below).
+//     The script keys its message slots by (column, shift), so entries of
+//     different base rows that share both share a slot (17 pairs in
+//     wifi-648): the later row reads as its old message what the earlier row
+//     wrote in the same sweep. That is what the body computes, so it is
+//     kept: an entry reads its slot and writes its new message to its own
+//     c2v[e], which the V phase reads, and where they differ to its slot.
+//     Thread y alone touches c2v[.][y] in the C phase, base rows in order,
+//     so the sharing needs no barrier. The check-node rule is the script's,
+//     not the decoders': min2 starts at 1 << 14, the sign is bit 31 of the
+//     XOR of the clipped values (a zero counts as positive), and the
+//     excluded minimum is chosen by value (m == min1), not by position. Each
+//     variant keeps its declared message width in shared memory, int32
+//     (`minsum`) or int16 (`minsum16`): that is the question the pair asks.
 //
 // int16 (S3): the script's expression on packed pairs of int16 in one
 // 32-bit register, with the SIMD-in-a-word intrinsics. jnp.abs wraps on
@@ -78,221 +105,458 @@
 
 #include <cuda_runtime.h>
 
+#include <algorithm>
 #include <cstddef>
 #include <cstdint>
+#include <cstring>
+#include <type_traits>
 
 namespace {
 
-constexpr int kMaxThreads = 1024;
 constexpr size_t kMaxSmem = 232448;   // the 227 KB opt-in of sm_90
+
+// The sweeps' block shapes: four lanes a thread, up to kSweepThreads
+// threads a block (the launch bound), and the rule's view of an SM (its
+// shared memory for blocks, the runtime's reserve per resident block, warps
+// and blocks), as in csrc/cn_packed.cuh.
+constexpr int kLanesPerThread = 4;
+constexpr int kSweepThreads = 256;
+constexpr int kSmSmem = 233472;
+constexpr int kBlockReserve = 1024;
+constexpr int kSmWarps = 64;
+constexpr int kSmBlocks = 32;
+constexpr int kRowDeg = 8;       // S2's register row: base rows of 2-8 entries
+constexpr int kColDeg = 12;      // S1's and S2's unrolled columns: up to 12
+constexpr int kTabWords = 960;   // table words in the parameters (< 4 KB)
 
 __host__ __device__ inline size_t align16(size_t x) {
   return (x + 15) & ~size_t(15);
 }
 
-// int32 words of the entry tables (kernels/microbench.py::graph_tables):
-// layer_ptr[mb + 1], ent_col[E], ent_shift[E], col_ptr[nb + 1], col_ent[E],
-// ent_slot[E].
-__host__ __device__ inline int table_words(int nb, int mb, int E) {
-  return (mb + 1) + 4 * E + (nb + 1);
-}
+// uint32 words of the entry tables (kernels/microbench.py::graph_tables):
+// layer_ptr[mb + 1], col_ptr[nb + 1], ent[E] = (col * Z) << 11 | shift by
+// base row, col_ent[E] = (e * Z) << 11 | shift by base column, and
+// slot[E] = slot(e) * Z by base row.
+inline int table_words(int nb, int mb, int E) { return mb + nb + 2 + 3 * E; }
 
-struct Tables {
-  const int32_t* layer_ptr;
-  const int32_t* ent_col;
-  const int32_t* ent_shift;
-  const int32_t* col_ptr;
-  const int32_t* col_ent;
-  const int32_t* ent_slot;
+struct SweepTab {
+  uint32_t w[kTabWords];
 };
-
-__device__ inline Tables tables_at(const int32_t* tab, int nb, int mb, int E) {
-  Tables t;
-  t.layer_ptr = tab;
-  t.ent_col = t.layer_ptr + (mb + 1);
-  t.ent_shift = t.ent_col + E;
-  t.col_ptr = t.ent_shift + E;
-  t.col_ent = t.col_ptr + (nb + 1);
-  t.ent_slot = t.col_ent + E;
-  return t;
-}
-
-// Dynamic shared memory of a block of `lanes` codewords; c2v_bytes is 0 for
-// sweep, 2 or 4 for minsum.
-inline size_t state_bytes(int nb, int Z, int mb, int E, int c2v_bytes,
-                          int lanes) {
-  const size_t n = size_t(nb) * Z;
-  return align16(4 * size_t(table_words(nb, mb, E)))
-       + 2 * align16(4 * n * lanes)                        // a, b
-       + align16(n * lanes)                                // chan
-       + align16(size_t(c2v_bytes) * E * Z * lanes);       // c2v
-}
-
-struct State {
-  int32_t* tab;
-  uint32_t* a;
-  uint32_t* b;
-  int8_t* chan;
-  unsigned char* c2v;
-};
-
-__device__ inline State carve(unsigned char* smem, int nb, int Z, int mb,
-                              int E, int L) {
-  const size_t n = size_t(nb) * Z;
-  State s;
-  s.tab = reinterpret_cast<int32_t*>(smem);
-  smem += align16(4 * size_t(table_words(nb, mb, E)));
-  s.a = reinterpret_cast<uint32_t*>(smem);
-  smem += align16(4 * n * L);
-  s.b = reinterpret_cast<uint32_t*>(smem);
-  smem += align16(4 * n * L);
-  s.chan = reinterpret_cast<int8_t*>(smem);
-  smem += align16(n * L);
-  s.c2v = smem;
-  return s;
-}
 
 struct SweepArgs {
   const int8_t* chan;      // (nb, Z, B), B innermost
   int8_t* out;             // (nb, Z, B)
-  const int32_t* tables;
   int B, nb, Z, mb, E, lanes, iters, qmax;
+  SweepTab t;
+};
+static_assert(sizeof(SweepArgs) <= 4096, "kernel parameters above 4 KB");
+
+// Dynamic shared memory of a block of `lanes` codewords: sweep (c2v_bytes
+// 0) two int16 totals buffers and the int8 channel; minsum (2, 4) one
+// totals buffer, the channel and E * Z messages of c2v_bytes a lane.
+inline size_t state_bytes(int nb, int Z, int E, int c2v_bytes, int lanes) {
+  const size_t n = size_t(nb) * Z;
+  return (c2v_bytes ? 1 : 2) * align16(2 * n * lanes) + align16(n * lanes)
+       + align16(size_t(c2v_bytes) * E * Z * lanes);
+}
+
+struct Shape {
+  int lanes, smem, blocks;   // blocks: resident an SM by this rule
 };
 
-// Tables and channel in; a = chan; returns whether this lane is in the batch.
-__device__ inline bool load_state(const SweepArgs& p, const State& s,
-                                  long long b, int lane, int row) {
-  const int L = p.lanes, Z = p.Z;
-  const int tid = row * L + lane, nthreads = L * Z;
-  const int T = table_words(p.nb, p.mb, p.E);
-  for (int i = tid; i < T; i += nthreads) s.tab[i] = p.tables[i];
-  const bool valid = b < p.B;
-  for (int j = 0; j < p.nb; ++j) {
-    const int v = j * Z + row;
-    const int q = valid ? int(p.chan[size_t(v) * p.B + b]) : 0;
-    s.chan[v * L + lane] = int8_t(q);
-    s.a[v * L + lane] = uint32_t(q);
+// Of the blocks of 4k lanes (k * Z <= kSweepThreads threads, state within
+// the opt-in), the fewest lanes that keep at least 9/10 of the most
+// codewords an SM holds; lanes 0 when no block fits.
+inline Shape block_shape(int nb, int Z, int E, int c2v_bytes) {
+  int most = 0;
+  for (int pass = 0; pass < 2; ++pass) {
+    for (int k = 1; k * Z <= kSweepThreads; ++k) {
+      const int lanes = k * kLanesPerThread;
+      const size_t smem = state_bytes(nb, Z, E, c2v_bytes, lanes);
+      if (smem > kMaxSmem) break;
+      const int warps = (k * Z + 31) / 32;
+      const int blocks = std::min({kSmSmem / int(smem + kBlockReserve),
+                                   kSmWarps / warps, kSmBlocks});
+      if (pass == 0) most = std::max(most, blocks * lanes);
+      else if (10 * blocks * lanes >= 9 * most)
+        return Shape{lanes, int(smem), blocks};
+    }
   }
-  return valid;
+  return Shape{0, 0, 0};
 }
 
-// The int32 totals out as int8: the low byte, not a saturation.
-__device__ inline void store_state(const SweepArgs& p, const uint32_t* tot,
-                                   bool valid, long long b, int lane,
-                                   int row) {
-  if (!valid) return;
-  for (int j = 0; j < p.nb; ++j) {
-    const int v = j * p.Z + row;
-    p.out[size_t(v) * p.B + b] =
-        static_cast<int8_t>(static_cast<uint8_t>(tot[v * p.lanes + lane]));
+// ---------------------------------------------------------------------------
+// Words of four lanes (as csrc/cn_packed.cuh has them; copied, so that this
+// library includes no header of the decoders).
+
+__device__ __forceinline__ uint32_t prmt(uint32_t a, uint32_t b, uint32_t s) {
+  uint32_t d;
+  asm("prmt.b32 %0, %1, %2, %3;" : "=r"(d) : "r"(a), "r"(b), "r"(s));
+  return d;
+}
+
+// int8 lanes 0, 1 (lo) or 2, 3 (hi) of w, sign-extended into 16x2 pairs.
+__device__ __forceinline__ uint32_t widen_lo(uint32_t w) { return prmt(w, 0, 0x9180); }
+__device__ __forceinline__ uint32_t widen_hi(uint32_t w) { return prmt(w, 0, 0xB3A2); }
+
+// The low bytes of the four halves of lo (lanes 0, 1) and hi (lanes 2, 3);
+// with 0x7531, the high bytes (each lane's sign in bit 7).
+__device__ __forceinline__ uint32_t bytes_of(uint32_t lo, uint32_t hi,
+                                             uint32_t sel = 0x6420) {
+  return prmt(lo, hi, sel);
+}
+
+__device__ __forceinline__ uint32_t ld8x4(const int8_t* a) {
+  return *reinterpret_cast<const uint32_t*>(a);
+}
+
+__device__ __forceinline__ uint2 ld16x4(const int16_t* a) {
+  return *reinterpret_cast<const uint2*>(a);
+}
+
+__device__ __forceinline__ void st16x4(int16_t* a, uint32_t lo, uint32_t hi) {
+  *reinterpret_cast<uint2*>(a) = make_uint2(lo, hi);
+}
+
+__device__ __forceinline__ unsigned smem_addr(const void* a) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(a));
+}
+
+// A message word of four lanes as two 16x2 pairs (a message fits a half).
+__device__ __forceinline__ void ld_msg(const int32_t* a, uint32_t& lo,
+                                       uint32_t& hi) {
+  const uint4 v = *reinterpret_cast<const uint4*>(a);
+  lo = prmt(v.x, v.y, 0x5410);
+  hi = prmt(v.z, v.w, 0x5410);
+}
+
+__device__ __forceinline__ void ld_msg(const int16_t* a, uint32_t& lo,
+                                       uint32_t& hi) {
+  const uint2 v = ld16x4(a);
+  lo = v.x;
+  hi = v.y;
+}
+
+// The int8 lanes of w stored at the message width, sign-extended, as one
+// vector store (which nvcc otherwise splits into 32-bit stores here).
+__device__ __forceinline__ void st_msg(int32_t* a, uint32_t w) {
+  asm volatile("st.shared.v4.u32 [%0], {%1, %2, %3, %4};"
+               :: "r"(smem_addr(a)), "r"(prmt(w, 0, 0x8880)),
+                  "r"(prmt(w, 0, 0x9991)), "r"(prmt(w, 0, 0xAAA2)),
+                  "r"(prmt(w, 0, 0xBBB3))
+               : "memory");
+}
+
+__device__ __forceinline__ void st_msg(int16_t* a, uint32_t w) {
+  asm volatile("st.shared.v2.u32 [%0], {%1, %2};"
+               :: "r"(smem_addr(a)), "r"(widen_lo(w)), "r"(widen_hi(w))
+               : "memory");
+}
+
+// Rows of a circulant, in rows from the thread's own row y of base column
+// 0: row (y + s) mod Z of the base column at row colZ (up), row (y - s)
+// mod Z (down). The shift and colZ are the same for the whole block, so only
+// the wrap is the thread's.
+__device__ __forceinline__ int rot_up(int colZ, int s, int y, int Z) {
+  return colZ + s - (y >= Z - s ? Z : 0);
+}
+
+__device__ __forceinline__ int rot_down(int colZ, int s, int y, int Z) {
+  return colZ - s + (y < s ? Z : 0);
+}
+
+// The channel of the thread's four lanes at c (a vector load where the lanes
+// are whole and aligned; 0 past the batch) and its int8 output.
+__device__ __forceinline__ uint32_t load_lanes(const int8_t* c, int nvalid) {
+  if (nvalid == 4 && (reinterpret_cast<uintptr_t>(c) & 3) == 0) return ld8x4(c);
+  uint32_t w = 0;
+#pragma unroll
+  for (int k = 0; k < 4; ++k)
+    if (k < nvalid) w |= uint32_t(uint8_t(c[k])) << (8 * k);
+  return w;
+}
+
+__device__ __forceinline__ void store_lanes(int8_t* o, uint32_t w, int nvalid) {
+  if (nvalid == 4 && (reinterpret_cast<uintptr_t>(o) & 3) == 0) {
+    *reinterpret_cast<uint32_t*>(o) = w;
+    return;
+  }
+#pragma unroll
+  for (int k = 0; k < 4; ++k)
+    if (k < nvalid) o[k] = int8_t(w >> (8 * k));
+}
+
+// Where the thread's lanes are: its lane word x, row y; the first lane's
+// batch index and how many of its four lanes lie in the batch.
+struct Lanes {
+  int row, lane0, nvalid;
+  long long b0;
+};
+
+__device__ inline Lanes lanes_of(const SweepArgs& a) {
+  Lanes l;
+  l.row = threadIdx.y;
+  l.lane0 = threadIdx.x * kLanesPerThread;
+  l.b0 = (long long)blockIdx.x * a.lanes + l.lane0;
+  l.nvalid = int(min(4LL, max(a.B - l.b0, 0LL)));
+  return l;
+}
+
+// Channel in: chan [n][L] and the first totals tot = chan, row y of every
+// base column.
+__device__ inline void load_state(const SweepArgs& a, const Lanes& l,
+                                  int8_t* chan, int16_t* tot) {
+  const int L = a.lanes;
+  for (int j = 0; j < a.nb; ++j) {
+    const int v = j * a.Z + l.row;
+    const uint32_t w =
+        load_lanes(a.chan + size_t(v) * a.B + l.b0, l.nvalid);
+    *reinterpret_cast<uint32_t*>(chan + v * L + l.lane0) = w;
+    st16x4(tot + v * L + l.lane0, widen_lo(w), widen_hi(w));
   }
 }
 
-__global__ void sweep_kernel(SweepArgs p) {
+// The totals out as int8: their low byte, not a saturation; lanes past the
+// batch are not written.
+__device__ inline void store_state(const SweepArgs& a, const Lanes& l,
+                                   const int16_t* tot) {
+  for (int j = 0; j < a.nb; ++j) {
+    const int v = j * a.Z + l.row;
+    const uint2 t = ld16x4(tot + v * a.lanes + l.lane0);
+    store_lanes(a.out + size_t(v) * a.B + l.b0, bytes_of(t.x, t.y),
+                l.nvalid);
+  }
+}
+
+// f(std::integral_constant<int, d>()) for the block's degree d, 2 <= d <= D:
+// a body unrolled for each degree, the larger first.
+template <int D, typename F>
+__device__ __forceinline__ void with_degree(int d, F& f) {
+  if (d == D) f(std::integral_constant<int, D>());
+  else if constexpr (D > 2) with_degree<D - 1>(d, f);
+}
+
+// The gathers of slots 2 .. D - 1 of a base column of exact degree D added
+// to (lo, hi); cw: the column's col_ent words.
+template <int D, typename Gather>
+__device__ __forceinline__ void add_slots(const uint32_t* cw, int j,
+                                          uint32_t& lo, uint32_t& hi,
+                                          Gather& gather) {
+  uint2 v[D - 2];
+#pragma unroll
+  for (int i = 2; i < D; ++i) v[i - 2] = gather(j, cw[i]);
+#pragma unroll
+  for (int i = 0; i < D - 2; ++i) {
+    lo = __vadd2(lo, v[i].x);
+    hi = __vadd2(hi, v[i].y);
+  }
+}
+
+// Every base column j of the thread's row: store(j, lo, hi) of chan[j]
+// plus (S1) or minus (S2, whose messages are stored negated) the sum over
+// column j's entries of gather(j, col_ent word), as 16x2 pairs. A column
+// of degree d (1..kColDeg, the same for the whole block) runs a body
+// unrolled for d; its first two gathers and its channel word are loaded
+// before the previous column's store (what the gathers read, the stores
+// never write).
+template <bool SUB, typename Gather, typename Store>
+__device__ __forceinline__ void column_pass(const uint32_t* tw, int o_col,
+                                            int o_cent, int nb,
+                                            const int8_t* chan_row, int ZL,
+                                            Gather gather, Store store) {
+  static_assert(kColDeg == 12, "the bodies below go up to 12 entries");
+  uint2 g0, g1;
+  uint32_t ch;
+  int q0, d;
+  auto head = [&](int j) {
+    q0 = int(tw[o_col + j]);
+    d = int(tw[o_col + j + 1]) - q0;
+    ch = ld8x4(chan_row + j * ZL);
+    g0 = gather(j, tw[o_cent + q0]);
+    g1 = gather(j, tw[o_cent + q0 + min(1, d - 1)]);
+  };
+  head(0);
+  for (int j = 0; j < nb; ++j) {
+    uint32_t s_lo = __vadd2(g0.x, d > 1 ? g1.x : 0u);
+    uint32_t s_hi = __vadd2(g0.y, d > 1 ? g1.y : 0u);
+    const uint32_t* cw = tw + o_cent + q0;
+    // columns of 1-3 entries, most of a code's, skip the switch's indirect
+    // branch
+    if (d == 3) {
+      add_slots<3>(cw, j, s_lo, s_hi, gather);
+    } else if (d > 3) switch (d) {
+      case 4: add_slots<4>(cw, j, s_lo, s_hi, gather); break;
+      case 5: add_slots<5>(cw, j, s_lo, s_hi, gather); break;
+      case 6: add_slots<6>(cw, j, s_lo, s_hi, gather); break;
+      case 7: add_slots<7>(cw, j, s_lo, s_hi, gather); break;
+      case 8: add_slots<8>(cw, j, s_lo, s_hi, gather); break;
+      case 9: add_slots<9>(cw, j, s_lo, s_hi, gather); break;
+      case 10: add_slots<10>(cw, j, s_lo, s_hi, gather); break;
+      case 11: add_slots<11>(cw, j, s_lo, s_hi, gather); break;
+      case 12: add_slots<12>(cw, j, s_lo, s_hi, gather); break;
+      default: break;
+    }
+    const uint32_t c_lo = widen_lo(ch), c_hi = widen_hi(ch);
+    if (j + 1 < nb) head(j + 1);
+    if constexpr (SUB) store(j, __vsub2(c_lo, s_lo), __vsub2(c_hi, s_hi));
+    else store(j, __vadd2(c_lo, s_lo), __vadd2(c_hi, s_hi));
+  }
+}
+
+__global__ void __launch_bounds__(kSweepThreads)
+sweep_kernel(const __grid_constant__ SweepArgs a) {
   extern __shared__ __align__(16) unsigned char smem[];
-  const int L = p.lanes, Z = p.Z, nb = p.nb;
-  const State s = carve(smem, nb, Z, p.mb, p.E, L);
-  const int lane = threadIdx.x, row = threadIdx.y;
-  const long long b = (long long)blockIdx.x * L + lane;
-  const bool valid = load_state(p, s, b, lane, row);
-  const Tables t = tables_at(s.tab, nb, p.mb, p.E);
+  const uint32_t* tw = a.t.w;
+  const int L = a.lanes, Z = a.Z, nb = a.nb, ZL = Z * L;
+  const size_t n = size_t(nb) * Z;
+  const int o_col = a.mb + 1, o_cent = a.mb + nb + 2 + a.E;
+  int16_t* src = reinterpret_cast<int16_t*>(smem);
+  int16_t* dst = reinterpret_cast<int16_t*>(smem + align16(2 * n * L));
+  int8_t* chan = reinterpret_cast<int8_t*>(smem + 2 * align16(2 * n * L));
+  const Lanes l = lanes_of(a);
+  const int row = l.row, own = row * L + l.lane0;   // the thread's word
+  load_state(a, l, chan, src);
   __syncthreads();
 
-  uint32_t* src = s.a;
-  uint32_t* dst = s.b;
-  const int sweeps = 2 * (p.iters / 2);
+  const int sweeps = 2 * (a.iters / 2);
   for (int it = 0; it < sweeps; ++it) {
-    for (int j = 0; j < nb; ++j) {
-      const int v = j * Z + row;
-      uint32_t acc = uint32_t(int(s.chan[v * L + lane]));
-      for (int q = t.col_ptr[j]; q < t.col_ptr[j + 1]; ++q) {
-        int c = row + t.ent_shift[t.col_ent[q]];
-        if (c >= Z) c -= Z;
-        acc += src[(j * Z + c) * L + lane];
-      }
-      dst[v * L + lane] = acc;
-    }
+    const int16_t* const src_t = src + own;
+    int16_t* const dst_t = dst + own;
+    column_pass<false>(
+        tw, o_col, o_cent, nb, chan + own, ZL,
+        [&](int j, uint32_t ce) {   // ce = (e * Z) << 11 | shift
+          return ld16x4(src_t + rot_up(j * Z, int(ce & 0x7ffu), row, Z) * L);
+        },
+        [&](int j, uint32_t lo, uint32_t hi) {   // wraps, as int32 does
+          st16x4(dst_t + j * ZL, lo, hi);
+        });
     __syncthreads();
-    uint32_t* tmp = src;
+    int16_t* tmp = src;
     src = dst;
     dst = tmp;
   }
-  store_state(p, src, valid, b, lane, row);
+  store_state(a, l, src);
 }
 
-__device__ inline int clip(int x, int q) { return max(-q, min(q, x)); }
-
-template <typename C2V>
-__global__ void minsum_kernel(SweepArgs p) {
+// S2 with messages of type M (int32_t or int16_t) in shared memory, stored
+// negated (n = -c2v, so v2c = tot + n is one add); base rows of 2..RD
+// entries.
+template <typename M, int RD>
+__global__ void __launch_bounds__(kSweepThreads)
+minsum_kernel(const __grid_constant__ SweepArgs a) {
   extern __shared__ __align__(16) unsigned char smem[];
-  const int L = p.lanes, Z = p.Z, nb = p.nb, mb = p.mb, E = p.E;
-  const State s = carve(smem, nb, Z, mb, E, L);
-  C2V* c2v = reinterpret_cast<C2V*>(s.c2v);
-  const int lane = threadIdx.x, row = threadIdx.y;
-  const int tid = row * L + lane, nthreads = L * Z;
-  const long long b = (long long)blockIdx.x * L + lane;
-  const bool valid = load_state(p, s, b, lane, row);
-  const Tables t = tables_at(s.tab, nb, mb, E);
-  for (int i = tid; i < E * Z * L; i += nthreads) c2v[i] = 0;
+  const uint32_t* tw = a.t.w;
+  const int L = a.lanes, Z = a.Z, nb = a.nb, mb = a.mb, E = a.E;
+  const int ZL = Z * L;
+  const size_t n = size_t(nb) * Z;
+  const int o_col = mb + 1, o_ent = mb + nb + 2, o_cent = o_ent + E;
+  const int o_slot = o_cent + E;
+  int16_t* tot = reinterpret_cast<int16_t*>(smem);
+  int8_t* chan = reinterpret_cast<int8_t*>(smem + align16(2 * n * L));
+  M* c2v = reinterpret_cast<M*>(smem + align16(2 * n * L) + align16(n * L));
+  const Lanes l = lanes_of(a);
+  const int row = l.row, own = row * L + l.lane0;   // the thread's word
+  M* const msg_t = c2v + own;            // + eZ * L: entry (or slot) e
+  const int16_t* const tot_t = tot + own;
+  load_state(a, l, chan, tot);
+  for (int e = 0; e < E; ++e) st_msg(msg_t + e * ZL, 0u);
   __syncthreads();
 
-  const int qmax = p.qmax;
-  int32_t* src = reinterpret_cast<int32_t*>(s.a);
-  int32_t* dst = reinterpret_cast<int32_t*>(s.b);
-  const int sweeps = 2 * (p.iters / 2);
+  const uint32_t q2 = uint32_t(a.qmax) * 0x00010001u;
+  // The totals of base row li's entries at their rotated rows; slots past
+  // its degree d (>= 2) repeat its last entry.
+  auto row_totals = [&](int li, uint2 (&t)[RD]) {
+    const int e0 = int(tw[li]), d = int(tw[li + 1]) - e0;
+#pragma unroll
+    for (int i = 0; i < RD; ++i) {
+      const uint32_t en = tw[o_ent + e0 + (i < 2 ? i : min(i, d - 1))];
+      t[i] = ld16x4(tot_t + rot_up(int(en >> 11), int(en & 0x7ffu), row, Z) * L);
+    }
+  };
+
+  const int sweeps = 2 * (a.iters / 2);
   for (int it = 0; it < sweeps; ++it) {
-    // C phase: check row `row` of every base row. The row is read twice,
-    // once to reduce and once to emit, as minsum_flood.cu does.
+    // C phase: check row `row` of every base row, in order. A row's old
+    // messages are loaded after the previous row's stores (a slot it shares
+    // with an earlier row holds what that row wrote in this sweep); its
+    // totals are loaded before them.
+    uint2 t[RD];
+    row_totals(0, t);
     for (int li = 0; li < mb; ++li) {
-      const int e0 = t.layer_ptr[li], e1 = t.layer_ptr[li + 1];
-      auto v2c = [&](int e) {
-        int c = row + t.ent_shift[e];
-        if (c >= Z) c -= Z;
-        return clip(src[(t.ent_col[e] * Z + c) * L + lane]
-                        - int(c2v[(t.ent_slot[e] * Z + row) * L + lane]),
-                    qmax);
-      };
-      int min1 = 0, min2 = 1 << 14, negacc = 0;
-      for (int e = e0; e < e1; ++e) {
-        const int v = v2c(e);
-        const int m = abs(v);
-        if (e == e0) {
-          min1 = m;
-          negacc = v;
-        } else {
-          min2 = min(min2, max(min1, m));
-          min1 = min(min1, m);
-          negacc ^= v;                  // bit 31: the row's sign parity
+      const int e0 = int(tw[li]);
+      // The row of exactly D entries: its old messages, the row in
+      // registers, the next row's totals, the emit.
+      auto check_row = [&](auto degree) {
+        constexpr int D = decltype(degree)::value;
+        int sz[D];                  // the entries' slots, times Z
+        uint32_t o[D][2];
+#pragma unroll
+        for (int i = 0; i < D; ++i) {
+          sz[i] = int(tw[o_slot + e0 + i]);
+          ld_msg(msg_t + sz[i] * L, o[i][0], o[i][1]);
         }
-      }
-      for (int e = e0; e < e1; ++e) {
-        const int v = v2c(e);
-        const int mag = abs(v) == min1 ? min2 : min1;
-        const C2V nw = C2V((negacc ^ v) < 0 ? -mag : mag);
-        c2v[(e * Z + row) * L + lane] = nw;
-        const int slot = t.ent_slot[e];
-        if (slot != e) c2v[(slot * Z + row) * L + lane] = nw;
-      }
+        uint32_t rb[D];             // the row: min(|v|, qmax) | sign(v) << 7
+        uint32_t min1[2] = {0x40004000u, 0x40004000u};   // 1 << 14 a half
+        uint32_t min2[2] = {0x40004000u, 0x40004000u};
+        uint32_t ns = 0;            // bit 7 of each byte: the sign product
+#pragma unroll
+        for (int i = 0; i < D; ++i) {
+          uint32_t m[2], raw[2];
+          const uint32_t tt[2] = {t[i].x, t[i].y};
+#pragma unroll
+          for (int k = 0; k < 2; ++k) {
+            raw[k] = __vadd2(tt[k], o[i][k]);
+            m[k] = __vmins2(__vmaxs2(raw[k], __vneg2(raw[k])), q2);
+            min2[k] = __vmins2(min2[k], __vmaxs2(min1[k], m[k]));
+            min1[k] = __vmins2(min1[k], m[k]);
+          }
+          rb[i] = bytes_of(m[0], m[1]) |
+                  (bytes_of(raw[0], raw[1], 0x7531) & 0x80808080u);
+          ns ^= rb[i];
+        }
+        if (li + 1 < mb) row_totals(li + 1, t);
+        // Every byte at once: a lane whose |v| equals min1 takes min2
+        // (both <= 127 on a row of degree >= 2), the others min1 (x <= 0x7f
+        // is nonzero exactly when x + 0x7f sets bit 7; prmt's sign mode
+        // replicates bit 7 over its byte); the new message is negative
+        // where the product of the other entries' signs is, and is stored
+        // negated, -m being (0x80 - m) ^ 0x80 a byte.
+        const uint32_t m1 = bytes_of(min1[0], min1[1]);
+        const uint32_t m2 = bytes_of(min2[0], min2[1]);
+#pragma unroll
+        for (int i = 0; i < D; ++i) {
+          const uint32_t w = rb[i];
+          const uint32_t x = (w & 0x7f7f7f7fu) ^ m1;
+          const uint32_t ne = prmt(x + 0x7f7f7f7fu, 0, 0xBA98);
+          const uint32_t mag = (m1 & ne) | (m2 & ~ne);
+          const uint32_t sm = prmt(w ^ ns, 0, 0xBA98);
+          const uint32_t negm = (0x80808080u - mag) ^ 0x80808080u;
+          const uint32_t nw = (mag & sm) | (negm & ~sm);   // -new
+          const int ez = (e0 + i) * Z;
+          st_msg(msg_t + ez * L, nw);
+          if (sz[i] != ez) st_msg(msg_t + sz[i] * L, nw);
+        }
+      };
+      with_degree<RD>(int(tw[li + 1]) - e0, check_row);
     }
     __syncthreads();
-    // V phase: the next totals, gathered by their owner.
-    for (int j = 0; j < nb; ++j) {
-      const int v = j * Z + row;
-      int acc = s.chan[v * L + lane];
-      for (int q = t.col_ptr[j]; q < t.col_ptr[j + 1]; ++q) {
-        const int e = t.col_ent[q];
-        int r = row - t.ent_shift[e];
-        if (r < 0) r += Z;
-        acc += int(c2v[(e * Z + r) * L + lane]);
-      }
-      dst[v * L + lane] = acc;
-    }
+    // V phase: the next totals, chan - the sum of the negated messages,
+    // gathered by their owner.
+    int16_t* const tot_w = tot + own;
+    column_pass<true>(
+        tw, o_col, o_cent, nb, chan + own, ZL,
+        [&](int, uint32_t ce) {   // ce = (e * Z) << 11 | shift
+          uint2 m;
+          ld_msg(msg_t + rot_down(int(ce >> 11), int(ce & 0x7ffu), row, Z) * L,
+                 m.x, m.y);
+          return m;
+        },
+        [&](int j, uint32_t lo, uint32_t hi) {
+          st16x4(tot_w + j * ZL, lo, hi);
+        });
     __syncthreads();
-    int32_t* tmp = src;
-    src = dst;
-    dst = tmp;
   }
-  store_state(p, reinterpret_cast<uint32_t*>(src), valid, b, lane, row);
+  store_state(a, l, tot);
 }
 
 // min(where(a < b, max(a, b), |a|), max(a, 3)) on two int16 a word.
@@ -380,20 +644,73 @@ __global__ void grid1_kernel(const int8_t* x, int8_t* out, int rows,
 
 constexpr int kThreads = 128;   // block size of the register kernels
 
-template <typename Kernel>
-int launch_sweep(Kernel kernel, const SweepArgs& p, int c2v_bytes,
-                 void* stream) {
-  if (p.lanes < 1 || p.Z < 1 || p.lanes * p.Z > kMaxThreads || p.B < 1)
-    return int(cudaErrorInvalidConfiguration);
-  const size_t smem = state_bytes(p.nb, p.Z, p.mb, p.E, c2v_bytes, p.lanes);
-  if (smem > kMaxSmem) return int(cudaErrorInvalidConfiguration);
+// Whether the tables' degrees fit the instances: columns of 1..kColDeg
+// entries, and for minsum base rows of 2..kRowDeg (a row of one entry would
+// emit min2's start value, which no byte holds).
+inline bool degrees_ok(const uint32_t* tab, int nb, int mb, bool rows) {
+  for (int i = 0; i < mb && rows; ++i) {
+    const int d = int(tab[i + 1] - tab[i]);
+    if (d < 2 || d > kRowDeg) return false;
+  }
+  for (int j = 0; j < nb; ++j) {
+    const int d = int(tab[mb + 2 + j] - tab[mb + 1 + j]);
+    if (d < 1 || d > kColDeg) return false;
+  }
+  return true;
+}
+
+// Sets an instance's shared-memory attributes (the dynamic shared memory it
+// launches with, the largest carveout) before a launch or a query.
+template <typename K>
+cudaError_t prepare(K kernel, size_t smem) {
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+  if (err != cudaSuccess) return err;
+  return cudaFuncSetAttribute(
+      kernel, cudaFuncAttributePreferredSharedMemoryCarveout, 100);
+}
+
+// The checks of a sweep launch, the tables (host memory, `words` uint32)
+// into the parameters, and the launch of a block of p.lanes codewords
+// (p.lanes / 4 x Z threads) for every p.lanes of the batch.
+template <typename K>
+int launch_sweep(K kernel, SweepArgs& p, const uint32_t* tab, int words,
+                 int c2v_bytes, void* stream) {
+  const int k = p.lanes / kLanesPerThread;
+  if (p.lanes < kLanesPerThread || p.lanes % kLanesPerThread || p.Z < 1
+      || p.Z > 2047 || k * p.Z > kSweepThreads || p.B < 1 || p.nb < 1
+      || p.mb < 1)
+    return int(cudaErrorInvalidConfiguration);
+  if (!tab || words != table_words(p.nb, p.mb, p.E) || words > kTabWords
+      || size_t(p.E) * p.Z >= (size_t(1) << 21)
+      || size_t(p.nb) * p.Z >= (size_t(1) << 21)
+      || !degrees_ok(tab, p.nb, p.mb, c2v_bytes != 0)
+      || (c2v_bytes && (p.qmax < 0 || p.qmax > 127)))
+    return int(cudaErrorInvalidValue);
+  memcpy(p.t.w, tab, sizeof(uint32_t) * size_t(words));
+  const size_t smem = state_bytes(p.nb, p.Z, p.E, c2v_bytes, p.lanes);
+  if (smem > kMaxSmem) return int(cudaErrorInvalidConfiguration);
+  const cudaError_t err = prepare(kernel, smem);
   if (err != cudaSuccess) return int(err);
-  const dim3 block(p.lanes, p.Z);
+  const dim3 block(k, p.Z);
   const unsigned grid = unsigned((p.B + p.lanes - 1) / p.lanes);
   kernel<<<grid, block, smem, static_cast<cudaStream_t>(stream)>>>(p);
   return int(cudaGetLastError());
+}
+
+// Registers a thread and resident blocks an SM of an instance at a shape
+// (-1 where the runtime cannot say).
+template <typename K>
+void query(K kernel, const Shape& s, int Z, int* regs, int* resident) {
+  cudaFuncAttributes fa;
+  if (cudaFuncGetAttributes(&fa, kernel) == cudaSuccess) *regs = fa.numRegs;
+  int blocks = 0;
+  if (s.lanes && prepare(kernel, size_t(s.smem)) == cudaSuccess
+      && cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+             &blocks, kernel, s.lanes / kLanesPerThread * Z, size_t(s.smem))
+             == cudaSuccess)
+    *resident = blocks;
+  cudaGetLastError();   // a failed query leaves no error behind
 }
 
 }  // namespace
@@ -404,37 +721,53 @@ const char* microbench_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-// Dynamic shared-memory bytes of a sweep (c2v_bytes 0) or minsum (2, 4)
-// block of `lanes` codewords, as the launches compute them.
-int microbench_config(int nb, int Z, int mb, int E, int c2v_bytes, int lanes,
-                      long long* smem) {
-  *smem = (long long)state_bytes(nb, Z, mb, E, c2v_bytes, lanes);
+// The block of a sweep (c2v_bytes 0) or minsum (2, 4) launch by the shape
+// rule: shape[0] lanes a block, [1] dynamic shared-memory bytes, [2] blocks
+// an SM by the rule, [3] blocks an SM by the occupancy API and [4]
+// registers a thread of the instance (both -1 where the runtime cannot
+// say). Returns cudaErrorInvalidValue for another c2v_bytes.
+int microbench_config(int nb, int Z, int E, int c2v_bytes, int* shape) {
+  if (c2v_bytes != 0 && c2v_bytes != 2 && c2v_bytes != 4)
+    return int(cudaErrorInvalidValue);
+  const Shape s = block_shape(nb, Z, E, c2v_bytes);
+  shape[0] = s.lanes;
+  shape[1] = s.smem;
+  shape[2] = s.blocks;
+  shape[3] = shape[4] = -1;
+  if (c2v_bytes == 0) query(sweep_kernel, s, Z, &shape[4], &shape[3]);
+  else if (c2v_bytes == 4)
+    query(minsum_kernel<int32_t, kRowDeg>, s, Z, &shape[4], &shape[3]);
+  else
+    query(minsum_kernel<int16_t, kRowDeg>, s, Z, &shape[4], &shape[3]);
   return 0;
 }
 
 // Every launch runs on `stream` and returns cudaGetLastError() (0 on
-// success); all pointers are device pointers.
+// success); chan and out are device pointers, tables a host array of
+// `words` uint32 (graph_tables).
 
 int microbench_sweep_launch(const void* chan, void* out, const void* tables,
-                            int B, int nb, int Z, int mb, int E, int lanes,
-                            int iters, void* stream) {
-  const SweepArgs p{static_cast<const int8_t*>(chan),
-                    static_cast<int8_t*>(out),
-                    static_cast<const int32_t*>(tables),
-                    B, nb, Z, mb, E, lanes, iters, 0};
-  return launch_sweep(sweep_kernel, p, 0, stream);
+                            int words, int B, int nb, int Z, int mb, int E,
+                            int lanes, int iters, void* stream) {
+  SweepArgs p{static_cast<const int8_t*>(chan), static_cast<int8_t*>(out),
+              B, nb, Z, mb, E, lanes, iters, 0, {}};
+  return launch_sweep(sweep_kernel, p,
+                      static_cast<const uint32_t*>(tables), words, 0, stream);
 }
 
 int microbench_minsum_launch(const void* chan, void* out, const void* tables,
-                             int B, int nb, int Z, int mb, int E, int lanes,
-                             int iters, int qmax, int c2v_bytes,
+                             int words, int B, int nb, int Z, int mb, int E,
+                             int lanes, int iters, int qmax, int c2v_bytes,
                              void* stream) {
-  const SweepArgs p{static_cast<const int8_t*>(chan),
-                    static_cast<int8_t*>(out),
-                    static_cast<const int32_t*>(tables),
-                    B, nb, Z, mb, E, lanes, iters, qmax};
-  if (c2v_bytes == 4) return launch_sweep(minsum_kernel<int32_t>, p, 4, stream);
-  if (c2v_bytes == 2) return launch_sweep(minsum_kernel<int16_t>, p, 2, stream);
+  SweepArgs p{static_cast<const int8_t*>(chan), static_cast<int8_t*>(out),
+              B, nb, Z, mb, E, lanes, iters, qmax, {}};
+  const uint32_t* tab = static_cast<const uint32_t*>(tables);
+  if (c2v_bytes == 4)
+    return launch_sweep(minsum_kernel<int32_t, kRowDeg>, p, tab,
+                        words, 4, stream);
+  if (c2v_bytes == 2)
+    return launch_sweep(minsum_kernel<int16_t, kRowDeg>, p, tab,
+                        words, 2, stream);
   return int(cudaErrorInvalidValue);
 }
 

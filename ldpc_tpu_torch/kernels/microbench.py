@@ -23,7 +23,10 @@ The reference times two TPU layouts of the same state, `flat` (Z, 512) and
 Here the state is (nb, Z, B) with the batch innermost, a circulant shift is
 the index (y + s) mod Z into shared memory, and the two tile widths remain
 as batch sizes (`--batch 512`, `1024`) beside `--batch 16384`, the
-decoders' batch. `minsum32v`, the same sweep under a raised VMEM limit, is
+decoders' batch. The two sweeps run the decoders' packed layout (four
+codeword lanes a thread, int16 totals, the tables in the kernel's
+parameters: `graph_tables`) in blocks of the decoders' shape rule
+(`block_shape`). `minsum32v`, the same sweep under a raised VMEM limit, is
 a knob of the TPU compiler and has no counterpart. The reference takes the
 best of several host-clock trials and synchronises by fetching the result;
 here every point is the median of CUDA-event times (`utils.profiling.timed`)
@@ -52,8 +55,8 @@ from ..config import PRESETS
 from ..device import resolve_device
 from ..utils.profiling import bound, timed
 from . import build
-from .minsum import (MAX_SMEM, MAX_THREADS, PREFERRED_SMEM, align16,
-                     check_launch, kernel_tables, table_words)
+from .minsum import (BLOCK_RESERVE, LANES_PER_THREAD, MAX_SMEM, SM_BLOCKS,
+                     SM_SMEM, SM_WARPS, align16, check_launch, packed_tables)
 
 LIBRARY = "microbench"
 SOURCE = f"ldpc_tpu_torch/kernels/csrc/{LIBRARY}.cu"
@@ -75,6 +78,14 @@ MIN2_START = 1 << 14
 # (subtract, |.| as two, xor, max, min), 4 a gridstep step, 6 for the int16
 # expression
 MINSUM_OPS_PER_EDGE = 12
+# the sweeps' instances (csrc/microbench.cu): threads a block (the launch
+# bound), the register row (S2's base rows of 2..ROW_DEG entries), the
+# unrolled columns (up to COL_DEG entries) and the table words the kernel
+# parameters hold
+SWEEP_THREADS = 256
+ROW_DEG = 8
+COL_DEG = 12
+TAB_WORDS = 960
 OPCHAIN_OPS_PER_PAIR = 6
 GRIDSTEP_OPS_PER_STEP = 4
 INT16_OPS = 6
@@ -131,14 +142,13 @@ def load_library(rebuild: bool = False) -> build.Library:
     launch` entries, `microbench_config` and `microbench_error_string`."""
     lib = build.load(LIBRARY, rebuild=rebuild)
     c = lib.cdll
-    c.microbench_sweep_launch.argtypes = [_P] * 3 + [_I] * 7 + [_P]
-    c.microbench_minsum_launch.argtypes = [_P] * 3 + [_I] * 9 + [_P]
+    c.microbench_sweep_launch.argtypes = [_P] * 3 + [_I] * 8 + [_P]
+    c.microbench_minsum_launch.argtypes = [_P] * 3 + [_I] * 10 + [_P]
     c.microbench_int16_launch.argtypes = [_P] * 3 + [_I] * 2 + [_P]
     c.microbench_opchain_launch.argtypes = [_P] * 2 + [_I] * 4 + [_P]
     c.microbench_grid32_launch.argtypes = [_P] * 2 + [_I] * 4 + [_P]
     c.microbench_grid1_launch.argtypes = [_P] * 2 + [_I] * 4 + [_P]
-    c.microbench_config.argtypes = [_I] * 6 + [
-        ctypes.POINTER(ctypes.c_longlong)]
+    c.microbench_config.argtypes = [_I] * 4 + [ctypes.POINTER(_I)]
     for name in REPLACES:
         getattr(c, f"microbench_{name}_launch").restype = _I
     c.microbench_config.restype = _I
@@ -147,55 +157,84 @@ def load_library(rebuild: bool = False) -> build.Library:
     return lib
 
 
+def library_config(g: Graph, c2v_bytes: int) -> Tuple[int, ...]:
+    """`microbench_config` of the built library (on the card): lanes a
+    block, shared-memory bytes and blocks an SM by the shape rule, then the
+    blocks an SM by the occupancy API and the registers a thread of the
+    instance (-1 where the runtime cannot say)."""
+    lib = load_library().cdll
+    out = (_I * 5)()
+    check_launch(lib, LIBRARY, lib.microbench_config(
+        g.nb, g.Z, g.n_entries, c2v_bytes, out))
+    return tuple(out)
+
+
 # ---------------------------------------------------------------------------
 # S1, S2: sweeps over the circulants of a base graph
 # ---------------------------------------------------------------------------
 
+@functools.lru_cache(maxsize=8)
 def graph_tables(g: Graph, use_rot: bool = True) -> np.ndarray:
-    """The library's int32 tables: `minsum.kernel_tables` (layer_ptr,
-    ent_col, ent_shift, col_ptr, col_ent), then ent_slot[E] (`Graph.slots`).
-    Without use_rot every shift is 0: the kernel runs the same instructions
-    on other addresses."""
-    tables = np.concatenate([kernel_tables(g),
-                             np.asarray(g.slots, np.int32)]).astype(np.int32)
+    """The library's uint32 tables, which travel in the kernel's parameters:
+    `minsum.packed_tables` (layer_ptr, col_ptr, ent = (col * Z) << 11 |
+    shift by base row, col_ent = (e * Z) << 11 | shift by base column), then
+    slot[E] = `Graph.slots` times Z. Without use_rot every shift is 0: the
+    kernel runs the same instructions on other addresses."""
+    tables = np.concatenate([packed_tables(g), np.asarray(
+        g.slots, np.uint32) * np.uint32(g.Z)]).astype(np.uint32)
     if not use_rot:
-        E = g.n_entries
-        tables[g.mb + 1 + E: g.mb + 1 + 2 * E] = 0      # ent_shift
+        E, o_ent = g.n_entries, g.mb + g.nb + 2
+        tables[o_ent: o_ent + 2 * E] &= np.uint32(~0x7FF & 0xFFFFFFFF)
+    tables.setflags(write=False)
     return tables
 
 
 def graph_table_words(g: Graph) -> int:
-    return table_words(g) + g.n_entries
+    return g.mb + g.nb + 2 + 3 * g.n_entries
 
 
 def smem_bytes(g: Graph, c2v_bytes: int, lanes: int) -> int:
     """Dynamic shared memory of a block of `lanes` codewords (state_bytes
-    of csrc/microbench.cu): the tables, two int32 totals buffers, the int8
-    channel and, for minsum, the messages of c2v_bytes (2 or 4) each."""
+    of csrc/microbench.cu), lane index innermost, no tables: for sweep
+    (c2v_bytes 0) two int16 totals buffers and the int8 channel; for minsum
+    one totals buffer, the channel and E * Z messages of c2v_bytes (2 or 4)
+    a lane."""
     n = g.nb * g.Z
-    return (align16(4 * graph_table_words(g)) + 2 * align16(4 * n * lanes)
-            + align16(n * lanes) + align16(c2v_bytes * g.n_entries * g.Z
-                                           * lanes))
+    return ((1 if c2v_bytes else 2) * align16(2 * n * lanes)
+            + align16(n * lanes)
+            + align16(c2v_bytes * g.n_entries * g.Z * lanes))
+
+
+def block_shape(g: Graph, c2v_bytes: int) -> Tuple[int, int, int]:
+    """(lanes a block, shared-memory bytes, blocks an SM) of the sweep
+    (c2v_bytes 0) or minsum (2, 4) launch, as block_shape of
+    csrc/microbench.cu gives them: the decoders' rule (`minsum.
+    packed_shape`). Of the blocks of 4k lanes (LANES_PER_THREAD a thread,
+    k * Z <= SWEEP_THREADS threads, state within MAX_SMEM), each holding
+    min(SM_SMEM // (smem + BLOCK_RESERVE), SM_WARPS // warps, SM_BLOCKS)
+    blocks an SM, the fewest lanes that keep at least 9/10 of the most
+    codewords an SM holds; zeros when no block fits."""
+    shapes = []
+    k = 1
+    while k * g.Z <= SWEEP_THREADS:
+        lanes = k * LANES_PER_THREAD
+        smem = smem_bytes(g, c2v_bytes, lanes)
+        if smem > MAX_SMEM:
+            break
+        warps = -(-k * g.Z // 32)
+        shapes.append((lanes, smem, min(SM_SMEM // (smem + BLOCK_RESERVE),
+                                        SM_WARPS // warps, SM_BLOCKS)))
+        k += 1
+    if not shapes:
+        return (0, 0, 0)
+    most = max(lanes * blocks for lanes, _, blocks in shapes)
+    return next(s for s in shapes if 10 * s[0] * s[2] >= 9 * most)
 
 
 def pick_lanes(g: Graph, c2v_bytes: int) -> int:
-    """Codeword lanes a block, from the shapes alone: the most (at most 32,
-    lanes * Z <= 1024 threads) whose state leaves room for two blocks an
-    SM (113 KB), else the most that fit the 227 KB a block may take; 0
-    when one codeword's state fits no block."""
-    for limit in (PREFERRED_SMEM, MAX_SMEM):
-        for lanes in range(32, 0, -1):
-            if (lanes * g.Z <= MAX_THREADS
-                    and smem_bytes(g, c2v_bytes, lanes) <= limit):
-                return lanes
-    return 0
-
-
-@functools.lru_cache(maxsize=8)
-def _tables_on(g: Graph, dev: torch.device, use_rot: bool = True
-               ) -> torch.Tensor:
-    """The kernel's entry tables of graph g on `dev`, copied there once."""
-    return torch.as_tensor(graph_tables(g, use_rot), device=dev)
+    """Codeword lanes a block (`block_shape`), from the shapes alone; 0
+    when one block of four lanes fits no SM."""
+    return block_shape(g, c2v_bytes)[0]
 
 
 def _check_chan(chan: torch.Tensor, g: Graph) -> int:
@@ -209,26 +248,54 @@ def _check_chan(chan: torch.Tensor, g: Graph) -> int:
     return int(chan.shape[2])
 
 
+def _check_graph(name: str, g: Graph, qmax: int) -> None:
+    """What the instances hold: columns of 1..COL_DEG entries, tables
+    within TAB_WORDS, and for minsum rows of 2..ROW_DEG entries (a row of
+    one would emit min2's start value, which no byte holds) and qmax <=
+    127 (messages a byte)."""
+    col_deg = np.bincount([c for row in g.entries for c, _, _ in row],
+                          minlength=g.nb)
+    why = []
+    if not 1 <= col_deg.min() <= col_deg.max() <= COL_DEG:
+        why.append(f"base columns of {col_deg.min()}-{col_deg.max()} "
+                   f"entries (1..{COL_DEG})")
+    if graph_table_words(g) > TAB_WORDS:
+        why.append(f"{graph_table_words(g)} table words (> {TAB_WORDS})")
+    if name == "minsum":
+        degs = [len(row) for row in g.entries]
+        if not 2 <= min(degs) <= max(degs) <= ROW_DEG:
+            why.append(f"base rows of {min(degs)}-{max(degs)} entries "
+                       f"(2..{ROW_DEG})")
+        if not 0 <= qmax <= 127:
+            why.append(f"qmax {qmax} (0..127)")
+    if why:
+        raise ValueError(f"{name}: the kernel takes no graph with "
+                         + ", ".join(why))
+
+
 def _launch_sweep(name: str, chan: torch.Tensor, g: Graph, c2v_bytes: int,
                   *tail: int, use_rot: bool = True) -> torch.Tensor:
-    """One launch of the sweep or minsum kernel on chan's device."""
+    """One launch of the sweep or minsum kernel on chan's device; tail is
+    (iters,) or (iters, qmax, c2v_bytes)."""
     B = _check_chan(chan, g)
     if not chan.is_contiguous():
         raise ValueError("the kernel needs a contiguous chan")
     lanes = pick_lanes(g, c2v_bytes)
     if lanes == 0:
         raise ValueError(
-            f"{name}: one codeword's state ({smem_bytes(g, c2v_bytes, 1)} B "
-            f"at nb={g.nb}, Z={g.Z}, E={g.n_entries}) fits no block of "
-            f"{MAX_THREADS} threads and {MAX_SMEM} B of shared memory")
+            f"{name}: a block of {LANES_PER_THREAD} codewords "
+            f"({smem_bytes(g, c2v_bytes, LANES_PER_THREAD)} B at nb={g.nb}, "
+            f"Z={g.Z}, E={g.n_entries}) fits no block of {SWEEP_THREADS} "
+            f"threads and {MAX_SMEM} B of shared memory")
+    _check_graph(name, g, tail[1] if len(tail) > 1 else 0)
     lib = load_library().cdll
     out = torch.empty_like(chan)
-    tables = _tables_on(g, chan.device, use_rot)
+    tables = graph_tables(g, use_rot)
     with torch.cuda.device(chan.device):
         stream = torch.cuda.current_stream(chan.device).cuda_stream
         err = getattr(lib, f"microbench_{name}_launch")(
-            chan.data_ptr(), out.data_ptr(), tables.data_ptr(), B, g.nb,
-            g.Z, g.mb, g.n_entries, lanes, *tail, stream)
+            chan.data_ptr(), out.data_ptr(), tables.ctypes.data, len(tables),
+            B, g.nb, g.Z, g.mb, g.n_entries, lanes, *tail, stream)
     check_launch(lib, LIBRARY, err)
     kernel_launches[name] += 1
     return out
@@ -477,6 +544,34 @@ def sweep_cost(B: int, iters: int, g: Optional[Graph] = None,
     g = g or wifi648()
     return (2 * g.nb * g.Z * B,
             ops_per_entry * g.n_entries * g.Z * B * 2 * (iters // 2))
+
+
+SMEM_BYTES_PER_CLOCK = 128     # an SM's shared-memory bandwidth
+
+
+def smem_bytes_per_sweep(g: Graph, c2v_bytes: int) -> int:
+    """Shared-memory bytes a codeword and sweep that the packed S1 (c2v_bytes
+    0) or S2 (2, 4) must move, each access counted once at its width a
+    lane. S1: a total (2 B) an entry and row, the channel (1 B) and a new
+    total (2 B) a variable. S2: in the C phase a total, an old message and
+    a new one an entry and row, and the new one again where an entry's slot
+    is another's; in the V phase a message an entry and row, and the
+    channel and a total a variable."""
+    n, EZ = g.nb * g.Z, g.n_entries * g.Z
+    if not c2v_bytes:
+        return EZ * 2 + n * (1 + 2)
+    shared = sum(s != e for e, s in enumerate(g.slots)) * g.Z
+    return (EZ * (2 + 2 * c2v_bytes) + shared * c2v_bytes
+            + EZ * c2v_bytes + n * (1 + 2))
+
+
+def smem_floor_ms(g: Graph, c2v_bytes: int, B: int, iters: int, sms: int,
+                  clock_hz: float) -> float:
+    """The least time of `iters` sweeps (as many as the kernel runs) of B
+    codewords at SMEM_BYTES_PER_CLOCK a clock on each of `sms` SMs."""
+    sweeps = 2 * (iters // 2)
+    return (smem_bytes_per_sweep(g, c2v_bytes) * B * sweeps
+            / (sms * SMEM_BYTES_PER_CLOCK * clock_hz) * 1e3)
 
 
 def opchain_cost(numel: int, n_ops: int, iters: int) -> Tuple[int, int]:

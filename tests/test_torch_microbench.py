@@ -201,15 +201,20 @@ def test_refusals():
 
 
 def test_a_state_that_fits_no_block_is_refused():
-    """Lanes come from the shapes; a code whose single codeword exceeds the
-    227 KB of a block, or whose Z exceeds 1024 threads, gets no launch."""
+    """Lanes come from the shapes, by the decoders' packed rule (four lanes
+    a thread; the fewest lanes within 9/10 of the most codewords an SM
+    holds); a code whose block of four codewords exceeds the 227 KB of a
+    block, or whose Z exceeds the 256 threads of the launch bound, gets no
+    launch."""
     g = mb.wifi648()
-    assert mb.pick_lanes(g, 0) == 19 and mb.pick_lanes(g, 2) == 10
-    assert mb.pick_lanes(g, 4) == 7
+    assert mb.pick_lanes(g, 0) == 4 and mb.pick_lanes(g, 2) == 4
+    assert mb.pick_lanes(g, 4) == 20
     for c2v in (0, 2, 4):
-        lanes = mb.pick_lanes(g, c2v)
-        assert mb.smem_bytes(g, c2v, lanes) <= mb.PREFERRED_SMEM
-        assert mb.smem_bytes(g, c2v, lanes + 1) > mb.PREFERRED_SMEM
+        lanes, smem, blocks = mb.block_shape(g, c2v)
+        assert smem == mb.smem_bytes(g, c2v, lanes) <= mb.MAX_SMEM
+        assert blocks * (smem + mb.BLOCK_RESERVE) <= mb.SM_SMEM
+        assert lanes % mb.LANES_PER_THREAD == 0
+        assert lanes // mb.LANES_PER_THREAD * g.Z <= mb.SWEEP_THREADS
     long = mb.Graph(180, 360, 2, (((0, 1, 0), (1, 2, 1)),
                                   ((0, 3, 2), (2, 0, 3))))
     assert mb.pick_lanes(long, 0) == 0
@@ -266,14 +271,15 @@ def test_base_variant_differs_in_the_tables_shifts_only():
     g = mb.wifi648()
     rot, base = mb.graph_tables(g), mb.graph_tables(g, use_rot=False)
     E = g.n_entries
-    shifts = slice(g.mb + 1 + E, g.mb + 1 + 2 * E)
-    assert rot.dtype == base.dtype == np.int32
-    assert len(rot) == mb.graph_table_words(g) == 13 + 4 * 88 + 25
-    assert not base[shifts].any() and rot[shifts].any()
+    ents = slice(g.mb + g.nb + 2, g.mb + g.nb + 2 + 2 * E)   # ent, col_ent
+    assert rot.dtype == base.dtype == np.uint32
+    assert len(rot) == mb.graph_table_words(g) == 13 + 25 + 3 * 88
+    assert not (base[ents] & 0x7FF).any() and (rot[ents] & 0x7FF).any()
+    np.testing.assert_array_equal(rot[ents] >> 11, base[ents] >> 11)
     keep = np.ones(len(rot), bool)
-    keep[shifts] = False
+    keep[ents] = False
     np.testing.assert_array_equal(rot[keep], base[keep])
-    np.testing.assert_array_equal(rot[-E:], g.slots)
+    np.testing.assert_array_equal(rot[-E:], np.asarray(g.slots) * g.Z)
 
 
 def test_bounds_count_what_the_call_needs():

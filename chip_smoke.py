@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Bring-up check of the PyTorch/CUDA port (`ldpc_tpu_torch`) on one GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--grid1-against MICROBENCH_CU]
 
 Phases, each printing its lines; any failure raises and exits non-zero:
 
@@ -112,8 +112,10 @@ Phases, each printing its lines; any failure raises and exits non-zero:
    at 20, at B = 512, 1,024, 1,001 and 16,384; the packed int16 expression
    on the script's inputs, on the int16 extremes and fed back 3 times, also
    against numpy; the int32 chain at 1, 2 and 4 elements a thread; `grid32`
-   == `grid1` == plain; the library's shared-memory size against the
-   wrapper's. Then the entry point `python -m
+   == `grid1` == plain at (27, 32 x 512) and at ragged shapes (1 and 26
+   rows, 1, 3, 31 and 33 tiles, tiles of 100 and 13 columns, 400 steps and
+   the runtime instance's 7: GRID1_SHAPES); the library's shared-memory
+   size against the wrapper's. Then the entry point `python -m
    ldpc_tpu_torch.kernels.microbench`, driven in process for every variant
    at the reference's iteration counts (`rot`, `base`, `minsum`, `minsum16`
    at B = 512, 1,024 and 16,384; `int16`; `opshape`; `gridstep`), its JSON
@@ -322,7 +324,20 @@ Phases, each printing its lines; any failure raises and exits non-zero:
    the shape the entry point gives it (the sweeps at B = 16,384 and the
    entry point's smaller iteration count, 200; the int32 chain at 2,000
    iterations, where its plain version takes a second), and the min-sum
-   sweep's time a sweep beside K1's time an iteration.
+   sweep's time a sweep beside K1's time an iteration. S3-S6 are also timed
+   on the device alone (`utils.profiling.device_ms`: the host's dispatch
+   hidden behind a spin kernel), printed beside their event times, and held
+   to three floors beside the operation bound (`register_row`): the launch
+   floor (an empty kernel of the call's grid, device-only), the
+   integer-issue floor (each pipe's instructions a link of the chain, read
+   from the kernel's main loop in `cuobjdump -sass`, over 64 lanes an SM a
+   clock at `clocks.max.sm`) and the chain floor (one element's dependent
+   instructions times the latency measured with clock64 on one thread's
+   chain, `microbench.chain_probe`); the row's bound is the largest, and
+   its record carries it (`floor_ms`, `floor_by`) beside the event time
+   (`event_ms`). With `--grid1-against MICROBENCH_CU`, that source's grid1
+   is built and timed in turns with this checkout's (other, this, this,
+   other), device-only and by events.
 
 Each kernel record carries `launches` of the main path named beside it
 (K3's and the streaming kernel's that slice 8d's smoke decodes launched
@@ -352,6 +367,7 @@ bound itself is `utils.profiling.bound`.
 Ends with one JSON line of kernel records, the nvidia-smi line, and, last,
 the device line {"ok": true, "device": {"platform": "gpu", ...}}.
 """
+import argparse
 import concurrent.futures
 import contextlib
 import dataclasses
@@ -554,6 +570,10 @@ FLOOR_KEYS = {
 }
 MICRO_BATCHES = (512, 1024, BATCH)   # the reference's two tiles, and K1's
 RAGGED = (1, 3, 5, 4099, 16385)      # batches of the packed flooding kernel
+# (rows, tiles, tile width, steps) of S6's ragged checks
+GRID1_SHAPES = tuple((rows, n_tiles, 512, inner) for rows in (1, 26)
+                     for n_tiles in (1, 3, 33) for inner in (400, 7)) + (
+    (27, 32, 512, 7), (27, 31, 512, 400), (3, 5, 100, 400), (5, 9, 13, 400))
 # the SASS memory instructions counted (LDGSTS: cp.async; BAR: barriers)
 SASS_OPS = ("LDS", "STS", "LDC", "ULDC", "LD", "LDG", "STG", "LDGSTS", "BAR")
 # the layered library's functions whose SASS is counted: the packed
@@ -655,16 +675,10 @@ def bare_tensors(code, dev):
                        ident_info=False)
 
 
-def sass_counts(path):
+def sass_functions(path):
     """Per kernel function of a built library, from `cuobjdump -sass`: its
-    shared-memory loads and stores (LDS, STS), constant-bank loads (LDC,
-    ULDC), generic loads (LD), device-memory loads and stores (LDG, STG),
-    asynchronous copies (LDGSTS) and barriers (BAR) in the whole function
-    ("all") and in each
-    innermost loop (the instructions between a backward branch's target and
-    the branch, holding no other backward branch), in address order."""
-    import re
-    import shutil
+    instructions (address, opcode without modifiers, the rest of the line)
+    in address order."""
     cuobjdump = shutil.which("cuobjdump") or os.path.join(
         os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
     text = subprocess.run([cuobjdump, "-sass", str(path)], capture_output=True,
@@ -680,25 +694,40 @@ def sass_counts(path):
                       r"([^;]*)", line)
         if name and m:
             funcs[name].append((int(m.group(1), 16), m.group(2), m.group(3)))
+    return funcs
+
+
+def innermost_loops(ins):
+    """(first, last) addresses of each innermost loop of a function's
+    instructions: those between a backward branch's target and the branch,
+    holding no other backward branch, in address order."""
+    back = []
+    for addr, op, rest in ins:
+        t = re.search(r"0x([0-9a-f]+)", rest) if op == "BRA" else None
+        if t and int(t.group(1), 16) < addr:
+            back.append((int(t.group(1), 16), addr))
+    return sorted((lo, hi) for lo, hi in back
+                  if not any(lo <= a < b <= hi and (a, b) != (lo, hi)
+                             for a, b in back))
+
+
+def sass_counts(path):
+    """Per kernel function of a built library (`sass_functions`): its
+    shared-memory loads and stores (LDS, STS), constant-bank loads (LDC,
+    ULDC), generic loads (LD), device-memory loads and stores (LDG, STG),
+    asynchronous copies (LDGSTS) and barriers (BAR) in the whole function
+    ("all") and in each innermost loop (`innermost_loops`)."""
     out = {}
-    for name, ins in funcs.items():
+    for name, ins in sass_functions(path).items():
         def count(lo, hi):
             c = dict.fromkeys(SASS_OPS, 0)
             for addr, op, _ in ins:
                 if lo <= addr <= hi and op in c:
                     c[op] += 1
             return c
-        back = []
-        for addr, op, rest in ins:
-            t = re.search(r"0x([0-9a-f]+)", rest) if op == "BRA" else None
-            if t and int(t.group(1), 16) < addr:
-                back.append((int(t.group(1), 16), addr))
-        inner = [(lo, hi) for lo, hi in back
-                 if not any(lo <= a < b <= hi and (a, b) != (lo, hi)
-                            for a, b in back)]
         out[name] = {"all": count(0, 1 << 62),
                      "loops": [dict(count(lo, hi), span=[hex(lo), hex(hi)])
-                               for lo, hi in sorted(inner)]}
+                               for lo, hi in innermost_loops(ins)]}
     return out
 
 
@@ -2629,7 +2658,166 @@ def check_microbench(micro, dev):
     hold("grid1", f"{tuple(x.shape)}, {micro.INNER} steps", g1, want)
     if not torch.equal(g32, g1):
         raise AssertionError("grid32 != grid1")
+    # grid1's ragged shapes: tiles 1, 3 = 2 + 1, 33 = 2 x 16 + 1 and 31 =
+    # 16 + 8 + 4 + 2 + 1 (groups of 16, the rest in groups of 8, 4, 2, 1),
+    # one row, a last block of part of a warp (tile_w 100, 13), and the
+    # runtime instance (inner != 400)
+    for rows, n_tiles, tile_w, inner in GRID1_SHAPES:
+        x = torch.as_tensor(rng.integers(
+            -128, 128, (rows, n_tiles * tile_w)).astype(np.int8)).to(dev)
+        label = f"({rows}, {n_tiles} x {tile_w}), {inner} steps"
+        g1, g32 = micro.grid1(x, inner, tile_w), micro.grid32(x, inner, tile_w)
+        hold("grid1", label, g1, micro.gridstep_plain(x, inner))
+        if not torch.equal(g32, g1):
+            raise AssertionError(f"grid32 != grid1 on {label}")
     return worst
+
+
+# S3-S6's functions in the library's SASS (mangled-name substrings): the
+# instances the timed calls launch, and the chain probe's IMNMX chain
+SASS_REGISTER = {"opchain": "opchain_kernelILi1E", "grid32": "grid32_kernel",
+                 "grid1": "grid1_kernelILi400E"}
+SASS_PROBE = "chain_probe_kernelILi0E"
+
+
+def register_floors(micro, gpu, sms, clock_mhz):
+    """The chain probe's cycles (`microbench.chain_probe`) and the loops of
+    S4-S6 in the library's SASS: prints them and returns ({kernel: the
+    dependent-issue latency in cycles of an instruction on its chain},
+    {kernel: (ALU, FMA) instructions a link of its chain}). The latency is
+    measured on each kernel's own chain, one thread's S4 pairs (5
+    instructions) or S5/S6 steps (3); S3's is the IMNMX chain's."""
+    funcs = sass_functions(micro.load_library().path)
+
+    def fn(key):
+        names = [n for n in funcs if key in n]
+        if len(names) != 1:
+            raise AssertionError(f"{key}: {names} in the library's SASS")
+        return funcs[names[0]]
+
+    cycles = micro.chain_probe()
+    n_minmax = sum(op in micro.MINMAX_OPS for _, op, _ in fn(SASS_PROBE))
+    if n_minmax != micro.PROBE_LEN:
+        raise AssertionError(f"the IMNMX chain holds {n_minmax} min/max "
+                             f"instructions, not {micro.PROBE_LEN}")
+    imnmx = cycles["imnmx"] / n_minmax
+    step = cycles["grid_step"] / micro.PROBE_LEN / micro.GRIDSTEP_CHAIN
+    latency = {"int16": imnmx, "grid32": step, "grid1": step,
+               "opchain": cycles["opchain_pair"] / micro.PROBE_LEN
+               / micro.OPCHAIN_CHAIN}
+    print(f"[{gpu}] dependent-issue latency: {imnmx:.3f} cycles an IMNMX "
+          f"(clock64 around one thread's chain of {n_minmax} dependent "
+          f"min/max, {cycles['imnmx']} cycles); one thread's chain alone: "
+          f"{cycles['grid_step'] / micro.PROBE_LEN:.3f} cycles an S5/S6 step, "
+          f"{cycles['opchain_pair'] / micro.PROBE_LEN:.3f} an S4 pair "
+          f"({micro.PROBE_LEN} links each); {sms} SMs, clocks.max.sm "
+          f"{clock_mhz:g} MHz", flush=True)
+    pipes = {}
+    for name, key in SASS_REGISTER.items():
+        ins = fn(key)
+        per_link = 2 if name == "opchain" else 1
+        loops = [[op for addr, op, _ in ins if lo <= addr <= hi]
+                 for lo, hi in innermost_loops(ins)]
+        loop = max(loops, key=lambda ops: sum(o in micro.MINMAX_OPS
+                                              for o in ops), default=[])
+        pipes[name] = micro.link_pipes(loop, per_link)
+        mix = {op: loop.count(op) for op in sorted(set(loop))}
+        print(f"  sass {name} ({key}): its main loop {len(loop)} "
+              f"instructions {json.dumps(mix)}; a link of the chain: "
+              f"{pipes[name][0]:.3f} ALU-pipe, {pipes[name][1]:.3f} FMA-pipe",
+              flush=True)
+    return latency, pipes
+
+
+def register_row(micro, name, t, dev_t, cost, shape, latency, pipes, sms,
+                 clock_mhz, gpu):
+    """Prints and returns S3-S6's floors and bound beside the kernel's
+    device-only time dev_t (ms) and its event time t[0]. shape: (the
+    launch's threads' work n, tiles, the lane operations of the issue floor
+    where no loop is read (S3), the dependent instructions on one element's
+    chain, the links of the whole call: S4's pairs, S5/S6's steps)."""
+    from ldpc_tpu_torch.utils.profiling import bound
+    n, tiles, counted, chain_deps, call_links = shape
+    clock = clock_mhz * 1e6
+    grid, threads = micro.launch_grid(name, n, tiles)
+    launch = micro.launch_floor_ms(grid, threads)
+    if name in pipes:
+        alu, fma = pipes[name]
+        issue = micro.issue_floor_ms(alu * call_links, sms, clock,
+                                     fma * call_links)
+    else:
+        issue = micro.issue_floor_ms(counted, sms, clock)
+    chain = micro.chain_floor_ms(chain_deps, latency[name], clock)
+    b_ms, b_by = bound(*cost)
+    floors = {"bound": b_ms, "launch": launch, "issue": issue,
+              "chain": chain}
+    by = max(floors, key=floors.get)
+    warps = grid[0] * grid[1] * -(-threads // 32)
+    print(f"[{gpu}] {name}: device-only {dev_t:.4f} ms (events around the "
+          f"call, the dispatch inside: {t[0]:.4f} ms); floors: launch "
+          f"{launch:.5f} ms (an empty kernel of grid {grid}, {threads} "
+          f"threads), issue {issue:.5f} ms (at {warps} warps on "
+          f"{4 * sms} schedulers: "
+          f"{issue * 4 * sms / min(warps, 4 * sms):.5f}), chain "
+          f"{chain:.5f} ms ({chain_deps:g} dependent instructions x "
+          f"{latency[name]:.3f} cycles); "
+          f"the old bound {b_ms:.6f} ms by {b_by}; bound {floors[by]:.5f} ms "
+          f"({by}), {100 * floors[by] / dev_t:.1f}% of the device-only "
+          f"time", flush=True)
+    return {"event_ms": t[0], "launch_floor_ms": launch,
+            "issue_floor_ms": issue, "chain_floor_ms": chain,
+            "floor_ms": floors[by], "floor_by": by}
+
+
+def grid1_against(cu, micro, x, gpu, reps=25):
+    """grid1 of another source of the library (its `microbench_grid1_
+    launch`, the same C signature), built with this checkout's nvcc flags,
+    held to the plain version (tolerance 0) and timed in turns with this
+    checkout's grid1 (other, this, this, other), device-only and by events
+    around the call; prints both."""
+    import ctypes
+    from ldpc_tpu_torch.kernels import build as kbuild
+    from ldpc_tpu_torch.utils.profiling import device_ms, event_ms
+    so = kbuild.BUILD_DIR / "libmicrobench-against.so"
+    kbuild.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    subprocess.run([kbuild.find_nvcc(), *kbuild.NVCC_FLAGS, "-o", str(so),
+                    cu], check=True, capture_output=True, timeout=600)
+    lib = ctypes.CDLL(str(so))
+    launch = lib.microbench_grid1_launch
+    launch.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 4 + [
+        ctypes.c_void_p]
+    launch.restype = ctypes.c_int
+
+    def other(x):
+        out = torch.empty_like(x)
+        err = launch(x.data_ptr(), out.data_ptr(), x.shape[0], micro.TILE_W,
+                     x.shape[1] // micro.TILE_W, micro.INNER,
+                     torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f"{cu}: grid1 launch failed ({err})")
+        return out
+
+    got = other(x)
+    torch.cuda.synchronize()
+    if not torch.equal(got, micro.gridstep_plain(x)):
+        raise AssertionError(f"{cu}: grid1 != plain")
+    fns = {"other": lambda: other(x), "this": lambda: micro.grid1(x)}
+    for f in fns.values():
+        f()
+    dev_t, ev_t = {k: [] for k in fns}, {k: [] for k in fns}
+    for turn in ("other", "this", "this", "other"):
+        dev_t[turn] += device_ms(fns[turn], reps)
+        ev_t[turn] += event_ms(fns[turn], reps)
+    med = {k: (statistics.median(dev_t[k]), statistics.median(ev_t[k]))
+           for k in fns}
+    print(f"[{gpu}] grid1 in turns with {cu} (built in "
+          f"{time.perf_counter() - t0:.1f} s, == plain): device-only "
+          f"{med['other'][0]:.4f} -> {med['this'][0]:.4f} ms "
+          f"({med['other'][0] / med['this'][0]:.2f}x), events around the "
+          f"call {med['other'][1]:.4f} -> {med['this'][1]:.4f} ms; "
+          f"{2 * reps} calls each", flush=True)
+    return med
 
 
 def exact_sweep_max(g, chan, iters, use_rot):
@@ -3112,6 +3300,13 @@ def check_mesh(port, minsum, gpu):
 
 
 def main():
+    ap = argparse.ArgumentParser(description="bring-up check of the port on "
+                                 "one GPU (see the module docstring)")
+    ap.add_argument("--grid1-against", metavar="MICROBENCH_CU",
+                    help="another source of kernels/csrc/microbench.cu: its "
+                         "grid1 is built and timed in turns with this "
+                         "checkout's")
+    opts = ap.parse_args()
     phase("device")
     if not torch.cuda.is_available():
         raise RuntimeError("torch.cuda.is_available() is False: this check "
@@ -3129,7 +3324,7 @@ def main():
     from ldpc_tpu_torch.ops.channel import sigma_for
     from ldpc_tpu_torch.sim import make_run_batch
     from ldpc_tpu_torch.sim.sweep import batch_seed
-    from ldpc_tpu_torch.utils.profiling import bound, event_ms
+    from ldpc_tpu_torch.utils.profiling import bound, device_ms, event_ms
     dev = torch.device("cuda")
 
     phase("build (the four libraries at once)")
@@ -3910,14 +4105,40 @@ def main():
         ["nvidia-smi", "--query-gpu=clocks.max.sm",
          "--format=csv,noheader,nounits"], capture_output=True, text=True,
         check=True, timeout=60).stdout.split()[torch.cuda.current_device()])
+    # S3-S6: (the launch's threads' work, tiles, counted lane operations,
+    # one element's dependent instructions, the call's links) for
+    # `register_row`
+    n_pairs = 64 // 4
+    register_shapes = {
+        "int16": (ma.numel() // 2, 1, micro.INT16_OPS * ma.numel() // 2,
+                  micro.INT16_CHAIN, 0),
+        "opchain": (mx.numel(), 1, 0, micro.OPCHAIN_CHAIN * n_pairs * 2000,
+                    mx.numel() * n_pairs * 2000),
+        **{name: (micro.Z * micro.TILE_W, micro.N_TILES, 0,
+                  micro.GRIDSTEP_CHAIN * micro.INNER,
+                  mgrid.numel() * micro.INNER)
+           for name in ("grid32", "grid1")}}
+    latency, pipes = register_floors(micro, gpu, sms, clock_mhz)
+    micro_floors = {}
     for name, (kernel, plain, args, cost, what) in micro_cases.items():
         t = kernel_vs_plain_ms(types.SimpleNamespace(kernel=kernel,
                                                      plain=plain),
                                args, {}, gpu, what, plain_reps=1)
         b_ms, b_by = bound(*cost)
-        print(f"  bound {b_ms:.6f} ms by {b_by} ({100 * b_ms / t[0]:.1f}% of "
-              f"the kernel's time)", flush=True)
+        if name in register_shapes:
+            # the device alone: S3-S6 last tens of microseconds, where the
+            # host's dispatch inside the events weighs
+            t_dev = statistics.median(device_ms(lambda: kernel(*args), 50))
+            micro_floors[name] = register_row(
+                micro, name, t, t_dev, cost, register_shapes[name], latency,
+                pipes, sms, clock_mhz, gpu)
+            t = (t_dev,) + t[1:]
+        else:
+            print(f"  bound {b_ms:.6f} ms by {b_by} ({100 * b_ms / t[0]:.1f}% "
+                  f"of the kernel's time)", flush=True)
         timing["micro " + name] = t + (b_ms, b_by)
+    if opts.grid1_against:
+        grid1_against(opts.grid1_against, micro, mgrid, gpu)
     for name, nbytes in (("sweep", 0), ("minsum", 4), ("minsum16", 2)):
         floor_ms = micro.smem_floor_ms(mg, nbytes, BATCH, n_sweeps, sms,
                                        clock_mhz * 1e6)
@@ -4031,7 +4252,8 @@ def main():
            "source": micro.SOURCE, "replaces": micro.REPLACES[name],
            "launches": micro_launches[name],
            "max_abs_err": micro_worst[name], "ms": t[0], "plain_ms": t[1],
-           "bound_ms": t[2], "bound_by": t[3], "library_ms": None}
+           "bound_ms": t[2], "bound_by": t[3], "library_ms": None,
+           **micro_floors.get(name, {})}
           for name in micro.REPLACES
           for t in (timing["micro " + name],))]
     for rec in records:

@@ -96,12 +96,32 @@
 // registers. |b - a| is the absolute value of a wrapped difference, and
 // |INT_MIN| stays INT_MIN, as in XLA.
 //
-// grid32 / grid1 (S5, S6): one __device__ work() (400 dependent steps), run
-// once with a block group a tile (grid.y = 32) and once with one block group
-// that loops over the 32 tiles. On the TPU the grid runs in order, so the
-// difference is a per-step overhead; here blocks run in parallel, so it is
-// the price of serialising tiles inside a block against scheduling more
-// blocks.
+// grid32 / grid1 (S5, S6): the same step (grid_step: 400 dependent steps an
+// element), run once with a block group a tile (grid.y = 32) and once with
+// one block group that loops over the 32 tiles. On the TPU the grid runs in
+// order, so the difference is a per-step overhead; here blocks run in
+// parallel, so it is the price of serialising tiles inside a block against
+// scheduling more blocks. What bounds both is integer issue: four
+// operations a step, three of them on the chain (add, xor, max). grid32
+// has 442,368 threads, enough warps to hide the chain's latency. grid1 has
+// one thread a (row, column), 13,824 threads: one warp a scheduler at best,
+// so a thread that walked its tiles one chain after another would wait on
+// latency 12,800 times. Instead a thread runs kGroup tiles' chains at once,
+// interleaved in registers (a ragged rest in groups of 8, 4, 2 and 1), the
+// step loop unrolled on a count fixed at compile time (kInner; a second
+// instance takes any other count), the next group's loads issued before
+// this group's chains, in blocks of kGridThreads so that the 432 warps
+// spread over every SM. With one warp a scheduler the floor is the ALU
+// pipe's: nvcc makes a step VIADD (the FMA pipe: grid32 runs faster than
+// three ALU instructions a step allow), LOP3 and VIADDMNMX (v - 3 and the
+// max in one), two ALU instructions of two clocks a warp, 51,200 clocks a
+// thread. On the H100 groups of 16 ran faster than groups of 4 or 8, and
+// blocks of 32, 64 or 128 threads ran alike.
+//
+// Beside the six: empty_kernel, whose device time at a launch's grid is
+// that launch's floor, and chain_probe_kernel, which times one thread's
+// dependent chain on the SM's clock (the latency that bounds S4's one
+// element a thread).
 
 #include <cuda_runtime.h>
 
@@ -574,9 +594,15 @@ __global__ void int16_kernel(const uint32_t* a, const uint32_t* b,
   out[i] = x;
 }
 
-// a = x; b = a ^ 11; iters x n_pairs x (a = |b - a|; b = min(b, max(a, b ^
-// a))) on ILP independent elements a thread; element k of thread i is
-// x[i + k * n_threads].
+// One pair of S4's statements: a = |b - a|; b = min(b, max(a, b ^ a)).
+__device__ __forceinline__ void opchain_pair(uint32_t& a, uint32_t& b) {
+  const uint32_t d = b - a;                        // wraps, as XLA
+  a = int32_t(d) < 0 ? 0u - d : d;                 // |INT_MIN| = INT_MIN
+  b = uint32_t(min(int32_t(b), max(int32_t(a), int32_t(b ^ a))));
+}
+
+// a = x; b = a ^ 11; iters x n_pairs x opchain_pair on ILP independent
+// elements a thread; element k of thread i is x[i + k * n_threads].
 template <int ILP>
 __global__ void opchain_kernel(const int8_t* x, int8_t* out, int n_threads,
                                int n_pairs, int iters) {
@@ -591,12 +617,7 @@ __global__ void opchain_kernel(const int8_t* x, int8_t* out, int n_threads,
   for (int it = 0; it < iters; ++it) {
     for (int q = 0; q < n_pairs; ++q) {
 #pragma unroll
-      for (int k = 0; k < ILP; ++k) {
-        const uint32_t d = b[k] - a[k];            // wraps, as XLA
-        a[k] = int32_t(d) < 0 ? 0u - d : d;        // |INT_MIN| = INT_MIN
-        b[k] = uint32_t(min(int32_t(b[k]),
-                            max(int32_t(a[k]), int32_t(b[k] ^ a[k]))));
-      }
+      for (int k = 0; k < ILP; ++k) opchain_pair(a[k], b[k]);
     }
   }
 #pragma unroll
@@ -605,13 +626,16 @@ __global__ void opchain_kernel(const int8_t* x, int8_t* out, int n_threads,
         static_cast<int8_t>(static_cast<uint8_t>(a[k]));
 }
 
-// `inner` dependent v = max(v ^ (v + 1), v - 3) in wrapping int32.
+// One step of S5/S6: v = max(v ^ (v + 1), v - 3) in wrapping int32.
+__device__ __forceinline__ uint32_t grid_step(uint32_t v) {
+  const uint32_t p = v ^ (v + 1u);
+  const uint32_t m = v - 3u;
+  return int32_t(p) > int32_t(m) ? p : m;
+}
+
+// `inner` dependent steps.
 __device__ inline uint32_t work(uint32_t v, int inner) {
-  for (int i = 0; i < inner; ++i) {
-    const uint32_t p = v ^ (v + 1u);
-    const uint32_t m = v - 3u;
-    v = int32_t(p) > int32_t(m) ? p : m;
-  }
+  for (int i = 0; i < inner; ++i) v = grid_step(v);
   return v;
 }
 
@@ -633,16 +657,125 @@ __global__ void grid32_kernel(const int8_t* x, int8_t* out, int rows,
     work_tile(x, out, i, blockIdx.y, tile_w, n_tiles, inner);
 }
 
-// grid = ceil(rows * tile_w / threads): one block group loops over the tiles.
-__global__ void grid1_kernel(const int8_t* x, int8_t* out, int rows,
-                             int tile_w, int n_tiles, int inner) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= rows * tile_w) return;
-  for (int tile = 0; tile < n_tiles; ++tile)
-    work_tile(x, out, i, tile, tile_w, n_tiles, inner);
+constexpr int kGridThreads = 64;   // grid1's block: 216 blocks at (27, 512)
+constexpr int kGroup = 16;         // grid1's tiles stepped at once a thread
+constexpr int kInner = 400;        // the steps a tile of diag_gridstep.py
+
+// G interleaved chains of `inner` steps; with INNER > 0 the count is
+// INNER, fixed at compile time, so the loop unrolls with no remainder.
+template <int INNER, int G>
+__device__ __forceinline__ void chains(uint32_t (&v)[G], int inner) {
+  const int n = INNER > 0 ? INNER : inner;
+#pragma unroll 8
+  for (int i = 0; i < n; ++i) {
+#pragma unroll
+    for (int k = 0; k < G; ++k) v[k] = grid_step(v[k]);
+  }
 }
 
-constexpr int kThreads = 128;   // block size of the register kernels
+// Tiles t .. t + G - 1 of a thread's element (x, out at its first tile):
+// loaded, stepped together, stored.
+template <int INNER, int G>
+__device__ __forceinline__ void tile_group(const int8_t* __restrict__ x,
+                                           int8_t* __restrict__ out,
+                                           int tile_w, int t, int inner) {
+  uint32_t v[G];
+#pragma unroll
+  for (int k = 0; k < G; ++k)
+    v[k] = uint32_t(int(x[size_t(t + k) * tile_w]));
+  chains<INNER, G>(v, inner);
+#pragma unroll
+  for (int k = 0; k < G; ++k)
+    out[size_t(t + k) * tile_w] = static_cast<int8_t>(
+        static_cast<uint8_t>(v[k]));
+}
+
+// The tiles from t on, fewer than 2G of them, in groups of G, G / 2, ... 1.
+template <int INNER, int G>
+__device__ __forceinline__ void tile_rest(const int8_t* __restrict__ x,
+                                          int8_t* __restrict__ out,
+                                          int tile_w, int t, int n_tiles,
+                                          int inner) {
+  if constexpr (G > 0) {
+    if (n_tiles - t >= G) {
+      tile_group<INNER, G>(x, out, tile_w, t, inner);
+      t += G;
+    }
+    tile_rest<INNER, G / 2>(x, out, tile_w, t, n_tiles, inner);
+  }
+}
+
+// grid = ceil(rows * tile_w / kGridThreads): one block group loops over the
+// tiles, a thread a (row, column), kGroup tiles at a time.
+template <int INNER>
+__global__ void __launch_bounds__(kGridThreads)
+grid1_kernel(const int8_t* __restrict__ x, int8_t* __restrict__ out, int rows,
+             int tile_w, int n_tiles, int inner) {
+  const int i = blockIdx.x * kGridThreads + threadIdx.x;
+  if (i >= rows * tile_w) return;
+  const size_t at = size_t(i / tile_w) * (size_t(n_tiles) * tile_w)
+                  + size_t(i % tile_w);
+  x += at;
+  out += at;
+  const int full = n_tiles - n_tiles % kGroup;
+  int8_t next[kGroup];
+  if (full) {
+#pragma unroll
+    for (int k = 0; k < kGroup; ++k) next[k] = x[size_t(k) * tile_w];
+  }
+  for (int t = 0; t < full; t += kGroup) {
+    uint32_t v[kGroup];
+#pragma unroll
+    for (int k = 0; k < kGroup; ++k) v[k] = uint32_t(int(next[k]));
+    if (t + kGroup < full) {   // the next group's loads, ahead of the chains
+#pragma unroll
+      for (int k = 0; k < kGroup; ++k)
+        next[k] = x[size_t(t + kGroup + k) * tile_w];
+    }
+    chains<INNER, kGroup>(v, inner);
+#pragma unroll
+    for (int k = 0; k < kGroup; ++k)
+      out[size_t(t + k) * tile_w] = static_cast<int8_t>(
+          static_cast<uint8_t>(v[k]));
+  }
+  tile_rest<INNER, kGroup / 2>(x, out, tile_w, full, n_tiles, inner);
+}
+
+// No work: its device time at a launch's grid is the floor of that launch.
+__global__ void empty_kernel() {}
+
+// One thread's chain of kProbeLen links timed on the SM's clock: MODE 0 a
+// link is one IMNMX (max and min in turns against four values, so that no
+// two links fold), 1 an S5/S6 step, 2 an S4 pair. in[0..3] the four
+// values, in[4] a zero mask that makes the chain start after the first
+// clock read, in[5] the start; cycles[0] the clock64() difference, sink[0]
+// the chain's value, stored before the second read.
+constexpr int kProbeLen = 256;
+
+template <int MODE>
+__global__ void chain_probe_kernel(const int* in, long long* cycles,
+                                   int* sink) {
+  const int a0 = in[0], a1 = in[1], a2 = in[2], a3 = in[3];
+  const long long t0 = clock64();
+  uint32_t v = uint32_t(in[5] ^ (int(t0) & in[4]));
+  uint32_t b = v ^ 11u;
+#pragma unroll
+  for (int i = 0; i < kProbeLen; ++i) {
+    if constexpr (MODE == 0) {
+      const int w = int(v);
+      v = uint32_t((i & 3) == 0 ? max(w, a0) : (i & 3) == 1 ? min(w, a1)
+                   : (i & 3) == 2 ? max(w, a2) : min(w, a3));
+    } else if constexpr (MODE == 1) {
+      v = grid_step(v);
+    } else {
+      opchain_pair(v, b);
+    }
+  }
+  *static_cast<volatile int*>(sink) = int(v ^ b);
+  cycles[0] = clock64() - t0;
+}
+
+constexpr int kThreads = 128;   // block size of the other register kernels
 
 // Whether the tables' degrees fit the instances: columns of 1..kColDeg
 // entries, and for minsum base rows of 2..kRowDeg (a row of one entry would
@@ -814,12 +947,44 @@ int microbench_grid32_launch(const void* x, void* out, int rows, int tile_w,
 
 int microbench_grid1_launch(const void* x, void* out, int rows, int tile_w,
                             int n_tiles, int inner, void* stream) {
-  if (rows < 1 || tile_w < 1 || n_tiles < 1)
+  if (rows < 1 || tile_w < 1 || n_tiles < 1
+      || int64_t(rows) * tile_w > INT32_MAX - kGridThreads)
     return int(cudaErrorInvalidValue);
-  grid1_kernel<<<(rows * tile_w + kThreads - 1) / kThreads, kThreads, 0,
-                 static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int8_t*>(x), static_cast<int8_t*>(out), rows, tile_w,
-      n_tiles, inner);
+  const int grid = (rows * tile_w + kGridThreads - 1) / kGridThreads;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int8_t* xi = static_cast<const int8_t*>(x);
+  int8_t* oi = static_cast<int8_t*>(out);
+  if (inner == kInner)
+    grid1_kernel<kInner><<<grid, kGridThreads, 0, st>>>(xi, oi, rows, tile_w,
+                                                       n_tiles, inner);
+  else
+    grid1_kernel<0><<<grid, kGridThreads, 0, st>>>(xi, oi, rows, tile_w,
+                                                  n_tiles, inner);
+  return int(cudaGetLastError());
+}
+
+int microbench_empty_launch(int grid_x, int grid_y, int threads,
+                            void* stream) {
+  if (grid_x < 1 || grid_y < 1 || grid_y > 65535 || threads < 1
+      || threads > 1024)
+    return int(cudaErrorInvalidValue);
+  empty_kernel<<<dim3(grid_x, grid_y), threads, 0,
+                 static_cast<cudaStream_t>(stream)>>>();
+  return int(cudaGetLastError());
+}
+
+// One thread of chain_probe_kernel<mode> (0, 1, 2); in int[6], cycles one
+// int64, sink one int32, all device pointers.
+int microbench_chain_probe_launch(const void* in, void* cycles, void* sink,
+                                  int mode, void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int* i = static_cast<const int*>(in);
+  long long* c = static_cast<long long*>(cycles);
+  int* s = static_cast<int*>(sink);
+  if (mode == 0) chain_probe_kernel<0><<<1, 1, 0, st>>>(i, c, s);
+  else if (mode == 1) chain_probe_kernel<1><<<1, 1, 0, st>>>(i, c, s);
+  else if (mode == 2) chain_probe_kernel<2><<<1, 1, 0, st>>>(i, c, s);
+  else return int(cudaErrorInvalidValue);
   return int(cudaGetLastError());
 }
 

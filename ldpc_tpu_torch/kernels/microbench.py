@@ -5,7 +5,9 @@
                                                 [--device cuda|cpu]
 
 Six hand-written CUDA kernels, one library `csrc/microbench.cu` built with
-nvcc at first launch (`build.py`), each beside its plain torch version:
+nvcc at first launch (`build.py`), each beside its plain torch version (and
+two that measure the card for the floors of S3-S6: an empty kernel,
+`launch_floor_ms`, and a clock64 probe of dependent chains, `chain_probe`):
 
   variant            kernel                       plain version
   rot, base          `sweep`  (make_sweep)        `sweep_plain`
@@ -31,6 +33,8 @@ a knob of the TPU compiler and has no counterpart. The reference takes the
 best of several host-clock trials and synchronises by fetching the result;
 here every point is the median of CUDA-event times (`utils.profiling.timed`)
 and, as there, the slope between two iteration counts cancels the launch.
+`gridstep` has no slope: on the card it times the device alone
+(`utils.profiling.device_timed`), with the event times beside.
 
 Each run prints the card's `nvidia-smi` name and power limit, then one JSON
 line with the reference's keys (three lines for `opshape`; for `int16` the
@@ -44,6 +48,7 @@ import argparse
 import ctypes
 import functools
 import json
+import statistics
 import subprocess
 from typing import Callable, Dict, List, NamedTuple, Optional, Tuple
 
@@ -53,7 +58,8 @@ import torch
 from ..codes import build_code, qc_entries
 from ..config import PRESETS
 from ..device import resolve_device
-from ..utils.profiling import bound, timed
+from ..utils.profiling import (bound, cuda_device, device_ms, device_timed,
+                               timed)
 from . import build
 from .minsum import (BLOCK_RESERVE, LANES_PER_THREAD, MAX_SMEM, SM_BLOCKS,
                      SM_SMEM, SM_WARPS, align16, check_launch, packed_tables)
@@ -89,6 +95,32 @@ TAB_WORDS = 960
 OPCHAIN_OPS_PER_PAIR = 6
 GRIDSTEP_OPS_PER_STEP = 4
 INT16_OPS = 6
+# the register kernels' blocks (kThreads; grid1's kGridThreads), grid1's
+# tiles stepped at once by a thread (kGroup) and the chain probe's links
+# (kProbeLen); grid1's unrolled instance takes inner == INNER (kInner)
+THREADS = 128
+GRID1_THREADS = 64
+GRID1_GROUP = 16
+PROBE_LEN = 256
+# the dependent instructions on one element's chain: a grid step (add, xor,
+# max; v - 3 runs beside), an opchain pair (sub, abs, xor, max, min), an
+# int16 iteration (compare, select, min)
+GRIDSTEP_CHAIN = 3
+OPCHAIN_CHAIN = 5
+INT16_CHAIN = 3
+# 32-bit integer lanes an SM a clock on each of the two pipes that issue
+# integer work at compute capability 9.0 (the CUDA C Programming Guide's
+# throughput table): the ALU pipe (add, logic, shift, compare, select,
+# min/max, abs) and the FMA pipe (IMAD and its forms, IMUL, and VIADD:
+# S5's loop of VIADD, LOP3 and VIADDMNMX runs faster on the H100 than three
+# ALU instructions a step allow)
+INT_LANES_PER_SM = 64
+ALU_PIPE = frozenset({"IADD3", "LOP3", "IMNMX", "VIMNMX", "VIMNMX3",
+                      "VIADDMNMX", "IABS", "ISETP", "SEL", "SHF", "LEA",
+                      "PRMT", "PLOP3", "VABSDIFF", "VABSDIFF4", "FLO",
+                      "POPC", "BMSK", "SGXT"})
+FMA_PIPE = frozenset({"IMAD", "IMUL", "IDP", "VIADD"})
+MINMAX_OPS = frozenset({"IMNMX", "VIMNMX", "VIADDMNMX"})
 
 kernel_launches: Dict[str, int] = dict.fromkeys(REPLACES, 0)
 plain_calls: Dict[str, int] = dict.fromkeys(REPLACES, 0)
@@ -139,7 +171,8 @@ def wifi648() -> Graph:
 
 def load_library(rebuild: bool = False) -> build.Library:
     """Build (first use) and bind the library: six `microbench_<kernel>_
-    launch` entries, `microbench_config` and `microbench_error_string`."""
+    launch` entries, the empty kernel's and the chain probe's,
+    `microbench_config` and `microbench_error_string`."""
     lib = build.load(LIBRARY, rebuild=rebuild)
     c = lib.cdll
     c.microbench_sweep_launch.argtypes = [_P] * 3 + [_I] * 8 + [_P]
@@ -148,8 +181,10 @@ def load_library(rebuild: bool = False) -> build.Library:
     c.microbench_opchain_launch.argtypes = [_P] * 2 + [_I] * 4 + [_P]
     c.microbench_grid32_launch.argtypes = [_P] * 2 + [_I] * 4 + [_P]
     c.microbench_grid1_launch.argtypes = [_P] * 2 + [_I] * 4 + [_P]
+    c.microbench_empty_launch.argtypes = [_I] * 3 + [_P]
+    c.microbench_chain_probe_launch.argtypes = [_P] * 3 + [_I, _P]
     c.microbench_config.argtypes = [_I] * 4 + [ctypes.POINTER(_I)]
-    for name in REPLACES:
+    for name in (*REPLACES, "empty", "chain_probe"):
         getattr(c, f"microbench_{name}_launch").restype = _I
     c.microbench_config.restype = _I
     c.microbench_error_string.argtypes = [_I]
@@ -529,7 +564,9 @@ def grid32(x: torch.Tensor, inner: int = INNER, tile_w: int = TILE_W
 def grid1(x: torch.Tensor, inner: int = INNER, tile_w: int = TILE_W
           ) -> torch.Tensor:
     """S6. `gridstep_plain` with one group of blocks that loops over the
-    tiles."""
+    tiles: a thread a (row, column) in blocks of GRID1_THREADS, stepping
+    GRID1_GROUP tiles at once (a ragged rest in groups of 8, 4, 2 and 1);
+    inner == INNER runs the instance whose step loop unrolls."""
     return _gridstep("grid1", x, inner, tile_w)
 
 
@@ -584,6 +621,98 @@ def gridstep_cost(numel: int, inner: int = INNER) -> Tuple[int, int]:
 
 def int16_cost(numel: int, iters: int = 1) -> Tuple[int, int]:
     return 3 * 2 * numel, INT16_OPS * iters * numel
+
+
+# ---------------------------------------------------------------------------
+# Floors of S3-S6 beside the bound: launch, integer issue, chain
+# ---------------------------------------------------------------------------
+
+def launch_grid(name: str, n: int, tiles: int = 1
+                ) -> Tuple[Tuple[int, int], int]:
+    """((grid x, grid y), threads a block) of a register kernel's launch,
+    as csrc/microbench.cu makes it: n is the threads' work (int16: packed
+    words; opchain: elements / elements a thread; grid32, grid1: rows *
+    tile_w), tiles grid32's grid.y."""
+    if name == "grid1":
+        return (-(-n // GRID1_THREADS), 1), GRID1_THREADS
+    if name in ("int16", "opchain", "grid32"):
+        return (-(-n // THREADS), tiles if name == "grid32" else 1), THREADS
+    raise ValueError(f"{name}: not a register kernel")
+
+
+def empty_launch(grid: Tuple[int, int], threads: int,
+                 device="cuda") -> None:
+    """One launch of the library's empty kernel with (grid, threads) on the
+    device's current stream; CUDA only."""
+    dev = cuda_device(device)
+    lib = load_library().cdll
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.microbench_empty_launch(int(grid[0]), int(grid[1]),
+                                          int(threads), stream)
+    check_launch(lib, LIBRARY, err)
+
+
+def launch_floor_ms(grid: Tuple[int, int], threads: int, reps: int = 50,
+                    device="cuda") -> float:
+    """Launch floor: the median device-only time (`utils.profiling.
+    device_ms`) of the empty kernel launched with a call's (grid,
+    threads): what a launch of that shape costs the card with no work in
+    it. Measured on the card; raises elsewhere."""
+    dev = cuda_device(device)
+    return statistics.median(device_ms(
+        lambda: empty_launch(grid, threads, dev), reps, device=dev))
+
+
+def issue_floor_ms(alu_ops: float, sms: int, clock_hz: float,
+                   fma_ops: float = 0.0) -> float:
+    """Integer-issue floor: the least time in which `sms` SMs at clock_hz
+    issue a call's 32-bit integer instructions, each pipe's at
+    INT_LANES_PER_SM lanes a clock (alu_ops on the ALU pipe, fma_ops on
+    the FMA pipe, counted in lane operations: a thread's instruction counts
+    one); the larger of the two pipes."""
+    return max(alu_ops, fma_ops) / (INT_LANES_PER_SM * sms * clock_hz) * 1e3
+
+
+def chain_floor_ms(links: float, latency_cycles: float,
+                   clock_hz: float) -> float:
+    """Chain floor: the time of one element's longest chain, `links`
+    dependent instructions each waiting latency_cycles for the one before,
+    at clock_hz: no design runs an element faster."""
+    return links * latency_cycles / clock_hz * 1e3
+
+
+def link_pipes(loop_ops: List[str], minmax_per_link: int
+               ) -> Tuple[float, float]:
+    """(ALU, FMA) instructions a link of a chain (an S5/S6 step: one
+    max; an S4 pair: a max and a min), from the opcodes of the loop that
+    runs the links (`cuobjdump -sass`, loop control included): the loop's
+    instructions of each pipe over the links it holds, counted by its
+    min/max instructions."""
+    links = sum(op in MINMAX_OPS for op in loop_ops) / minmax_per_link
+    if not links:
+        raise ValueError("the loop holds no min/max instruction")
+    return (sum(op in ALU_PIPE for op in loop_ops) / links,
+            sum(op in FMA_PIPE for op in loop_ops) / links)
+
+
+def chain_probe(device="cuda") -> Dict[str, int]:
+    """Cycles (clock64) of one thread's chain of PROBE_LEN dependent links,
+    by link: "imnmx" (one min or max), "grid_step" (an S5/S6 step),
+    "opchain_pair" (an S4 pair). Run on the card; raises elsewhere."""
+    dev = cuda_device(device)
+    lib = load_library().cdll
+    vals = torch.tensor([-5, 9, -3, 7, 0, 1], dtype=torch.int32, device=dev)
+    cycles = torch.zeros(3, dtype=torch.int64, device=dev)
+    sink = torch.zeros(3, dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        for _ in range(2):                 # the first run warms the code
+            for mode in range(3):
+                check_launch(lib, LIBRARY, lib.microbench_chain_probe_launch(
+                    vals.data_ptr(), cycles[mode:].data_ptr(),
+                    sink[mode:].data_ptr(), mode, stream))
+    return dict(zip(("imnmx", "grid_step", "opchain_pair"), cycles.tolist()))
 
 
 # ---------------------------------------------------------------------------
@@ -688,19 +817,28 @@ def run_int16(iters: Tuple[int, int], reps: int, dev: torch.device
 
 def run_gridstep(reps: int, dev: torch.device) -> dict:
     """The same work as 32 groups of blocks and as one group looping over
-    32 tiles; the outputs must be equal bit for bit."""
+    32 tiles; the outputs must be equal bit for bit. On the card the times
+    are the device's alone (`utils.profiling.device_timed`), with the
+    CUDA-event times around each call, the host's dispatch inside, beside
+    them (`*_event_ms`); on the CPU the plain versions' host-clock times."""
     rng = np.random.default_rng(0)
     x = torch.as_tensor(rng.integers(
         -100, 100, (Z, N_TILES * TILE_W)).astype(np.int8)).to(dev)
     if not torch.equal(grid32(x), grid1(x)):
         raise AssertionError("grid32 and grid1 differ")
-    t32 = timed(grid32, x, reps=reps, device=dev)
-    t1 = timed(grid1, x, reps=reps, device=dev)
+    clock = device_timed if dev.type == "cuda" else timed
+    t32 = clock(grid32, x, reps=reps, device=dev)
+    t1 = clock(grid1, x, reps=reps, device=dev)
     bound_ms, bound_by = bound(*gridstep_cost(x.numel()))
-    return {"variant": "grid_step_overhead",
-            "grid32_ms": round(t32 * 1e3, 4), "grid1_ms": round(t1 * 1e3, 4),
-            "per_step_us": round((t32 - t1) / (N_TILES - 1) * 1e6, 4),
-            "bound_ms": bound_ms, "bound_by": bound_by}
+    rec = {"variant": "grid_step_overhead",
+           "grid32_ms": round(t32 * 1e3, 4), "grid1_ms": round(t1 * 1e3, 4),
+           "per_step_us": round((t32 - t1) / (N_TILES - 1) * 1e6, 4),
+           "bound_ms": bound_ms, "bound_by": bound_by}
+    if dev.type == "cuda":
+        for name, fn in (("grid32", grid32), ("grid1", grid1)):
+            rec[f"{name}_event_ms"] = round(
+                timed(fn, x, reps=reps, device=dev) * 1e3, 4)
+    return rec
 
 
 # (small, big) iteration counts of the slopes, as the reference's

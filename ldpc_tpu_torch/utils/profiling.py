@@ -4,7 +4,11 @@
   * `timed(fn, *args)`: median seconds a call, by CUDA events on a CUDA
     device and by `time.perf_counter` on the CPU; `event_ms` is the list of
     per-call event times it takes the median of, for callers that print
-    the spread, and `in_turns_ms` takes it of several callables in turns;
+    the spread, and `in_turns_ms` takes it of several callables in turns.
+    Events recorded around a call hold the host's dispatch of it as well
+    when the stream was idle;
+  * `device_timed(fn, *args)`, `device_ms`: the same on the card alone,
+    the dispatch hidden behind a spin kernel; they raise off the card;
   * `trace(logdir)`: a `torch.profiler` context that writes a Chrome trace
     into `logdir`;
   * `compiled_cost(...)`: what the port can know of a hand-written kernel
@@ -49,6 +53,70 @@ def event_ms(fn: Callable[[], Any], reps: int) -> List[float]:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return times
+
+
+def cuda_device(device=None) -> torch.device:
+    """The CUDA device asked for (the current one when None), for what runs
+    on the card only: any other device raises ValueError, and a missing
+    card RuntimeError (`resolve_device`)."""
+    dev = resolve_device("cuda" if device is None else device)
+    if dev.type != "cuda":
+        raise ValueError(f"this runs on a CUDA device only, not on {dev}")
+    return dev
+
+
+def device_ms(fn: Callable[[], Any], reps: int, device=None,
+              spin_ms: float = 0.5) -> List[float]:
+    """Milliseconds of each of `reps` calls of fn() as the device runs
+    them, without the host's dispatch: a spin kernel (`torch.cuda._sleep`)
+    of about spin_ms is enqueued ahead of the start event, and the host
+    records the start event, calls fn() and records the end event while it
+    spins, so the events bracket only the work fn() enqueued (the launch
+    latency on the device included). A call whose dispatch outlasted the
+    spin is timed again with the spin doubled. fn() enqueues its work on
+    the current stream of `device` (the current CUDA device when None); any
+    other device raises, and nothing falls back to the CPU."""
+    dev = cuda_device(device)
+    with torch.cuda.device(dev):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        # the spin's cycles a millisecond, from one timed spin
+        torch.cuda._sleep(1 << 16)
+        start.record()
+        torch.cuda._sleep(1 << 20)
+        end.record()
+        end.synchronize()
+        cycles = max(1, int(spin_ms * (1 << 20) / start.elapsed_time(end)))
+        times: List[float] = []
+        while len(times) < reps:
+            t0 = time.perf_counter()
+            torch.cuda._sleep(cycles)
+            start.record()
+            fn()
+            end.record()
+            host_ms = (time.perf_counter() - t0) * 1e3
+            end.synchronize()
+            if host_ms < spin_ms:
+                times.append(start.elapsed_time(end))
+            elif spin_ms < 1e3:
+                spin_ms, cycles = 2 * spin_ms, 2 * cycles
+            else:
+                raise RuntimeError(f"the host's dispatch took {host_ms:.1f} "
+                                   f"ms: longer than any spin tried")
+    return times
+
+
+def device_timed(fn: Callable, *args, reps: int = 10, warmup: int = 1,
+                 device=None) -> float:
+    """Median seconds of fn(*args) on the device alone (`device_ms`) over
+    `reps` calls after `warmup` calls; a device that is not CUDA raises."""
+    dev = cuda_device(device)
+    with torch.cuda.device(dev):
+        for _ in range(max(warmup, 0)):
+            fn(*args)
+        torch.cuda.synchronize()
+        return statistics.median(
+            device_ms(lambda: fn(*args), reps, device=dev)) / 1e3
 
 
 def in_turns_ms(fns: Dict[str, Callable[[], Any]], reps: int,

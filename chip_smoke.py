@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Bring-up check of the PyTorch/CUDA port (`ldpc_tpu_torch`) on one GPU.
 
-    python3 chip_smoke.py [--grid1-against MICROBENCH_CU]
+    python3 chip_smoke.py
 
 Phases, each printing its lines; any failure raises and exits non-zero:
 
@@ -335,9 +335,7 @@ Phases, each printing its lines; any failure raises and exits non-zero:
    instructions times the latency measured with clock64 on one thread's
    chain, `microbench.chain_probe`); the row's bound is the largest, and
    its record carries it (`floor_ms`, `floor_by`) beside the event time
-   (`event_ms`). With `--grid1-against MICROBENCH_CU`, that source's grid1
-   is built and timed in turns with this checkout's (other, this, this,
-   other), device-only and by events.
+   (`event_ms`).
 
 Each kernel record carries `launches` of the main path named beside it
 (K3's and the streaming kernel's that slice 8d's smoke decodes launched
@@ -367,7 +365,6 @@ bound itself is `utils.profiling.bound`.
 Ends with one JSON line of kernel records, the nvidia-smi line, and, last,
 the device line {"ok": true, "device": {"platform": "gpu", ...}}.
 """
-import argparse
 import concurrent.futures
 import contextlib
 import dataclasses
@@ -2673,20 +2670,19 @@ def check_microbench(micro, dev):
     return worst
 
 
-# S3-S6's functions in the library's SASS (mangled-name substrings): the
-# instances the timed calls launch, and the chain probe's IMNMX chain
+# S4-S6's functions in the library's SASS (mangled-name substrings): the
+# instances the timed calls launch
 SASS_REGISTER = {"opchain": "opchain_kernelILi1E", "grid32": "grid32_kernel",
                  "grid1": "grid1_kernelILi400E"}
-SASS_PROBE = "chain_probe_kernelILi0E"
 
 
 def register_floors(micro, gpu, sms, clock_mhz):
-    """The chain probe's cycles (`microbench.chain_probe`) and the loops of
-    S4-S6 in the library's SASS: prints them and returns ({kernel: the
-    dependent-issue latency in cycles of an instruction on its chain},
-    {kernel: (ALU, FMA) instructions a link of its chain}). The latency is
-    measured on each kernel's own chain, one thread's S4 pairs (5
-    instructions) or S5/S6 steps (3); S3's is the IMNMX chain's."""
+    """The chain probe's cycles a link (`microbench.chain_probe`) and the
+    loops of S4-S6 in the library's SASS: prints them and returns
+    ({kernel: the dependent-issue latency in cycles of an instruction on its
+    chain}, {kernel: (ALU, FMA) instructions a link of its chain}). The
+    latency is measured on one thread's chain of S4 pairs (5 dependent
+    instructions a pair) or S5/S6 steps (3 a step); S3's is the steps'."""
     funcs = sass_functions(micro.load_library().path)
 
     def fn(key):
@@ -2696,22 +2692,15 @@ def register_floors(micro, gpu, sms, clock_mhz):
         return funcs[names[0]]
 
     cycles = micro.chain_probe()
-    n_minmax = sum(op in micro.MINMAX_OPS for _, op, _ in fn(SASS_PROBE))
-    if n_minmax != micro.PROBE_LEN:
-        raise AssertionError(f"the IMNMX chain holds {n_minmax} min/max "
-                             f"instructions, not {micro.PROBE_LEN}")
-    imnmx = cycles["imnmx"] / n_minmax
-    step = cycles["grid_step"] / micro.PROBE_LEN / micro.GRIDSTEP_CHAIN
-    latency = {"int16": imnmx, "grid32": step, "grid1": step,
-               "opchain": cycles["opchain_pair"] / micro.PROBE_LEN
-               / micro.OPCHAIN_CHAIN}
-    print(f"[{gpu}] dependent-issue latency: {imnmx:.3f} cycles an IMNMX "
-          f"(clock64 around one thread's chain of {n_minmax} dependent "
-          f"min/max, {cycles['imnmx']} cycles); one thread's chain alone: "
-          f"{cycles['grid_step'] / micro.PROBE_LEN:.3f} cycles an S5/S6 step, "
-          f"{cycles['opchain_pair'] / micro.PROBE_LEN:.3f} an S4 pair "
-          f"({micro.PROBE_LEN} links each); {sms} SMs, clocks.max.sm "
-          f"{clock_mhz:g} MHz", flush=True)
+    step = cycles["grid_step"] / micro.GRIDSTEP_CHAIN
+    pair = cycles["opchain_pair"] / micro.OPCHAIN_CHAIN
+    latency = {"int16": step, "grid32": step, "grid1": step, "opchain": pair}
+    print(f"[{gpu}] dependent-issue latency (clock64 around one thread's "
+          f"chain of dependent links): {cycles['grid_step']:.3f} cycles an "
+          f"S5/S6 step, {step:.3f} an instruction of its "
+          f"{micro.GRIDSTEP_CHAIN}; {cycles['opchain_pair']:.3f} an S4 pair, "
+          f"{pair:.3f} an instruction of its {micro.OPCHAIN_CHAIN}; {sms} "
+          f"SMs, clocks.max.sm {clock_mhz:g} MHz", flush=True)
     pipes = {}
     for name, key in SASS_REGISTER.items():
         ins = fn(key)
@@ -2767,57 +2756,6 @@ def register_row(micro, name, t, dev_t, cost, shape, latency, pipes, sms,
     return {"event_ms": t[0], "launch_floor_ms": launch,
             "issue_floor_ms": issue, "chain_floor_ms": chain,
             "floor_ms": floors[by], "floor_by": by}
-
-
-def grid1_against(cu, micro, x, gpu, reps=25):
-    """grid1 of another source of the library (its `microbench_grid1_
-    launch`, the same C signature), built with this checkout's nvcc flags,
-    held to the plain version (tolerance 0) and timed in turns with this
-    checkout's grid1 (other, this, this, other), device-only and by events
-    around the call; prints both."""
-    import ctypes
-    from ldpc_tpu_torch.kernels import build as kbuild
-    from ldpc_tpu_torch.utils.profiling import device_ms, event_ms
-    so = kbuild.BUILD_DIR / "libmicrobench-against.so"
-    kbuild.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    t0 = time.perf_counter()
-    subprocess.run([kbuild.find_nvcc(), *kbuild.NVCC_FLAGS, "-o", str(so),
-                    cu], check=True, capture_output=True, timeout=600)
-    lib = ctypes.CDLL(str(so))
-    launch = lib.microbench_grid1_launch
-    launch.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 4 + [
-        ctypes.c_void_p]
-    launch.restype = ctypes.c_int
-
-    def other(x):
-        out = torch.empty_like(x)
-        err = launch(x.data_ptr(), out.data_ptr(), x.shape[0], micro.TILE_W,
-                     x.shape[1] // micro.TILE_W, micro.INNER,
-                     torch.cuda.current_stream().cuda_stream)
-        if err:
-            raise RuntimeError(f"{cu}: grid1 launch failed ({err})")
-        return out
-
-    got = other(x)
-    torch.cuda.synchronize()
-    if not torch.equal(got, micro.gridstep_plain(x)):
-        raise AssertionError(f"{cu}: grid1 != plain")
-    fns = {"other": lambda: other(x), "this": lambda: micro.grid1(x)}
-    for f in fns.values():
-        f()
-    dev_t, ev_t = {k: [] for k in fns}, {k: [] for k in fns}
-    for turn in ("other", "this", "this", "other"):
-        dev_t[turn] += device_ms(fns[turn], reps)
-        ev_t[turn] += event_ms(fns[turn], reps)
-    med = {k: (statistics.median(dev_t[k]), statistics.median(ev_t[k]))
-           for k in fns}
-    print(f"[{gpu}] grid1 in turns with {cu} (built in "
-          f"{time.perf_counter() - t0:.1f} s, == plain): device-only "
-          f"{med['other'][0]:.4f} -> {med['this'][0]:.4f} ms "
-          f"({med['other'][0] / med['this'][0]:.2f}x), events around the "
-          f"call {med['other'][1]:.4f} -> {med['this'][1]:.4f} ms; "
-          f"{2 * reps} calls each", flush=True)
-    return med
 
 
 def exact_sweep_max(g, chan, iters, use_rot):
@@ -3300,13 +3238,6 @@ def check_mesh(port, minsum, gpu):
 
 
 def main():
-    ap = argparse.ArgumentParser(description="bring-up check of the port on "
-                                 "one GPU (see the module docstring)")
-    ap.add_argument("--grid1-against", metavar="MICROBENCH_CU",
-                    help="another source of kernels/csrc/microbench.cu: its "
-                         "grid1 is built and timed in turns with this "
-                         "checkout's")
-    opts = ap.parse_args()
     phase("device")
     if not torch.cuda.is_available():
         raise RuntimeError("torch.cuda.is_available() is False: this check "
@@ -4137,8 +4068,6 @@ def main():
             print(f"  bound {b_ms:.6f} ms by {b_by} ({100 * b_ms / t[0]:.1f}% "
                   f"of the kernel's time)", flush=True)
         timing["micro " + name] = t + (b_ms, b_by)
-    if opts.grid1_against:
-        grid1_against(opts.grid1_against, micro, mgrid, gpu)
     for name, nbytes in (("sweep", 0), ("minsum", 4), ("minsum16", 2)):
         floor_ms = micro.smem_floor_ms(mg, nbytes, BATCH, n_sweeps, sms,
                                        clock_mhz * 1e6)

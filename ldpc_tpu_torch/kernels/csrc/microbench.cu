@@ -120,8 +120,8 @@
 //
 // Beside the six: empty_kernel, whose device time at a launch's grid is
 // that launch's floor, and chain_probe_kernel, which times one thread's
-// dependent chain on the SM's clock (the latency that bounds S4's one
-// element a thread).
+// chain of S5/S6 steps or S4 pairs on the SM's clock (the latency that
+// bounds S4's one element a thread).
 
 #include <cuda_runtime.h>
 
@@ -744,35 +744,27 @@ grid1_kernel(const int8_t* __restrict__ x, int8_t* __restrict__ out, int rows,
 // No work: its device time at a launch's grid is the floor of that launch.
 __global__ void empty_kernel() {}
 
-// One thread's chain of kProbeLen links timed on the SM's clock: MODE 0 a
-// link is one IMNMX (max and min in turns against four values, so that no
-// two links fold), 1 an S5/S6 step, 2 an S4 pair. in[0..3] the four
-// values, in[4] a zero mask that makes the chain start after the first
-// clock read, in[5] the start; cycles[0] the clock64() difference, sink[0]
-// the chain's value, stored before the second read.
+// One thread's chain of kProbeLen links timed on the SM's clock: with PAIR
+// a link is an S4 pair, else an S5/S6 step. in[0] a zero mask that makes
+// the chain start after the first clock read, in[1] the start; per_link[0]
+// the clock64() difference over kProbeLen, sink[0] the chain's value,
+// stored before the second read.
 constexpr int kProbeLen = 256;
 
-template <int MODE>
-__global__ void chain_probe_kernel(const int* in, long long* cycles,
+template <bool PAIR>
+__global__ void chain_probe_kernel(const int* in, double* per_link,
                                    int* sink) {
-  const int a0 = in[0], a1 = in[1], a2 = in[2], a3 = in[3];
   const long long t0 = clock64();
-  uint32_t v = uint32_t(in[5] ^ (int(t0) & in[4]));
+  uint32_t v = uint32_t(in[1] ^ (int(t0) & in[0]));
   uint32_t b = v ^ 11u;
 #pragma unroll
   for (int i = 0; i < kProbeLen; ++i) {
-    if constexpr (MODE == 0) {
-      const int w = int(v);
-      v = uint32_t((i & 3) == 0 ? max(w, a0) : (i & 3) == 1 ? min(w, a1)
-                   : (i & 3) == 2 ? max(w, a2) : min(w, a3));
-    } else if constexpr (MODE == 1) {
-      v = grid_step(v);
-    } else {
-      opchain_pair(v, b);
-    }
+    if constexpr (PAIR) opchain_pair(v, b);
+    else v = grid_step(v);
   }
   *static_cast<volatile int*>(sink) = int(v ^ b);
-  cycles[0] = clock64() - t0;
+  const long long dt = clock64() - t0;
+  per_link[0] = double(dt) / kProbeLen;
 }
 
 constexpr int kThreads = 128;   // block size of the other register kernels
@@ -973,18 +965,16 @@ int microbench_empty_launch(int grid_x, int grid_y, int threads,
   return int(cudaGetLastError());
 }
 
-// One thread of chain_probe_kernel<mode> (0, 1, 2); in int[6], cycles one
-// int64, sink one int32, all device pointers.
-int microbench_chain_probe_launch(const void* in, void* cycles, void* sink,
-                                  int mode, void* stream) {
+// One thread of chain_probe_kernel<pair != 0>; in int[2], per_link one
+// double, sink one int32, all device pointers.
+int microbench_chain_probe_launch(const void* in, void* per_link, void* sink,
+                                  int pair, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int* i = static_cast<const int*>(in);
-  long long* c = static_cast<long long*>(cycles);
+  double* c = static_cast<double*>(per_link);
   int* s = static_cast<int*>(sink);
-  if (mode == 0) chain_probe_kernel<0><<<1, 1, 0, st>>>(i, c, s);
-  else if (mode == 1) chain_probe_kernel<1><<<1, 1, 0, st>>>(i, c, s);
-  else if (mode == 2) chain_probe_kernel<2><<<1, 1, 0, st>>>(i, c, s);
-  else return int(cudaErrorInvalidValue);
+  if (pair) chain_probe_kernel<true><<<1, 1, 0, st>>>(i, c, s);
+  else chain_probe_kernel<false><<<1, 1, 0, st>>>(i, c, s);
   return int(cudaGetLastError());
 }
 

@@ -95,13 +95,9 @@ TAB_WORDS = 960
 OPCHAIN_OPS_PER_PAIR = 6
 GRIDSTEP_OPS_PER_STEP = 4
 INT16_OPS = 6
-# the register kernels' blocks (kThreads; grid1's kGridThreads), grid1's
-# tiles stepped at once by a thread (kGroup) and the chain probe's links
-# (kProbeLen); grid1's unrolled instance takes inner == INNER (kInner)
+# the register kernels' blocks (kThreads; grid1's kGridThreads)
 THREADS = 128
 GRID1_THREADS = 64
-GRID1_GROUP = 16
-PROBE_LEN = 256
 # the dependent instructions on one element's chain: a grid step (add, xor,
 # max; v - 3 runs beside), an opchain pair (sub, abs, xor, max, min), an
 # int16 iteration (compare, select, min)
@@ -565,8 +561,8 @@ def grid1(x: torch.Tensor, inner: int = INNER, tile_w: int = TILE_W
           ) -> torch.Tensor:
     """S6. `gridstep_plain` with one group of blocks that loops over the
     tiles: a thread a (row, column) in blocks of GRID1_THREADS, stepping
-    GRID1_GROUP tiles at once (a ragged rest in groups of 8, 4, 2 and 1);
-    inner == INNER runs the instance whose step loop unrolls."""
+    16 tiles at once (a ragged rest in groups of 8, 4, 2 and 1); inner ==
+    INNER runs the instance whose step loop unrolls."""
     return _gridstep("grid1", x, inner, tile_w)
 
 
@@ -696,23 +692,23 @@ def link_pipes(loop_ops: List[str], minmax_per_link: int
             sum(op in FMA_PIPE for op in loop_ops) / links)
 
 
-def chain_probe(device="cuda") -> Dict[str, int]:
-    """Cycles (clock64) of one thread's chain of PROBE_LEN dependent links,
-    by link: "imnmx" (one min or max), "grid_step" (an S5/S6 step),
-    "opchain_pair" (an S4 pair). Run on the card; raises elsewhere."""
+def chain_probe(device="cuda") -> Dict[str, float]:
+    """Cycles (clock64) a link of one thread's chain of dependent links, by
+    link: "grid_step" (an S5/S6 step), "opchain_pair" (an S4 pair). Run on
+    the card; raises elsewhere."""
     dev = cuda_device(device)
     lib = load_library().cdll
-    vals = torch.tensor([-5, 9, -3, 7, 0, 1], dtype=torch.int32, device=dev)
-    cycles = torch.zeros(3, dtype=torch.int64, device=dev)
-    sink = torch.zeros(3, dtype=torch.int32, device=dev)
+    vals = torch.tensor([0, 1], dtype=torch.int32, device=dev)
+    per_link = torch.zeros(2, dtype=torch.float64, device=dev)
+    sink = torch.zeros(2, dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         for _ in range(2):                 # the first run warms the code
-            for mode in range(3):
+            for pair in range(2):
                 check_launch(lib, LIBRARY, lib.microbench_chain_probe_launch(
-                    vals.data_ptr(), cycles[mode:].data_ptr(),
-                    sink[mode:].data_ptr(), mode, stream))
-    return dict(zip(("imnmx", "grid_step", "opchain_pair"), cycles.tolist()))
+                    vals.data_ptr(), per_link[pair:].data_ptr(),
+                    sink[pair:].data_ptr(), pair, stream))
+    return dict(zip(("grid_step", "opchain_pair"), per_link.tolist()))
 
 
 # ---------------------------------------------------------------------------

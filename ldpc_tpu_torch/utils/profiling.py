@@ -67,15 +67,17 @@ def cuda_device(device=None) -> torch.device:
 
 def device_ms(fn: Callable[[], Any], reps: int, device=None,
               spin_ms: float = 0.5) -> List[float]:
-    """Milliseconds of each of `reps` calls of fn() as the device runs
-    them, without the host's dispatch: a spin kernel (`torch.cuda._sleep`)
+    """Milliseconds of fn() as the device runs it, without the host's
+    dispatch, for each of `reps` calls: a spin kernel (`torch.cuda._sleep`)
     of about spin_ms is enqueued ahead of the start event, and the host
     records the start event, calls fn() and records the end event while it
     spins, so the events bracket only the work fn() enqueued (the launch
-    latency on the device included). A call whose dispatch outlasted the
-    spin is timed again with the spin doubled. fn() enqueues its work on
-    the current stream of `device` (the current CUDA device when None); any
-    other device raises, and nothing falls back to the CPU."""
+    latency on the device included). fn() is called exactly `reps` times; a
+    call whose dispatch outlasted the spin is left out of the times and
+    doubles the spin for the calls after it (raises if no call is left).
+    fn() enqueues its work on the current stream of `device` (the current
+    CUDA device when None); any other device raises, and nothing falls
+    back to the CPU."""
     dev = cuda_device(device)
     with torch.cuda.device(dev):
         start = torch.cuda.Event(enable_timing=True)
@@ -88,7 +90,8 @@ def device_ms(fn: Callable[[], Any], reps: int, device=None,
         end.synchronize()
         cycles = max(1, int(spin_ms * (1 << 20) / start.elapsed_time(end)))
         times: List[float] = []
-        while len(times) < reps:
+        host_ms = 0.0
+        for _ in range(reps):
             t0 = time.perf_counter()
             torch.cuda._sleep(cycles)
             start.record()
@@ -98,11 +101,11 @@ def device_ms(fn: Callable[[], Any], reps: int, device=None,
             end.synchronize()
             if host_ms < spin_ms:
                 times.append(start.elapsed_time(end))
-            elif spin_ms < 1e3:
-                spin_ms, cycles = 2 * spin_ms, 2 * cycles
             else:
-                raise RuntimeError(f"the host's dispatch took {host_ms:.1f} "
-                                   f"ms: longer than any spin tried")
+                spin_ms, cycles = 2 * spin_ms, 2 * cycles
+    if not times:
+        raise RuntimeError(f"the host's dispatch outlasted every spin (the "
+                           f"last call's {host_ms:.1f} ms)")
     return times
 
 

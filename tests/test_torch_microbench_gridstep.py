@@ -6,12 +6,14 @@ version there, tolerance 0). Here a numpy emulation of its design is held
 with tolerance 0 to the Pallas `grid1` of scripts/diag_gridstep.py in
 interpret mode and to the port's plain version: a thread i < rows * tile_w
 of blocks of GRID1_THREADS owns (row i // tile_w, column i % tile_w) of
-every tile, and steps GRID1_GROUP tiles at once, the ragged rest in groups
-of 8, 4, 2 and 1; every element is written once. The floors (`launch_grid`,
-`issue_floor_ms`, `chain_floor_ms`, `link_pipes`) are checked at a stated
-SM count and clock, and the device-only timer and the measurements on the
-card refuse the CPU.
+every tile, and steps GROUP tiles at once (the source's kGroup), the
+ragged rest in groups of 8, 4, 2 and 1; every element is written once. The
+floors (`launch_grid`, `issue_floor_ms`, `chain_floor_ms`, `link_pipes`)
+are checked at a stated SM count and clock; the device-only timer refuses
+the CPU, as do the measurements on the card, and on a faked card calls its
+function as often as asked whatever the host's dispatch takes.
 """
+import contextlib
 import os
 import re
 
@@ -25,6 +27,7 @@ from ldpc_tpu_torch.utils import profiling
 from test_torch_microbench import _load_script
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+GROUP = 16          # tiles a thread of grid1 steps at once
 
 
 @pytest.fixture(scope="module")
@@ -32,7 +35,7 @@ def gridstep():
     return _load_script("diag_gridstep")
 
 
-def tile_groups(n_tiles, group=mb.GRID1_GROUP):
+def tile_groups(n_tiles, group=GROUP):
     """(first tile, tiles) of each group a thread steps at once: full
     groups, then the rest (fewer than `group`) in groups of group / 2, ...,
     1, as `tile_rest` takes them."""
@@ -88,7 +91,7 @@ def test_groups_cover_every_tile_once(n_tiles):
     tiles = [t0 + k for t0, g in groups for k in range(g)]
     assert tiles == list(range(n_tiles))
     sizes = [g for _, g in groups]
-    assert set(sizes) <= {16, 8, 4, 2, 1} and mb.GRID1_GROUP == 16
+    assert set(sizes) <= {16, 8, 4, 2, 1}
     assert sizes == sorted(sizes, reverse=True)
     assert sizes.count(16) == n_tiles // 16
     assert len([g for g in sizes if g < 16]) == bin(n_tiles % 16).count("1")
@@ -204,6 +207,56 @@ def test_link_pipes_count_each_pipe_a_link():
         mb.link_pipes(["IADD3", "BRA"], 1)
 
 
+def test_link_pipes_of_the_fused_step():
+    """The step as nvcc emits it for the H100: v + 1 on the FMA pipe
+    (VIADD), v - 3 folded into the max (VIADDMNMX), one link each."""
+    loop = ["VIADD", "LOP3", "VIADDMNMX"] * 16 + ["IADD3", "ISETP", "BRA"]
+    assert mb.link_pipes(loop, 1) == ((2 * 16 + 2) / 16, 1.0)
+
+
+class _Event:
+    def __init__(self, enable_timing=False):
+        pass
+
+    def record(self):
+        pass
+
+    def synchronize(self):
+        pass
+
+    def elapsed_time(self, other):
+        return 1.0
+
+
+@pytest.mark.parametrize("dispatch_ms,kept", [
+    ([0.1, 0.9, 0.1, 0.1, 5.0], 3), ([0.1] * 4, 4), ([0.6, 0.1, 0.1], 2)])
+def test_the_device_only_timer_calls_fn_reps_times(monkeypatch, dispatch_ms,
+                                                   kept):
+    """A call whose dispatch outlasts the spin is left out of the times and
+    doubles the spin; it is never repeated, so the launches a caller counts
+    do not depend on the host's timing (a fake card and host clock)."""
+    now, calls, seq = [0.0], [], list(dispatch_ms)
+
+    def fn():
+        now[0] += seq[len(calls)] / 1e3
+        calls.append(1)
+
+    monkeypatch.setattr(profiling, "cuda_device", lambda device: device)
+    monkeypatch.setattr(profiling, "time",
+                        type("T", (), {"perf_counter": lambda: now[0]}))
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda d: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "Event", _Event)
+    monkeypatch.setattr(torch.cuda, "_sleep", lambda cycles: None)
+    times = profiling.device_ms(fn, len(dispatch_ms), device="fake")
+    assert len(calls) == len(dispatch_ms) and len(times) == kept
+    calls.clear()
+    seq[:] = [2.0, 2.0]
+    with pytest.raises(RuntimeError, match="outlasted every spin"):
+        profiling.device_ms(fn, 2, device="fake")
+    assert len(calls) == 2
+
+
 def test_the_device_only_timer_refuses_the_cpu():
     with pytest.raises(ValueError, match="CUDA device only"):
         profiling.device_ms(lambda: None, 1, device="cpu")
@@ -231,28 +284,11 @@ def test_grid1_on_a_device_that_is_not_cuda_raises():
 
 @pytest.mark.parametrize("py,cu", [
     ("THREADS", "kThreads"), ("GRID1_THREADS", "kGridThreads"),
-    ("GRID1_GROUP", "kGroup"), ("INNER", "kInner"),
-    ("PROBE_LEN", "kProbeLen"),
 ])
 def test_constants_mirror_the_source(py, cu):
+    """`launch_grid` (hence the launch floor) reads the blocks the source
+    launches with."""
     src = open(os.path.join(ROOT, mb.SOURCE)).read()
     m = re.search(r"constexpr int " + re.escape(cu) + r" = ([0-9]+);", src)
     assert m, cu
     assert getattr(mb, py) == int(m.group(1))
-
-
-def test_the_source_keeps_the_design():
-    """grid1: restrict pointers, the step count as a template parameter
-    with a runtime instance, groups of kGroup tiles, blocks of
-    kGridThreads; grid32 as it was."""
-    src = re.sub(r"//[^\n]*", "", open(os.path.join(ROOT, mb.SOURCE)).read())
-    g1 = src[src.index("template <int INNER>\n__global__"):
-             src.index("__global__ void empty_kernel")]
-    assert "grid1_kernel(const int8_t* __restrict__ x, int8_t* __restrict__" \
-        in g1
-    assert "chains<INNER, kGroup>" in g1
-    assert "tile_rest<INNER, kGroup / 2>" in g1
-    assert "grid1_kernel<kInner><<<grid, kGridThreads" in src
-    assert "grid1_kernel<0><<<grid, kGridThreads" in src
-    assert ("__global__ void grid32_kernel(const int8_t* x, int8_t* out, "
-            "int rows,") in src

@@ -115,7 +115,18 @@ Phases, each printing its lines; any failure raises and exits non-zero:
    == `grid1` == plain at (27, 32 x 512) and at ragged shapes (1 and 26
    rows, 1, 3, 31 and 33 tiles, tiles of 100 and 13 columns, 400 steps and
    the runtime instance's 7: GRID1_SHAPES); the library's shared-memory
-   size against the wrapper's. Then the entry point `python -m
+   size against the wrapper's. Then slice 10's decoders, each as
+   `select_decoder` builds it for its sweep, at the sweep's batch, on the
+   sweep's own input at its first point (`check_recorded_kernels`): K2 at
+   3, 4, 5 and 6 bits (qmax 3-31, its in-kernel quantizer at scales 0.75,
+   0.875, 1.25, 1.9375), the packed resident kernel's ET instance (K6e) on
+   8PSK and 16APSK rate 2/3 LLRs of DVB-S2 n=16,200 at B=4,096, K3 behind
+   its transposes on NR BG2 Z=128 rate 1/5 at B=4,096 and K3 fused-IO on
+   802.11n n=1296 rates 1/2 and 3/4 and n=1944 rate 1/2; then the demap of
+   the seven modulations (`check_demap`): equal bits and standard-normal
+   draws through modulate/AWGN/demap, batch first and batch last, on the
+   card and on the CPU, equal symbols, quantized LLRs at most one LSB apart
+   on at most 1e-4 of the entries. Then the entry point `python -m
    ldpc_tpu_torch.kernels.microbench`, driven in process for every variant
    at the reference's iteration counts (`rot`, `base`, `minsum`, `minsum16`
    at B = 512, 1,024 and 16,384; `int16`; `opshape`; `gridstep`), its JSON
@@ -182,7 +193,21 @@ Phases, each printing its lines; any failure raises and exits non-zero:
    pipelined kernel's 28-entry row too: the packed resident kernel would
    run two lanes a thread), 512 frames at 3.5 and 4.0 dB, each equal to
    the plain QC
-   decoder's counters on equal draws.
+   decoder's counters on equal draws. Slice 10, recorded configurations
+   built from their files (`recorded_config`: a file's own `config` header,
+   or the bit-width study as scripts/make_bits_study.py:40-60 builds it),
+   each file's rows at the family-wise z of its rows (`family_z`): the
+   study at 3-6 bits, 2.0-3.0 dB, 131,072 frames a point
+   (`results/bits_wifi648.json`, `cuda-minsum`); DVB-S2 n=16,200 8PSK and
+   16APSK rate 2/3 (`results/dvbs2_16200_8psk.json`, `_16apsk.json`, batch
+   4,096, `cuda-stream-resident-et`); NR BG2 Z=128 rate 1/5
+   (`results/nr_bg2_z128_r15.json`, batch 4,096,
+   `cuda-minsum-layered-bf`); 802.11n n=1296 rates 1/2 and 3/4 and n=1944
+   rate 1/2 OMS (`results/wifi1296_r12_oms.json`, `_r34_oms.json`,
+   `wifi1944_r12_oms.json`, `cuda-minsum-layered`); the float decoders
+   (`results/wifi648_oms_float.json`, `cn_variants_sp_float.json`,
+   `cn_variants_oms_float.json`, `torch-float`), at the files' frame
+   counts.
    Then each sweep's decoder
    must be the instance (library, code, decoder and quantizer
    configuration, thresholds, IO mode, batch) that phases 3 and 4 held to
@@ -194,6 +219,11 @@ Phases, each printing its lines; any failure raises and exits non-zero:
    `results/wifi648_fused_mc.json` at all six points (FER and converged
    rate by Wilson intervals, BER by the per-frame z-test, average
    iterations exactly 20), on the decoder instance that phase 4 checked;
+   slice 10g, `results/wifi648_deep_tail.json` the same way under its own
+   configuration and stop rule (3.5-5.0 dB, 100 frame errors, at most
+   50,000,000 frames a point, batch 18,432: about 8,800 launches), its four
+   rows at the family-wise z, each BER variance at least the least its own
+   row allows (the file has no error at 4.5 and 5.0 dB);
    then slice 6, the hard-decision path (the port's counterpart of
    `scripts/make_hard_curve.py`): 802.11n n=648 rate 1/2 at full width,
    batch 2,048, 4,096 frames at each of p = 0.005, 0.01, 0.02, 0.03, 0.04,
@@ -340,7 +370,9 @@ Phases, each printing its lines; any failure raises and exits non-zero:
 Each kernel record carries `launches` of the main path named beside it
 (K3's and the streaming kernel's that slice 8d's smoke decodes launched
 also `smoke_decode_launches`),
-the kernel template instance that path launched (`instance`; the
+the kernel template instance that path launched (`instance`; slice 10's
+instances and the deep tail's launches have records of their own, named by
+the kernel and the slice's file, `launched_by` the slice; the
 streaming library's records also name the path, `launched_by`: for the
 template's `stream`, `stream-et` a forced `resident=False` call on slice
 5f's input), and `ms`, `plain_ms`, `bound_ms` of the decoder that path
@@ -386,9 +418,17 @@ import numpy as np
 import torch
 
 HERE = os.path.dirname(os.path.abspath(__file__))
+STARTED = time.perf_counter()
 BATCH = 16384
 MINSTAR_REF = "cn_variants_minstar.json"
 STREAM_BATCH = 1024         # the long-codeword cells' batch
+
+
+def family_z(rows):
+    """The z of each of `rows` two-sided tests that share 1% (Bonferroni):
+    a file's rows held at once fail a right port 1 time in 100, as one row
+    at z = 2.576 would."""
+    return statistics.NormalDist().inv_cdf(1 - 0.005 / rows)
 
 
 class Slice(typing.NamedTuple):
@@ -410,7 +450,16 @@ class Slice(typing.NamedTuple):
 
 
 OMS_ET = "wifi-648-oms-flood-et"   # results/wifi648_oms.json's configuration
-OMS_ET_Z = statistics.NormalDist().inv_cdf(1 - 0.005 / 8)   # 3.227
+OMS_ET_Z = family_z(8)             # 3.227
+# The bit-width study, results/bits_wifi648.json, has no config header: its
+# configurations are built as scripts/make_bits_study.py:40-60 builds them,
+# a width's LLR clip range (CLIP, :56) giving scale = qmax / clip and
+# beta_lsb = max(1, round(0.5 * qmax / clip)); its rows hold 131,072 frames
+# a point. A slice's `what` and `ref` name a width as "bits_wifi648.json:b".
+BITS_REF = "bits_wifi648.json"
+BITS_CLIP = {2: 2.0, 3: 4.0, 4: 8.0, 5: 12.0, 6: 16.0, 7: 24.0, 8: 31.75}
+BITS_FRAMES = 131072
+DEEP_TAIL = "wifi648_deep_tail.json"
 S64800, S16200 = "dvbs2-64800-r12-stream", "dvbs2-16200-r12-resident-et"
 S89 = "dvbs2-64800-r89"     # rows of degree 27-28: the 28-entry register row
 S1689 = "dvbs2-16200-r89"   # rows of 27-28, posteriors of 32 KB
@@ -514,6 +563,43 @@ SLICES = (
     Slice("5g " + S1689 + "-et, plain", S1689 + "-et", None, "host",
           "5g " + S1689 + "-et", (3.5, 4.0), 512, backend="qc", batch=256,
           expect="torch-qc", equal_to="5g " + S1689 + "-et"),
+    # slice 10, recorded configurations the card had not run, each built
+    # from its file (recorded_config) and held to it at the family-wise z of
+    # that file's rows, at the file's frame counts; the batch is the file's,
+    # or 16,384 for the batch-last steps. 10a: the bit-width study, K2 with
+    # its in-kernel quantizer at qmax 3, 7, 15 and 31
+    *(Slice(f"10a bits {b}", f"{BITS_REF}:{b}", None, "host",
+            f"{BITS_REF}:{b}", (2.0, 2.5, 3.0), BITS_FRAMES,
+            expect="cuda-minsum", z=family_z(12)) for b in (3, 4, 5, 6)),
+    # 10b, 10c: DVB-S2 n=16,200 over 8PSK (rate 1/2) and 16APSK (rate 2/3),
+    # the generic max-log demap, then K6e
+    Slice("10b dvbs2_16200_8psk", "dvbs2_16200_8psk.json", None, "host",
+          "dvbs2_16200_8psk.json", (2.3, 2.65), (65536, 131072), batch=4096,
+          expect="cuda-stream-resident-et", z=family_z(2)),
+    Slice("10c dvbs2_16200_16apsk", "dvbs2_16200_16apsk.json", None, "host",
+          "dvbs2_16200_16apsk.json", (4.5, 5.0), (65536, 131072),
+          batch=4096, expect="cuda-stream-resident-et", z=family_z(2)),
+    # 10d: NR BG2 Z=128 rate 1/5 (n=6,656, punctured), K3 behind transposes
+    Slice("10d nr_bg2_z128_r15", "nr_bg2_z128_r15.json", None, "host",
+          "nr_bg2_z128_r15.json", (1.5, 2.0, 2.5), (65536, 65536, 114688),
+          batch=4096, expect="cuda-minsum-layered-bf", z=family_z(3)),
+    # 10e: 802.11n n=1296 (Z=54) and n=1944 rate 1/2 OMS, K3 fused IO
+    Slice("10e wifi1296_r12_oms", "wifi1296_r12_oms.json", None, "host",
+          "wifi1296_r12_oms.json", (1.5, 2.0), (65536, 262144),
+          expect="cuda-minsum-layered", z=family_z(2)),
+    Slice("10e wifi1296_r34_oms", "wifi1296_r34_oms.json", None, "host",
+          "wifi1296_r34_oms.json", (2.5, 3.0), 65536,
+          expect="cuda-minsum-layered", z=family_z(2)),
+    Slice("10e wifi1944_r12_oms", "wifi1944_r12_oms.json", None, "host",
+          "wifi1944_r12_oms.json", (1.25, 1.5, 1.75), (65536, 65536, 262144),
+          expect="cuda-minsum-layered", z=family_z(3)),
+    # 10f: the float decoders, plain torch (the reference has no kernel
+    # there either)
+    *(Slice(f"10f {name}", f"{name}.json", None, "host", f"{name}.json",
+            (2.0, 2.5), frames, expect="torch-float", z=family_z(2))
+      for name, frames in (("wifi648_oms_float", (16384, 245760)),
+                           ("cn_variants_sp_float", (262144, 524288)),
+                           ("cn_variants_oms_float", (262144, 524288)))),
 )
 # The streaming library's instances (`minsum_stream.StreamDecoder.variant`,
 # fixed form) that take each code of check_stream_kernels: the template's
@@ -595,7 +681,10 @@ SASS_LAYERED = ("layered_packed_kernelILi4ELi20ELb0ELb1ELb0E",
 
 
 def phase(name):
-    print(f"== {name}", flush=True)
+    """Prints a phase's heading with the seconds since the script began,
+    so that each phase's share of the time limit reads off the log."""
+    print(f"== {name} (t = {time.perf_counter() - STARTED:.1f} s)",
+          flush=True)
 
 
 def gpu_line():
@@ -876,8 +965,34 @@ def lane_variances(sweep, snr_idx, ebn0_db, need_failed, min_failed=10,
     return s2 - s1 * s1, float(iters.double().var()), count, failed
 
 
+def recorded_config(port, what):
+    """The configuration of a recorded file of results/: "name.json" is the
+    file's own `config` header, read by the port's SimConfig.from_json;
+    "bits_wifi648.json:b" the bit-width study's width b, built as
+    scripts/make_bits_study.py:40-60 builds it (batch 16,384, the file's
+    131,072 frames a point)."""
+    name, _, bits = what.partition(":")
+    if not bits:
+        with open(os.path.join(HERE, "results", name)) as f:
+            return port.SimConfig.from_json(json.dumps(json.load(f)["config"]))
+    b = int(bits)
+    base = port.PRESETS["wifi-648-r12-minsum"]
+    base = dataclasses.replace(
+        base, decoder=dataclasses.replace(
+            base.decoder, algorithm="offset-min-sum", early_term=True),
+        run=dataclasses.replace(base.run, batch=BATCH,
+                                max_frames=BITS_FRAMES))
+    qmax = (1 << (b - 1)) - 1
+    clip = BITS_CLIP.get(b, 31.75)
+    return dataclasses.replace(base, quant=dataclasses.replace(
+        base.quant, bits=b, scale=qmax / clip,
+        beta_lsb=max(1, round(0.5 * qmax / clip))))
+
+
 def slice_config(port, what, rng, schedule=None, **run):
-    """A preset with `rng` (and `run` fields), or one of bench.py's
+    """A recorded file's configuration (`recorded_config`: `what` names a
+    file of results/), taken as it is: its rng must be `rng`. Else a
+    preset with `rng` (and `run` fields), or one of bench.py's
     extended workloads, built as it builds them: `multihost-qam-chain`
     without its mesh (`qam16-1944-chain`); `wifi-648-minstar`, the canonical
     preset with the min* update, beta_lsb=0 and early termination; the
@@ -890,6 +1005,12 @@ def slice_config(port, what, rng, schedule=None, **run):
     preset with offset min-sum beta_lsb=2 and early termination (flooding,
     20 iterations at most), the configuration of results/wifi648_oms.json.
     `schedule` replaces the configuration's own."""
+    if ".json" in what:
+        cfg = recorded_config(port, what)
+        if cfg.run.rng != rng or schedule or run:
+            raise ValueError(f"{what} is run as its file records it, with "
+                             f"rng {cfg.run.rng!r}")
+        return cfg
     star = what == "wifi-648-minstar"
     code_kw, dec_kw, quant_kw = {}, {}, {}
     if star:
@@ -970,8 +1091,13 @@ def print_row(row, r, var_bits, var_iters, oks, extra=""):
 
 
 def read_ref(ref_name):
-    with open(os.path.join(HERE, "results", ref_name)) as f:
-        return {r["ebn0_db"]: r for r in json.load(f)["results"]}
+    """A recorded file's rows by Eb/N0 ("bits_wifi648.json:b": width b's)."""
+    name, _, bits = ref_name.partition(":")
+    with open(os.path.join(HERE, "results", name)) as f:
+        d = json.load(f)
+    rows = ([r for r in d["rows"] if r["bits"] == int(bits)] if bits
+            else d["results"])
+    return {r["ebn0_db"]: r for r in rows}
 
 
 def instance_of(d):
@@ -1618,6 +1744,110 @@ def check_stream_kernels(port, minsum, stream, dev, worst):
     return held
 
 
+def check_recorded_kernels(port, dev):
+    """Slice 10's decoders against their plain versions, tolerance 0 on
+    every output, each as `select_decoder` builds it for its sweep (label
+    the row's `expect`), at the row's batch, on the row's own input at its
+    first point: the float LLRs and info bits of the batch-last fused-IO
+    step (K2 at qmax 3, 7, 15, 31, its in-kernel quantizer at the study's
+    scales; K3 on n=1296 and n=1944 rate 1/2), else the quantized LLRs of
+    the batch-first step (K6e on 8PSK and on 16APSK rate 2/3, K3 behind its
+    transposes on NR BG2). Returns label -> (decoder, arguments, worst
+    error); the float route has no kernel."""
+    from ldpc_tpu_torch.codes import build_code, from_reference
+    from ldpc_tpu_torch.sim.pipeline import select_decoder
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(57)
+    held = {}
+    for sl in SLICES:
+        if not sl.label.startswith("10"):
+            continue
+        cfg = slice_config(port, sl.what, sl.rng)
+        ct = from_reference(build_code(cfg), dev)
+        d, label = select_decoder(ct, cfg, batch=sl.batch)
+        if label != sl.expect:
+            raise AssertionError(f"{sl.label}: {label}, expected {sl.expect}")
+        if label == "torch-float":
+            continue
+        what = f"{sl.label} ({label}) {sl.points[0]} dB"
+        worst = {}
+        if hasattr(d, "inner") or hasattr(d, "variant"):    # batch first
+            args = (bf_chain(ct, cfg, sl.points[0], sl.batch, gen),)
+            hold_to_plain(what, d, args[0], worst)
+        else:
+            args = chain_args(ct, cfg, sl.points[0], sl.batch, gen)
+            out_k = d.kernel(*args)
+            torch.cuda.synchronize()
+            out_p = d.plain(*args)
+            torch.cuda.synchronize()
+            worst[d.library] = max_abs_err(out_k, out_p)
+            same = all(torch.equal(a, b) for a, b in zip(out_k, out_p))
+            print(f"{what} B={sl.batch}: max_abs_err {worst[d.library]:g} "
+                  f"equal {same} (frame errors {int(out_k[1].sum())}, "
+                  f"converged {int(out_k[3].sum())}, mean iters "
+                  f"{float(out_k[2].double().mean()):.3f}; qmax "
+                  f"{d.quant.qmax}, scale {d.input_scale}; {d.library} "
+                  f"{instance_name(d)}, {shape_text(d)})", flush=True)
+            if not same:
+                raise AssertionError(f"kernel != plain on {what}")
+        held[sl.label] = (d, args, max(worst.values()))
+    return held
+
+
+def demapped(mod, bits, noise, sigma, where, first):
+    """(symbols, LLRs, LLRs quantized at 8 bits and scale 4) of bits (B, n)
+    and standard-normal draws in the batch-first layout, computed on device
+    `where`, batch first (`modulate`, `awgn`, `demap`) or batch last
+    (`modulate_t`, `awgn_t`, `demap_t`), each brought to the CPU."""
+    from ldpc_tpu_torch.config import QuantConfig
+    from ldpc_tpu_torch.ops import channel as ch
+    from ldpc_tpu_torch.ops.quantize import quantize
+    if not first:
+        bits, noise = bits.T, np.moveaxis(noise, 0, -1)
+    b = torch.as_tensor(np.ascontiguousarray(bits)).to(where)
+    z = torch.as_tensor(np.ascontiguousarray(noise)).to(where)
+    if first:
+        x = ch.modulate(b, mod)
+        llr = ch.demap(ch.awgn(None, x, sigma, noise=z), sigma, mod)
+    else:
+        x = ch.modulate_t(b, mod)
+        llr = ch.demap_t(ch.awgn_t(None, x, sigma, noise=z), sigma, mod)
+    return x.cpu(), llr.cpu(), quantize(llr, QuantConfig()).cpu()
+
+
+def check_demap(dev):
+    """The channel's seven modulations on the card against the CPU: equal
+    bits (numpy, a seed) modulated batch first and batch last must give
+    equal symbols; with equal standard-normal draws at the modulation's
+    sigma for rate 1/2 at 3.0 dB, the demapped LLRs quantized at 8 bits may
+    differ by one LSB on at most 1e-4 of the entries (the tolerance of the
+    megakernel's float stage against XLA's libm)."""
+    from ldpc_tpu_torch.ops import channel as ch
+    rng = np.random.default_rng(58)
+    n, B = 1920, 2048           # 1,920 bits fill symbols of 1 to 6 bits
+    for mod, m in ch.BITS_PER_SYM.items():
+        sigma = np.float32(ch.sigma_for(3.0, 0.5, mod))
+        bits = rng.integers(0, 2, (B, n), dtype=np.uint8)
+        noise = rng.standard_normal(
+            (B, n) if m == 1 else (B, n // m, 2)).astype(np.float32)
+        for first in (True, False):
+            (xc, lc, qc), (xh, lh, qh) = (
+                demapped(mod, bits, noise, sigma, where, first)
+                for where in (dev, torch.device("cpu")))
+            diff = (qc.to(torch.int32) - qh.to(torch.int32)).abs()
+            off, worst = int((diff > 0).sum()), int(diff.max())
+            same_x = torch.equal(xc, xh)
+            ok = same_x and worst <= 1 and off <= 1e-4 * diff.numel()
+            print(f"demap {mod} {'batch first' if first else 'batch last'} "
+                  f"{tuple(lc.shape)}: symbols equal {same_x}; float LLRs "
+                  f"max |diff| {float((lc - lh).abs().max()):g}; quantized "
+                  f"LLRs off by one LSB {off} of {diff.numel()}, worst "
+                  f"{worst}: {ok}", flush=True)
+            if not ok:
+                raise AssertionError(f"the {mod} demap on the card differs "
+                                     f"from the CPU's")
+
+
 def fused_lane_variances(sweep, rb, sigmas, min_failed=100,
                          max_batches=200):
     """Per-frame variances (bit errors, iterations) of each point: from
@@ -1662,37 +1892,83 @@ def check_fused(port, minsum, stream, checked):
     """Slice 3: the fused device-RNG sweep against its recorded waterfall,
     through a decoder of the shape `checked` (phase 4's per-lane-sigma
     decoder); returns (result, flooding MC launches, the sweep's decoder)."""
-    from ldpc_tpu_torch.sim import Sweep
     f = FUSED
-    ref = read_ref(f["ref"])
     cfg = slice_config(port, f["preset"], "device", batch=f["batch"],
                        target_frame_errors=f["target"],
                        max_frames=f["max_frames"])
+    return run_fused_slice("slice 3 run_fused", minsum, stream, cfg,
+                           f["points"], f["ref"], checked)
+
+
+def check_deep_tail(port, minsum, stream, checked):
+    """Slice 10g: results/wifi648_deep_tail.json's own configuration (the
+    canonical min-sum, flooding, fixed-20, rng="device", batch 18,432) and
+    stop rule (100 frame errors, at most 50,000,000 frames a point: nothing
+    cut) through `run_fused` at the file's four points, on the instance
+    slice 3 runs. Its rows are held at the family-wise z of four. The file
+    has no error in 50M frames at 4.5 and 5.0 dB, nor need this run's
+    variance batches (at most 1,000 a point, until 10 failed frames) see
+    any: each BER variance is the larger of theirs and the least this run's
+    own row allows (its bit errors spread evenly over its failed frames), so
+    a row's BER test asks what its FER test asks where failures are few."""
+    cfg = recorded_config(port, DEEP_TAIL)
+    rc = cfg.run
+    points = tuple(read_ref(DEEP_TAIL))
+    res = run_fused_slice("slice 10g run_fused", minsum, stream, cfg, points,
+                          DEEP_TAIL, checked, z=family_z(len(points)),
+                          least_row=True,
+                          var_kw=dict(min_failed=10, max_batches=1000))
+    for p in res[0].points:
+        if p.frame_errs < rc.target_frame_errors and p.frames < rc.max_frames:
+            raise AssertionError(f"slice 10g stopped at {p.ebn0_db} dB "
+                                 f"before its stop rule")
+    return res
+
+
+def run_fused_slice(label, minsum, stream, cfg, points, ref_name, checked,
+                    z=2.576, least_row=False, var_kw=None):
+    """`Sweep(cfg, device="cuda").run_fused(points)` through the flooding
+    K1-MC instance only, on a decoder of the shape `checked`, against the
+    recorded rows of `ref_name`: FER and the converged rate by Wilson
+    intervals, BER by the per-frame z-test at `z` (variances from
+    `fused_lane_variances(**var_kw)`; with `least_row`, at least the least
+    the row itself allows), iterations exactly 20. Returns (result,
+    launches, the sweep's decoder)."""
+    from ldpc_tpu_torch.sim import Sweep
+    from ldpc_tpu_torch.sim.stats import wilson_interval
+    ref = read_ref(ref_name)
     sweep = Sweep(cfg, device="cuda")
     minsum.reset_counters()
     stream.reset_counters()
     t0 = time.perf_counter()
-    res = sweep.run_fused(list(f["points"]))
+    res = sweep.run_fused(list(points))
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = launch_counts(minsum, stream, sweep, "slice 3 run_fused",
-                             True)
-    rb = sweep.fused_run_batch(len(f["points"]))
-    same_instance(rb.decoder, checked, "slice 3 run_fused")
-    sig = np.asarray([sweep._sigma(e) for e in f["points"]], np.float32)
-    var = fused_lane_variances(sweep, rb, sig)
+    launches = launch_counts(minsum, stream, sweep, label, True)
+    rb = sweep.fused_run_batch(len(points))
+    same_instance(rb.decoder, checked, label)
+    sig = np.asarray([sweep._sigma(e) for e in points], np.float32)
+    var = fused_lane_variances(sweep, rb, sig, **(var_kw or {}))
     k = sweep.code.k_eff
     frames = sum(p.frames for p in res.points)
-    print(f"run_fused: {launches} launches of {sweep.batch} codewords, "
-          f"{frames} frames in {wall:.3f} s", flush=True)
+    print(f"{label}: {launches} launches of {sweep.batch} codewords, "
+          f"{frames} frames in {wall:.3f} s; against {ref_name}"
+          + (f" (per-frame z-tests at z = {z:.3f})" if z != 2.576 else ""),
+          flush=True)
     for i, row in enumerate(res.rows()):
         r = ref[row["ebn0_db"]]
         var_b, var_i, count, failed = var[i]
-        oks = rows_compatible(row, r, k, var_b, var_i)
+        if least_row and row["frame_errs"]:
+            mu = row["bit_errs"] / row["frames"]
+            var_b = max(var_b, mu * mu * row["frames"] / row["frame_errs"]
+                        - mu * mu)
+        oks = rows_compatible(row, r, k, var_b, var_i, z)
+        lo, hi = wilson_interval(r["frame_errs"], r["frames"])
         print_row(row, r, var_b, var_i, oks, f"; variances from {count} "
-                  f"frames, {failed} failed")
+                  f"frames, {failed} failed; FER inside the file's interval "
+                  f"{lo <= row['fer'] <= hi}")
         if not all(oks[:4]) or row["avg_iters"] != 20.0 or row["frames"] <= 0:
-            raise AssertionError(f"slice 3 disagrees with {f['ref']} at "
+            raise AssertionError(f"{label} disagrees with {ref_name} at "
                                  f"{row['ebn0_db']} dB")
     return res, launches, rb.decoder
 
@@ -2889,7 +3165,7 @@ def check_hard(port, minsum, stream, dev):
         raise AssertionError("slice 6 did not run through K1 only")
     # 36 BER rows are held at once: each at 1% / 36 (two-sided), so that
     # the family of them fails a right port 1 time in 100, as one row would
-    z_ber = statistics.NormalDist().inv_cdf(1 - 0.005 / len(per_frame))
+    z_ber = family_z(len(per_frame))
     for (p, name), chunks in per_frame.items():
         errs = torch.cat(chunks).double()
         frames = errs.numel()
@@ -3537,6 +3813,12 @@ def main():
     phase("streaming library K6b-K6f vs plain (tolerance 0), and K3 behind "
           "its transposes")
     stream_held = check_stream_kernels(port, minsum, stream, dev, worst)
+    phase("slice 10's decoders vs plain (tolerance 0): K2 at 3-6 bits, K6e "
+          "on 8PSK and 16APSK rate 2/3, K3 on NR BG2 Z=128 and 802.11n "
+          "n=1296 and n=1944")
+    recorded_held = check_recorded_kernels(port, dev)
+    phase("the demap of every modulation on the card against the CPU")
+    check_demap(dev)
 
     phase("microbench library S1-S6 vs plain (tolerance 0)")
     micro_worst = check_microbench(micro, dev)
@@ -3544,13 +3826,15 @@ def main():
           "ldpc_tpu_torch.kernels.microbench <variant> [--batch N])")
     micro_records, micro_launches = drive_microbench(micro)
 
-    phase("slices 1, 2, 4 and 5: sweeps against recorded waterfalls "
+    phase("slices 1, 2, 4, 5 and 10: sweeps against recorded waterfalls "
           "(wifi-648-r12-minsum; wifi-full-oms, also with rng=device; "
           "wifi-648-minstar (K5) and qam16-1944-chain (16-QAM chain + K3); "
           "the other min* instances on their steps; the long-codeword "
           "cells on the batch-first step: dvbs2-64800-r12 fixed and with "
           "early termination (the streaming library), dvbs2-16200 and NR "
-          "BG1 route against route, NR BG1 Z=128 rate 1/3)")
+          "BG1 route against route, NR BG1 Z=128 rate 1/3; the recorded "
+          "configurations of slice 10: the bit-width study, 8PSK, 16APSK, "
+          "NR BG2, n=1296 and n=1944 OMS, the float decoders)")
     sweeps, launches, rows = {}, {}, {}
     for sl in SLICES:
         sweeps[sl.label], launches[sl.label], rows[sl.label] = run_slice(
@@ -3577,12 +3861,18 @@ def main():
             ("min* flooding, MC", mc_timed["star flood"][0]),
             (OMS_ET, held["K2 n648 OMS beta=2 ET fused-IO 2.0 dB B=16384"]),
             (OMS_ET + ", MC", mc_timed["oms flood et"][0]),
-            *((label, d) for label, (d, _) in stream_held.items())):
+            *((label, d) for label, (d, _) in stream_held.items()),
+            *((label, d) for label, (d, _, _) in recorded_held.items())):
         same_instance(sweeps[label].run_batch.decoder, checked, label)
 
     phase("slice 3: fused device-RNG sweep (run_fused)")
     fused_res, fused_launches, fused_dec = check_fused(
         port, minsum, stream, mc_timed["flood lanes"][0])
+    phase("slice 10g: the deep tail (run_fused under its file's stop rule)")
+    t0 = time.perf_counter()
+    deep_launches = check_deep_tail(port, minsum, stream,
+                                    mc_timed["flood lanes"][0])[1]
+    print(f"slice 10g: {time.perf_counter() - t0:.2f} s", flush=True)
 
     phase("slice 6: the hard-decision path over the BSC (Gallager-B, "
           "bit-flipping, soft min-sum on K1; the regular array code)")
@@ -3935,6 +4225,13 @@ def main():
     timing["K3 16200"] = timed_call(
         d5c, (q5c,), f"K3 behind its transposes, decode of {STREAM_BATCH} "
         f"codewords (n=16,200 OMS, ET, 1.4 dB: {l5c}, K3's launch)")
+    # slice 10's instances, each the decoder its sweep launched, on the
+    # input it was held to plain with
+    for label, (d, args, _) in recorded_held.items():
+        sl = next(s for s in SLICES if s.label == label)
+        timing[label] = timed_call(
+            d, args, f"{label}: {sweeps[label].backend} decode of "
+            f"{sl.batch} codewords at {sl.points[0]} dB", plain_reps=1)
 
     def report_step(name, rb, draw, sigma, k, batch=BATCH):
         st = step_seconds(rb, draw, sigma)
@@ -4131,6 +4428,30 @@ def main():
         for variant, d, q, launched, key, by in runs
         for kid, site in stream.REPLACES[variant]
         for t in (timing[key],)]
+    # slice 10's instances, named by the kernel and the slice's file, and
+    # the deep tail's launches of slice 3's K1-MC instance
+    recorded_records = [dict(record(
+        "minsum_flood_deep_tail_mc", "minsum_flood", deep_launches,
+        mc_worst["minsum_flood"], timing["K1-MC flood lanes"], fused_dec),
+        launched_by="10g " + DEEP_TAIL)]
+    for label, (d, args, err) in recorded_held.items():
+        tag = label.split(" ", 1)[1].replace(" ", "")
+        t = timing[label]
+        if hasattr(d, "variant"):
+            recorded_records += [
+                {"name": f"minsum_stream_{kid}_{tag}",
+                 "instance": d.kernel_name(args[0].shape[0]),
+                 "launched_by": label, "route": "cuda",
+                 "source": stream.SOURCE, "replaces": site,
+                 "launches": launches[label], "max_abs_err": err,
+                 "ms": t[0], "plain_ms": t[1], "bound_ms": t[2],
+                 "bound_by": t[3], "library_ms": None}
+                for kid, site in stream.REPLACES[d.variant]]
+        else:
+            recorded_records.append(dict(record(
+                ("minsum_flood_et_" if d.library == "minsum_flood"
+                 else "minsum_layered_") + tag, d.library, launches[label],
+                err, t, d), launched_by=label))
 
     # launches: of the main path named; ms, plain_ms, bound_ms: of the
     # decoder object that path launched, at its batch; the kernels slice
@@ -4177,6 +4498,7 @@ def main():
                star_mc_worst["minsum_flood"], timing["K5 MC flooding"],
                sweeps["min* flooding, MC"].run_batch.decoder),
         *stream_records,
+        *recorded_records,
         *({"name": f"microbench_{name}", "route": "cuda",
            "source": micro.SOURCE, "replaces": micro.REPLACES[name],
            "launches": micro_launches[name],

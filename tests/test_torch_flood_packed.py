@@ -236,7 +236,9 @@ def _golden(chan, code, qmax, max_iter, beta, alpha):
             np.array([r.converged for r in rs]))
 
 
-@pytest.mark.parametrize("bits", [8, 6])
+# the widths of the bit-width study (scripts/make_bits_study.py) beside the
+# canonical 8: qmax 3, 7, 15, 31
+@pytest.mark.parametrize("bits", [8, 6, 5, 4, 3])
 @pytest.mark.parametrize("algo", list(ALGOS))
 @pytest.mark.parametrize("code_name", list(CODES))
 def test_packed_emulation_matches_golden_jax_and_plain(code_name, algo, bits):
@@ -260,6 +262,43 @@ def test_packed_emulation_matches_golden_jax_and_plain(code_name, algo, bits):
         np.testing.assert_array_equal(g, w)
         np.testing.assert_array_equal(g, p.numpy())
         np.testing.assert_array_equal(g, np.asarray(j))
+
+
+# the bit-width study's Q-formats (scripts/make_bits_study.py:56-63): bits ->
+# scale = qmax / clip
+STUDY_SCALES = {3: 0.75, 4: 0.875, 5: 1.25, 6: 1.9375}
+
+
+@pytest.mark.parametrize("bits", sorted(STUDY_SCALES))
+def test_quantizer_matches_reference_at_the_study_scales(bits):
+    """The port's quantizer (the plain version of the fused-IO kernels'
+    in-kernel quant32) == ldpc_tpu/ops/quantize.py at the study's scales:
+    on the float32 values whose float32 product with the scale is exactly
+    a half LSB (ties, which round away from zero), on their neighbours, past
+    the clip and on noise."""
+    from ldpc_tpu.config import QuantConfig as RefQuantConfig
+    from ldpc_tpu.ops.quantize import quantize as jquantize
+    from ldpc_tpu_torch.ops.quantize import quantize
+    scale, qmax = STUDY_SCALES[bits], (1 << (bits - 1)) - 1
+    s32 = np.float32(scale)
+    halves = np.arange(-qmax - 3, qmax + 3, dtype=np.float32) + 0.5
+    at = (halves / s32).astype(np.float32)
+    near = np.concatenate([np.nextafter(at, np.float32(np.inf)), at,
+                           np.nextafter(at, np.float32(-np.inf))])
+    ties = near[near * s32 == np.tile(halves, 3)]
+    assert (ties > 0).any() and (ties < 0).any()
+    noise = np.random.default_rng(bits).normal(
+        0, 2 * qmax / scale, 4096).astype(np.float32)
+    x = np.concatenate([ties, near, noise])
+    got = quantize(torch.as_tensor(x),
+                   QuantConfig(bits=bits, scale=scale)).numpy()
+    want = np.asarray(jquantize(jnp.asarray(x),
+                                RefQuantConfig(bits=bits, scale=scale)))
+    np.testing.assert_array_equal(got, want)
+    t = ties * s32
+    np.testing.assert_array_equal(
+        got[: len(ties)],
+        np.clip(np.sign(t) * np.ceil(np.abs(t)), -qmax, qmax).astype(np.int8))
 
 
 def test_packed_emulation_wifi648_fixed20_matches_plain(rng):

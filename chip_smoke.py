@@ -122,7 +122,12 @@ Phases, each printing its lines; any failure raises and exits non-zero:
    0.875, 1.25, 1.9375), the packed resident kernel's ET instance (K6e) on
    8PSK and 16APSK rate 2/3 LLRs of DVB-S2 n=16,200 at B=4,096, K3 behind
    its transposes on NR BG2 Z=128 rate 1/5 at B=4,096 and K3 fused-IO on
-   802.11n n=1296 rates 1/2 and 3/4 and n=1944 rate 1/2; then the demap of
+   802.11n n=1296 rates 1/2 and 3/4 and n=1944 rate 1/2; and slice 11b-11d's
+   the same way (K3 fused-IO on the 802.11n set, 16-QAM at B=4,096, the
+   check-node variants and the QC-PEG codes, K3 behind its transposes on
+   the punctured 802.11n and PBRL codes; rows of 11 and 21-22 in the 16- and
+   24-entry register rows), each instance once (`instance_of`, the batch)
+   with its kernel instance and launch shape printed; then the demap of
    the seven modulations (`check_demap`): equal bits and standard-normal
    draws through modulate/AWGN/demap, batch first and batch last, on the
    card and on the CPU, equal symbols, quantized LLRs at most one LSB apart
@@ -207,7 +212,18 @@ Phases, each printing its lines; any failure raises and exits non-zero:
    `wifi1944_r12_oms.json`, `cuda-minsum-layered`); the float decoders
    (`results/wifi648_oms_float.json`, `cn_variants_sp_float.json`,
    `cn_variants_oms_float.json`, `torch-float`), at the files' frame
-   counts.
+   counts. Slice 11b-11d (`RECORDED_11`), every row of the file at its frame
+   count and at the family-wise z of its rows, the BER variance at least
+   the least either row allows (`least_bit_variance`): the 802.11n set
+   (`results/wifi12_{648,1296,1944}_r{12,23,34,56}.json` but n=1944 r5/6,
+   held in slice 2; `wifi1944_r56_oms.json`; `wifi1944_r34_16qam.json`, the
+   unfused 16-QAM chain at its batch of 4,096), the check-node variants
+   (`cn_variants_minsum`, `_nms_a34`, `_oms_b1`..`_b3`), the puncturing
+   ladders (`rate_ladder_wifi648.r0.50`..`r0.75`, `pbrl_ladder.r0.50`..
+   `r0.75`: `codes/rate_compat`, `codes/peg.pbrl_construct`) and the
+   designed codes (`designed_648.qcpeg-uniform-4`, `.qcpeg-wifi-profile`,
+   `.wifi648-standard`: `codes/peg`'s QC-PEG from the header's seed), batch
+   16,384 (`cuda-minsum-layered`, `-bf` where rate matched).
    Then each sweep's decoder
    must be the instance (library, code, decoder and quantizer
    configuration, thresholds, IO mode, batch) that phases 3 and 4 held to
@@ -319,9 +335,31 @@ Phases, each printing its lines; any failure raises and exits non-zero:
    forced onto the streaming library, over a 1x2 mesh, each == one
    process), beside 9c and 9d. W ranks on one card share its SMs: no
    scaling is measured;
-11. two-phase == single-phase counters on two batches of `wifi-full-oms`
+11. slice 11a, the deep floors, after slice 9. 11a.1
+   (`hold_wifi_floor_sym`): `results/wifi_floor_sym.json`, the census's
+   absorbing-orbit cover (`sim/floor_proposals.py`) at three depths,
+   `make_symmetric_run` at B=8,192 on K3 behind its transposes (held to
+   plain first), OMS beta 1 and NMS at 4.6 and 5.0 dB, seeds 31-33,
+   2,097,152 frames each: each point's pooled seeds within family_z(4) of
+   the file's (`floor_z`), three distinct estimates a point, seed 31 at
+   5.0 dB again with equal counters. 11a.2 (`hold_nr_floor_sym`):
+   `results/nr_floor_sym.json`'s MC anchors (4,096,000 frames at 1.2 and
+   1.5 dB, K3 behind its transposes at B=16,384) by Wilson intervals, its
+   symmetric 1.2 dB row through `python -m ldpc_tpu_torch.cli floor
+   --symmetric --seeds 61,62` pooled against the 1.2 dB anchor, both at
+   family_z(2). 11a.3 (`hold_dvb_floor_mc`): `results/dvb_floor_summary.json`
+   at 1.2 dB, 999,424 frames of the all-zeros word on the streaming ET
+   kernel (B=1,024), fails_info and fails_any by Wilson intervals. 11a.4
+   (`hold_dvb_floor_sym`): the symmetric run on DVB-S2 n=64,800 with
+   `results/dvb_floor_r5.json`'s proposal (109 orbits, 327 components) on
+   the streaming ET kernel, one batch of injected draws == the plain QC
+   route's (decoder outputs and tally), two seeds of 65,536 frames at
+   1.3 dB finite. Slice 11d's soft BSC (`check_bsc_soft`) runs after slice
+   6: `results/bsc_wifi648.json`'s eight p, 16,384 frames each, through
+   `bsc` -> `bsc_llr` -> quantize -> K1 behind its transposes;
+12. two-phase == single-phase counters on two batches of `wifi-full-oms`
    at 3.5 dB;
-12. times: kernels with CUDA events (warm-up, median, plain and kernel in
+13. times: kernels with CUDA events (warm-up, median, plain and kernel in
    turns), each of the decoder object its main path launched and at that
    batch (run_fused's per-lane megakernel at 18,432, K3 of
    `qam16-1944-chain` on 16-QAM LLRs at 6.0 dB; K2 as the min-sum ET
@@ -365,15 +403,20 @@ Phases, each printing its lines; any failure raises and exits non-zero:
    instructions times the latency measured with clock64 on one thread's
    chain, `microbench.chain_probe`); the row's bound is the largest, and
    its record carries it (`floor_ms`, `floor_by`) beside the event time
-   (`event_ms`).
+   (`event_ms`). Slices 10 and 11b-11d's decoders, one for each (instance,
+   batch) held to plain, on its first sweep's input, and the deep floors'
+   and the soft BSC's decoders on the batch each was held to plain with,
+   kernel against plain (one plain run a turn).
 
 Each kernel record carries `launches` of the main path named beside it
 (K3's and the streaming kernel's that slice 8d's smoke decodes launched
 also `smoke_decode_launches`),
 the kernel template instance that path launched (`instance`; slice 10's
 instances and the deep tail's launches have records of their own, named by
-the kernel and the slice's file, `launched_by` the slice; the
-streaming library's records also name the path, `launched_by`: for the
+the kernel and the slice's file, `launched_by` the slice; slice 11b-11d's
+one for each (instance, batch) they launched, named by its first file,
+its sweeps' launches summed; the deep floors' and the soft BSC's one each;
+the streaming library's records also name the path, `launched_by`: for the
 template's `stream`, `stream-et` a forced `resident=False` call on slice
 5f's input), and `ms`, `plain_ms`, `bound_ms` of the decoder that path
 launched.
@@ -447,6 +490,10 @@ class Slice(typing.NamedTuple):
     expect: typing.Optional[str] = None     # the sweep's backend label
     equal_to: typing.Optional[str] = None   # a slice with the same draws
     z: float = 2.576        # of the per-frame z-tests (BER, iterations)
+    # the BER test's variance at least the least either row allows
+    # (`least_bit_variance`): a deep row may meet no failed frame in the
+    # batches its variance is taken from
+    least_row: bool = False
 
 
 OMS_ET = "wifi-648-oms-flood-et"   # results/wifi648_oms.json's configuration
@@ -460,6 +507,60 @@ BITS_REF = "bits_wifi648.json"
 BITS_CLIP = {2: 2.0, 3: 4.0, 4: 8.0, 5: 12.0, 6: 16.0, 7: 24.0, 8: 31.75}
 BITS_FRAMES = 131072
 DEEP_TAIL = "wifi648_deep_tail.json"
+# Slice 11b-11d: the rest of the recorded waterfalls, a sweep a file at
+# every row of the file and its frame count (`recorded_slice`): (sub-slice,
+# file stem, rate matched: the batch-first step). 11b, the 802.11n set (OMS
+# beta 2 LSB, layered, early termination): n=648, 1296 and 1944 at rates
+# 1/2-5/6, n=1944 rate 5/6's own file and rate 3/4 over 16-QAM; 11c, the
+# check-node variants on n=648 (min-sum, NMS alpha 3/4, OMS beta 1-3 LSB);
+# 11d, 802.11n n=648 punctured to rates 0.57-0.75 (`codes/rate_compat`), the
+# PBRL family (n=756, Z=27, `codes/peg.pbrl_construct`) punctured to rates
+# 0.50-0.75, and n=648 codes built by QC-PEG beside the standard's. The
+# batch is 16,384, which divides every frame count; the 16-QAM file keeps
+# its own 4,096.
+QAM16_FILE = "wifi1944_r34_16qam"
+RECORDED_11 = (
+    *(("11b", f"wifi12_{n}_r{r}", False) for n in (648, 1296, 1944)
+      for r in (12, 23, 34, 56) if (n, r) != (1944, 56)),
+    ("11b", "wifi1944_r56_oms", False),
+    ("11b", QAM16_FILE, False),
+    *(("11c", f"cn_variants_{v}", False)
+      for v in ("minsum", "nms_a34", "oms_b1", "oms_b2", "oms_b3")),
+    *(("11d", f"rate_ladder_wifi648.r{r}", r != "0.50")
+      for r in ("0.50", "0.57", "0.67", "0.75")),
+    *(("11d", f"pbrl_ladder.r{r}", True)
+      for r in ("0.50", "0.57", "0.67", "0.75")),
+    *(("11d", f"designed_648.{c}", False)
+      for c in ("qcpeg-uniform-4", "qcpeg-wifi-profile", "wifi648-standard")),
+)
+
+
+def read_ref(ref_name):
+    """A recorded file's rows by Eb/N0 ("bits_wifi648.json:b": width b's)."""
+    name, _, bits = ref_name.partition(":")
+    with open(os.path.join(HERE, "results", name)) as f:
+        d = json.load(f)
+    rows = ([r for r in d["rows"] if r["bits"] == int(bits)] if bits
+            else d["results"])
+    return {r["ebn0_db"]: r for r in rows}
+
+
+def recorded_slice(sub, name, bf):
+    """Slice 11b-11d's sweep of results/<name>.json: every row at its frame
+    count, held at the family-wise z of its rows; K3, fused IO or (rate
+    matched) behind the batch-first transposes. A file whose rows share one
+    frame count is one run over its points, as slices 1-10 are."""
+    ref = read_ref(f"{name}.json")
+    frames = tuple(r["frames"] for r in ref.values())
+    return Slice(f"{sub} {name}", f"{name}.json", None, "host",
+                 f"{name}.json", tuple(ref),
+                 frames if len(set(frames)) > 1 else frames[0],
+                 batch=4096 if name == QAM16_FILE else BATCH,
+                 expect=("cuda-minsum-layered-bf" if bf
+                         else "cuda-minsum-layered"),
+                 z=family_z(len(ref)), least_row=True)
+
+
 S64800, S16200 = "dvbs2-64800-r12-stream", "dvbs2-16200-r12-resident-et"
 S89 = "dvbs2-64800-r89"     # rows of degree 27-28: the 28-entry register row
 S1689 = "dvbs2-16200-r89"   # rows of 27-28, posteriors of 32 KB
@@ -600,6 +701,8 @@ SLICES = (
       for name, frames in (("wifi648_oms_float", (16384, 245760)),
                            ("cn_variants_sp_float", (262144, 524288)),
                            ("cn_variants_oms_float", (262144, 524288)))),
+    # slice 11b-11d
+    *(recorded_slice(*row) for row in RECORDED_11),
 )
 # The streaming library's instances (`minsum_stream.StreamDecoder.variant`,
 # fixed form) that take each code of check_stream_kernels: the template's
@@ -651,6 +754,54 @@ FLOOR_KEYS = {
                        "orbit_multiplier", "fer_plain_ci95", "top_orbits",
                        "seed"},
 }
+# Slice 11a, the deep floors. WIFI_SYM: results/wifi_floor_sym.json as
+# scripts/make_wifi_floor_sym.py makes it: the census's absorbing-orbit
+# cover of 802.11n n=648 rate 1/2 at three depths, pi0 0.25, batch 8,192,
+# OMS beta 1 LSB and NMS alpha 3/4 (layered, early termination, 20
+# iterations), 2,097,152 frames a seed; each (algorithm, Eb/N0) row's three
+# seeds pooled, its four rows held at family_z(4).
+WIFI_SYM = dict(ref="wifi_floor_sym.json",
+                algs=(("oms_b1", "offset-min-sum", 1),
+                      ("nms_a34", "normalized-min-sum", 0)),
+                points=(4.6, 5.0), seeds=(31, 32, 33), frames=2_097_152,
+                batch=8192, depths=(1.2, 1.6, 2.0), pi0=0.25)
+# NR_SYM: results/nr_floor_sym.json's configuration (its header). Its MC
+# anchors (4,096,000 frames of the all-zeros word at 1.2 and 1.5 dB) held
+# by Wilson intervals; its symmetric row at 1.2 dB through the CLI (the
+# file's delta, pi0, seeds and 2,000,000 frames a seed, whole batches of
+# 4,096: 2,002,944) pooled and held to the 1.2 dB anchor (relative error
+# 1/sqrt(32)); both at family_z(2). The harvest is the CLI's own at 0.8 dB,
+# the waterfall's knee between the file's neighbour points (0.5 dB FER 0.14,
+# 1.0 dB 3.5e-5, results/nr_bg1_z128_r13.json).
+NR_SYM = dict(ref="nr_floor_sym.json", mc_batch=16384, mc_frames=4_096_000,
+              mc_points=(1.2, 1.5), sym_ebn0=1.2,
+              argv=["floor", "--family", "5gnr", "--base-graph", "1", "--Z",
+                    "128", "--rate", "1/3", "--algorithm", "offset-min-sum",
+                    "--schedule", "layered", "--beta-lsb", "2", "--batch",
+                    "4096", "--ebn0", "1.2", "--frames", "2000000",
+                    "--harvest-ebn0", "0.8", "--delta", "1.2,1.6,2.0",
+                    "--pi0", "0.25", "--symmetric", "--seeds", "61,62"])
+# DVB_FLOOR: DVB-S2 n=64,800 rate 1/2, OMS beta 2 LSB, layered, early
+# termination (scripts/diag_dvb_mc_deep.py, make_dvb_floor_r5.py). 11a.3:
+# results/dvb_floor_summary.json's 1.2 dB point, plain MC of the all-zeros
+# word, its frames at the file's batch (976 x 1,024), fails_info and
+# fails_any by Wilson intervals at family_z(2). 11a.4: the symmetric run
+# on results/dvb_floor_r5.json's proposal (the harvested info-failure
+# orbits of results/dvb_mc_deep.json and the (7,3) orbit of
+# results/dvb_census.json: 109 reps, 327 components), whose numbers fail
+# the file's own convergence bar: the route and one batch against the
+# plain QC route, then two seeds at 1.3 dB held to be finite.
+DVB_FLOOR = dict(summary="dvb_floor_summary.json", ebn0=1.2, frames=999_424,
+                 batch=1024, seed=71, mc_deep="dvb_mc_deep.json",
+                 census="dvb_census.json", reps=109, components=327,
+                 depths=(1.2, 1.6, 2.0), pi0=0.25, sym_ebn0=1.3,
+                 sym_seeds=(71, 72), sym_frames=65536)
+# Slice 11d's soft BSC: results/bsc_wifi648.json as scripts/make_bsc_curve.py
+# makes it (the canonical preset's decoder over bsc -> bsc_llr -> quantize,
+# batch 4,096, 16,384 frames a p); its eight BER rows at family_z(8)
+BSC = dict(preset="wifi-648-r12-minsum", ref="bsc_wifi648.json",
+           ps=(0.005, 0.01, 0.02, 0.03, 0.04, 0.05, 0.06, 0.08), batch=4096,
+           frames=16384, seed=17)
 MICRO_BATCHES = (512, 1024, BATCH)   # the reference's two tiles, and K1's
 RAGGED = (1, 3, 5, 4099, 16385)      # batches of the packed flooding kernel
 # (rows, tiles, tile width, steps) of S6's ragged checks
@@ -1090,32 +1241,25 @@ def print_row(row, r, var_bits, var_iters, oks, extra=""):
           f"compatible {ok_c}" + extra, flush=True)
 
 
-def read_ref(ref_name):
-    """A recorded file's rows by Eb/N0 ("bits_wifi648.json:b": width b's)."""
-    name, _, bits = ref_name.partition(":")
-    with open(os.path.join(HERE, "results", name)) as f:
-        d = json.load(f)
-    rows = ([r for r in d["rows"] if r["bits"] == int(bits)] if bits
-            else d["results"])
-    return {r["ebn0_db"]: r for r in rows}
-
-
 def instance_of(d):
     """What picks a decoder's kernel instance and its launch shape. On-chip
     libraries: the library, ET, MC and min* (with its thresholds and
-    quantizer), the code, fused IO, whether it stands behind the
+    quantizer), the code (its name and its entries: two QC-PEG codes of
+    one shape share a name), fused IO, whether it stands behind the
     batch-first transposes, and for the megakernel the batch and the
     per-lane form. The streaming library: its instance, the code, the CN
     parameters and the resident instances' kernel (its lanes a thread
     follow the batch, which every caller here holds equal)."""
     if hasattr(d, "variant"):
         return ("minsum_stream", d.variant, d.packed,
-                d.ct.code.name, d.max_iter, d.beta, d.alpha, d.qmax)
+                d.ct.code.name, d.ct.entries, d.max_iter, d.beta, d.alpha,
+                d.qmax)
     behind_transposes = hasattr(d, "inner")
     if behind_transposes:
         d = d.inner
     inner = getattr(d, "decoder", d)
-    return (inner.library, inner.ct.code.name, inner.dec, inner.quant,
+    return (inner.library, inner.ct.code.name, inner.ct.entries, inner.dec,
+            inner.quant,
             inner.minstar, inner.input_scale, inner.count_info_cols,
             d is not inner, getattr(d, "batch", None),
             getattr(d, "lane_sigma", None), behind_transposes)
@@ -1256,14 +1400,28 @@ COUNTERS = ("frames", "bit_errs", "frame_errs", "avg_iters",
             "early_term_rate")
 
 
-def hold_slice(label, sweep, rows, ref, ref_name, equal=None, z=2.576):
+def least_bit_variance(row):
+    """The least per-frame variance of bit errors a row of counters allows:
+    its bit errors spread evenly over its failed frames (mu^2 / FER -
+    mu^2); 0 without a failed frame."""
+    if not row["frame_errs"]:
+        return 0.0
+    mu = row["bit_errs"] / row["frames"]
+    return mu * mu * row["frames"] / row["frame_errs"] - mu * mu
+
+
+def hold_slice(label, sweep, rows, ref, ref_name, equal=None, z=2.576,
+               least_row=False):
     """Holds a slice's rows to the reference rows `ref` (by Eb/N0; a
     recorded waterfall or another slice's run, named `ref_name`): FER and
     converged rate by Wilson intervals, BER and iterations by per-frame
     z-tests with the variances of `lane_variances` (batch 0 re-drawn, and
     further batches where one of the rows holds bit errors and batch 0
-    none); `z`, that of the per-frame z-tests. `equal`: the rows of a
-    slice that saw the same draws, whose counters must be these exactly."""
+    none); `z`, that of the per-frame z-tests. With `least_row` the BER
+    variance is at least the least either row allows (`least_bit_variance`),
+    which a row's test needs where failed frames are too rare for further
+    batches to meet. `equal`: the rows of a slice that saw the same draws,
+    whose counters must be these exactly."""
     print(f"{label} against {ref_name}"
           + (f" (per-frame z-tests at z = {z:.3f})" if z != 2.576 else "")
           + ":", flush=True)
@@ -1272,6 +1430,9 @@ def hold_slice(label, sweep, rows, ref, ref_name, equal=None, z=2.576):
         var_b, var_i, count, failed = lane_variances(
             sweep, si, row["ebn0_db"],
             need_failed=bool(row["bit_errs"] or r["bit_errs"]))
+        if least_row:
+            var_b = max(var_b, least_bit_variance(row),
+                        least_bit_variance(r))
         oks = rows_compatible(row, r, sweep.code.k_eff, var_b, var_i, z)
         auto = sweep.auto_choice.get(si)
         print_row(row, r, var_b, var_i, oks,
@@ -1745,22 +1906,27 @@ def check_stream_kernels(port, minsum, stream, dev, worst):
 
 
 def check_recorded_kernels(port, dev):
-    """Slice 10's decoders against their plain versions, tolerance 0 on
-    every output, each as `select_decoder` builds it for its sweep (label
-    the row's `expect`), at the row's batch, on the row's own input at its
-    first point: the float LLRs and info bits of the batch-last fused-IO
-    step (K2 at qmax 3, 7, 15, 31, its in-kernel quantizer at the study's
-    scales; K3 on n=1296 and n=1944 rate 1/2), else the quantized LLRs of
-    the batch-first step (K6e on 8PSK and on 16APSK rate 2/3, K3 behind its
-    transposes on NR BG2). Returns label -> (decoder, arguments, worst
-    error); the float route has no kernel."""
+    """Slices 10 and 11b-11d's decoders against their plain versions,
+    tolerance 0 on every output, each as `select_decoder` builds it for its
+    sweep (label the row's `expect`), at the row's batch, on the row's own
+    input at its first point: the float LLRs and info bits of the
+    batch-last fused-IO step (K2 at qmax 3, 7, 15, 31, its in-kernel
+    quantizer at the study's scales; K3 on 802.11n n=648, 1296 and 1944 at
+    rates 1/2-5/6, BPSK and 16-QAM, the check-node variants and the QC-PEG
+    codes), else the quantized LLRs of the batch-first step (K6e on 8PSK
+    and on 16APSK rate 2/3, K3 behind its transposes on NR BG2 and on the
+    punctured 802.11n and PBRL codes). A decoder whose instance
+    (`instance_of`) and batch an earlier row's was is held once, on that
+    row's input. Prints each one's kernel instance and launch shape.
+    Returns label -> (decoder, arguments, worst error); the float route has
+    no kernel."""
     from ldpc_tpu_torch.codes import build_code, from_reference
     from ldpc_tpu_torch.sim.pipeline import select_decoder
     gen = torch.Generator(device=dev)
     gen.manual_seed(57)
-    held = {}
+    held, by_instance = {}, {}
     for sl in SLICES:
-        if not sl.label.startswith("10"):
+        if not sl.label.startswith(("10", "11")):
             continue
         cfg = slice_config(port, sl.what, sl.rng)
         ct = from_reference(build_code(cfg), dev)
@@ -1769,11 +1935,21 @@ def check_recorded_kernels(port, dev):
             raise AssertionError(f"{sl.label}: {label}, expected {sl.expect}")
         if label == "torch-float":
             continue
+        key = (instance_of(d), sl.batch)
+        if key in by_instance:
+            first, entry = by_instance[key]
+            held[sl.label] = entry
+            print(f"{sl.label} ({label}): the instance held on {first}'s "
+                  f"input", flush=True)
+            continue
         what = f"{sl.label} ({label}) {sl.points[0]} dB"
         worst = {}
         if hasattr(d, "inner") or hasattr(d, "variant"):    # batch first
             args = (bf_chain(ct, cfg, sl.points[0], sl.batch, gen),)
             hold_to_plain(what, d, args[0], worst)
+            if hasattr(d, "inner"):
+                print(f"  {instance_name(d)}, {shape_text(d.inner)}",
+                      flush=True)
         else:
             args = chain_args(ct, cfg, sl.points[0], sl.batch, gen)
             out_k = d.kernel(*args)
@@ -1791,6 +1967,7 @@ def check_recorded_kernels(port, dev):
             if not same:
                 raise AssertionError(f"kernel != plain on {what}")
         held[sl.label] = (d, args, max(worst.values()))
+        by_instance[key] = (sl.label, held[sl.label])
     return held
 
 
@@ -1958,10 +2135,8 @@ def run_fused_slice(label, minsum, stream, cfg, points, ref_name, checked,
     for i, row in enumerate(res.rows()):
         r = ref[row["ebn0_db"]]
         var_b, var_i, count, failed = var[i]
-        if least_row and row["frame_errs"]:
-            mu = row["bit_errs"] / row["frames"]
-            var_b = max(var_b, mu * mu * row["frames"] / row["frame_errs"]
-                        - mu * mu)
+        if least_row:
+            var_b = max(var_b, least_bit_variance(row))
         oks = rows_compatible(row, r, k, var_b, var_i, z)
         lo, hi = wilson_interval(r["frame_errs"], r["frames"])
         print_row(row, r, var_b, var_i, oks, f"; variances from {count} "
@@ -2082,24 +2257,30 @@ def floor_z(a, b):
     return abs(a["fer"] - b["fer"]) / se
 
 
-def floor_launches(minsum, stream, label, want):
-    """Fails unless the runs since the counters' reset launched the packed
-    layered instance `want` times and nothing else, with no plain call."""
-    lib = "minsum_layered"
+def only_launches(minsum, stream, label, want, kernel="minsum_layered"):
+    """Fails unless the runs since the counters' reset launched `kernel`
+    `want` times and nothing else, with no plain call: an on-chip library
+    (its packed instance, no min* and no MC) or a streaming library
+    instance (`StreamDecoder.variant`)."""
     launches, packed = dict(minsum.library_launches), dict(
         minsum.packed_launches)
+    inst = dict(stream.instance_launches)
     plain = minsum.plain_calls + stream.plain_calls
     print(f"{label}: kernel launches {launches}, packed {packed}, min* "
           f"{dict(minsum.star_launches)}, MC {dict(minsum.mc_launches)}, "
-          f"streaming {stream.kernel_launches}, plain_calls {plain}",
-          flush=True)
-    others = {k: v for k, v in launches.items() if k != lib}
-    if (launches[lib] != want or packed[lib] != want or plain
-            or any(others.values()) or any(minsum.star_launches.values())
-            or any(minsum.mc_launches.values()) or stream.kernel_launches):
-        raise AssertionError(f"{label}: expected {want} launches of the "
-                             f"packed layered instance and nothing else")
-    return launches[lib]
+          f"streaming {inst}, plain_calls {plain}", flush=True)
+    on_chip = kernel in launches
+    got = {**launches, **inst}
+    if (got[kernel] != want or plain
+            or any(v for k, v in got.items() if k != kernel)
+            or (on_chip and packed[kernel] != want)
+            or minsum.kernel_launches != (want if on_chip else 0)
+            or stream.kernel_launches != (0 if on_chip else want)
+            or any(minsum.star_launches.values())
+            or any(minsum.mc_launches.values())):
+        raise AssertionError(f"{label}: expected {want} launches of "
+                             f"{kernel} and nothing else")
+    return want
 
 
 def check_floor(port, minsum, stream, gpu):
@@ -2233,7 +2414,7 @@ def check_floor(port, minsum, stream, gpu):
                            sums[name]):
             raise AssertionError(f"slice 7a {name}: the run's sums differ")
     torch.cuda.synchronize()
-    floor_launches(minsum, stream, "7a the three IS batches", len(cases))
+    only_launches(minsum, stream, "7a the three IS batches", len(cases))
 
     # 7b: the recorded floor, the file's frames
     minsum.reset_counters()
@@ -2252,7 +2433,7 @@ def check_floor(port, minsum, stream, gpu):
             rows[kind][e] = est.to_dict()
             n_batches += est.frames // B
         lap(f"{kind.upper()} estimates", t0)
-    k3_launches = floor_launches(minsum, stream, "7b MC and IS",
+    k3_launches = only_launches(minsum, stream, "7b MC and IS",
                                  n_batches)
     file_rows = {kind: {r["ebn0_db"]: r for r in ref[kind]}
                  for kind in ("mc", "is")}
@@ -2347,7 +2528,7 @@ def check_floor(port, minsum, stream, gpu):
                                batch=nf["batch"], seed=nr_cfg.run.seed,
                                run=run_nr)
     lap("7c NR MC", t0)
-    floor_launches(minsum, stream, "7c NR BG1 Z=128",
+    only_launches(minsum, stream, "7c NR BG1 Z=128",
                    nf["frames"] // nf["batch"])
     r = read_ref(nf["ref"])[nf["ebn0"]]
     ok = (est.frames == nf["frames"] and est.raw_hits == round(
@@ -2416,6 +2597,485 @@ def check_floor(port, minsum, stream, gpu):
     print(f"K3 launches on the floor path (7b): {k3_launches}, one an IS "
           f"batch", flush=True)
     return k3_launches
+
+
+def wifi_sym_config(port, algorithm, beta_lsb):
+    """scripts/make_wifi_floor_sym.py's configuration of one algorithm: the
+    default code (802.11n n=648 rate 1/2), 8 bits at scale 4, layered, at
+    most 20 iterations, early termination."""
+    return port.SimConfig(
+        code=port.CodeConfig(),
+        quant=port.QuantConfig(bits=8, scale=4.0, beta_lsb=beta_lsb),
+        decoder=port.DecoderConfig(algorithm=algorithm, max_iter=20,
+                                   schedule="layered", early_term=True))
+
+
+def dvb_floor_config(port):
+    """scripts/diag_dvb_mc_deep.py's and make_dvb_floor_r5.py's
+    configuration: DVB-S2 n=64,800 rate 1/2, 8 bits at scale 4, OMS beta 2
+    LSB, layered, at most 20 iterations, early termination."""
+    return port.SimConfig(
+        code=port.CodeConfig(family="dvbs2", n=64800, rate="1/2"),
+        quant=port.QuantConfig(bits=8, scale=4.0, beta_lsb=2),
+        decoder=port.DecoderConfig(algorithm="offset-min-sum", max_iter=20,
+                                   schedule="layered", early_term=True))
+
+
+def pooled_seeds(rows):
+    """One point's estimates over its seeds (dicts with fer and rel_std) as
+    one: their mean, with the standard error sqrt(sum (fer_i rel_i)^2) / n;
+    a dict `floor_z` takes."""
+    n = len(rows)
+    fer = sum(r["fer"] for r in rows) / n
+    se = math.sqrt(sum((r["fer"] * r["rel_std"]) ** 2
+                       for r in rows if r["fer"])) / n
+    return {"fer": fer, "rel_std": se / fer if fer > 0 else None}
+
+
+def hold_wifi_floor_sym(port, minsum, stream):
+    """Slice 11a.1: results/wifi_floor_sym.json (WIFI_SYM). The proposal is
+    the census's absorbing-orbit cover (`floor_proposals.
+    absorbing_orbit_cover`, the script's call on one census thread) at
+    three depths; each
+    algorithm's run is `make_symmetric_run` at batch 8,192 on K3 behind its
+    transposes, held to plain on a batch of its own chain first. Then the
+    file's 12 runs (two algorithms, 4.6 and 5.0 dB, seeds 31-33, 2,097,152
+    frames each) and seed 31 at 5.0 dB again on OMS: the three seeds of a
+    point give three estimates, the rerun the same counters, and each
+    (algorithm, Eb/N0)'s pooled seeds lie within family_z(4) of the file's
+    pooled seeds (`floor_z`). Philox is not threefry: equal seed numbers
+    draw different streams, so the hold is statistical. Returns (decoder,
+    its held input, launches, worst error)."""
+    from ldpc_tpu_torch.codes import build_code
+    from ldpc_tpu_torch.ops.channel import sigma_for
+    from ldpc_tpu_torch.sim import impsamp
+    from ldpc_tpu_torch.sim.floor_proposals import absorbing_orbit_cover
+    w, dev = WIFI_SYM, torch.device("cuda")
+    code = build_code(port.SimConfig())
+    t0 = time.perf_counter()
+    reps = absorbing_orbit_cover(code)
+    reps_x, deltas = impsamp.expand_radial(reps, w["depths"])
+    print(f"11a.1 proposal: the census's absorbing sets (a <= 8, b <= 3, "
+          f"dv <= 3) -> {len(reps)} orbits of {code.Z} rotations x "
+          f"{len(w['depths'])} depths = {len(reps_x)} components "
+          f"({time.perf_counter() - t0:.2f} s)", flush=True)
+    with open(os.path.join(HERE, "results", w["ref"])) as f:
+        ref = json.load(f)["rows"]
+    runs, worst, held = {}, {}, None
+    e_last = w["points"][-1]
+    sigma = np.float32(sigma_for(e_last, code.rate, "bpsk"))
+    for alg, algorithm, beta in w["algs"]:
+        cfg = wifi_sym_config(port, algorithm, beta)
+        run = impsamp.make_symmetric_run(code, cfg, reps_x, delta=deltas,
+                                         pi0=w["pi0"], batch=w["batch"],
+                                         device=dev)
+        if (run.backend_label != "cuda-minsum-layered-bf"
+                or not run.decoder.inner.packed):
+            raise AssertionError(f"11a.1 {alg}: {run.backend_label}, not "
+                                 f"K3's packed kernel")
+        # a batch of a seed the counted runs do not use
+        q = run.chain(impsamp._generator(dev, 0, e_last, 0), sigma)[0]
+        hold_to_plain(f"11a.1 {alg} ({run.backend_label}) {e_last} dB",
+                      run.decoder, q, worst)
+        print(f"  {instance_name(run.decoder)}, "
+              f"{shape_text(run.decoder.inner)}", flush=True)
+        runs[alg] = (cfg, run)
+        held = held or (run.decoder, q)
+    minsum.reset_counters()
+    stream.reset_counters()
+    t0 = time.perf_counter()
+
+    def estimate(alg, e, seed):
+        cfg, run = runs[alg]
+        return dict(impsamp.estimate_fer_symmetric(
+            code, cfg, reps_x, e, w["frames"], delta=deltas, pi0=w["pi0"],
+            batch=w["batch"], seed=seed, run=run), seed=seed)
+    ests = {(alg, e, seed): estimate(alg, e, seed) for alg in runs
+            for e in w["points"] for seed in w["seeds"]}
+    again = (w["algs"][0][0], e_last, w["seeds"][0])
+    rerun = estimate(*again)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = only_launches(minsum, stream, "11a.1 the symmetric runs",
+                              (len(ests) + 1) * (w["frames"] // w["batch"]))
+    print(f"11a.1: {len(ests) + 1} runs of {w['frames']} frames in "
+          f"{wall:.2f} s", flush=True)
+    z, bad = family_z(len(w["algs"]) * len(w["points"])), []
+    for alg, _, _ in w["algs"]:
+        for e in w["points"]:
+            mine = [ests[alg, e, seed] for seed in w["seeds"]]
+            theirs = [r for r in ref if r["alg"] == alg and r["ebn0_db"] == e]
+            for who, rows in (("port", mine), ("file", theirs)):
+                print(f"11a.1 {alg} {e} dB {who}: " + "; ".join(
+                    f"seed {r['seed']} FER {r['fer']:.4e} rel. "
+                    f"{r['rel_std']:.3f} raw hits {r['raw_hits']}"
+                    for r in rows), flush=True)
+            got, want = pooled_seeds(mine), pooled_seeds(theirs)
+            zz = floor_z(got, want)
+            distinct = len({r["fer"] for r in mine}) == len(mine)
+            ok = (zz <= z and distinct and len(theirs) == len(mine)
+                  and all(r["frames"] == w["frames"] for r in mine))
+            print(f"  pooled: port {got['fer']:.4e} (rel. "
+                  f"{got['rel_std'] or 0:.3f}), file {want['fer']:.4e} (rel. "
+                  f"{want['rel_std']:.3f}): z {zz:.3f} <= {z:.3f}; the seeds' "
+                  f"estimates distinct {distinct}: {ok}", flush=True)
+            if not ok:
+                bad.append(f"{alg} {e}")
+    same = rerun == ests[again]
+    print(f"11a.1 {again[0]} seed {again[2]} at {again[1]} dB again: the "
+          f"same counters {same} (FER {rerun['fer']:.6e}, raw hits "
+          f"{rerun['raw_hits']})", flush=True)
+    if not same:
+        bad.append("rerun")
+    if bad:
+        raise AssertionError(f"slice 11a.1 disagrees: {bad}")
+    return held + (launches, max(worst.values()))
+
+
+def hold_nr_floor_sym(port, minsum, stream):
+    """Slice 11a.2: results/nr_floor_sym.json (NR_SYM), its configuration
+    from its header (NR BG1 Z=128 rate 1/3, OMS beta 2 LSB, layered, early
+    termination). Its two MC anchors through the IS chain with no sets
+    (plain MC of the all-zeros word) on K3 behind its transposes at batch
+    16,384 (250 batches a point), the decoder held to plain on a batch of
+    that chain first; each by Wilson intervals at family_z(2). Then the
+    symmetric row at 1.2 dB through the CLI (`floor --symmetric --seeds
+    61,62`), its two seeds pooled and held to the 1.2 dB anchor by `floor_z`
+    at family_z(2). Returns (decoder, its held input, launches, worst
+    error)."""
+    from ldpc_tpu_torch.codes import build_code
+    from ldpc_tpu_torch.ops.channel import sigma_for
+    from ldpc_tpu_torch.sim import impsamp
+    from ldpc_tpu_torch.sim.stats import rates_compatible, wilson_interval
+    nf, dev = NR_SYM, torch.device("cuda")
+    with open(os.path.join(HERE, "results", nf["ref"])) as f:
+        ref = json.load(f)
+    cfg = recorded_config(port, nf["ref"])
+    code = build_code(cfg)
+    run = impsamp.make_is_run(code, cfg, [], batch=nf["mc_batch"],
+                              device=dev)
+    if run.backend_label != "cuda-minsum-layered-bf":
+        raise AssertionError(f"11a.2: decoder {run.backend_label}")
+    worst = {}
+    e0 = nf["mc_points"][0]
+    q = run.chain(impsamp._generator(dev, cfg.run.seed + 1, e0, 0),
+                  np.float32(sigma_for(e0, code.rate, "bpsk")))[0]
+    hold_to_plain(f"11a.2 NR BG1 Z=128 r1/3 ({run.backend_label}) {e0} dB",
+                  run.decoder, q, worst)
+    print(f"  {instance_name(run.decoder)}, {shape_text(run.decoder.inner)}",
+          flush=True)
+    minsum.reset_counters()
+    stream.reset_counters()
+    t0 = time.perf_counter()
+    ests = {e: impsamp.estimate_fer(code, cfg, [], e, nf["mc_frames"],
+                                    batch=nf["mc_batch"], seed=cfg.run.seed,
+                                    run=run)
+            for e in nf["mc_points"]}
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = only_launches(minsum, stream, "11a.2 the MC anchors",
+                              len(ests) * nf["mc_frames"] // nf["mc_batch"])
+    z, anchors, bad = family_z(2), ref["mc_anchors"], []
+    for e, est in ests.items():
+        a = anchors[str(e)]
+        a_errs = round(a["fer"] * a["frames"])
+        ok = (est.frames == a["frames"]
+              and est.raw_hits == round(est.fer * est.frames)
+              and rates_compatible(est.raw_hits, est.frames, a_errs,
+                                   a["frames"], z))
+        lo, hi = wilson_interval(est.raw_hits, est.frames, z)
+        alo, ahi = wilson_interval(a_errs, a["frames"], z)
+        print(f"11a.2 MC {e} dB: FER {est.fer:.4e} ({est.raw_hits}/"
+              f"{est.frames}) [{lo:.3e}, {hi:.3e}] against the file's "
+              f"{a['fer']:.4e} ({a_errs}/{a['frames']}) [{alo:.3e}, "
+              f"{ahi:.3e}] (Wilson, z = {z:.3f}): {ok}", flush=True)
+        if not ok:
+            bad.append(f"mc {e}")
+    print(f"11a.2: {len(ests)} MC points in {wall:.2f} s", flush=True)
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "nr_floor_sym.json")
+        proc = subprocess.run(
+            [sys.executable, "-m", "ldpc_tpu_torch.cli", *nf["argv"],
+             "--out", out], cwd=HERE, capture_output=True, text=True,
+            timeout=600)
+        notes = [ln for ln in proc.stderr.splitlines() if ln.startswith("# ")]
+        if (proc.returncode != 0
+                or "# decoder cuda-minsum-layered-bf" not in notes):
+            raise AssertionError(f"11a.2 CLI floor --symmetric failed "
+                                 f"({proc.returncode}, {notes}):\n"
+                                 f"{proc.stderr[-3000:]}")
+        with open(out) as fh:
+            got = json.load(fh)
+    pt = got["points"][0]
+    file_pt = next(p for p in ref["points"] if p["ebn0_db"] == pt["ebn0_db"])
+    for who, p in (("port", pt), ("file", file_pt)):
+        print(f"11a.2 symmetric {p['ebn0_db']} dB {who}: " + "; ".join(
+            f"seed {r['seed']} FER {r['fer']:.4e} rel. {r['rel_std']:.3f} "
+            f"raw hits {r['raw_hits']} frames {r['frames']}"
+            for r in p["seeds"]) + f"; seed_repeatable "
+            f"{p['seed_repeatable']}", flush=True)
+    a = anchors[str(nf["sym_ebn0"])]
+    a_errs = round(a["fer"] * a["frames"])
+    anchor = {"fer": a["fer"], "rel_std": 1 / math.sqrt(a_errs)}
+    mine = pooled_seeds(pt["seeds"])
+    zz = floor_z(mine, anchor)
+    ok = (zz <= z and [r["frames"] for r in pt["seeds"]]
+          == [r["frames"] for r in file_pt["seeds"]])
+    print(f"11a.2 CLI ({time.perf_counter() - t0:.1f} s; {notes}): pooled "
+          f"{mine['fer']:.4e} (rel. {mine['rel_std'] or 0:.3f}) against the "
+          f"1.2 dB anchor {anchor['fer']:.4e} (rel. "
+          f"{anchor['rel_std']:.3f}): z "
+          f"{zz:.3f} <= {z:.3f}; {got['proposal']['n_orbit_reps']} orbit "
+          f"reps (the file's {ref['proposal']['n_orbit_reps']}): {ok}",
+          flush=True)
+    if not ok:
+        bad.append("symmetric")
+    if bad:
+        raise AssertionError(f"slice 11a.2 disagrees: {bad}")
+    return run.decoder, q, launches, max(worst.values())
+
+
+def hold_dvb_floor_mc(port, minsum, stream):
+    """Slice 11a.3: results/dvb_floor_summary.json's 1.2 dB point (DVB_FLOOR):
+    plain MC of the all-zeros word through the IS chain with no sets, at
+    the file's batch on `auto`'s route (the pipelined kernel's ET instance,
+    K6f), its decoder held to plain on a batch of that chain first.
+    fails_info is the IS tally's raw count (`ISRun.tally`: frames with a
+    wrong information bit, the sweeps' frame errors), fails_any the frames
+    with any wrong bit (`hard.any`, as `harvest_error_supports` reads a
+    failure), scripts/diag_dvb_mc_deep.py's rule; each held to the file by
+    Wilson intervals at family_z(2). Returns (decoder, its held input,
+    launches, worst error)."""
+    from ldpc_tpu_torch.codes import build_code
+    from ldpc_tpu_torch.ops.channel import sigma_for
+    from ldpc_tpu_torch.sim import impsamp
+    from ldpc_tpu_torch.sim.stats import rates_compatible, wilson_interval
+    f, dev = DVB_FLOOR, torch.device("cuda")
+    cfg = dvb_floor_config(port)
+    code = build_code(cfg)
+    run = impsamp.make_is_run(code, cfg, [], batch=f["batch"], device=dev)
+    if run.backend_label != "cuda-stream-pipelined-et":
+        raise AssertionError(f"11a.3: decoder {run.backend_label}")
+    sigma = np.float32(sigma_for(f["ebn0"], code.rate, "bpsk"))
+    worst = {}
+    q = run.chain(impsamp._generator(dev, f["seed"] + 1, f["ebn0"], 0),
+                  sigma)[0]
+    hold_to_plain(f"11a.3 DVB-S2 n=64,800 ({run.backend_label}) "
+                  f"{f['ebn0']} dB", run.decoder, q, worst)
+    minsum.reset_counters()
+    stream.reset_counters()
+    t0 = time.perf_counter()
+    nb = f["frames"] // f["batch"]
+    acc = torch.zeros(2, dtype=torch.int64, device=dev)
+    for i in range(nb):
+        qi, w, _ = run.chain(impsamp._generator(dev, f["seed"], f["ebn0"], i),
+                             sigma)
+        hard = run.decoder(qi)[0]
+        acc += torch.stack([run.tally(hard, w, None)[2].to(torch.int64),
+                            hard.any(dim=1).sum()])
+    fails_info, fails_any = acc.tolist()
+    wall = time.perf_counter() - t0
+    launches = only_launches(minsum, stream, "11a.3 the MC batches", nb,
+                             "stream-pipelined-et")
+    with open(os.path.join(HERE, "results", f["summary"])) as fh:
+        r = next(p for p in json.load(fh)["points"]
+                 if p["ebn0_db"] == f["ebn0"])
+    N, z, bad = nb * f["batch"], family_z(2), []
+    for key, got in (("fails_info", fails_info), ("fails_any", fails_any)):
+        ok = N == r["frames"] and rates_compatible(got, N, r[key],
+                                                   r["frames"], z)
+        lo, hi = wilson_interval(got, N, z)
+        rlo, rhi = wilson_interval(r[key], r["frames"], z)
+        print(f"11a.3 {f['ebn0']} dB {key}: {got}/{N} [{lo:.3e}, {hi:.3e}] "
+              f"against the file's {r[key]}/{r['frames']} [{rlo:.3e}, "
+              f"{rhi:.3e}] (Wilson, z = {z:.3f}): {ok}", flush=True)
+        if not ok:
+            bad.append(key)
+    print(f"11a.3: {N} frames in {wall:.2f} s", flush=True)
+    if bad:
+        raise AssertionError(f"slice 11a.3 disagrees: {bad}")
+    return run.decoder, q, launches, max(worst.values())
+
+
+def hold_dvb_floor_sym(port, minsum, stream):
+    """Slice 11a.4: the symmetric estimator on DVB-S2 n=64,800 (DVB_FLOOR),
+    the path of results/dvb_floor_r5.json, whose numbers fail its own
+    convergence bar and are not held. The proposal as
+    scripts/make_dvb_floor_r5.py:57-100 builds it (`floor_proposals.
+    harvested_orbit_reps`): 109 orbits, 327 components. `make_symmetric_run`
+    at batch 1,024 must take `auto`'s streaming ET kernel; on one batch of
+    injected draws its decoder and tally (hard decisions, weights, the
+    per-orbit Z-folded shares and hits) must equal the plain QC route's
+    (`torch-qc`) exactly. Then two seeds of 65,536 frames at 1.3 dB, each
+    estimate finite. Returns (decoder, the batch's input, launches, worst
+    error)."""
+    from ldpc_tpu_torch.codes import build_code
+    from ldpc_tpu_torch.ops.channel import sigma_for
+    from ldpc_tpu_torch.sim import impsamp
+    from ldpc_tpu_torch.sim.floor_proposals import harvested_orbit_reps
+    f, dev = DVB_FLOOR, torch.device("cuda")
+    cfg = dvb_floor_config(port)
+    code = build_code(cfg)
+    with open(os.path.join(HERE, "results", f["mc_deep"])) as fh:
+        mc = json.load(fh)
+    with open(os.path.join(HERE, "results", f["census"])) as fh:
+        census = json.load(fh)
+    reps = harvested_orbit_reps(code, mc["points"],
+                                census["example_73_sets"][:1])
+    reps_x, deltas = impsamp.expand_radial(reps, f["depths"])
+    print(f"11a.4 proposal: {len(reps)} orbits (the probe's info-failure "
+          f"supports of 1-48 positions and the (7,3) orbit) x "
+          f"{len(f['depths'])} depths = {len(reps_x)} components; mean matrix "
+          f"{len(reps_x)} x {code.n} float32", flush=True)
+    if (len(reps), len(reps_x)) != (f["reps"], f["components"]):
+        raise AssertionError("11a.4: the proposal is not the file's")
+    B = f["batch"]
+    kw = dict(delta=deltas, pi0=f["pi0"], batch=B, device=dev)
+    run = impsamp.make_symmetric_run(code, cfg, reps_x, **kw)
+    run_qc = impsamp.make_symmetric_run(code, cfg, reps_x, backend="qc", **kw)
+    print(f"11a.4 routes: {run.backend_label} "
+          f"({run.decoder.kernel_name(B)}), forced qc {run_qc.backend_label}",
+          flush=True)
+    if (run.backend_label, run_qc.backend_label) != (
+            "cuda-stream-pipelined-et", "torch-qc"):
+        raise AssertionError("11a.4: the routes are not the streaming ET "
+                             "kernel and the plain QC decoder")
+    sigma = np.float32(sigma_for(f["sym_ebn0"], code.rate, "bpsk"))
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(79)
+    eps = torch.randn((B, code.n), generator=gen, device=dev)
+    comp = torch.as_tensor(np.random.default_rng(79).choice(
+        run.K + 1, size=B, p=run.pis), device=dev)
+    q, w, c = run.chain(None, sigma, eps=eps, comp=comp)
+    out_k, out_p = run.decoder(q), run_qc.decoder(q)
+    s_k, s_p = run.tally(out_k[0], w, c), run.tally(out_p[0], w, c)
+    torch.cuda.synchronize()
+    err = max_abs_err(out_k, out_p)
+    same = all(torch.equal(a, b) for a, b in zip(out_k, out_p))
+    equal = torch.equal(s_k, s_p)
+    failed = int(out_k[0].any(dim=1).sum())
+    hit = int((s_k[2, :run.K] > 0).sum())
+    print(f"11a.4 one batch at {f['sym_ebn0']} dB, B={B}: hard bits, iters, "
+          f"conv == torch-qc {same} (max_abs_err {err:g}; failed frames "
+          f"{failed}, shifted lanes {int((c > 0).sum())}); tally == "
+          f"torch-qc {equal} (orbit components hit {hit} of {run.K}, "
+          f"totals {s_k[:, -1].tolist()})", flush=True)
+    if not (same and equal) or failed == 0:
+        raise AssertionError("slice 11a.4: the streaming kernel's batch "
+                             "differs from the plain QC route's")
+    del run_qc, eps
+    minsum.reset_counters()
+    stream.reset_counters()
+    t0 = time.perf_counter()
+    ests = [impsamp.estimate_fer_symmetric(
+        code, cfg, reps_x, f["sym_ebn0"], f["sym_frames"], delta=deltas,
+        pi0=f["pi0"], batch=B, seed=seed, run=run) for seed in f["sym_seeds"]]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = only_launches(minsum, stream, "11a.4 the symmetric runs",
+                             len(ests) * f["sym_frames"] // B,
+                             "stream-pipelined-et")
+    for seed, est in zip(f["sym_seeds"], ests):
+        print(f"11a.4 {f['sym_ebn0']} dB seed {seed}: FER {est['fer']:.4e} "
+              f"rel. {est['rel_std']:.3f} raw hits {est['raw_hits']} "
+              f"(attributed {est['raw_hits_attributed']}), frames "
+              f"{est['frames']}", flush=True)
+    print(f"11a.4: {len(ests)} runs in {wall:.2f} s", flush=True)
+    if not all(np.isfinite(est["fer"]) and np.isfinite(est["rel_std"])
+               for est in ests):
+        raise AssertionError("slice 11a.4: an estimate is not finite")
+    return run.decoder, q, launches, err
+
+
+def check_bsc_soft(port, minsum, stream, dev):
+    """Slice 11d's soft BSC: results/bsc_wifi648.json (BSC) as
+    scripts/make_bsc_curve.py chains it: info bits -> encoder ->
+    `channel.bsc` -> `bsc_llr` -> quantize -> the canonical preset's decoder
+    as `select_decoder` gives it batch first (K1 behind its transposes,
+    held to plain on a batch of these LLRs first, 0 plain calls in the run),
+    16,384 frames at each of the file's eight p. FER and the converged rate
+    by Wilson intervals; BER by the per-frame z-test at family_z(8), the
+    variance this run's or, where larger, the least either row allows (the
+    file records rates, from which its counts are taken back). Returns
+    (decoder, its held input, launches, worst error)."""
+    from ldpc_tpu_torch.codes import build_code, from_reference
+    from ldpc_tpu_torch.ops import channel as ch
+    from ldpc_tpu_torch.ops.encode import make_encoder
+    from ldpc_tpu_torch.ops.quantize import quantize
+    from ldpc_tpu_torch.sim.pipeline import select_decoder
+    from ldpc_tpu_torch.sim.stats import (mean_compatible, rates_compatible,
+                                          wilson_interval)
+    b = BSC
+    cfg = port.PRESETS[b["preset"]]
+    ct = from_reference(build_code(cfg), dev)
+    B, n_batches = b["batch"], b["frames"] // b["batch"]
+    soft, label = select_decoder(ct, cfg, batch=B, batch_first=True)
+    if label != "cuda-minsum-bf":
+        raise AssertionError(f"11d BSC: the decoder is {label}")
+    enc = make_encoder(ct)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(b["seed"])
+
+    def received(p):
+        info = torch.randint(0, 2, (B, ct.k), generator=gen, device=dev,
+                             dtype=torch.uint8)
+        rx = ch.bsc(gen, enc(info), p)
+        return info, quantize(ch.bsc_llr(rx, p), cfg.quant)
+
+    worst = {}
+    q = received(np.float32(0.05))[1]
+    hold_to_plain(f"11d BSC ({label}) p=0.05", soft, q, worst)
+    print(f"  {instance_name(soft)}, {shape_text(soft.inner)}", flush=True)
+    with open(os.path.join(HERE, "results", b["ref"])) as f:
+        ref = {r["p"]: r for r in json.load(f)["results"]}
+    minsum.reset_counters()
+    stream.reset_counters()
+    t0 = time.perf_counter()
+    runs = {}
+    for p in b["ps"]:
+        p32, errs, conv = np.float32(p), [], 0
+        for _ in range(n_batches):
+            info, qb = received(p32)
+            hard, _, ok = soft(qb)
+            errs.append((hard[:, ct.info_positions] != info).sum(dim=1))
+            conv += ok.sum()
+        runs[p] = (torch.cat(errs).double(), int(conv))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    print(f"11d BSC: {len(b['ps'])} points of {b['frames']} frames in "
+          f"{wall:.2f} s", flush=True)
+    launches = only_launches(minsum, stream, "11d BSC",
+                             len(b["ps"]) * n_batches, "minsum_flood")
+    z, bad = family_z(len(b["ps"])), []
+    for p, (errs, conv) in runs.items():
+        r, frames = ref[p], errs.numel()
+        rf = r["frames"]
+        mine = {"frames": frames, "bit_errs": int(errs.sum()),
+                "frame_errs": int((errs > 0).sum())}
+        theirs = {"frames": rf, "bit_errs": round(r["ber"] * rf * ct.k),
+                  "frame_errs": round(r["fer"] * rf)}
+        var = max(float(errs.var()), least_bit_variance(mine),
+                  least_bit_variance(theirs))
+        ok_f = rates_compatible(mine["frame_errs"], frames,
+                                theirs["frame_errs"], rf)
+        ok_c = rates_compatible(conv, frames, round(r["conv_rate"] * rf), rf)
+        ok_b = mean_compatible(mine["bit_errs"], frames, theirs["bit_errs"],
+                               rf, var, z=z)
+        lo, hi = wilson_interval(mine["frame_errs"], frames)
+        print(f"  p {p}: frames {frames} FER {mine['frame_errs'] / frames:.4e}"
+              f" [{lo:.4e}, {hi:.4e}] ref {r['fer']:.4e} compatible {ok_f}; "
+              f"BER {mine['bit_errs'] / (frames * ct.k):.4e} ref "
+              f"{r['ber']:.4e} compatible {ok_b} (per-frame z-test at z = "
+              f"{z:.3f}, sd {var ** 0.5:.2f} bits/frame); converged "
+              f"{conv / frames:.6f} ref {r['conv_rate']:.6f} compatible "
+              f"{ok_c}", flush=True)
+        if not (ok_f and ok_b and ok_c and frames == rf):
+            bad.append(p)
+    if bad:
+        raise AssertionError(f"11d BSC disagrees with {b['ref']} at p = "
+                             f"{bad}")
+    return soft, q, launches, max(worst.values())
 
 
 # Slice 8: the design funnel and the table registry. DE rows of
@@ -3813,9 +4473,10 @@ def main():
     phase("streaming library K6b-K6f vs plain (tolerance 0), and K3 behind "
           "its transposes")
     stream_held = check_stream_kernels(port, minsum, stream, dev, worst)
-    phase("slice 10's decoders vs plain (tolerance 0): K2 at 3-6 bits, K6e "
-          "on 8PSK and 16APSK rate 2/3, K3 on NR BG2 Z=128 and 802.11n "
-          "n=1296 and n=1944")
+    phase("slices 10 and 11b-11d's decoders vs plain (tolerance 0): K2 at "
+          "3-6 bits, K6e on 8PSK and 16APSK rate 2/3, K3 on NR BG2 Z=128, "
+          "the 802.11n set, the check-node variants, the punctured ladders "
+          "and the QC-PEG codes")
     recorded_held = check_recorded_kernels(port, dev)
     phase("the demap of every modulation on the card against the CPU")
     check_demap(dev)
@@ -3834,7 +4495,9 @@ def main():
           "early termination (the streaming library), dvbs2-16200 and NR "
           "BG1 route against route, NR BG1 Z=128 rate 1/3; the recorded "
           "configurations of slice 10: the bit-width study, 8PSK, 16APSK, "
-          "NR BG2, n=1296 and n=1944 OMS, the float decoders)")
+          "NR BG2, n=1296 and n=1944 OMS, the float decoders; slice 11b-11d: "
+          "the 802.11n set, the check-node variants, the rate-compatible "
+          "ladders and the designed codes)")
     sweeps, launches, rows = {}, {}, {}
     for sl in SLICES:
         sweeps[sl.label], launches[sl.label], rows[sl.label] = run_slice(
@@ -3842,7 +4505,8 @@ def main():
     for sl in SLICES:
         ref = rows[sl.ref] if sl.ref in rows else read_ref(sl.ref)
         hold_slice(sl.label, sweeps[sl.label], rows[sl.label], ref, sl.ref,
-                   rows[sl.equal_to] if sl.equal_to else None, sl.z)
+                   rows[sl.equal_to] if sl.equal_to else None, sl.z,
+                   sl.least_row)
     # every decoder a sweep launched was held to its plain version above,
     # as that instance and at that batch
     for label, checked in (
@@ -3877,6 +4541,13 @@ def main():
     phase("slice 6: the hard-decision path over the BSC (Gallager-B, "
           "bit-flipping, soft min-sum on K1; the regular array code)")
     check_hard(port, minsum, stream, dev)
+    phase("slice 11d: the soft decoder over the BSC "
+          "(results/bsc_wifi648.json)")
+    # record name -> the runs of one kernel instance: (what launched it,
+    # decoder, the batch it was held to plain on, launches, worst error)
+    floor_runs = {"bsc_wifi648": [("11d " + BSC["ref"],
+                                   *check_bsc_soft(port, minsum, stream,
+                                                   dev))]}
 
     phase("CLI: sweep --rng device --fused")
     check_cli(fused_res)
@@ -3894,6 +4565,22 @@ def main():
           "eight and two processes on the one card over gloo: the sweeps, "
           "multihost-qam-chain --mesh 2x4 through the CLI, floor --mesh 2)")
     check_mesh(port, minsum, gpu)
+    for key, by, what, hold in (
+            ("wifi_floor_sym", "11a.1 wifi_floor_sym.json", "the symmetric "
+             "estimator on the census's orbit cover, K3 behind its "
+             "transposes", hold_wifi_floor_sym),
+            ("nr_floor_sym", "11a.2 nr_floor_sym.json", "the MC anchors on "
+             "K3 behind its transposes, floor --symmetric",
+             hold_nr_floor_sym),
+            ("dvb_floor", "11a.3 dvb_floor_summary.json", "1.2 dB, plain "
+             "MC on the streaming ET kernel", hold_dvb_floor_mc),
+            ("dvb_floor", "11a.4 dvb_floor_r5.json", "its proposal through "
+             "the symmetric estimator on the streaming ET kernel",
+             hold_dvb_floor_sym)):
+        phase(f"slice {by} ({what})")
+        floor_runs.setdefault(key, []).append(
+            (by, *hold(port, minsum, stream)))
+        torch.cuda.empty_cache()
     loaded = sorted(m for m in sys.modules if m.split(".")[0] == "jax")
     if loaded:
         raise AssertionError(f"jax modules loaded: {loaded[:5]}")
@@ -4225,13 +4912,26 @@ def main():
     timing["K3 16200"] = timed_call(
         d5c, (q5c,), f"K3 behind its transposes, decode of {STREAM_BATCH} "
         f"codewords (n=16,200 OMS, ET, 1.4 dB: {l5c}, K3's launch)")
-    # slice 10's instances, each the decoder its sweep launched, on the
-    # input it was held to plain with
-    for label, (d, args, _) in recorded_held.items():
-        sl = next(s for s in SLICES if s.label == label)
+    # slices 10 and 11b-11d's instances, each the decoder its sweep
+    # launched, on the input it was held to plain with: one time for each
+    # (instance, batch) that check_recorded_kernels held, on its first
+    # sweep's decoder and input
+    slice_of = {sl.label: sl for sl in SLICES}
+    first_of = {}       # held entry -> the first sweep that launched it
+    for label, entry in recorded_held.items():
+        first = first_of.setdefault(id(entry), label)
+        if first != label:
+            continue
+        sl = slice_of[label]
         timing[label] = timed_call(
-            d, args, f"{label}: {sweeps[label].backend} decode of "
-            f"{sl.batch} codewords at {sl.points[0]} dB", plain_reps=1)
+            entry[0], entry[1], f"{label}: {sweeps[label].backend} decode "
+            f"of {sl.batch} codewords at {sl.points[0]} dB", plain_reps=1)
+    # the deep floors' and the soft BSC's decoders, each instance on the
+    # batch its first run held to plain
+    for key, ((by, d, q, _, _), *_) in floor_runs.items():
+        timing[key] = timed_call(d, (q,), f"slice {by}: "
+                                 f"{type(d).__name__} decode of "
+                                 f"{q.shape[0]} codewords", plain_reps=1)
 
     def report_step(name, rb, draw, sigma, k, batch=BATCH):
         st = step_seconds(rb, draw, sigma)
@@ -4428,30 +5128,57 @@ def main():
         for variant, d, q, launched, key, by in runs
         for kid, site in stream.REPLACES[variant]
         for t in (timing[key],)]
+    def kernel_records(tag, d, args, launched, err, t, by):
+        """The kernels line's records of decoder d, launched `launched`
+        times by `by` and timed on `args` (t: ms, plain ms, bound ms, bound
+        by): a streaming instance's, one a TPU kernel it replaces; an
+        on-chip decoder's, named by its library (K2: minsum_flood_et)."""
+        if hasattr(d, "variant"):
+            return [{"name": f"minsum_stream_{kid}_{tag}",
+                     "instance": d.kernel_name(args[0].shape[0]),
+                     "launched_by": by, "route": "cuda",
+                     "source": stream.SOURCE, "replaces": site,
+                     "launches": launched, "max_abs_err": err, "ms": t[0],
+                     "plain_ms": t[1], "bound_ms": t[2], "bound_by": t[3],
+                     "library_ms": None}
+                    for kid, site in stream.REPLACES[d.variant]]
+        inner = getattr(d, "inner", d)
+        lib = inner.library
+        et = lib == "minsum_flood" and inner.dec.early_term
+        return [dict(record(("minsum_flood_et_" if et else lib + "_") + tag,
+                            lib, launched, err, t, d), launched_by=by)]
+
     # slice 10's instances, named by the kernel and the slice's file, and
-    # the deep tail's launches of slice 3's K1-MC instance
+    # the deep tail's launches of slice 3's K1-MC instance; slice 11's, one
+    # for each (instance, batch) held, named by the first file that launched
+    # it (its sweeps' launches summed), and the decoders of the deep floors
+    # and the soft BSC
     recorded_records = [dict(record(
         "minsum_flood_deep_tail_mc", "minsum_flood", deep_launches,
         mc_worst["minsum_flood"], timing["K1-MC flood lanes"], fused_dec),
         launched_by="10g " + DEEP_TAIL)]
-    for label, (d, args, err) in recorded_held.items():
-        tag = label.split(" ", 1)[1].replace(" ", "")
-        t = timing[label]
-        if hasattr(d, "variant"):
-            recorded_records += [
-                {"name": f"minsum_stream_{kid}_{tag}",
-                 "instance": d.kernel_name(args[0].shape[0]),
-                 "launched_by": label, "route": "cuda",
-                 "source": stream.SOURCE, "replaces": site,
-                 "launches": launches[label], "max_abs_err": err,
-                 "ms": t[0], "plain_ms": t[1], "bound_ms": t[2],
-                 "bound_by": t[3], "library_ms": None}
-                for kid, site in stream.REPLACES[d.variant]]
+    groups = {}
+    for label, entry in recorded_held.items():
+        if label.startswith("10"):
+            recorded_records += kernel_records(
+                label.split(" ", 1)[1].replace(" ", ""), *entry[:2],
+                launches[label], entry[2], timing[first_of[id(entry)]],
+                label)
         else:
-            recorded_records.append(dict(record(
-                ("minsum_flood_et_" if d.library == "minsum_flood"
-                 else "minsum_layered_") + tag, d.library, launches[label],
-                err, t, d), launched_by=label))
+            groups.setdefault(id(entry), []).append(label)
+    for key, labels in groups.items():
+        d, args, err = recorded_held[labels[0]]
+        recorded_records += kernel_records(
+            labels[0].split(" ", 1)[1], d, args,
+            sum(launches[label] for label in labels), err,
+            timing[first_of[key]], labels if len(labels) > 1 else labels[0])
+    for key, runs in floor_runs.items():
+        _, d, q, _, _ = runs[0]
+        for by, other, _, _, _ in runs[1:]:
+            same_instance(other, d, by)
+        recorded_records += kernel_records(
+            key, d, (q,), sum(r[3] for r in runs), max(r[4] for r in runs),
+            timing[key], [r[0] for r in runs] if len(runs) > 1 else runs[0][0])
 
     # launches: of the main path named; ms, plain_ms, bound_ms: of the
     # decoder object that path launched, at its batch; the kernels slice

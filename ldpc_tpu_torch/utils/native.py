@@ -15,6 +15,7 @@ once, and each loads a whole file.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -80,3 +81,32 @@ def load_native(src: str, build_dir: str) -> ctypes.CDLL:
     if not os.path.exists(so):
         _compile(src, so)
     return ctypes.CDLL(so)
+
+
+@contextlib.contextmanager
+def omp_threads(lib: ctypes.CDLL, threads: int):
+    """The OpenMP thread count of `lib`'s runtime (and OMP_NUM_THREADS) set
+    to `threads` inside the block and put back as they were after it. The
+    runtime is the process's: every library that links it shares the
+    count. The variable only matters to a runtime that has not started
+    yet."""
+    env = os.environ.get("OMP_NUM_THREADS")
+    try:
+        getter, setter = lib.omp_get_max_threads, lib.omp_set_num_threads
+    except AttributeError:      # built without OpenMP: one thread anyway
+        getter = setter = None
+    if setter is not None:
+        getter.restype = ctypes.c_int
+        setter.argtypes, setter.restype = [ctypes.c_int], None
+        before = getter()
+        setter(int(threads))
+    os.environ["OMP_NUM_THREADS"] = str(threads)
+    try:
+        yield
+    finally:
+        if setter is not None:
+            setter(before)
+        if env is None:
+            os.environ.pop("OMP_NUM_THREADS", None)
+        else:
+            os.environ["OMP_NUM_THREADS"] = env

@@ -3,7 +3,6 @@ exact census `asenum` over `csrc/as_enum.c`) and the census users of
 `codes/peg.py` (`qc_peg_best(use_absorbing=True)`, `as_optimize`) against
 the JAX package's, on the CPU: equal inputs, equal outputs, tolerance 0.
 Codes enter both packages by value (`own_code`)."""
-import ctypes
 
 import numpy as np
 import pytest
@@ -18,6 +17,7 @@ from ldpc_tpu_torch.analysis import asenum as pasenum
 from ldpc_tpu_torch.analysis import trapping as ptrap
 from ldpc_tpu_torch.codes import own_code
 from ldpc_tpu_torch.codes import peg as ppeg
+from ldpc_tpu_torch.utils.native import omp_threads
 
 
 @pytest.fixture(scope="module")
@@ -146,22 +146,12 @@ def test_census_library_is_built_from_the_port_source():
 
 
 @pytest.fixture
-def one_thread(toy):
+def one_thread():
     """The census emits sets in thread order; as_optimize ranks its moves
     by that order, so the comparison runs on one OpenMP thread (both
     libraries share the runtime). The thread count is restored after."""
-    import os
-    env = os.environ.get("OMP_NUM_THREADS")
-    getter = pasenum._lib().omp_get_max_threads
-    getter.restype = ctypes.c_int
-    before = getter()
-    pasenum.enumerate_sets(toy[1], a_max=1, threads=1)
-    yield
-    pasenum.enumerate_sets(toy[1], a_max=1, threads=before)
-    if env is None:
-        os.environ.pop("OMP_NUM_THREADS", None)
-    else:
-        os.environ["OMP_NUM_THREADS"] = env
+    with omp_threads(pasenum._lib(), 1):
+        yield
 
 
 @pytest.mark.parametrize("Z,seed", [(7, 0), (9, 2)])

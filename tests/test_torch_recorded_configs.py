@@ -1,14 +1,16 @@
-"""The recorded configurations that `chip_smoke.py`'s slice 10 runs on the
-card, on the CPU: each file's configuration as the port builds it (the
-file's own `config` header, or for `results/bits_wifi648.json`, which has
-none, as `scripts/make_bits_study.py:40-60` builds it) equals the
-reference's field by field; the route each slice expects is the route
-`select_decoder` gives on a CPU code; the slices run the file's own points
-and frame counts; one step of the new shapes equals the JAX chain on
-injected draws, counter for counter (tolerance 0): the batch-first step on
-8PSK and 16APSK DVB-S2 n=16,200 and on NR BG2 Z=128 rate 1/5, and the
-batch-last fused-IO step of the bit-width study at 3 and 5 bits; and the
-family-wise z that holds a file's rows."""
+"""The recorded configurations that `chip_smoke.py`'s slices 10 and 11 run
+on the card, on the CPU: each file's configuration as the port builds it
+(the file's own `config` header, or for `results/bits_wifi648.json`, which
+has none, as `scripts/make_bits_study.py:40-60` builds it) equals the
+reference's field by field; the PBRL, QC-PEG and punctured codes that
+slice 11 builds equal the reference's entry for entry; the route each
+slice expects is the route `select_decoder` gives on a CPU code; the
+slices run the file's own points and frame counts (slice 11 every row of
+its file); one step of the new shapes equals the JAX chain on injected
+draws, counter for counter (tolerance 0): the batch-first step on 8PSK and
+16APSK DVB-S2 n=16,200 and on NR BG2 Z=128 rate 1/5, and the batch-last
+fused-IO step of the bit-width study at 3 and 5 bits; and the family-wise
+z that holds a file's rows."""
 import dataclasses
 import importlib.util
 import json
@@ -47,8 +49,15 @@ def _load_chip_smoke():
 
 
 CS = _load_chip_smoke()
-SLICES = {sl.label: sl for sl in CS.SLICES if sl.label.startswith("10")}
-FILES = sorted({sl.what for sl in SLICES.values()} | {CS.DEEP_TAIL})
+SLICES = {sl.label: sl for sl in CS.SLICES
+          if sl.label.startswith(("10", "11"))}
+FILES = sorted({sl.what for sl in SLICES.values()}
+               | {CS.DEEP_TAIL, CS.NR_SYM["ref"]})
+# the files of slice 11 whose codes the port constructs or rate-matches,
+# and NR BG1 Z=128 rate 1/3 (a generated base graph, punctured)
+BUILT = sorted([sl.what for sl in SLICES.values()
+                if sl.what.startswith(("pbrl_", "designed_648.qcpeg",
+                                       "rate_ladder_"))] + [CS.NR_SYM["ref"]])
 
 
 def _header(name):
@@ -90,6 +99,23 @@ def test_configuration_equals_the_reference(what):
     code, ref_code = build_code(got), ref_build_code(ref)
     assert (code.name, code.n, code.k, code.k_eff) == (
         ref_code.name, ref_code.n, ref_code.k, ref_code.k_eff)
+
+
+@pytest.mark.parametrize("what", BUILT)
+def test_constructed_and_rate_matched_codes_equal_the_reference(what):
+    """PBRL (`codes/peg.pbrl_construct`) and QC-PEG codes built from the
+    file's own header, 802.11n n=648 punctured by `codes/rate_compat` and NR
+    BG1 Z=128 rate 1/3: the parity-check matrix entry for entry, the base
+    matrix, the punctured and shortened variables and the rate."""
+    cfg = CS.recorded_config(port, what)
+    code, ref = build_code(cfg), ref_build_code(_reference_config(what))
+    np.testing.assert_array_equal(code.h_dense(), ref.h_dense())
+    np.testing.assert_array_equal(code.base, ref.base)
+    for f in ("punct_vns", "shortened_vns"):
+        np.testing.assert_array_equal(getattr(code, f), getattr(ref, f))
+    assert (code.name, code.Z, code.rate) == (ref.name, ref.Z, ref.rate)
+    if what.startswith("pbrl_"):
+        assert (code.n, code.Z, cfg.code.family) == (756, 27, "pbrl")
 
 
 def test_bit_widths_are_the_studys_q_formats():
@@ -159,6 +185,13 @@ def test_slices_run_the_files_points_and_frames(label):
     if sl.what.startswith(CS.BITS_REF):
         assert len(ref) == 5 and {r["bits"] for r in ref.values()} == {
             int(sl.what.split(":")[1])}
+    if label.startswith("11"):
+        # at a batch that divides its frames (the file's own for 16-QAM),
+        # held at the family-wise z of its rows
+        assert sl.least_row
+        assert all(f % sl.batch == 0 for f in frames)
+        assert sl.batch == (4096 if CS.QAM16_FILE in sl.what else CS.BATCH)
+        assert sl.z == CS.family_z(len(ref))
 
 
 def test_family_z():
@@ -168,11 +201,12 @@ def test_family_z():
     assert 3.63 < CS.family_z(36) < 3.64      # 3.635
     assert CS.OMS_ET_Z == CS.family_z(8)
     rows = {}
-    for sl in SLICES.values():
+    ten = [sl for sl in SLICES.values() if sl.label.startswith("10")]
+    for sl in ten:
         key = sl.ref.partition(":")[0]
         rows[key] = rows.get(key, 0) + len(sl.points)
     assert rows[CS.BITS_REF] == 12 and sum(rows.values()) + 4 == 36
-    for sl in SLICES.values():
+    for sl in ten:
         assert sl.z == CS.family_z(rows[sl.ref.partition(":")[0]])
 
 
@@ -269,3 +303,21 @@ def test_fused_io_step_of_the_bit_width_study_matches_jax_chain(rng, bits):
             int(conv.sum())]
     assert got == want
     assert 0 < want[2] < B
+
+
+def test_soft_bsc_runs_the_files_points():
+    """Slice 11d's soft BSC: the file's eight p at its 16,384 frames, in
+    batches of scripts/make_bsc_curve.py's 4,096, on the canonical preset
+    (the configuration the file names)."""
+    with open(os.path.join(ROOT, "results", CS.BSC["ref"])) as f:
+        doc = json.load(f)
+    assert doc["config"] == f"{CS.BSC['preset']} over BSC"
+    rows = doc["results"]
+    assert tuple(r["p"] for r in rows) == CS.BSC["ps"]
+    assert {r["frames"] for r in rows} == {CS.BSC["frames"]}
+    assert CS.BSC["frames"] % CS.BSC["batch"] == 0
+    cfg = port.PRESETS[CS.BSC["preset"]]
+    ct = from_reference(build_code(cfg), "cpu")
+    _, label = select_decoder(ct, cfg, batch=CS.BSC["batch"],
+                              batch_first=True)
+    assert label == "torch-plain-bf"

@@ -13,7 +13,10 @@ Phases, each printing its lines; any failure raises and exits non-zero:
    instances, in the packed kernel `flood_packed_kernel`; `minsum_layered.cu`:
    K3, K5 layered and the layered K1-MC instances, in the packed kernel
    `layered_packed_kernel`; each packed kernel wherever a block of four
-   lanes fits (min* up to rows of 24), the one-lane template elsewhere; both
+   lanes fits (min* up to rows of 24), else its two-lane instance
+   (`flood_two_lane_kernel`, `layered_two_lane_kernel`, since slice 12)
+   where a block of two fits, the one-lane template elsewhere; each
+   decoder libraries each build as three units at once; both
    include
    `cn_minstar.cuh`, the min* update K5 that doubles their instances,
    `cn_packed.cuh` (the packed parts both libraries share), `mc_stage.cuh`
@@ -37,9 +40,9 @@ Phases, each printing its lines; any failure raises and exits non-zero:
    `wifi-648-oms-flood-et`'s decoder (OMS beta=2), offset beta=2 with
    max_iter 1, at the ragged batches 1, 3, 5, 4,099, 16,385, 6 bits, NMS,
    n=1944 rate 3/4 and 5/6, the (3,30) array code (rows read twice) and NR
-   BG1 Z=384 (the one-lane template); with K5 flooding, ET and fixed, at
+   BG1 Z=384 (two lanes a thread); with K5 flooding, ET and fixed, at
    the same ragged batches and n=1944, max_iter 1, T=(), min* on rows of 30
-   and on DVB-S2 n=16,200 (the one-lane template). Layered (K3): n=1944
+   and on DVB-S2 n=16,200 (two lanes a thread). Layered (K3): n=1944
    rate 5/6 OMS at 3.0 dB fused-IO B=16,384 with early termination, the
    same code at 20 fixed iterations with B=4,099, n=648 normalized
    alpha=3/4 with max_iter 7, and n=1944 rate 3/4 OMS with early
@@ -59,8 +62,12 @@ Phases, each printing its lines; any failure raises and exits non-zero:
    20-entry register row), on n=1944 rate 3/4 (the 16-entry row) and on
    n=648 hard; fixed-20 K5 fused-IO at B=16,384; the (3,30) array code
    layered (rows of 30: the row read twice), and min* on it (the one-lane
-   template);
-4. K1-MC kernel vs plain, tolerance 0 on the four per-lane outputs:
+   template); the one-lane template's min-sum family on NR BG1 Z=384 rate
+   1/3 (no block of two lanes fits), flooding min-sum and layered OMS,
+   fixed-20 and with early termination, B = 3 and 5; every case's packed
+   launches are counted, one exactly when its decoder is packed;
+4. K1-MC kernel vs plain, tolerance 0 on the four per-lane outputs
+   (then slice 12's two-lane instances, below);
    n=648 flooding fixed-20 at 2.0 dB with injected words and with Philox
    words, and n=1944 rate 5/6 layered OMS with early termination at
    3.5 dB (Philox), at B=16,384 (the batch of the rng=device steps); the
@@ -143,7 +150,8 @@ Phases, each printing its lines; any failure raises and exits non-zero:
    reset just before it, must show the route's kernel only (the
    schedule's on-chip library, its MC instance exactly with rng="device",
    min* launches exactly for min*, its packed instance exactly where a
-   block of four lanes takes the code and the one-lane template elsewhere;
+   block of four or two lanes takes the code and the one-lane template
+   elsewhere;
    or one instance of the streaming library, in its packed resident kernel
    exactly when the decoder is packed) and 0 plain calls; then each
    is held to its reference: FER and
@@ -183,11 +191,11 @@ Phases, each printing its lines; any failure raises and exits non-zero:
    resident kernel's ET instance, four lanes a thread at this batch: no
    block of four lanes of K3 takes the code,
    `pipeline.stream_first`) and forced to K3 (backend "pallas": the
-   one-lane template behind transposes), equal counters on equal draws;
+   two-lane instance behind transposes), equal counters on equal draws;
    `nr-bg1-z384-stream` (preset
    `nr-bg1-layered`, batch 256), which no file records: auto (the packed
    resident kernel, `pipeline.stream_first`), K3 forced (`pallas`: the
-   one-lane template behind transposes) and the plain QC decoder give
+   two-lane instance behind transposes) and the plain QC decoder give
    equal counters on equal draws; NR BG1 Z=128 rate 1/3 with early termination against
    `results/nr_bg1_z128_r13.json` (32,768 frames at 0.5 and 1.0 dB);
    DVB-S2 n=64,800 rate 8/9 (rows of 27-28, which the pipelined kernel's
@@ -372,8 +380,8 @@ Phases, each printing its lines; any failure raises and exits non-zero:
    share; the streaming library's kernels in turns (old, new, new, old;
    `probe_stream.in_turns`, the resident instance's kernels forced
    beside the instances) at n=64,800, n=16,200 (with K3 behind its
-   transposes, fixed-20 and with early termination: the one-lane template
-   there), B=1,024, fixed-20 and with early termination, NR BG1 Z=384 and
+   transposes, fixed-20 and with early termination: the two-lane instance
+   there since slice 12), B=1,024, fixed-20 and with early termination, NR BG1 Z=384 and
    n=16,200 rate 8/9 at B = 1,024 and 256 (with K3 behind its transposes;
    the mean of a block's most iterations beside the mean iterations; the
    packed resident kernel's operation and message-traffic bounds),
@@ -406,7 +414,35 @@ Phases, each printing its lines; any failure raises and exits non-zero:
    (`event_ms`). Slices 10 and 11b-11d's decoders, one for each (instance,
    batch) held to plain, on its first sweep's input, and the deep floors'
    and the soft BSC's decoders on the batch each was held to plain with,
-   kernel against plain (one plain run a turn).
+   kernel against plain (one plain run a turn). Slice 12's forms
+   (`kernels/probe_two_lane.py`'s cells at B = 1,024 on NR BG1 Z=384 and
+   DVB-S2 n=16,200 r1/2: flooding min-sum, OMS and min*, layered OMS and
+   min*, fixed-20 and with early termination) by events and on the device
+   alone with each call's bound; the main paths' two-lane decoders against
+   plain (the route cells, the other shapes and the parent's template:
+   `python -m ldpc_tpu_torch.kernels.probe_two_lane`).
+
+Slice 12 (the two-lane packed instances, `flood_two_lane_kernel` and
+`layered_two_lane_kernel`: two lanes a thread, one block of Z threads,
+where four lanes exceed a block's shared memory): every two-lane instance
+== plain, tolerance 0 on every output, on NR BG1 Z=384, Z=256 and Z=128
+rate 1/3 (flooding; its layered state takes four lanes) and DVB-S2
+n=16,200 rates 1/2 and 8/9 (rows of 27-28: the row read twice; min* there
+stays the one-lane template's, held too), both schedules, OMS fixed, OMS
+with early termination in fused IO, min* fixed and with early termination,
+at 6 iterations and B = 3, 1,000, 1,024 and 1,027, each against one plain
+run of 1,027 lanes, and the megakernel at two lanes a thread refused on the
+card (not built: no step reaches it) (`check_two_lane`); the one-lane
+template where no block of two lanes fits (NR BG1 Z=384 rate 1/3: flooding
+min-sum and layered OMS, fixed and with early termination, B = 3 and 5, no
+packed launch) in the kernel-vs-plain phase;
+then the CLI's main paths in process (`check_two_lane_cli`): `sweep
+--preset nr-bg1-layered --schedule flooding --auto-two-phase` (OMS with
+early termination) and `sweep --preset dvbs2-64800-r12 --n 16200
+--algorithm min-star` (layered min*, 20 fixed iterations), batch 1,024, two
+points, each with rng=host and rng=device (n > 4,096: the batch-first
+chain, the host run's draws) launching the two-lane instance only, and
+their counters equal to `--decoder-backend qc`'s.
 
 Each kernel record carries `launches` of the main path named beside it
 (K3's and the streaming kernel's that slice 8d's smoke decodes launched
@@ -609,7 +645,7 @@ SLICES = (
           expect="cuda-stream-pipelined-et"),
     # n=16,200 admits no block of four lanes: `auto` streams it through the
     # packed resident kernel (pipeline.stream_first; four lanes a thread at
-    # this batch); "pallas" forces K3, the one-lane template behind the
+    # this batch); "pallas" forces K3, the two-lane instance behind the
     # batch-first transposes
     Slice("5c " + S16200, S16200, None, "host", "dvbs2_16200_et.json",
           (1.4, 2.2), 16384, batch=STREAM_BATCH,
@@ -620,7 +656,7 @@ SLICES = (
           equal_to="5c " + S16200),
     # NR BG1 Z=384 (rate matching: 768 punctured variables) has no recorded
     # waterfall: auto (the packed resident kernel, pipeline.stream_first),
-    # K3 (forced "pallas": the one-lane template behind transposes) and the
+    # K3 (forced "pallas": the two-lane instance behind transposes) and the
     # plain QC decoder are held to each other on equal draws
     Slice("5d " + NR384, NR384, None, "host", "5d " + NR384 + ", K3",
           (1.0, 2.0), 512, batch=256, expect="cuda-stream-resident"),
@@ -717,7 +753,6 @@ STREAM_INSTANCES = {
     S1689: {"stream", "stream-pipelined", "stream-resident"},
     ARRAY30: {"stream", "stream-pipelined", "stream-resident"},
 }
-MINSUM_OPS_PER_EDGE = 12
 FUSED = dict(preset="wifi-648-r12-minsum", ref="wifi648_fused_mc.json",
              points=(1.0, 1.5, 2.0, 2.5, 3.0, 3.5), batch=18432,
              target=300, max_frames=2_000_000)
@@ -804,6 +839,20 @@ BSC = dict(preset="wifi-648-r12-minsum", ref="bsc_wifi648.json",
            frames=16384, seed=17)
 MICRO_BATCHES = (512, 1024, BATCH)   # the reference's two tiles, and K1's
 RAGGED = (1, 3, 5, 4099, 16385)      # batches of the packed flooding kernel
+# Slice 12: the codes of the two-lane packed instances (state of 57-115 KB
+# a lane: four lanes exceed a block's shared memory, two fit), each with
+# the sigma of its held LLRs (lanes finish apart within TWO_LANE_ITERS
+# iterations); DVB-S2 rate 8/9's min* (rows of 27-28) stays on the one-lane
+# template and is held with them
+TWO_LANE_CODES = (
+    ("NR BG1 Z=384", "nr-bg1-layered", {}, 0.66),
+    ("NR BG1 Z=256", "nr-bg1-layered", dict(Z=256), 0.66),
+    ("NR BG1 Z=128 r1/3", "nr-bg1-layered", dict(Z=128, rate="1/3"), 0.8),
+    ("DVB-S2 n=16,200 r1/2", "dvbs2-64800-r12", dict(n=16200), 0.72),
+    ("DVB-S2 n=16,200 r8/9", "dvbs2-64800-r12", dict(n=16200, rate="8/9"),
+     0.45))
+TWO_LANE_BATCHES = (3, 1000, 1024, 1027)   # each held to one plain run
+TWO_LANE_ITERS = 6
 # (rows, tiles, tile width, steps) of S6's ragged checks
 GRID1_SHAPES = tuple((rows, n_tiles, 512, inner) for rows in (1, 26)
                      for n_tiles in (1, 3, 33) for inner in (400, 7)) + (
@@ -820,15 +869,27 @@ SASS_OPS = ("LDS", "STS", "LDC", "ULDC", "LD", "LDG", "STG", "LDGSTS", "BAR")
 # and <LPT, DMAX, STAR, ET, MC> min-sum with early termination (K2), min*
 # fixed and with early termination (K5), and the one-lane template's fixed
 # min-sum instance (<ET, MC, STAR>), K1's layout before the packed kernel
+# and slice 12's two-lane instances (<DMAX, STAR, ET>) of its main
+# paths and cells: flooding fixed and with early termination at NR BG1's
+# 24-entry row and DVB-S2's 8-entry row, min* with early termination; layered
+# fixed at the 24-entry row, with early termination (slice 5c's forced K3)
+# and min* fixed (the CLI's) at the 8-entry row
 SASS_FLOOD = ("flood_packed_kernelILi4ELi8ELb0EE",
               "flood_packed_kernelILi4ELi8ELb0ELb1ELb0E",
               "flood_packed_kernelILi4ELi8ELb1ELb0ELb0E",
               "flood_packed_kernelILi4ELi8ELb1ELb1ELb0E",
-              "minsum_flood_kernelILb0ELb0ELb0E")
+              "minsum_flood_kernelILb0ELb0ELb0E",
+              "flood_two_lane_kernelILi24ELb0ELb0EE",
+              "flood_two_lane_kernelILi24ELb0ELb1EE",
+              "flood_two_lane_kernelILi8ELb0ELb0EE",
+              "flood_two_lane_kernelILi24ELb1ELb1EE")
 SASS_LAYERED = ("layered_packed_kernelILi4ELi20ELb0ELb1ELb0E",
                 "layered_packed_kernelILi4ELi8ELb0ELb1ELb0E",
                 "layered_packed_kernelILi4ELi8ELb1ELb1ELb0E",
-                "minsum_layered_kernelILb1ELb0ELb0E")
+                "minsum_layered_kernelILb1ELb0ELb0E",
+                "layered_two_lane_kernelILi24ELb0ELb0EE",
+                "layered_two_lane_kernelILi8ELb0ELb1EE",
+                "layered_two_lane_kernelILi8ELb1ELb0EE")
 
 
 def phase(name):
@@ -1035,14 +1096,10 @@ def kernel_vs_plain_ms(d, args, kw, gpu, what, kernel_reps=10, plain_reps=3):
 def ops_per_iteration(d):
     """Integer operations one codeword needs for one iteration of decoder
     d (the counting rule of the module docstring)."""
+    from ldpc_tpu_torch.kernels import minsum
     dec = getattr(d, "inner", d)
     dec = getattr(dec, "decoder", dec)
-    Z = dec.ct.Z
-    degs = [len(row) for row in dec.ct.entries]
-    if getattr(dec, "minstar", None) is None:
-        return MINSUM_OPS_PER_EDGE * sum(degs) * Z
-    per_combine = 12 + 4 * len(dec.minstar)
-    return Z * sum((3 * dg - 6) * per_combine + 4 * dg for dg in degs)
+    return minsum.iteration_ops(dec.ct, getattr(dec, "minstar", None))
 
 
 def bound_of(d, args, kw):
@@ -1269,7 +1326,8 @@ def instance_name(d):
     """The kernel template instance decoder d launches: the packed kernel
     of its library <lanes a thread, register row, min*, ET, MC> (the
     flooding library's fixed min-sum family: <lanes a thread, register row,
-    MC>) or the one-lane template <ET, MC, min*>."""
+    MC>), its two-lane instance <register row, min*, ET> or the one-lane
+    template <ET, MC, min*>."""
     from ldpc_tpu_torch.kernels import minsum
     mc = hasattr(d, "cb")                  # the megakernel (McDecoder)
     d = getattr(d, "inner", d)             # behind the batch-first transposes
@@ -1282,6 +1340,8 @@ def instance_name(d):
     if not d.packed:
         return f"minsum_{lib}_kernel<{b(et)}, {b(mc)}, {b(star)}>"
     dmax = minsum.row_degree_instance(d.ct, d.dec.schedule)
+    if d.lanes_per_thread == minsum.TWO_LANES:
+        return f"{lib}_two_lane_kernel<{dmax}, {b(star)}, {b(et)}>"
     args = ((minsum.LANES_PER_THREAD, dmax, b(mc))
             if lib == "flood" and not (et or star) else
             (minsum.LANES_PER_THREAD, dmax, b(star), b(et), b(mc)))
@@ -1732,6 +1792,260 @@ def hold_to_plain(label, d, q, worst):
         raise AssertionError(f"kernel != plain on {label}")
     worst[key] = max(worst.get(key, 0.0), err)
     return out_k
+
+
+def two_lane_forms(port, cfg, schedule):
+    """Slice 12's forms of one schedule on a code's preset `cfg`, at
+    TWO_LANE_ITERS iterations (OMS beta 2 fixed and with early termination,
+    min* fixed and with early termination): form -> (decoder config,
+    quantizer, input: "int8" (hard output) or "fused" (float32 LLRs and
+    info bits, counting))."""
+    oms = dataclasses.replace(cfg.quant, beta_lsb=2)
+    star = dataclasses.replace(cfg.quant, beta_lsb=0)
+    base = dataclasses.replace(cfg.decoder, schedule=schedule,
+                               algorithm="offset-min-sum",
+                               max_iter=TWO_LANE_ITERS, early_term=False,
+                               phase1_iters=None)
+    et = dataclasses.replace(base, early_term=True)
+    return {"OMS fixed": (base, oms, "int8"),
+            "OMS ET fused-IO": (et, oms, "fused"),
+            "min* fixed": (dataclasses.replace(base, algorithm="min-star"),
+                           star, "int8"),
+            "min* ET": (dataclasses.replace(et, algorithm="min-star"), star,
+                        "int8")}
+
+
+def check_two_lane(port, minsum, dev):
+    """Slice 12: every two-lane packed instance (flood_two_lane_kernel,
+    layered_two_lane_kernel) == its plain version, tolerance 0 on every
+    output: on each code of TWO_LANE_CODES, both schedules, in the forms of
+    `two_lane_forms` (fixed, early termination with fused IO, min* fixed
+    and with early termination), at each batch of TWO_LANE_BATCHES against
+    one plain run at the largest (the decoders are per-lane programs: the
+    first B lanes of a run are the run of those lanes). A (code, schedule)
+    that a block of four lanes takes (NR BG1 Z=128 rate 1/3, layered) is
+    not a two-lane instance and is left out; min* on rows of 27-28 is the
+    one-lane template's, held here too. Each launch must count as packed
+    exactly when it is a two-lane instance. The megakernel is not built at
+    two lanes a thread (no step reaches it: n > 4,096 takes the
+    batch-first chain); asking for it on the card raises, for each code and
+    schedule. Returns the worst error by instance name."""
+    from ldpc_tpu_torch.codes import build_code, from_reference
+    from ldpc_tpu_torch.ops.quantize import quantize
+    from ldpc_tpu_torch.ops.rng import word_layout
+    rng = np.random.default_rng(12)
+    big = max(TWO_LANE_BATCHES)
+    worst = {}
+    for label, preset, code_kw, sigma in TWO_LANE_CODES:
+        cfg = port.PRESETS[preset]
+        cfg = dataclasses.replace(cfg, code=dataclasses.replace(
+            cfg.code, **code_kw))
+        ct = from_reference(build_code(cfg), dev)
+        llr, info = channel_llrs(rng, ct, big, cfg.quant.scale, sigma)
+        f32 = torch.as_tensor(llr).reshape(ct.nb, ct.Z, big).to(dev)
+        bits = torch.as_tensor(info).reshape(ct.kb, ct.Z, big).to(dev)
+        for schedule in ("flooding", "layered"):
+            if minsum.packed_shape(ct, schedule)[1] == minsum.LANES_PER_THREAD:
+                continue
+            forms = two_lane_forms(port, cfg, schedule)
+            dc, qc, _ = forms["OMS ET fused-IO"]
+            mc = minsum.make_decoder(ct, dc, qc, input_scale=qc.scale,
+                                     count_info_cols=ct.kb, mc_batch=3,
+                                     inject_random=True)
+            words = torch.zeros((word_layout(ct.kb, ct.nb, ct.Z)[2], 3),
+                                dtype=torch.int32, device=dev)
+            launches0 = minsum.kernel_launches
+            try:
+                mc.kernel(0, np.float32(sigma),
+                          np.float32(2 * qc.scale / sigma ** 2), words=words)
+            except RuntimeError as e:
+                if "not supported" not in str(e):
+                    raise
+                print(f"12 {label} {schedule} the megakernel at two lanes a "
+                      f"thread: refused ({e})", flush=True)
+            else:
+                raise AssertionError(f"{label} {schedule}: a two-lane "
+                                     f"megakernel launched")
+            if minsum.kernel_launches != launches0:
+                raise AssertionError(f"{label} {schedule}: a refused "
+                                     f"megakernel counted as launched")
+            for form, (dc, qc, kind) in forms.items():
+                fused = kind == "fused"
+                chan = f32 if fused else quantize(f32, qc)
+
+                def run(fn, B):
+                    """fn on the first B lanes of the held input."""
+                    return fn(chan[..., :B].contiguous(),
+                              *((bits[..., :B].contiguous(),) if fused
+                                else ()))
+                d = minsum.make_decoder(
+                    ct, dc, qc, input_scale=qc.scale if fused else None,
+                    count_info_cols=ct.kb if fused else None)
+                two = d.lanes_per_thread == minsum.TWO_LANES
+                if d.packed != two or (not two and d.minstar is None):
+                    raise AssertionError(f"{label} {schedule} {form}: neither "
+                                         f"a two-lane instance nor min* on "
+                                         f"the one-lane template")
+                want = run(d.plain, big)
+                torch.cuda.synchronize()
+                oks, err = [], 0.0
+                for B in TWO_LANE_BATCHES:
+                    packed0 = minsum.packed_launches[d.library]
+                    got = run(d.kernel, B)
+                    torch.cuda.synchronize()
+                    if minsum.packed_launches[d.library] - packed0 != int(
+                            two):
+                        raise AssertionError(f"{label} {schedule} {form} "
+                                             f"B={B}: packed launches")
+                    ref = tuple(x[..., :B] for x in want)
+                    err = max(err, max_abs_err(got, ref))
+                    oks.append(all(torch.equal(a, b)
+                                   for a, b in zip(got, ref)))
+                name = instance_name(d)
+                worst[name] = max(worst.get(name, 0.0), err)
+                its = want[-2].double()
+                held = zip(TWO_LANE_BATCHES, oks)
+                print(f"12 {label} {schedule} {form} ({name}, "
+                      f"{shape_text(d)}): max_abs_err {err:g}, equal at "
+                      f"B = {', '.join(f'{B} {ok}' for B, ok in held)} "
+                      f"(converged {int(want[-1].sum())}/{big}, iters "
+                      f"{float(its.min()):.0f}-{float(its.max()):.0f}, mean "
+                      f"{float(its.mean()):.3f})", flush=True)
+                if not all(oks):
+                    raise AssertionError(f"kernel != plain on 12 {label} "
+                                         f"{schedule} {form}")
+    return worst
+
+
+# Slice 12's main paths through the CLI (`sweep`, batch 1,024, two points,
+# one batch a point): name -> (code, schedule, the instance's min* and
+# early termination, argv)
+TWO_LANE_CLI = {
+    "NR BG1 Z=384 flooding OMS ET": (
+        ("nr-bg1-layered", {}), "flooding", False, True,
+        ["--preset", "nr-bg1-layered", "--schedule", "flooding",
+         "--auto-two-phase", "--ebn0", "1.25,1.5"]),
+    "DVB-S2 n=16,200 r1/2 layered min*": (
+        ("dvbs2-64800-r12", dict(n=16200)), "layered", True, False,
+        ["--preset", "dvbs2-64800-r12", "--n", "16200", "--algorithm",
+         "min-star", "--ebn0", "0.9,1.1"]),
+}
+
+
+def check_two_lane_cli(port, minsum, stream):
+    """Slice 12's main paths, `python -m ldpc_tpu_torch.cli sweep` driven in
+    process (TWO_LANE_CLI; the preset's early_term=False turned on by
+    `--auto-two-phase` for the flooding run): each with rng=host and
+    rng=device on `auto`, and with rng=host on `--decoder-backend qc` (the
+    plain QC decoder). Fails unless each `auto` run launched the schedule's
+    library only, every launch packed at two lanes a thread, no plain call,
+    and the three runs' counters are equal (n > 4,096, so rng=device takes
+    the batch-first chain with the host run's draws, as the reference's
+    rule has it: no megakernel). Returns name -> the auto runs' launches."""
+    from ldpc_tpu_torch import cli
+    from ldpc_tpu_torch.codes import build_code, from_reference
+    common = ["--batch", str(STREAM_BATCH), "--max-frames", str(STREAM_BATCH),
+              "--target-errors", "1000000000", "--no-checkpoint"]
+    launched = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, ((preset, code_kw), schedule, star, et, argv) in (
+                TWO_LANE_CLI.items()):
+            cfg = port.PRESETS[preset]
+            ct = from_reference(build_code(dataclasses.replace(
+                cfg, code=dataclasses.replace(cfg.code, **code_kw))), "cpu")
+            star_deg = max(len(row) for row in ct.entries) if star else 0
+            if minsum.packed_shape(ct, schedule, star_deg, et)[1] != (
+                    minsum.TWO_LANES):
+                raise AssertionError(f"{name}: not a two-lane instance")
+            lib = minsum.LIBRARIES[schedule]
+            got, launched[name] = {}, 0
+            for rng, backend in (("host", "auto"), ("device", "auto"),
+                                 ("host", "qc")):
+                minsum.reset_counters()
+                stream.reset_counters()
+                out = os.path.join(tmp, f"{len(launched)}-{len(got)}")
+                t0 = time.perf_counter()
+                rc = cli.main(["sweep", *argv, *common, "--rng", rng,
+                               "--decoder-backend", backend, "--out", out])
+                torch.cuda.synchronize()
+                with open(out + ".json") as fh:
+                    res = json.load(fh)
+                libs = dict(minsum.library_launches)
+                packed = dict(minsum.packed_launches)
+                plain = minsum.plain_calls + stream.plain_calls
+                print(f"12 CLI {name} rng={rng} --decoder-backend {backend} "
+                      f"({time.perf_counter() - t0:.1f} s, rc {rc}): backend "
+                      f"{res['decoder_backend']}, launches {libs}, packed "
+                      f"{packed}, streaming {stream.kernel_launches}, plain "
+                      f"calls {plain}; " + "; ".join(
+                          f"{r['ebn0_db']} dB frames {r['frames']} "
+                          f"frame_errs {r['frame_errs']} bit_errs "
+                          f"{r['bit_errs']} avg_iters {r['avg_iters']:.4f}"
+                          for r in res["results"]), flush=True)
+                if rc != 0:
+                    raise AssertionError(f"CLI {name}: rc {rc}")
+                if backend == "auto":
+                    if not (libs[lib] > 0 and packed[lib] == libs[lib]
+                            and sum(libs.values()) == libs[lib]
+                            and not stream.kernel_launches and not plain
+                            and res["decoder_backend"].startswith(
+                                "cuda-min")
+                            and "-bf" in res["decoder_backend"]):
+                        raise AssertionError(f"CLI {name} rng={rng}: not "
+                                             f"the two-lane {lib} only")
+                    launched[name] += libs[lib]
+                elif any(libs.values()) or stream.kernel_launches:
+                    raise AssertionError(f"CLI {name} qc: kernels launched")
+                got[rng, backend] = [[r[c] for c in COUNTERS]
+                                     for r in res["results"]]
+            if not (got["host", "auto"] == got["device", "auto"]
+                    == got["host", "qc"]):
+                raise AssertionError(f"CLI {name}: counters differ: {got}")
+            if any(r[0] < STREAM_BATCH for r in got["host", "auto"]):
+                raise AssertionError(f"CLI {name}: frames short")
+            print(f"  counters equal across auto host, auto device and qc: "
+                  f"True", flush=True)
+    return launched
+
+
+def time_two_lane(port, minsum, gpu, dev):
+    """Slice 12's times on the card: every form of
+    `kernels.probe_two_lane` on NR BG1 Z=384 and DVB-S2 n=16,200 at B =
+    1,024, fixed and with early termination, by events and on the device
+    alone, with each call's bound; then the decoders of the main paths (the
+    CLI runs' K2 and layered min* instances behind their transposes, which
+    the kernels line records) and the fixed flooding instance on NR BG1
+    Z=384 against their plain versions. Returns timing key -> (ms, plain
+    ms, bound ms, bound by) and key -> the decoder timed."""
+    from ldpc_tpu_torch.kernels import probe_two_lane as probe
+    from ldpc_tpu_torch.sim.pipeline import select_decoder
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(12)
+    cts = {}
+    for code in probe.CODES:
+        cts[code] = probe.code_tensors(code, dev)
+        probe.kernel_cells(cts[code], code, STREAM_BATCH, gen, 2, None, gpu,
+                           lambda rec: print(json.dumps(rec), flush=True))
+    timing, decs = {}, {}
+    nr = "NR BG1 Z=384"
+    for key, code, form, et in (
+            ("K2 two-lane", nr, "flooding OMS", True),
+            ("K5 layered two-lane", "DVB-S2 n=16,200 r1/2", "layered min*",
+             False),
+            ("K1 two-lane", nr, "flooding OMS", False)):
+        cfg = probe.config(code, form, et)
+        d, label = select_decoder(cts[code], cfg, batch=STREAM_BATCH,
+                                  backend="pallas")
+        args = (probe.channel_q(cts[code], cfg, probe.CODES[code][2],
+                                STREAM_BATCH, gen),)
+        t = kernel_vs_plain_ms(d, args, {}, gpu, f"{key} ({label}, "
+                               f"{instance_name(d)}) on {code}, {form}, "
+                               f"{STREAM_BATCH} codewords", plain_reps=1)
+        b_ms, b_by = bound_of(d, args, {})
+        print(f"  bound {b_ms:.4f} ms by {b_by} ({100 * b_ms / t[0]:.1f}% "
+              f"of the kernel's time)", flush=True)
+        timing[key], decs[key] = t + (b_ms, b_by), d
+    return timing, decs
 
 
 def check_stream_kernels(port, minsum, stream, dev, worst):
@@ -4222,10 +4536,12 @@ def main():
 
     wifi, n1944, r56 = code(648, "1/2"), code(1944, "3/4"), code(1944, "5/6")
 
-    def long_code(preset, n=None):
+    def long_code(preset, n=None, **code_kw):
         c = port.PRESETS[preset]
         if n:
-            c = dataclasses.replace(c, code=dataclasses.replace(c.code, n=n))
+            code_kw["n"] = n
+        c = dataclasses.replace(c, code=dataclasses.replace(c.code,
+                                                            **code_kw))
         return from_reference(build_code(c), dev)
     lay = oms_cfg.decoder                     # layered OMS, ET, 20 iterations
     lay_q = oms_cfg.quant
@@ -4328,12 +4644,12 @@ def main():
          False, None),
         ("K1 array 3x6 z17 (n=102) hard B=4099",
          bare_tensors(array_qc(), dev), base_dec, base_q, 4099, False, None),
-        # codes with no block of four lanes, which keep the one-lane
-        # template
-        ("K1 DVB-S2 n=16,200 (one-lane template) hard B=5",
+        # codes with no block of four lanes, which take the two-lane
+        # instance
+        ("K1 DVB-S2 n=16,200 (two lanes a thread) hard B=5",
          long_code("dvbs2-64800-r12", 16200), base_dec, base_q, 5, False,
          None),
-        ("K1 NR BG1 Z=384 (one-lane template) hard B=3",
+        ("K1 NR BG1 Z=384 (two lanes a thread) hard B=3",
          long_code("nr-bg1-layered"), base_dec, base_q, 3, False, None),
     ]
     # the packed flooding instance's early-terminating and min* forms (K2,
@@ -4341,7 +4657,7 @@ def main():
     # 16-entry register row) and 5/6 (rows of 19-20 in the 24-entry row);
     # 6 bits, NMS, max_iter 1; the (3,30) array code (min-sum ET reads its
     # rows twice; min* on rows of 30 keeps the one-lane template); and the
-    # codes with no block of four lanes, which keep the one-lane template
+    # codes with no block of four lanes, on the two-lane instance
     star_fl_et = dec_cfg(star_fl, **et)
     for B in RAGGED:
         cases += [
@@ -4374,10 +4690,10 @@ def main():
         ("K5 array 3x30 z31 min* flooding ET (one-lane template) hard B=999",
          bare_tensors(array_qc(3, 30, 31), dev), star_fl_et, base_q, 999,
          False, None),
-        ("K2 NR BG1 Z=384 (one-lane template) ET hard B=3",
+        ("K2 NR BG1 Z=384 (two lanes a thread) ET hard B=3",
          long_code("nr-bg1-layered"), dec_cfg(base_dec, **et), base_q, 3,
          False, None),
-        ("K5 DVB-S2 n=16,200 min* flooding (one-lane template) hard B=5",
+        ("K5 DVB-S2 n=16,200 min* flooding (two lanes a thread) hard B=5",
          long_code("dvbs2-64800-r12", 16200), dec_cfg(star_fl, max_iter=5),
          base_q, 5, False, None),
     ]
@@ -4411,6 +4727,23 @@ def main():
          bare_tensors(array_qc(3, 30, 31), dev), star_et, base_q, 999, False,
          None),
     ]
+    # the one-lane template's min-sum family where no block of two lanes
+    # fits (NR BG1 Z=384 rate 1/3: about 170 KB a lane), both schedules,
+    # fixed and with early termination, at ragged tiny batches: no packed
+    # launch
+    nr13 = long_code("nr-bg1-layered", rate="1/3")
+    for B in (3, 5):
+        cases += [
+            (f"K1 NR BG1 Z=384 r1/3 min-sum (one-lane template) hard B={B}",
+             nr13, base_dec, base_q, B, False, None),
+            (f"K2 NR BG1 Z=384 r1/3 min-sum ET (one-lane template) hard "
+             f"B={B}", nr13, dec_cfg(base_dec, **et), base_q, B, False,
+             None),
+            (f"K3 NR BG1 Z=384 r1/3 OMS fixed-20 (one-lane template) hard "
+             f"B={B}", nr13, dec_cfg(lay, early_term=False), lay_q, B, False,
+             None),
+            (f"K3 NR BG1 Z=384 r1/3 OMS ET (one-lane template) hard B={B}",
+             nr13, lay, lay_q, B, False, None)]
     worst = dict.fromkeys(libs + ["minsum_flood_et"], 0.0)
     star_worst = dict.fromkeys(libs, 0.0)
     held = {}   # label -> the decoder held to its plain version at B=BATCH
@@ -4428,8 +4761,13 @@ def main():
             d = minsum.make_decoder(ct, dc, qc)
             args = (torch.as_tensor(mixed_llrs(rng, ct.n, B, qc.qmax)
                                     ).reshape(ct.nb, ct.Z, B).to(dev),)
+        if "(one-lane template)" in label and d.packed:
+            raise AssertionError(f"{label}: a packed instance")
+        packed0 = minsum.packed_launches[d.library]
         out_k = d.kernel(*args)
         torch.cuda.synchronize()
+        if minsum.packed_launches[d.library] - packed0 != int(d.packed):
+            raise AssertionError(f"{label}: packed launches")
         out_p = d.plain(*args)
         torch.cuda.synchronize()
         err = max_abs_err(out_k, out_p)
@@ -4469,6 +4807,8 @@ def main():
 
     phase("K1-MC kernel vs plain (tolerance 0)")
     mc_worst, mc_timed, star_mc_worst = check_mc_kernels(port, minsum, dev)
+    phase("slice 12: the two-lane packed instances vs plain (tolerance 0)")
+    two_worst = check_two_lane(port, minsum, dev)
 
     phase("streaming library K6b-K6f vs plain (tolerance 0), and K3 behind "
           "its transposes")
@@ -4554,6 +4894,10 @@ def main():
     phase("CLI: sweep --preset dvbs2-64800-r12, sweep --puncture-frac 0.25")
     torch.cuda.empty_cache()
     check_cli_long()
+    phase("slice 12: the two-lane instances' main paths through the CLI "
+          "(flooding OMS ET on NR BG1 Z=384, layered min* on DVB-S2 "
+          "n=16,200; rng host and device against --decoder-backend qc)")
+    two_cli = check_two_lane_cli(port, minsum, stream)
     phase("slice 7: error floor (importance sampling on K3: the datapath, "
           "results/error_floor_wifi648.json at full size, NR BG1 Z=128 "
           "rate matching, the CLI's floor)")
@@ -4773,8 +5117,9 @@ def main():
         return probe_stream.in_turns(decs, q, what, gpu, reps=5, extra=extra)
 
     def k3_of(ct, cfg, early_term):
-        """K3 (the one-lane template) behind its transposes, for the
-        configuration `cfg` of code ct: the route `pallas` forces."""
+        """K3 (the two-lane instance on these codes) behind its transposes,
+        for the configuration `cfg` of code ct: the route `pallas`
+        forces."""
         return BatchFirstDecoder(minsum.make_decoder(
             ct, dataclasses.replace(cfg.decoder, early_term=early_term),
             cfg.quant))
@@ -4806,7 +5151,7 @@ def main():
         f"codewords", extra={"K3 behind its transposes": d5c})
     # NR BG1 Z=384 and n=16,200 rate 8/9, B = 1,024 and 256: the packed
     # resident kernel (K6d, K6e) beside the template it replaces, the other
-    # instances and K3 behind its transposes (the one-lane template, what
+    # instances and K3 behind its transposes (the two-lane instance, what
     # `pipeline.stream_first` weighs); each call's bounds: operations, and
     # the message traffic if none stays in the L2
     for code_label, d_main, cfg_main, points in (
@@ -4912,6 +5257,10 @@ def main():
     timing["K3 16200"] = timed_call(
         d5c, (q5c,), f"K3 behind its transposes, decode of {STREAM_BATCH} "
         f"codewords (n=16,200 OMS, ET, 1.4 dB: {l5c}, K3's launch)")
+    # slice 12: the two-lane instances in every form, their route cells,
+    # and the decoders of their main paths against plain
+    two_timing, two_decs = time_two_lane(port, minsum, gpu, dev)
+    timing.update(two_timing)
     # slices 10 and 11b-11d's instances, each the decoder its sweep
     # launched, on the input it was held to plain with: one time for each
     # (instance, batch) that check_recorded_kernels held, on its first
@@ -5190,11 +5539,25 @@ def main():
         record("minsum_layered", "minsum_layered",
                launches["wifi-full-oms"], worst["minsum_layered"],
                timing["K3 3.0"], k3),
-        # the one-lane template where no block of four lanes fits: K3
-        # behind the batch-first transposes on DVB-S2 n=16,200
-        record("minsum_layered_onelane", "minsum_layered",
+        # the two-lane instances where no block of four lanes fits: K3
+        # behind the batch-first transposes on DVB-S2 n=16,200 (forced
+        # "pallas"), and the CLI's main paths (slice 12): K2 on NR BG1
+        # Z=384 with host and device RNG, layered min* on DVB-S2 n=16,200
+        record("minsum_layered_two_lane", "minsum_layered",
                launches[l5c + ", K3"],
-               worst["minsum_layered"], timing["K3 16200"], d5c),
+               max(worst["minsum_layered"], two_worst[instance_name(d5c)]),
+               timing["K3 16200"], d5c),
+        dict(record("minsum_flood_et_two_lane", "minsum_flood",
+                    two_cli["NR BG1 Z=384 flooding OMS ET"],
+                    two_worst[instance_name(two_decs["K2 two-lane"])],
+                    timing["K2 two-lane"], two_decs["K2 two-lane"]),
+             launched_by="12 CLI NR BG1 Z=384 flooding OMS ET"),
+        dict(record("minsum_layered_star_two_lane", "minsum_layered",
+                    two_cli["DVB-S2 n=16,200 r1/2 layered min*"],
+                    two_worst[instance_name(two_decs["K5 layered two-lane"])],
+                    timing["K5 layered two-lane"],
+                    two_decs["K5 layered two-lane"]),
+             launched_by="12 CLI DVB-S2 n=16,200 r1/2 layered min*"),
         # K2: its main path since the packed kernel took it
         record("minsum_flood_et", "minsum_flood", launches[OMS_ET],
                worst["minsum_flood_et"], timing["K2 OMS"],

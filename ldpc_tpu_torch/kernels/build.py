@@ -7,11 +7,17 @@ in `kernels/csrc/` into `kernels/build/` (git-ignored):
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
          -Xcompiler -fPIC -Xptxas -v -o build/lib<name>-<hash>.so csrc/<name>.cu
 
+A library of several units (`UNITS`) compiles its source once a unit,
+all at once, with `-c -DLDPC_UNIT=<u>`, and links the objects into the
+library: the decoder libraries put their two-lane instances, and their
+four-lane instances of rows above 16 entries, in units of their own, which
+build beside the rest.
+
 The file name carries a hash of the source, of every header under
-`csrc/` that it includes (`#include "..."`, followed recursively) and of
-the flags, so a stale build is never loaded; ptxas' register/shared-memory
-report is kept next to it as `<lib>.log`. A missing nvcc or a failed
-build raises.
+`csrc/` that it includes (`#include "..."`, followed recursively), of the
+flags and of the units, so a stale build is never loaded; ptxas'
+register/shared-memory report is kept next to it as `<lib>.log`. A missing
+nvcc or a failed build raises.
 """
 from __future__ import annotations
 
@@ -32,6 +38,12 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+# Libraries compiled as several units at once (LDPC_UNIT = 1 .. count): the
+# same code as one unit (ptxas gives every instance the same registers) in
+# about half the build time; nvcc's own --split-compile is as fast but
+# changes the megakernels' code (PERF.md section 6).
+UNITS = {"minsum_flood": 3, "minsum_layered": 3}
 
 _INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
 
@@ -86,28 +98,58 @@ def library_path(name: str) -> Path:
     for src in sources(name):
         h.update(src.name.encode() + b"\0" + src.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(f"units {UNITS.get(name, 1)}".encode())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
-def _compile(name: str, out: Path) -> str:
+def _run(cmds: List[List[str]]) -> str:
+    """Runs the commands at once; returns their output. The first failure
+    stops the others and raises."""
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True)
+             for cmd in cmds]
+    log = ""
+    try:
+        for cmd, proc in zip(cmds, procs):
+            stdout, stderr = proc.communicate()
+            log += stdout + stderr
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                                   f"{' '.join(cmd)}\n{stdout}\n{stderr}")
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    return log
+
+
+def compile_library(name: str, out: Path) -> str:
+    """Compiles `csrc/<name>.cu` into the library `out` (its `UNITS` at
+    once) and writes ptxas' report beside it; returns the report. A failed
+    build raises."""
     nvcc = find_nvcc()
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    out.parent.mkdir(parents=True, exist_ok=True)
     # Compile to a temporary name and rename: concurrent processes never
     # load a half-written library.
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out.parent)
     os.close(fd)
-    cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")]
+    src = str(CSRC / f"{name}.cu")
+    units = range(1, UNITS.get(name, 1) + 1)
+    objs = [f"{tmp[:-3]}.{u}.o" for u in units]
     try:
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                               f"{' '.join(cmd)}\n{proc.stdout}\n"
-                               f"{proc.stderr}")
+        if len(units) == 1:
+            log = _run([[nvcc, *NVCC_FLAGS, "-o", tmp, src]])
+        else:
+            flags = [f for f in NVCC_FLAGS if f != "-shared"]
+            log = _run([[nvcc, *flags, "-c", f"-DLDPC_UNIT={u}", "-o", obj,
+                         src] for u, obj in zip(units, objs)])
+            log += _run([[nvcc, *NVCC_FLAGS, "-o", tmp, *objs]])
         os.replace(tmp, out)
     finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
-    log = proc.stdout + proc.stderr
+        for path in [tmp, *objs]:
+            if os.path.exists(path):
+                os.unlink(path)
     out.with_suffix(".log").write_text(log)
     return log
 
@@ -124,7 +166,7 @@ def load(name: str, rebuild: bool = False) -> Library:
         seconds = 0.0
         if rebuild or not path.exists():
             t0 = time.perf_counter()
-            log = _compile(name, path)
+            log = compile_library(name, path)
             seconds = time.perf_counter() - t0
         else:
             log_path = path.with_suffix(".log")

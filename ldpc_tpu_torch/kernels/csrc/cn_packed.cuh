@@ -1,11 +1,14 @@
 // The packed datapath shared by the packed decoder kernels of both
 // schedules (minsum_flood.cu: flood_packed_kernel, K1/K1-IO, K2, K5 flooding
 // and the flooding K1-MC; minsum_layered.cu: layered_packed_kernel, K3, K5
-// layered and the layered K1-MC): a thread owns LPT codeword lanes (LPT =
-// 4 in the libraries; the parts also build LPT = 2) of one check row, the
-// state keeps the lane index innermost, so the lanes' int8 messages are one 32-bit word and their int16
-// totals or posteriors two words of 16x2 pairs, and the entry tables travel
-// in the kernel's parameter space.
+// layered and the layered K1-MC): a thread owns LPT codeword lanes of one
+// check row (LPT = 4 wherever a block of four lanes fits; else LPT = 2, the
+// two-lane instances flood_two_lane_kernel and layered_two_lane_kernel for
+// codes whose state is 70-115 KB a lane, such as NR BG1 Z=384 and DVB-S2
+// n=16,200), the state keeps the lane index innermost, so the lanes' int8
+// messages are one word and their int16 totals or posteriors one or two
+// words of 16x2 pairs, and the entry tables travel in the kernel's
+// parameter space.
 //
 // What is here: the parameter block (PackedArgs: the launch parameters and
 // up to kTabWords uint32 table words), the block-shape rule (packed_shape),
@@ -33,7 +36,12 @@ constexpr int kSmSmem = 233472;       // shared memory an SM gives its blocks
 constexpr int kBlockReserve = 1024;   // the runtime's share per resident block
 constexpr int kSmWarps = 64;
 constexpr int kSmBlocks = 32;
-constexpr int kLanesPerThread = 4;   // the one packed instance built
+constexpr int kLanesPerThread = 4;   // the packed instances, where a block fits
+constexpr int kTwoLanes = 2;         // ... else the two-lane instances
+// The two-lane instances' launch bound: one block of Z <= 384 check rows (NR
+// BG1's largest lifting size) a thread each; at least one block an SM, so
+// ptxas may give a thread up to 65,536 / 384 = 170 registers.
+constexpr int kTwoLaneThreads = 384;
 constexpr int kRowDegrees[3] = {8, 16, 24};   // the DMAX instances
 
 // Entry tables (uint32): layer_ptr[mb + 1], col_ptr[nb + 1],
@@ -47,38 +55,45 @@ struct PackedTab {
 struct PackedArgs {
   Params p;
   uint32_t star[2 * kMaxThresholds];   // min*'s threshold constants
+  // The two-lane flooding instances' quantized channel in device memory,
+  // int8 [block][n][lanes] (their shared memory holds the totals and the
+  // messages only); null elsewhere.
+  int8_t* chan_q;
   PackedTab t;
 };
 static_assert(sizeof(PackedArgs) <= 32764, "kernel parameters above 32,764 B");
 
+using PackedKernel = void (*)(PackedArgs);
+
 struct PackedShape {
   int lanes, smem, blocks;   // blocks: resident an SM by this rule
+  int lpt;                   // lanes a thread
 };
 
-// Lanes per block at kLanesPerThread lanes a thread: of the block shapes
-// (lanes a multiple of it, lanes / kLanesPerThread * Z <= max_threads, state
-// smem_of(lanes) within the opt-in) the fewest lanes that keep at least 9/10
-// of the most codewords an SM holds (its shared memory with the runtime's
-// reserve per block, warps, blocks). Small blocks fill the last wave of a
-// batch finely and wait at barriers that span few warps. lanes 0 when no
-// block fits.
+// Lanes per block at lpt lanes a thread: of the block shapes (lanes a
+// multiple of lpt, lanes / lpt * Z <= max_threads, state smem_of(lanes)
+// within the opt-in) the fewest lanes that keep at least 9/10 of the most
+// codewords an SM holds (its shared memory with the runtime's reserve per
+// block, warps, blocks). Small blocks fill the last wave of a batch finely
+// and wait at barriers that span few warps. lanes 0 when no block fits.
 template <typename SmemFn>
-inline PackedShape packed_shape(int Z, int max_threads, SmemFn smem_of) {
+inline PackedShape packed_shape(int Z, int max_threads, SmemFn smem_of,
+                                int lpt = kLanesPerThread) {
   PackedShape shapes[kMaxThreads];
   int count = 0, most = 0;
   for (int k = 1; k * Z <= max_threads; ++k) {
-    const int lanes = k * kLanesPerThread;
+    const int lanes = k * lpt;
     const size_t smem = smem_of(lanes);
     if (smem > size_t(kMaxSmem)) break;
     const int warps = (k * Z + 31) / 32;
     const int blocks = std::min({kSmSmem / int(smem + kBlockReserve),
                                  kSmWarps / warps, kSmBlocks});
-    shapes[count++] = PackedShape{lanes, int(smem), blocks};
+    shapes[count++] = PackedShape{lanes, int(smem), blocks, lpt};
     most = std::max(most, blocks * lanes);
   }
   for (int i = 0; i < count; ++i)
     if (10 * shapes[i].blocks * shapes[i].lanes >= 9 * most) return shapes[i];
-  return PackedShape{0, 0, 0};
+  return PackedShape{0, 0, 0, 0};
 }
 
 // The DMAX instance for a largest base-row degree (3: the two-pass row).
@@ -106,9 +121,11 @@ inline bool packed_args_ok(const uint32_t* ptab, int ptab_words, int nb,
 
 // Sets the instance's shared-memory attributes (the most dynamic shared
 // memory it launches with, the largest carveout) before a launch or an
-// occupancy query.
+// occupancy query; an instance that is not built (null: the megakernel at
+// two lanes a thread) is refused with cudaErrorNotSupported.
 template <typename K>
 cudaError_t prepare(K kern, int smem) {
+  if (!kern) return cudaErrorNotSupported;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;

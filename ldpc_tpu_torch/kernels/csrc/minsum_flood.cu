@@ -23,18 +23,30 @@
 // flood_packed_kernel: every instance (the min-sum family or min*, fixed or
 // early-terminating, fused IO or the megakernel) wherever a block of four
 // lanes fits, min* for rows up to 24 entries, one body (flood_packed<LPT,
-// DMAX, STAR, ET, MC>) under two launch bounds: flood_packed_kernel<LPT,
+// DMAX, STAR, ET, MC>) under three launch bounds: flood_packed_kernel<4,
 // DMAX, MC> for the fixed min-sum family (K1, K1-IO, K1-MC; up to 1,024
-// threads, whose 64 registers these instances fit without spilling) and
-// flood_packed_kernel<LPT, DMAX, STAR, ET, MC> for early termination or
-// min* (K2, K5 and their K1-MC forms). Laid out for this card:
-//  * Thread (x, y) owns LPT codeword lanes (4x .. 4x + 3) of row y of every
-//    base row and column. The state keeps the lane index innermost (below),
-//    so one LPT-lane word is one shared-memory access and a warp's access
-//    covers 32 * LPT bytes of messages (128 for LPT = 4) or 64 * LPT of
-//    totals. The template also builds LPT = 2; the library instantiates
-//    LPT = 4 only (kLanesPerThread: four lanes beat one, the parent's
-//    layout, on n=648; PERF.md section 6).
+// threads, whose 64 registers these instances fit without spilling),
+// flood_packed_kernel<4, DMAX, STAR, ET, MC> for early termination or min*
+// (K2, K5 and their K1-MC forms), and flood_two_lane_kernel<DMAX, STAR, ET>
+// (every form but the megakernel at LPT = 2) where four lanes of state
+// exceed a block's shared memory but two fit. Laid out for this card:
+//  * Thread (x, y) owns LPT codeword lanes (LPT x .. LPT x + LPT - 1) of
+//    row y of every base row and column. The state keeps the lane index
+//    innermost (below), so one LPT-lane word is one shared-memory access
+//    and a warp's access covers 32 * LPT bytes of messages (128 for LPT =
+//    4) or 64 * LPT of totals. LPT = 4 (kLanesPerThread: four lanes beat
+//    one, the parent's layout, on n=648; PERF.md section 6) wherever a
+//    block of four lanes fits, else LPT = 2 (kTwoLanes).
+//  * The two-lane instances take the codes whose state is 70-115 KB a lane
+//    (NR BG1 at Z = 128-384, DVB-S2 n=16,200), which the one-lane template
+//    decoded one codeword a block and one a thread's instruction. Their
+//    block is two lanes of Z rows (360 or 384 threads: kTwoLaneThreads,
+//    the launch bound, at least one block an SM, so up to 170 registers a
+//    thread); its shared memory holds the totals and the messages only,
+//    and the quantized channel lives in device memory (PackedArgs::chan_q,
+//    [block][n][lanes], written once by the channel stage and read by each
+//    V phase: n bytes a lane and iteration, 64 contiguous bytes a warp), so
+//    NR BG1 Z=384 keeps two lanes in 228,880 of the 232,448 B.
 //  * The entry tables are uniform across the block, so they travel in the
 //    kernel's parameter space (the constant bank: `PackedTab`, up to
 //    kTabWords words, CUDA >= 12.1) instead of shared memory: no table
@@ -74,7 +86,9 @@
 //   tot   int16 [n][L]              totals chan + sum(c2v); int16 is lossless
 //                                   since |tot| <= (dv_max + 1) * qmax, which
 //                                   the wrapper checks is < 2^15
-//   chan  int8  [n][L]              quantized channel LLRs
+//   chan  int8  [n][L]              quantized channel LLRs (four lanes a
+//                                   thread; the two-lane instances keep them
+//                                   in device memory)
 //   c2v   int8  [E * Z][L]          check-to-variable messages, negated,
 //                                   entry-major
 // Each iteration has two phases separated by __syncthreads():
@@ -108,9 +122,9 @@
 // form's two an iteration.
 //
 // minsum_flood_kernel<ET, MC, STAR>: the earlier one-lane-a-thread layout,
-// kept for codes that admit no block of four lanes (DVB-S2 n=16,200, NR BG1
-// Z=384) and for min* on rows above 24 entries; the tables sit in shared
-// memory there. Thread (x, y) = (codeword lane, row y). The row is read
+// kept for codes that admit no block of two lanes (NR BG1 Z=384 rate 1/3,
+// about 174 KB a lane) and for min* on rows above 24 entries; the tables
+// sit in shared memory there. Thread (x, y) = (codeword lane, row y). The row is read
 // twice (once to reduce, once to emit); with min* the two reads are the
 // suffix pass into an int8 scratch of star_deg slots per row and the prefix
 // pass that emits. Early termination there: after the V phase of iteration
@@ -133,11 +147,26 @@
 // PackedRow and PackedEmit, star_bp2, mc_prologue_lanes, packed_outputs,
 // packed_finish) live in cn_packed.cuh, which the layered library's packed
 // kernel shares.
+//
+// Three units: build.py compiles this file three times at once, with
+// LDPC_UNIT=1 (the C entries, the one-lane template and the four-lane
+// instances of rows up to 16 entries), LDPC_UNIT=2 (the two-lane instances,
+// through flood_two_lane) and LDPC_UNIT=3 (the four-lane instances of longer
+// rows, through flood_four_lane_long), and links them into one library, so
+// that its instances build side by side; without LDPC_UNIT the file is one
+// unit of all.
 
 #include "cn_minsum.cuh"
 #include "cn_minstar.cuh"
 #include "cn_packed.cuh"
 #include "mc_stage.cuh"
+
+namespace ldpc {
+// The two-lane instance for a code (unit 2, below).
+PackedKernel flood_two_lane(int max_deg, bool star, bool et, bool mc);
+// The four-lane instance for rows above 16 entries (unit 3, below).
+PackedKernel flood_four_lane_long(int max_deg, bool star, bool et, bool mc);
+}  // namespace ldpc
 
 namespace {
 
@@ -156,18 +185,27 @@ inline int flood_max_threads(int star_deg, int early_term) {
   return star_deg > 0 || early_term ? kFloodEtStarThreads : kMaxThreads;
 }
 
-inline size_t packed_smem(int nb, int Z, int E, int lanes) {
+// The state of a block of `lanes` at lpt lanes a thread: the channel in
+// shared memory at four lanes a thread only.
+inline size_t packed_smem(int nb, int Z, int E, int lanes, int lpt) {
   const size_t n = size_t(nb) * Z;
   return align16(8 * size_t(lanes)) + align16(2 * n * lanes)
-       + align16(n * lanes) + align16(size_t(E) * Z * lanes);
+       + (lpt == kTwoLanes ? 0 : align16(n * lanes))
+       + align16(size_t(E) * Z * lanes);
 }
 
-// packed_shape of cn_packed.cuh for this kernel's state, up to the
-// instance's threads a block.
+// packed_shape of cn_packed.cuh for this kernel's state: four lanes a
+// thread up to the instance's threads a block where a block fits, else two
+// lanes a thread up to kTwoLaneThreads.
 inline PackedShape flood_shape(int nb, int Z, int E, int star_deg,
                                int early_term) {
-  return packed_shape(Z, flood_max_threads(star_deg, early_term),
-                      [=](int l) { return packed_smem(nb, Z, E, l); });
+  const PackedShape s = packed_shape(
+      Z, flood_max_threads(star_deg, early_term),
+      [=](int l) { return packed_smem(nb, Z, E, l, kLanesPerThread); });
+  if (s.lanes) return s;
+  return packed_shape(
+      Z, kTwoLaneThreads,
+      [=](int l) { return packed_smem(nb, Z, E, l, kTwoLanes); }, kTwoLanes);
 }
 
 // The body of every packed instance; `a` is the kernel's parameter block.
@@ -189,8 +227,15 @@ __device__ __forceinline__ void flood_packed(const PackedArgs& a) {
   unsigned char* cursor = smem + align16(8 * size_t(L));
   int16_t* tot = reinterpret_cast<int16_t*>(cursor);
   cursor += align16(2 * size_t(n) * L);
-  int8_t* chan = reinterpret_cast<int8_t*>(cursor);
-  cursor += align16(size_t(n) * L);
+  // the channel: shared memory at four lanes a thread, the block's slice of
+  // chan_q in device memory at two
+  int8_t* chan;
+  if constexpr (LPT == kTwoLanes) {
+    chan = a.chan_q + size_t(blockIdx.x) * n * L;
+  } else {
+    chan = reinterpret_cast<int8_t*>(cursor);
+    cursor += align16(size_t(n) * L);
+  }
   int8_t* c2v = reinterpret_cast<int8_t*>(cursor);   // negated messages
 
   const int row = threadIdx.y;
@@ -266,14 +311,15 @@ __device__ __forceinline__ void flood_packed(const PackedArgs& a) {
 
   for (int it = 0;; ++it) {
     // V phase: totals of the current messages (state `it`), chan - the sum
-    // of the negated messages; c2v = 0 at 0.
+    // of the negated messages; c2v = 0 at 0. The channel word is loaded
+    // first and used last, so its latency (device memory at two lanes a
+    // thread) runs under the message loads.
     if (!ET || act) {
       for (int j = 0; j < nb; ++j) {
         const int v = j * Z + row;
         const uint32_t ch = ld8<LPT>(chan + v * L + lane0);
-        uint32_t lo = widen_lo(ch), hi = LPT == 4 ? widen_hi(ch) : 0u;
+        uint32_t s_lo = 0, s_hi = 0;
         if (it) {
-          uint32_t s_lo = 0, s_hi = 0;
           const int q1 = tw[o_col + j + 1];
           for (int q = tw[o_col + j]; q < q1; ++q) {
             const uint32_t ce = tw[o_cent + q];   // eZ << 11 | shift
@@ -283,10 +329,9 @@ __device__ __forceinline__ void flood_packed(const PackedArgs& a) {
             s_lo = __vadd2(s_lo, widen_lo(m));
             if constexpr (LPT == 4) s_hi = __vadd2(s_hi, widen_hi(m));
           }
-          lo = __vadd2(lo, __vneg2(s_lo));
-          if constexpr (LPT == 4) hi = __vadd2(hi, __vneg2(s_hi));
         }
-        st16<LPT>(tot + v * L + lane0, lo, hi);
+        st16<LPT>(tot + v * L + lane0, __vadd2(widen_lo(ch), __vneg2(s_lo)),
+                  LPT == 4 ? __vadd2(widen_hi(ch), __vneg2(s_hi)) : 0u);
       }
     }
     if constexpr (ET) {
@@ -328,13 +373,14 @@ __device__ __forceinline__ void flood_packed(const PackedArgs& a) {
         PackedRow<LPT> cn;
         if constexpr (DMAX > 0) {
           // the row in registers; entries past d repeat the last one's
-          // loads and are left out of the reduction and the stores (the ET
-          // and min* instances skip a group of four slots past d: one
-          // uniform branch)
+          // loads and are left out of the reduction and the stores (the ET,
+          // min* and two-lane instances skip a group of four slots past d:
+          // one uniform branch, which pays where rows differ in degree, as
+          // NR BG1's 5-7 and 21-22)
           uint32_t rb[DMAX];   // row bytes: min-sum's, or min*'s leaves
 #pragma unroll
           for (int i = 0; i < DMAX; ++i) {
-            if constexpr (STAR || ET) {
+            if constexpr (STAR || ET || LPT == kTwoLanes) {
               if ((i & ~3) >= d) break;
             }
             const int ei = min(i, d - 1);
@@ -444,7 +490,15 @@ flood_packed_kernel(const __grid_constant__ PackedArgs a) {
   flood_packed<LPT, DMAX, STAR, ET, MC>(a);
 }
 
-using PackedKernel = void (*)(PackedArgs);
+// Every form but the megakernel at two lanes a thread, up to
+// kTwoLaneThreads threads a block and at least one block an SM. (No step
+// reaches a two-lane megakernel: the codes that need two lanes have n above
+// 4,096, which takes the batch-first chain.)
+template <int DMAX, bool STAR, bool ET>
+__global__ void __launch_bounds__(kTwoLaneThreads, 1)
+flood_two_lane_kernel(const __grid_constant__ PackedArgs a) {
+  flood_packed<kTwoLanes, DMAX, STAR, ET, false>(a);
+}
 
 // (Each specialization is named in an assignment: the template name is
 // overloaded, and a conditional expression gives no target type.)
@@ -465,9 +519,58 @@ PackedKernel packed_instance(bool et, bool mc) {
   return k;
 }
 
-// The instance for the largest base-row degree (DMAX 8, 16, 24, else the
-// row read twice; min* only up to 24), the update, ET and MC.
-inline PackedKernel packed_kernel(int max_deg, bool star, bool et, bool mc) {
+// Null for the megakernel, which is not built at two lanes a thread.
+template <int DMAX, bool STAR>
+PackedKernel two_lane_instance(bool et, bool mc) {
+  if (mc) return nullptr;
+  return et ? flood_two_lane_kernel<DMAX, STAR, true>
+            : flood_two_lane_kernel<DMAX, STAR, false>;
+}
+
+}  // namespace
+
+#if !defined(LDPC_UNIT) || LDPC_UNIT == 2
+// The two-lane instance for the largest base-row degree (DMAX 8, 16, 24,
+// else the row read twice; min* only up to 24), the update and ET; null
+// for the megakernel.
+PackedKernel ldpc::flood_two_lane(int max_deg, bool star, bool et, bool mc) {
+  switch (row_instance(max_deg)) {
+    case 0:
+      return star ? two_lane_instance<8, true>(et, mc)
+                  : two_lane_instance<8, false>(et, mc);
+    case 1:
+      return star ? two_lane_instance<16, true>(et, mc)
+                  : two_lane_instance<16, false>(et, mc);
+    case 2:
+      return star ? two_lane_instance<24, true>(et, mc)
+                  : two_lane_instance<24, false>(et, mc);
+    default:
+      return two_lane_instance<0, false>(et, mc);
+  }
+}
+#endif
+
+#if !defined(LDPC_UNIT) || LDPC_UNIT == 3
+// The four-lane instance for rows above 16 entries: DMAX 24, else the row
+// read twice (min* only up to 24).
+PackedKernel ldpc::flood_four_lane_long(int max_deg, bool star, bool et,
+                                        bool mc) {
+  if (row_instance(max_deg) == 2)
+    return star ? packed_instance<24, true>(et, mc)
+                : packed_instance<24, false>(et, mc);
+  return packed_instance<0, false>(et, mc);
+}
+#endif
+
+#if !defined(LDPC_UNIT) || LDPC_UNIT == 1
+namespace {
+
+// The instance at lpt lanes a thread for the largest base-row degree (DMAX
+// 8, 16, 24, else the row read twice; min* only up to 24), the update, ET
+// and MC.
+inline PackedKernel packed_kernel(int lpt, int max_deg, bool star, bool et,
+                                  bool mc) {
+  if (lpt == kTwoLanes) return flood_two_lane(max_deg, star, et, mc);
   switch (row_instance(max_deg)) {
     case 0:
       return star ? packed_instance<8, true>(et, mc)
@@ -475,17 +578,14 @@ inline PackedKernel packed_kernel(int max_deg, bool star, bool et, bool mc) {
     case 1:
       return star ? packed_instance<16, true>(et, mc)
                   : packed_instance<16, false>(et, mc);
-    case 2:
-      return star ? packed_instance<24, true>(et, mc)
-                  : packed_instance<24, false>(et, mc);
     default:
-      return packed_instance<0, false>(et, mc);
+      return flood_four_lane_long(max_deg, star, et, mc);
   }
 }
 
 // ---------------------------------------------------------------------------
-// The one-lane-a-thread template: codes that admit no block of four lanes,
-// and min* on rows above 24 entries.
+// The one-lane-a-thread template: codes that admit no block of four or two
+// lanes, and min* on rows above 24 entries.
 
 inline size_t smem_bytes(int nb, int Z, int mb, int E, int star_deg, int lanes) {
   const size_t n = size_t(nb) * Z;
@@ -660,9 +760,9 @@ const ldpc::Kernel kOneLane[2][2][2] = {
       minsum_flood_kernel<true, true, true>}}};
 
 // The packed kernel takes a code wherever a block of four lanes fits (up to
-// the instance's threads a block), min* where its rows (star_deg: the
-// largest base-row degree) fit the largest register row; the one-lane
-// template takes the rest.
+// the instance's threads a block), else two lanes (up to kTwoLaneThreads),
+// min* where its rows (star_deg: the largest base-row degree) fit the
+// largest register row; the one-lane template takes the rest.
 inline bool is_packed(int nb, int Z, int E, int star_deg, int early_term) {
   return flood_shape(nb, Z, E, star_deg, early_term).lanes > 0
       && row_instance(star_deg) < 3;
@@ -675,10 +775,11 @@ extern "C" {
 // The launch shape of one instance for one code: lanes per block, dynamic
 // shared-memory bytes, codeword lanes a thread, and the blocks an SM keeps
 // resident (cudaOccupancyMaxActiveBlocksPerMultiprocessor, registers
-// included). Where a block of four lanes fits (and for min* its rows fit a
-// register row) the instance is the packed kernel, and max_row_deg (the
-// largest base-row degree) picks its row instance. Returns
-// cudaErrorInvalidConfiguration, lanes 0, when no block shape fits.
+// included). Where a block of four or two lanes fits (and for min* its
+// rows fit a register row) the instance is the packed kernel at that many
+// lanes a thread, and max_row_deg (the largest base-row degree) picks its
+// row instance. Returns cudaErrorInvalidConfiguration, lanes 0, when no
+// block shape fits.
 int minsum_flood_config(int nb, int Z, int mb, int E, int star_deg,
                         int early_term, int mc, int max_row_deg, int* lanes,
                         int* smem, int* lanes_per_thread,
@@ -688,13 +789,12 @@ int minsum_flood_config(int nb, int Z, int mb, int E, int star_deg,
     const PackedShape s = flood_shape(nb, Z, E, star_deg, early_term);
     *lanes = s.lanes;
     *smem = s.smem;
-    *lanes_per_thread = kLanesPerThread;
-    const PackedKernel k =
-        packed_kernel(max_row_deg, star_deg > 0, early_term != 0, mc != 0);
+    *lanes_per_thread = s.lpt;
+    const PackedKernel k = packed_kernel(s.lpt, max_row_deg, star_deg > 0,
+                                         early_term != 0, mc != 0);
     const cudaError_t err = prepare(k, s.smem);
     if (err != cudaSuccess) return int(err);
-    return ldpc::occupancy(k, s.lanes / kLanesPerThread * Z, s.smem,
-                           blocks_per_sm);
+    return ldpc::occupancy(k, s.lanes / s.lpt * Z, s.smem, blocks_per_sm);
   }
   *lanes_per_thread = 1;
   const int cfg = ldpc::decoder_config(
@@ -719,7 +819,11 @@ const char* minsum_flood_error_string(int err) {
 // kernel takes its entry tables from `ptab` (host memory, ptab_words uint32
 // words, packed_tables' layout) into its parameters, and min*'s threshold
 // constants; tables above kTabWords words, or qmax above 127, are
-// refused.
+// refused. A two-lane instance keeps its quantized channel in `chan_q`
+// (device memory, at least grid * lanes * n bytes: the batch rounded up to
+// the block's lanes, times n), which it refuses null; the other instances
+// do not read it. The megakernel at two lanes a thread is not built, and is
+// refused (cudaErrorNotSupported), here and in minsum_flood_config.
 int minsum_flood_launch(const void* chan, int chan_is_f32, float scale,
                         const void* info, int kb, void* hard, void* bits,
                         void* frame, void* iters, void* conv,
@@ -728,7 +832,7 @@ int minsum_flood_launch(const void* chan, int chan_is_f32, float scale,
                         int beta, int alpha_num, int alpha_shift,
                         int star_deg, const int* thr, int nthr,
                         const ldpc::Mc* mc, const uint32_t* ptab,
-                        int ptab_words, void* stream) {
+                        int ptab_words, void* chan_q, void* stream) {
   const Params p = ldpc::make_params(
       chan, chan_is_f32, scale, info, kb, hard, bits, frame, iters, conv,
       tables, B, nb, Z, mb, E, max_iter, qmax, beta, alpha_num, alpha_shift,
@@ -737,26 +841,29 @@ int minsum_flood_launch(const void* chan, int chan_is_f32, float scale,
     return ldpc::launch_instance(
         kOneLane, [=](int l) { return smem_bytes(nb, Z, mb, E, star_deg, l); },
         p, early_term, mc, stream);
-  if (!packed_args_ok(ptab, ptab_words, nb, Z, mb, E, qmax, nthr))
-    return int(cudaErrorInvalidValue);
   const PackedShape s = flood_shape(nb, Z, E, star_deg, early_term);
+  if (!packed_args_ok(ptab, ptab_words, nb, Z, mb, E, qmax, nthr) ||
+      (s.lpt == kTwoLanes && !chan_q))
+    return int(cudaErrorInvalidValue);
   static thread_local PackedArgs a;   // 32 KB, off the stack; copied at launch
   static_assert(sizeof(a.t) == 4 * kTabWords, "table words");
   a.p = p;
   a.p.lanes = s.lanes;
   if (mc) a.p.mc = *mc;
+  a.chan_q = static_cast<int8_t*>(chan_q);
   memcpy(a.t.w, ptab, 4 * size_t(ptab_words));
   star_constants(p, a.star);
-  const PackedKernel k = packed_kernel(packed_max_degree(ptab, mb),
+  const PackedKernel k = packed_kernel(s.lpt, packed_max_degree(ptab, mb),
                                        star_deg > 0, early_term != 0,
                                        mc != nullptr);
   const cudaError_t err = prepare(k, s.smem);
   if (err != cudaSuccess) return int(err);
   if (B <= 0) return 0;
-  const dim3 block(s.lanes / kLanesPerThread, Z);
+  const dim3 block(s.lanes / s.lpt, Z);
   const dim3 grid((B + s.lanes - 1) / s.lanes);
   k<<<grid, block, s.smem, static_cast<cudaStream_t>(stream)>>>(a);
   return int(cudaGetLastError());
 }
 
 }  // extern "C"
+#endif

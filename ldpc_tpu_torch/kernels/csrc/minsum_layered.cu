@@ -23,9 +23,18 @@
 // layered_packed_kernel<LPT, DMAX, STAR, ET, MC>: every instance (the
 // min-sum family or min*, fixed or early-terminating, fused IO or the
 // megakernel) wherever a block of four lanes fits, laid out for this card
-// with the packed parts of cn_packed.cuh (those of flood_packed_kernel):
-//  * Thread (x, y) owns codeword lanes 4x .. 4x + 3 of check row y of every
-//    base row. Shared memory, one block of L lanes, lane index innermost:
+// with the packed parts of cn_packed.cuh (those of flood_packed_kernel);
+// its body (layered_packed) also runs at two lanes a thread, in
+// layered_two_lane_kernel<DMAX, STAR, ET> (every form but the megakernel),
+// where four lanes of state exceed a block's shared memory but two fit (NR BG1 at Z = 256 and 384,
+// DVB-S2 n=16,200: 79-115 KB a lane; the one-lane template decoded them
+// one lane a thread's instruction, its tables in shared memory, reading
+// each row twice): a block of two lanes and Z (360, 384) rows,
+// kTwoLaneThreads (384) the launch bound with at least one block an SM, so
+// up to 170 registers a thread; NR BG1 Z=384 takes 228,880 B a block.
+//  * Thread (x, y) owns codeword lanes LPT x .. LPT x + LPT - 1 of check
+//    row y of every base row. Shared memory, one block of L lanes, lane
+//    index innermost:
 //      s_flag, s_bits int32 [L]    ET's flag stamp or the final syndrome's
 //                                  flag, info-bit errors
 //      post  int16 [n][L]          posteriors, from the quantized channel
@@ -36,7 +45,7 @@
 //      c2v   int8  [E * Z][L]      check-to-variable messages, negated,
 //                                  entry-major
 //    so four lanes' posteriors are one 8-byte access and their messages one
-//    4-byte access.
+//    4-byte access (two lanes': 4 and 2 bytes).
 //  * The entry tables are uniform across the block and travel in the
 //    kernel's parameter space (PackedArgs, as the flooding kernel's), with
 //    each entry's posterior as a byte offset (the launch computes it for
@@ -84,8 +93,8 @@
 //    registers for the register row; 42-135 used, no spills).
 //
 // minsum_layered_kernel<ET, MC, STAR>: the earlier one-lane-a-thread
-// layout, kept for codes whose block of four lanes does not fit (DVB-S2
-// n=16,200, NR BG1 Z=384, NR BG1 Z=128 rate 1/3) and for min* rows above 24
+// layout, kept for codes whose block of two lanes does not fit (NR BG1
+// Z=384 rate 1/3, about 174 KB a lane) and for min* rows above 24
 // entries. Thread (x, y) = (codeword lane, row y); the tables sit in shared
 // memory; the row is read twice (reduce, then emit: c2v[e][y] = new and
 // post[j][(y + s) mod Z] += new - old), and with min* the two reads are
@@ -101,18 +110,34 @@
 // buffer (the one-lane template zeroes it after the prologue; the packed
 // kernel never reads it in iteration 1), and the error count draws each
 // info bit again.
+//
+// Three units: build.py compiles this file three times at once, with
+// LDPC_UNIT=1 (the C entries, the one-lane template and the four-lane
+// instances of rows up to 16 entries), LDPC_UNIT=2 (the two-lane instances,
+// through layered_two_lane) and LDPC_UNIT=3 (the four-lane instances of
+// longer rows, through layered_four_lane_long), and links them into one
+// library, so that its instances build side by side; without LDPC_UNIT the
+// file is one unit of all.
 
 #include "cn_minsum.cuh"
 #include "cn_minstar.cuh"
 #include "cn_packed.cuh"
 #include "mc_stage.cuh"
 
+namespace ldpc {
+// The two-lane instance for a code (unit 2, below).
+PackedKernel layered_two_lane(int max_deg, bool star, bool et, bool mc);
+// The four-lane instance for rows above 16 entries (unit 3, below).
+PackedKernel layered_four_lane_long(int max_deg, bool star, bool et, bool mc);
+}  // namespace ldpc
+
 namespace {
 
 using namespace ldpc;
 
+#if !defined(LDPC_UNIT) || LDPC_UNIT == 1
 // ---------------------------------------------------------------------------
-// The one-lane-a-thread template.
+// The one-lane-a-thread template (unit 1).
 
 inline size_t smem_bytes(int nb, int Z, int mb, int E, int star_deg, int lanes) {
   const size_t n = size_t(nb) * Z;
@@ -273,6 +298,7 @@ const ldpc::Kernel kernels[2][2][2] = {
       minsum_layered_kernel<true, false, true>},
      {minsum_layered_kernel<false, true, true>,
       minsum_layered_kernel<true, true, true>}}};
+#endif
 
 // ---------------------------------------------------------------------------
 // The packed instance.
@@ -300,15 +326,18 @@ inline size_t layered_packed_smem(int nb, int Z, int E, int lanes) {
        + align16(size_t(E) * Z * lanes);
 }
 
-// packed_shape of cn_packed.cuh for this kernel's state.
+// packed_shape of cn_packed.cuh for this kernel's state: four lanes a
+// thread up to kLayeredMaxThreads where a block fits, else two lanes a
+// thread up to kTwoLaneThreads.
 inline PackedShape layered_shape(int nb, int Z, int E) {
-  return packed_shape(Z, kLayeredMaxThreads,
-                      [=](int l) { return layered_packed_smem(nb, Z, E, l); });
+  const auto smem = [=](int l) { return layered_packed_smem(nb, Z, E, l); };
+  const PackedShape s = packed_shape(Z, kLayeredMaxThreads, smem);
+  return s.lanes ? s : packed_shape(Z, kTwoLaneThreads, smem, kTwoLanes);
 }
 
-// The packed kernel takes a code wherever a block of four lanes fits, min*
-// where its rows (star_deg: the largest base-row degree) fit the largest
-// register row; the one-lane template takes the rest.
+// The packed kernel takes a code wherever a block of four or two lanes
+// fits, min* where its rows (star_deg: the largest base-row degree) fit the
+// largest register row; the one-lane template takes the rest.
 inline bool is_packed(int nb, int Z, int E, int star_deg) {
   return layered_shape(nb, Z, E).lanes > 0 && layered_row_instance(star_deg) < 4;
 }
@@ -326,9 +355,9 @@ inline int layered_tab_words(int nb, int mb, int E) {
   return offsets_at(nb, mb, E) + E;
 }
 
+// The body of every packed instance; `a` is the kernel's parameter block.
 template <int LPT, int DMAX, bool STAR, bool ET, bool MC>
-__global__ void __launch_bounds__(kLayeredMaxThreads, 1)
-layered_packed_kernel(const __grid_constant__ PackedArgs a) {
+__device__ __forceinline__ void layered_packed(const PackedArgs& a) {
   static_assert(LPT == 2 || LPT == 4, "lanes a thread: 2 or 4");
   static_assert(DMAX > 0 || !STAR, "min* keeps its row in registers");
   extern __shared__ __align__(16) unsigned char smem[];
@@ -547,7 +576,21 @@ layered_packed_kernel(const __grid_constant__ PackedArgs a) {
                              lane0, iters, act);
 }
 
-using PackedKernel = void (*)(PackedArgs);
+// Four lanes a thread, up to kLayeredMaxThreads threads a block.
+template <int LPT, int DMAX, bool STAR, bool ET, bool MC>
+__global__ void __launch_bounds__(kLayeredMaxThreads, 1)
+layered_packed_kernel(const __grid_constant__ PackedArgs a) {
+  layered_packed<LPT, DMAX, STAR, ET, MC>(a);
+}
+
+// Two lanes a thread, up to kTwoLaneThreads threads a block, every form but
+// the megakernel (no step reaches it: the codes that need two lanes have n
+// above 4,096, which takes the batch-first chain).
+template <int DMAX, bool STAR, bool ET>
+__global__ void __launch_bounds__(kTwoLaneThreads, 1)
+layered_two_lane_kernel(const __grid_constant__ PackedArgs a) {
+  layered_packed<kTwoLanes, DMAX, STAR, ET, false>(a);
+}
 
 template <int DMAX, bool STAR>
 PackedKernel packed_instance(bool et, bool mc) {
@@ -559,16 +602,47 @@ PackedKernel packed_instance(bool et, bool mc) {
             : layered_packed_kernel<P, DMAX, STAR, false, false>;
 }
 
-// The instance for the largest base-row degree (DMAX 8, 16, 20, 24, else
-// the row read twice; min* only up to 24), the update, ET and MC.
-inline PackedKernel packed_kernel(int max_deg, bool star, bool et, bool mc) {
+// Null for the megakernel, which is not built at two lanes a thread.
+template <int DMAX, bool STAR>
+PackedKernel two_lane_instance(bool et, bool mc) {
+  if (mc) return nullptr;
+  return et ? layered_two_lane_kernel<DMAX, STAR, true>
+            : layered_two_lane_kernel<DMAX, STAR, false>;
+}
+
+}  // namespace
+
+#if !defined(LDPC_UNIT) || LDPC_UNIT == 2
+// The two-lane instance for the largest base-row degree (DMAX 8, 16, 20,
+// 24, else the row read twice; min* only up to 24), the update and ET; null
+// for the megakernel.
+PackedKernel ldpc::layered_two_lane(int max_deg, bool star, bool et,
+                                    bool mc) {
   switch (layered_row_instance(max_deg)) {
     case 0:
-      return star ? packed_instance<8, true>(et, mc)
-                  : packed_instance<8, false>(et, mc);
+      return star ? two_lane_instance<8, true>(et, mc)
+                  : two_lane_instance<8, false>(et, mc);
     case 1:
-      return star ? packed_instance<16, true>(et, mc)
-                  : packed_instance<16, false>(et, mc);
+      return star ? two_lane_instance<16, true>(et, mc)
+                  : two_lane_instance<16, false>(et, mc);
+    case 2:
+      return star ? two_lane_instance<20, true>(et, mc)
+                  : two_lane_instance<20, false>(et, mc);
+    case 3:
+      return star ? two_lane_instance<24, true>(et, mc)
+                  : two_lane_instance<24, false>(et, mc);
+    default:
+      return two_lane_instance<0, false>(et, mc);
+  }
+}
+#endif
+
+#if !defined(LDPC_UNIT) || LDPC_UNIT == 3
+// The four-lane instance for rows above 16 entries: DMAX 20, 24, else the
+// row read twice (min* only up to 24).
+PackedKernel ldpc::layered_four_lane_long(int max_deg, bool star, bool et,
+                                          bool mc) {
+  switch (layered_row_instance(max_deg)) {
     case 2:
       return star ? packed_instance<20, true>(et, mc)
                   : packed_instance<20, false>(et, mc);
@@ -579,6 +653,28 @@ inline PackedKernel packed_kernel(int max_deg, bool star, bool et, bool mc) {
       return packed_instance<0, false>(et, mc);
   }
 }
+#endif
+
+#if !defined(LDPC_UNIT) || LDPC_UNIT == 1
+namespace {
+
+// The instance at lpt lanes a thread for the largest base-row degree (DMAX
+// 8, 16, 20, 24, else the row read twice; min* only up to 24), the update,
+// ET and MC.
+inline PackedKernel packed_kernel(int lpt, int max_deg, bool star, bool et,
+                                  bool mc) {
+  if (lpt == kTwoLanes) return layered_two_lane(max_deg, star, et, mc);
+  switch (layered_row_instance(max_deg)) {
+    case 0:
+      return star ? packed_instance<8, true>(et, mc)
+                  : packed_instance<8, false>(et, mc);
+    case 1:
+      return star ? packed_instance<16, true>(et, mc)
+                  : packed_instance<16, false>(et, mc);
+    default:
+      return layered_four_lane_long(max_deg, star, et, mc);
+  }
+}
 
 }  // namespace
 
@@ -587,11 +683,11 @@ extern "C" {
 // The launch shape of one instance for one code: lanes per block, dynamic
 // shared-memory bytes, codeword lanes a thread, and the blocks an SM keeps
 // resident (cudaOccupancyMaxActiveBlocksPerMultiprocessor, registers
-// included). Where a block of four lanes fits (and for min* its rows fit
-// a register row) the instance is the packed kernel, and max_row_deg (the
-// largest base-row degree) picks its row instance. Returns
-// cudaErrorInvalidConfiguration, lanes 0, when no block shape fits (Z >
-// 1024 or state above 227 KB per codeword).
+// included). Where a block of four or two lanes fits (and for min* its
+// rows fit a register row) the instance is the packed kernel at that many
+// lanes a thread, and max_row_deg (the largest base-row degree) picks its
+// row instance. Returns cudaErrorInvalidConfiguration, lanes 0, when no
+// block shape fits (Z > 1024 or state above 227 KB per codeword).
 int minsum_layered_config(int nb, int Z, int mb, int E, int star_deg,
                           int early_term, int mc, int max_row_deg, int* lanes,
                           int* smem, int* lanes_per_thread,
@@ -601,13 +697,12 @@ int minsum_layered_config(int nb, int Z, int mb, int E, int star_deg,
     const PackedShape s = layered_shape(nb, Z, E);
     *lanes = s.lanes;
     *smem = s.smem;
-    *lanes_per_thread = kLanesPerThread;
-    const PackedKernel k =
-        packed_kernel(max_row_deg, star_deg > 0, early_term != 0, mc != 0);
+    *lanes_per_thread = s.lpt;
+    const PackedKernel k = packed_kernel(s.lpt, max_row_deg, star_deg > 0,
+                                         early_term != 0, mc != 0);
     const cudaError_t err = prepare(k, s.smem);
     if (err != cudaSuccess) return int(err);
-    return occupancy(k, s.lanes / kLanesPerThread * Z, s.smem,
-                     blocks_per_sm);
+    return occupancy(k, s.lanes / s.lpt * Z, s.smem, blocks_per_sm);
   }
   *lanes_per_thread = 1;
   const int cfg = ldpc::decoder_config(
@@ -631,7 +726,10 @@ const char* minsum_layered_error_string(int err) {
 // at `thr` (host memory; beta and alpha are then not read). The packed
 // kernel takes its entry tables from `ptab` (host memory, ptab_words uint32
 // words, packed_tables' layout) into its parameters; tables above kTabWords
-// words, or qmax above 127, are refused.
+// words, or qmax above 127, are refused. `chan_q` is not read (the
+// flooding library's two-lane channel; the two libraries share one
+// signature). The megakernel at two lanes a thread is not built, and is
+// refused (cudaErrorNotSupported), here and in minsum_layered_config.
 int minsum_layered_launch(const void* chan, int chan_is_f32, float scale,
                           const void* info, int kb, void* hard, void* bits,
                           void* frame, void* iters, void* conv,
@@ -640,7 +738,7 @@ int minsum_layered_launch(const void* chan, int chan_is_f32, float scale,
                           int beta, int alpha_num, int alpha_shift,
                           int star_deg, const int* thr, int nthr,
                           const ldpc::Mc* mc, const uint32_t* ptab,
-                          int ptab_words, void* stream) {
+                          int ptab_words, void* chan_q, void* stream) {
   const Params p = ldpc::make_params(
       chan, chan_is_f32, scale, info, kb, hard, bits, frame, iters, conv,
       tables, B, nb, Z, mb, E, max_iter, qmax, beta, alpha_num, alpha_shift,
@@ -665,16 +763,18 @@ int minsum_layered_launch(const void* chan, int chan_is_f32, float scale,
     off[e] = (2 * uint32_t(s.lanes) * ((w >> 11) + shift)) << 11 | (Z - shift);
   }
   star_constants(p, a.star);
-  const PackedKernel k = packed_kernel(packed_max_degree(ptab, mb),
+  a.chan_q = nullptr;
+  const PackedKernel k = packed_kernel(s.lpt, packed_max_degree(ptab, mb),
                                        star_deg > 0, early_term != 0,
                                        mc != nullptr);
   const cudaError_t err = prepare(k, s.smem);
   if (err != cudaSuccess) return int(err);
   if (B <= 0) return 0;
-  const dim3 block(s.lanes / kLanesPerThread, Z);
+  const dim3 block(s.lanes / s.lpt, Z);
   const dim3 grid((B + s.lanes - 1) / s.lanes);
   k<<<grid, block, s.smem, static_cast<cudaStream_t>(stream)>>>(a);
   return int(cudaGetLastError());
 }
 
 }  // extern "C"
+#endif

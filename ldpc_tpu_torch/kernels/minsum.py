@@ -39,7 +39,8 @@ decoder + counting):
   decode(seed, sigma_lane=(B,), gain_lane=(B,))    (mc_lane_sigma=True)
 The module also counts `mc_launches`, for launches of the min*
 instances `star_launches`, and for launches of a packed instance (four
-lanes a thread, `csrc/cn_packed.cuh`) `packed_launches`, per library.
+lanes a thread, or two where a block of four does not fit,
+`csrc/cn_packed.cuh`) `packed_launches`, per library.
 """
 from __future__ import annotations
 
@@ -79,16 +80,20 @@ PREFERRED_SMEM = 113 * 1024     # ldpc::kPreferredSmem, two blocks per SM
 # The packed instances (csrc/cn_packed.cuh; flood_packed_kernel of
 # csrc/minsum_flood.cu, layered_packed_kernel of csrc/minsum_layered.cu):
 # an SM's shared memory for blocks, the runtime's reserve per resident
-# block, warps and blocks an SM keeps, their lanes a thread, the row-degree
-# (DMAX) instances, the table words their parameters hold, the layered
-# kernel's launch bound (threads a block) and the flooding kernel's for its
-# early-terminating and min* instances (its fixed min-sum instances take
-# MAX_THREADS).
+# block, warps and blocks an SM keeps, their lanes a thread (four wherever
+# a block fits, else TWO_LANES: flood_two_lane_kernel and
+# layered_two_lane_kernel, whose launch bound is TWO_LANE_THREADS), the
+# row-degree (DMAX) instances, the table words their parameters hold, the
+# layered kernel's launch bound (threads a block) and the flooding kernel's
+# for its early-terminating and min* instances (its fixed min-sum instances
+# take MAX_THREADS).
 SM_SMEM = 233472
 BLOCK_RESERVE = 1024
 SM_WARPS = 64
 SM_BLOCKS = 32
 LANES_PER_THREAD = 4
+TWO_LANES = 2
+TWO_LANE_THREADS = 384
 ROW_DEGREES = (8, 16, 24)
 LAYERED_ROW_DEGREES = (8, 16, 20, 24)
 TAB_WORDS = 8000
@@ -128,15 +133,16 @@ def load_library(name: str, rebuild: bool = False) -> build.Library:
     """Build (first use) and bind kernel library `name` (a value of
     LIBRARIES); both export <name>_launch, _config and _error_string with
     the same arguments: the launch takes the packed instance's entry tables
-    (host memory) and their words between `mc` and the stream, the config
-    the largest base-row degree before its four outputs."""
+    (host memory) and their words between `mc` and the stream, then the
+    two-lane flooding instances' channel buffer (device memory, `chan_q`),
+    the config the largest base-row degree before its four outputs."""
     lib = build.load(name, rebuild=rebuild)
     c = lib.cdll
     launch = getattr(c, f"{name}_launch")
     launch.argtypes = [_P, _I, _F, _P, _I, _P, _P, _P, _P, _P, _P,
                        _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                        _I, ctypes.POINTER(_I), _I,
-                       ctypes.POINTER(McArgs), _P, _I, _P]
+                       ctypes.POINTER(McArgs), _P, _I, _P, _P]
     launch.restype = _I
     config = getattr(c, f"{name}_config")
     config.argtypes = [_I] * 8 + [ctypes.POINTER(_I)] * 4
@@ -198,11 +204,12 @@ def base_degrees(ct: CodeTensors) -> Tuple[int, int]:
 def is_packed(ct: CodeTensors, schedule: str, star_deg: int,
               early_term: bool) -> bool:
     """Whether this code and instance take a packed kernel (is_packed of
-    csrc/minsum_flood.cu and csrc/minsum_layered.cu), else the one-lane
-    template decodes it. Both schedules: every instance where a block of
-    four lanes fits (for flooding within the instance's threads a block,
-    `flood_max_threads`), min* only where its rows (star_deg) fit the
-    largest register row."""
+    csrc/minsum_flood.cu and csrc/minsum_layered.cu), at four or two lanes
+    a thread, else the one-lane template decodes it. Both schedules: every
+    instance where a block of four lanes fits (for flooding within the
+    instance's threads a block, `flood_max_threads`) or else one of two
+    lanes (within TWO_LANE_THREADS), min* only where its rows (star_deg)
+    fit the largest register row."""
     rows = ROW_DEGREES if schedule == "flooding" else LAYERED_ROW_DEGREES
     return (packed_shape(ct, schedule, star_deg, early_term)[0] > 0
             and star_deg <= rows[-1])
@@ -216,12 +223,16 @@ def flood_max_threads(star_deg: int, early_term: bool) -> int:
 
 
 def packed_smem_bytes(ct: CodeTensors, lanes: int,
-                      schedule: str = "flooding") -> int:
-    """Dynamic shared memory of one block of a packed instance (packed_smem
-    of csrc/minsum_flood.cu, layered_packed_smem of csrc/minsum_layered.cu):
-    two words a lane, int16 totals or posteriors, for flooding the int8
-    channel, and the int8 messages; no tables."""
-    chan = align16(ct.n * lanes) if schedule == "flooding" else 0
+                      schedule: str = "flooding",
+                      lpt: int = LANES_PER_THREAD) -> int:
+    """Dynamic shared memory of one block of a packed instance at `lpt`
+    lanes a thread (packed_smem of csrc/minsum_flood.cu, layered_packed_smem
+    of csrc/minsum_layered.cu): two words a lane, int16 totals or
+    posteriors, for flooding at four lanes a thread the int8 channel (the
+    two-lane instances keep it in device memory), and the int8 messages; no
+    tables."""
+    chan = (align16(ct.n * lanes)
+            if schedule == "flooding" and lpt != TWO_LANES else 0)
     return (align16(8 * lanes) + align16(2 * ct.n * lanes) + chan
             + align16(ct.n_entries * ct.Z * lanes))
 
@@ -232,29 +243,33 @@ def packed_shape(ct: CodeTensors, schedule: str = "flooding",
     """(lanes per block, lanes a thread, shared-memory bytes, blocks an SM
     holds by shared memory, warps and blocks) of the schedule's packed
     instance, as packed_shape of csrc/cn_packed.cuh gives them: of the
-    block shapes (lanes a multiple of LANES_PER_THREAD, lanes /
-    LANES_PER_THREAD * Z threads within the instance's bound, state within
-    MAX_SMEM) the fewest lanes that keep at least 9/10 of the most codewords
-    an SM holds. The bound: LAYERED_MAX_THREADS for layered, else
-    `flood_max_threads(star_deg, early_term)`. Zeros when no block fits."""
-    lpt, shapes = LANES_PER_THREAD, []
-    max_threads = (flood_max_threads(star_deg, early_term)
-                   if schedule == "flooding" else LAYERED_MAX_THREADS)
-    k = 1
-    while k * ct.Z <= max_threads:
-        lanes = k * lpt
-        smem = packed_smem_bytes(ct, lanes, schedule)
-        if smem > MAX_SMEM:
-            break
-        warps = -(-k * ct.Z // 32)
-        blocks = min(SM_SMEM // (smem + BLOCK_RESERVE), SM_WARPS // warps,
-                     SM_BLOCKS)
-        shapes.append((lanes, lpt, smem, blocks))
-        k += 1
-    if not shapes:
-        return (0, 0, 0, 0)
-    most = max(s[3] * s[0] for s in shapes)
-    return next(s for s in shapes if 10 * s[3] * s[0] >= 9 * most)
+    block shapes (lanes a multiple of the lanes a thread, lanes / lpt * Z
+    threads within the instance's bound, state within MAX_SMEM) the fewest
+    lanes that keep at least 9/10 of the most codewords an SM holds; at
+    LANES_PER_THREAD where a block fits, else at TWO_LANES. The bound at
+    four lanes: LAYERED_MAX_THREADS for layered, else
+    `flood_max_threads(star_deg, early_term)`; at two, TWO_LANE_THREADS.
+    Zeros when no block fits."""
+    four = (flood_max_threads(star_deg, early_term)
+            if schedule == "flooding" else LAYERED_MAX_THREADS)
+    for lpt, max_threads in ((LANES_PER_THREAD, four),
+                             (TWO_LANES, TWO_LANE_THREADS)):
+        shapes = []
+        k = 1
+        while k * ct.Z <= max_threads:
+            lanes = k * lpt
+            smem = packed_smem_bytes(ct, lanes, schedule, lpt)
+            if smem > MAX_SMEM:
+                break
+            warps = -(-k * ct.Z // 32)
+            blocks = min(SM_SMEM // (smem + BLOCK_RESERVE),
+                         SM_WARPS // warps, SM_BLOCKS)
+            shapes.append((lanes, lpt, smem, blocks))
+            k += 1
+        if shapes:
+            most = max(s[3] * s[0] for s in shapes)
+            return next(s for s in shapes if 10 * s[3] * s[0] >= 9 * most)
+    return (0, 0, 0, 0)
 
 
 def row_degree_instance(ct: CodeTensors, schedule: str = "flooding") -> int:
@@ -275,7 +290,8 @@ def onchip_smem_bytes(ct: CodeTensors, schedule: str, star_deg: int,
     min* scratch; the packed instances keep no tables and no scratch
     (`packed_smem_bytes`)."""
     if is_packed(ct, schedule, star_deg, early_term):
-        return packed_smem_bytes(ct, lanes, schedule)
+        lpt = packed_shape(ct, schedule, star_deg, early_term)[1]
+        return packed_smem_bytes(ct, lanes, schedule, lpt)
     return (align16(4 * table_words(ct)) + align16(8 * lanes)
             + align16(2 * ct.n * lanes)
             + (align16(ct.n * lanes) if schedule == "flooding" else 0)
@@ -301,6 +317,26 @@ def pick_lanes(ct: CodeTensors, schedule: str, star_deg: int = 0,
                 return lanes
             lanes //= 2
     return 0
+
+
+# Integer operations of one min-sum edge update and iteration, the count a
+# decoder's bound rests on: subtract, |.|, the clip, two merges of
+# min1/min2 and the sign XOR to reduce; subtract, compare, select, negate,
+# store and the posterior update to emit.
+OPS_PER_EDGE = 12
+
+
+def iteration_ops(ct: CodeTensors, minstar: Optional[Tuple[int, ...]]
+                  ) -> int:
+    """Integer operations one codeword needs for one iteration:
+    OPS_PER_EDGE an edge for the min-sum family; for min* (its thresholds `minstar`) a
+    row of degree d takes 3d - 6 combines of 12 + 4 * len(minstar)
+    operations plus 4 an edge."""
+    degs = [len(row) for row in ct.entries]
+    if minstar is None:
+        return OPS_PER_EDGE * sum(degs) * ct.Z
+    per_combine = 12 + 4 * len(minstar)
+    return ct.Z * sum((3 * dg - 6) * per_combine + 4 * dg for dg in degs)
 
 
 def star_degree(ct: CodeTensors, dec: DecoderConfig) -> int:
@@ -383,9 +419,13 @@ class MinsumDecoder:
         self.star_deg = star_degree(ct, dec)
         self._kernel_domain = kernel_domain(ct, quant)
         # a packed instance: its entry tables travel in the kernel's
-        # parameters (the one-lane template takes none)
+        # parameters (the one-lane template takes none); its lanes a block
+        # and a thread
         self.packed = is_packed(ct, dec.schedule, self.star_deg,
                                 dec.early_term)
+        self.packed_lanes, self.lanes_per_thread = (
+            packed_shape(ct, dec.schedule, self.star_deg,
+                         dec.early_term)[:2] if self.packed else (0, 1))
         self._ptab = packed_tables(ct) if self.packed else None
         self._launch_tables = ((None, 0) if self._ptab is None
                                else (self._ptab.ctypes.data, len(self._ptab)))
@@ -494,6 +534,14 @@ class MinsumDecoder:
         def ptr(t):
             return None if t is None else t.data_ptr()
 
+        # the two-lane flooding instances' quantized channel,
+        # [block][n][lanes]
+        chan_q = None
+        if self.lanes_per_thread == TWO_LANES and self.library == \
+                LIBRARIES["flooding"]:
+            blocks = -(-B // self.packed_lanes)
+            chan_q = torch.empty(blocks * self.packed_lanes * ct.n,
+                                 dtype=torch.int8, device=dev)
         num, shift = self.alpha_pair
         thr = (_I * MAX_THRESHOLDS)(*(self.minstar or ()))
         with torch.cuda.device(dev):
@@ -507,7 +555,7 @@ class MinsumDecoder:
                 int(self.dec.early_term), self.quant.qmax, self.beta, num,
                 shift, self.star_deg, thr, len(self.minstar or ()),
                 None if mc is None else ctypes.byref(mc),
-                *self._launch_tables, stream)
+                *self._launch_tables, ptr(chan_q), stream)
         check_launch(lib, name, err)
         kernel_launches += 1
         library_launches[name] += 1

@@ -155,11 +155,12 @@ def explicit_two_phase(cfg: SimConfig) -> bool:
 def stream_first(ct: CodeTensors, cfg: SimConfig) -> bool:
     """Whether `auto` takes the streaming library for a layered
     min-sum-family configuration that an on-chip kernel also admits: where
-    no packed layered block takes the code (K3 would be the one-lane
-    template) and the library's own rule (`instance_auto`) picks a
-    redesigned kernel for it, the packed resident kernel or the pipelined
-    kernel. Measured (chip_smoke.py, two runs, NVIDIA H100 80GB HBM3,
-    700.00 W, in turns, CUDA-event medians, OMS; the streaming library's
+    no packed layered block of four lanes takes the code (K3 would be the
+    two-lane instance, or the one-lane template) and the library's own
+    rule (`instance_auto`) picks a redesigned kernel for it, the packed
+    resident kernel or the pipelined kernel. Measured (chip_smoke.py, two
+    runs, NVIDIA H100 80GB HBM3, 700.00 W, in turns, CUDA-event medians,
+    OMS; the streaming library's
     kernel at the instance's lanes against K3 behind its transposes):
     DVB-S2 n=16,200 at B = 1,024 fixed-20 1.5702, 1.5943 (packed resident)
     against 3.4186, 3.4549 ms, with early termination at 1.4 dB 1.2483,
@@ -173,10 +174,21 @@ def stream_first(ct: CodeTensors, cfg: SimConfig) -> bool:
     termination 1.3771, 1.4086 against 1.7520, 1.7516, and at B = 256,
     where the pipelined kernel's 28-entry row takes it, 0.4126 against
     0.7304 and with early termination 0.4914 against 0.7979. The route
-    rests on the wins at B = 1,024 and with early termination."""
+    rests on the wins at B = 1,024 and with early termination. A block of
+    two lanes (the two-lane layered instance) does not preempt it: in
+    turns on the device alone (`kernels.probe_two_lane`, NVIDIA H100 80GB
+    HBM3, 700.00 W), the streaming kernel against the two-lane instance
+    behind its transposes,
+    NR BG1 Z=384 at B = 1,024 2.0509 against 3.3767 ms fixed-20 and 1.3573
+    against 2.3325 with early termination at 1.25 dB, at B = 256 0.9092
+    against 0.8450 and 0.6133 against 0.6614; DVB-S2 n=16,200 at B =
+    1,024 1.5279 against 2.3689 and 1.2077 against 1.9948 at 1.4 dB, at
+    B = 256 0.5081 against 0.5961 and 0.3609 against 0.5945. So `auto`
+    streams wherever no block of four lanes takes the code."""
     dc = cfg.decoder
     if (dc.schedule != "layered" or dc.algorithm not in MIN_SUM_FAMILY
-            or minsum.is_packed(ct, "layered", 0, dc.early_term)):
+            or minsum.packed_shape(ct, "layered")[1]
+            == minsum.LANES_PER_THREAD):
         return False
     auto = stream.instance_auto(ct, dc.early_term)
     # the resident instance is the packed kernel wherever its block fits

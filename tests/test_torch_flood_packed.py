@@ -474,8 +474,11 @@ def test_other_flooding_instances_keep_their_rule(early_term, algorithm,
     assert minsum.is_packed(ct, "flooding", star, early_term)
     # the one-lane-a-thread template keeps its rule (tables in shared
     # memory, power-of-two lanes, 113 KB for two blocks an SM) on a code
-    # with no block of four lanes: NR BG1 Z=384
-    nr = from_reference(build_code(PRESETS["nr-bg1-layered"]), "cpu")
+    # with no block of four or two lanes: NR BG1 Z=384 rate 1/3 (the rate
+    # 1/2 code takes the two-lane instance)
+    nr_cfg = PRESETS["nr-bg1-layered"]
+    nr = from_reference(build_code(dataclasses.replace(
+        nr_cfg, code=dataclasses.replace(nr_cfg.code, rate="1/3"))), "cpu")
     star = minsum.star_degree(nr, dec)
     assert not minsum.is_packed(nr, "flooding", star, early_term)
     assert minsum.pick_lanes(nr, "flooding", star, early_term) == (
@@ -520,24 +523,28 @@ def test_onchip_domain_admits_what_it_admitted(preset):
 
 
 def test_code_without_a_two_lane_block_keeps_the_one_lane_kernel():
-    """NR BG1 Z=384 (n=17,664): two lanes of state exceed a block's shared
-    memory, so the fixed min-sum flooding instance is the one-lane template
-    (one lane, 384 threads), as before the packed kernel. DVB-S2 n=16,200
-    fits two lanes but not the packed kernel's four, so it keeps the
-    one-lane template too, with that template's own lanes."""
+    """NR BG1 Z=384 rate 1/3 (n=26,112): two lanes of state (totals and
+    messages, 341,776 B) exceed a block's shared memory, so the fixed
+    min-sum flooding instance is the one-lane template (one lane, 384
+    threads), as before the packed kernel. NR BG1 Z=384 rate 1/2 and DVB-S2
+    n=16,200 fit two lanes but not the packed kernel's four: since the
+    two-lane instances they take those, one block of two lanes an SM."""
     cfg = PRESETS["nr-bg1-layered"]
-    ct = from_reference(build_code(cfg), "cpu")
+    ct = from_reference(build_code(dataclasses.replace(
+        cfg, code=dataclasses.replace(cfg.code, rate="1/3"))), "cpu")
     assert minsum.packed_shape(ct) == (0, 0, 0, 0)
     assert not minsum.is_packed(ct, "flooding", 0, False)
     assert minsum.pick_lanes(ct, "flooding") == _old_pick_lanes(
         ct, "flooding", 0) == 1
+    nr = from_reference(build_code(cfg), "cpu")
     dvb = PRESETS["dvbs2-64800-r12"]
     short = from_reference(build_code(dataclasses.replace(
         dvb, code=dataclasses.replace(dvb.code, n=16200))), "cpu")
-    assert minsum.packed_shape(short) == (0, 0, 0, 0)
-    assert not minsum.is_packed(short, "flooding", 0, False)
-    assert minsum.pick_lanes(short, "flooding") == _old_pick_lanes(
-        short, "flooding", 0) == 1
+    for code, smem in ((nr, 228880), (short, 173536)):
+        assert minsum.packed_shape(code) == (2, minsum.TWO_LANES, smem, 1)
+        assert minsum.is_packed(code, "flooding", 0, False)
+        assert minsum.pick_lanes(code, "flooding") == 2
+        assert _old_pick_lanes(code, "flooding", 0) == 1
 
 
 def test_packed_tables_layout():

@@ -565,15 +565,27 @@ def test_launch_bound_caps_the_et_and_minstar_block():
 ])
 def test_codes_without_a_block_of_four_keep_the_one_lane_template(name,
                                                                   code):
+    """Checks that these codes, which no block of four lanes a thread fits
+    (their channel, totals and messages exceed a block's shared memory, or
+    NR BG1's 384 threads the bound), take the two-lane instance (the
+    channel in device memory, 384 threads a block) and not the one-lane
+    template, in every early-terminating and min* form: their rows (7, 22)
+    fit a register row. The name predates the two-lane instances."""
     ct = _preset_ct(name, **code)
     star = minsum.star_degree(ct, DecoderConfig(algorithm="min-star"))
+    assert star <= max(minsum.ROW_DEGREES)
     for sd, et in ((0, True), (star, False), (star, True)):
-        assert minsum.packed_shape(ct, "flooding", sd, et) == (0, 0, 0, 0)
-        assert not minsum.is_packed(ct, "flooding", sd, et)
+        lanes, lpt, smem, blocks = minsum.packed_shape(ct, "flooding", sd,
+                                                       et)
+        assert (lanes, lpt, blocks) == (2, minsum.TWO_LANES, 1)
+        assert lanes // lpt * ct.Z <= minsum.TWO_LANE_THREADS
+        assert minsum.packed_smem_bytes(ct, 4, "flooding") > minsum.MAX_SMEM
+        assert minsum.is_packed(ct, "flooding", sd, et)
     d = minsum.make_decoder(ct, DecoderConfig(schedule="flooding",
                                               early_term=True),
                             QuantConfig())
-    assert not d.packed and d._launch_tables == (None, 0)
+    assert d.packed and d.lanes_per_thread == minsum.TWO_LANES
+    assert d._launch_tables == (d._ptab.ctypes.data, len(d._ptab))
 
 
 def test_minstar_rows_above_24_keep_the_one_lane_template():

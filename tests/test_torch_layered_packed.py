@@ -664,14 +664,27 @@ def _preset_ct(name, **code):
 ])
 def test_codes_without_a_block_of_four_keep_the_one_lane_template(
         name, code, lanes):
+    """Checks that these codes, which no block of four lanes a thread fits
+    and which the one-lane template took with `lanes` lanes a block (its
+    rule still admits them), now take the two-lane instance: a block of two
+    lanes and Z threads, one an SM, min* too (rows of 7 and 22 fit a
+    register row). The name predates the two-lane instances."""
     ct = _preset_ct(name, **code)
-    assert minsum.packed_shape(ct, "layered") == (0, 0, 0, 0)
+    assert minsum.packed_smem_bytes(ct, 4, "layered") > minsum.MAX_SMEM
+    shape = minsum.packed_shape(ct, "layered")
+    assert shape[:2] == (2, minsum.TWO_LANES) and shape[3] == 1
     for star in (0, 7):
-        assert not minsum.is_packed(ct, "layered", star, True)
-    assert minsum.pick_lanes(ct, "layered") == lanes
+        assert minsum.is_packed(ct, "layered", star, True)
+    assert minsum.pick_lanes(ct, "layered") == 2
+    # the template's own rule, which the two-lane instance replaced
+    template = (minsum.align16(4 * minsum.table_words(ct))
+                + minsum.align16(8 * lanes) + minsum.align16(2 * ct.n * lanes)
+                + minsum.align16(ct.n_entries * ct.Z * lanes))
+    assert template <= minsum.MAX_SMEM and lanes * ct.Z <= minsum.MAX_THREADS
     d = minsum.make_decoder(ct, DecoderConfig(schedule="layered"),
                             QuantConfig())
-    assert not d.packed and d._launch_tables == (None, 0)
+    assert d.packed and d.lanes_per_thread == minsum.TWO_LANES
+    assert d._launch_tables == (d._ptab.ctypes.data, len(d._ptab))
 
 
 def test_nr_bg1_z128_takes_one_packed_block_an_sm():

@@ -238,8 +238,8 @@ def test_admission_rule_on_cpu_code_tensors():
         with pytest.raises(ValueError, match="no kernel"):
             select_decoder(long_ct, cfg, backend="pallas")
     # n=16,200 (86,760 B) and NR BG1 Z=384 (114,432 B) fit an SM, but no
-    # block of four lanes: K3 would be the one-lane template, behind
-    # transposes (the step is batch first: n > 4096). `auto` streams both
+    # block of four lanes: K3 is the two-lane instance, behind transposes
+    # (the step is batch first: n > 4096). `auto` streams both
     # (stream_first): n=16,200 through the pipelined kernel (rows of 7: its
     # 8-entry row), NR BG1 through the packed resident kernel; each was
     # measured faster than that K3. "pallas" keeps K3 for both
@@ -248,13 +248,13 @@ def test_admission_rule_on_cpu_code_tensors():
     # forced through the library: rows of 7 take the pipelined kernel's
     # 8-entry row; NR BG1's rows of up to 22 would take its 24-entry row,
     # which loses to the packed resident kernel
-    for cfg, ct, lanes, auto_label, forced_label in (
-            (short_cfg, short_ct, 1, "torch-plain-stream-pipelined",
+    for cfg, ct, auto_label, forced_label in (
+            (short_cfg, short_ct, "torch-plain-stream-pipelined",
              "torch-plain-stream-pipelined-et"),
-            (nr_cfg, nr_ct, 2, "torch-plain-stream-resident",
+            (nr_cfg, nr_ct, "torch-plain-stream-resident",
              "torch-plain-stream-resident-et")):
-        assert minsum.pick_lanes(ct, "layered") == lanes
-        assert not minsum.is_packed(ct, "layered", 0, False)
+        assert minsum.pick_lanes(ct, "layered") == 2
+        assert minsum.packed_shape(ct, "layered")[1] == minsum.TWO_LANES
         dec, label = select_decoder(ct, cfg, batch=64)
         assert label == auto_label
         assert stream_first(ct, cfg) == (auto_label != "torch-plain-"

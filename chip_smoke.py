@@ -15,8 +15,11 @@ Phases, each printing its lines; any failure raises and exits non-zero:
    `layered_packed_kernel`; each packed kernel wherever a block of four
    lanes fits (min* up to rows of 24), else its two-lane instance
    (`flood_two_lane_kernel`, `layered_two_lane_kernel`, since slice 12)
-   where a block of two fits, the one-lane template elsewhere; each
-   decoder libraries each build as three units at once; both
+   where a block of two fits, else its one-lane instance
+   (`flood_quad_kernel`, `layered_row_kernel`, since slice 13: no block of
+   two lanes, or min* rows of 25-28), the one-lane template elsewhere (rows
+   above 28, Z % 4 != 0 when flooding); the decoder libraries build as
+   four (flooding) and five (layered) units at once; both
    include
    `cn_minstar.cuh`, the min* update K5 that doubles their instances,
    `cn_packed.cuh` (the packed parts both libraries share), `mc_stage.cuh`
@@ -63,9 +66,11 @@ Phases, each printing its lines; any failure raises and exits non-zero:
    n=648 hard; fixed-20 K5 fused-IO at B=16,384; the (3,30) array code
    layered (rows of 30: the row read twice), and min* on it (the one-lane
    template); the one-lane template's min-sum family on NR BG1 Z=384 rate
-   1/3 (no block of two lanes fits), flooding min-sum and layered OMS,
+   1/3 (no block of two lanes fits; forced there, since the one-lane
+   instances of slice 13 took the route), flooding min-sum and layered OMS,
    fixed-20 and with early termination, B = 3 and 5; every case's packed
-   launches are counted, one exactly when its decoder is packed;
+   and one-lane launches are counted, one exactly when its decoder is
+   packed or one-lane;
 4. K1-MC kernel vs plain, tolerance 0 on the four per-lane outputs
    (then slice 12's two-lane instances, below);
    n=648 flooding fixed-20 at 2.0 dB with injected words and with Philox
@@ -150,8 +155,8 @@ Phases, each printing its lines; any failure raises and exits non-zero:
    reset just before it, must show the route's kernel only (the
    schedule's on-chip library, its MC instance exactly with rng="device",
    min* launches exactly for min*, its packed instance exactly where a
-   block of four or two lanes takes the code and the one-lane template
-   elsewhere;
+   block of four or two lanes takes the code, its one-lane instance
+   exactly where that takes it, and the one-lane template elsewhere;
    or one instance of the streaming library, in its packed resident kernel
    exactly when the decoder is packed) and 0 plain calls; then each
    is held to its reference: FER and
@@ -414,7 +419,8 @@ Phases, each printing its lines; any failure raises and exits non-zero:
    (`event_ms`). Slices 10 and 11b-11d's decoders, one for each (instance,
    batch) held to plain, on its first sweep's input, and the deep floors'
    and the soft BSC's decoders on the batch each was held to plain with,
-   kernel against plain (one plain run a turn). Slice 12's forms
+   kernel against plain. Every kernel-against-plain time runs the kernel,
+   one plain call, the kernel (`kernel_vs_plain_ms`). Slice 12's forms
    (`kernels/probe_two_lane.py`'s cells at B = 1,024 on NR BG1 Z=384 and
    DVB-S2 n=16,200 r1/2: flooding min-sum, OMS and min*, layered OMS and
    min*, fixed-20 and with early termination) by events and on the device
@@ -428,14 +434,11 @@ where four lanes exceed a block's shared memory): every two-lane instance
 == plain, tolerance 0 on every output, on NR BG1 Z=384, Z=256 and Z=128
 rate 1/3 (flooding; its layered state takes four lanes) and DVB-S2
 n=16,200 rates 1/2 and 8/9 (rows of 27-28: the row read twice; min* there
-stays the one-lane template's, held too), both schedules, OMS fixed, OMS
+is the one-lane instance's, held too), both schedules, OMS fixed, OMS
 with early termination in fused IO, min* fixed and with early termination,
 at 6 iterations and B = 3, 1,000, 1,024 and 1,027, each against one plain
 run of 1,027 lanes, and the megakernel at two lanes a thread refused on the
-card (not built: no step reaches it) (`check_two_lane`); the one-lane
-template where no block of two lanes fits (NR BG1 Z=384 rate 1/3: flooding
-min-sum and layered OMS, fixed and with early termination, B = 3 and 5, no
-packed launch) in the kernel-vs-plain phase;
+card (not built: no step reaches it) (`check_two_lane`);
 then the CLI's main paths in process (`check_two_lane_cli`): `sweep
 --preset nr-bg1-layered --schedule flooding --auto-two-phase` (OMS with
 early termination) and `sweep --preset dvbs2-64800-r12 --n 16200
@@ -443,6 +446,30 @@ early termination) and `sweep --preset dvbs2-64800-r12 --n 16200
 points, each with rng=host and rng=device (n > 4,096: the batch-first
 chain, the host run's draws) launching the two-lane instance only, and
 their counters equal to `--decoder-backend qc`'s.
+
+Slice 13 (the one-lane instances, a codeword a block: `flood_quad_kernel`,
+four check rows of one codeword a 32-bit word, the circulant shift a
+rotation of the word, and `layered_row_kernel`, a register row a thread
+with min*'s two chains side by side in the halves of a 16x2 word; where no
+block of two lanes fits or min* rows have 25-28 entries): every one-lane
+instance == plain == the one-lane template forced on the same input
+(`make_decoder(..., template=True)`), tolerance 0 on every output, on NR
+BG1 rate 1/3 at Z = 384 and 320 (every form, both schedules) and DVB-S2
+n=16,200 rate 8/9 (min*, both schedules), OMS fixed, OMS with early
+termination in fused IO, min* fixed and with early termination, at 6
+iterations and B = 3, 5, 1,000, 1,024 and 1,027 against one plain run of
+1,027 lanes, one one-lane launch and no packed launch each, and their
+megakernel refused on the card (`check_one_lane`); then the CLI's main
+paths in process
+(`check_one_lane_cli`): `sweep --preset nr-bg1-layered --rate 1/3
+--schedule flooding --auto-two-phase` (OMS with early termination, 0.5 and
+1.0 dB), `sweep --preset nr-bg1-layered --rate 1/3 --algorithm min-star`
+(layered min*, 20 fixed iterations) and `sweep --preset dvbs2-64800-r12
+--n 16200 --rate 8/9 --algorithm min-star` on both schedules (3.5 and 4.0
+dB), batch 1,024, one batch a point, launching the one-lane instance only
+and no template, their counters equal to `--decoder-backend qc`'s on the
+same draws; and their decoders timed against plain and in turns with the
+template (`time_one_lane`).
 
 Each kernel record carries `launches` of the main path named beside it
 (K3's and the streaming kernel's that slice 8d's smoke decodes launched
@@ -842,8 +869,8 @@ RAGGED = (1, 3, 5, 4099, 16385)      # batches of the packed flooding kernel
 # Slice 12: the codes of the two-lane packed instances (state of 57-115 KB
 # a lane: four lanes exceed a block's shared memory, two fit), each with
 # the sigma of its held LLRs (lanes finish apart within TWO_LANE_ITERS
-# iterations); DVB-S2 rate 8/9's min* (rows of 27-28) stays on the one-lane
-# template and is held with them
+# iterations); DVB-S2 rate 8/9's min* (rows of 27-28) takes the one-lane
+# instance (slice 13) and is held with them
 TWO_LANE_CODES = (
     ("NR BG1 Z=384", "nr-bg1-layered", {}, 0.66),
     ("NR BG1 Z=256", "nr-bg1-layered", dict(Z=256), 0.66),
@@ -873,7 +900,12 @@ SASS_OPS = ("LDS", "STS", "LDC", "ULDC", "LD", "LDG", "STG", "LDGSTS", "BAR")
 # paths and cells: flooding fixed and with early termination at NR BG1's
 # 24-entry row and DVB-S2's 8-entry row, min* with early termination; layered
 # fixed at the 24-entry row, with early termination (slice 5c's forced K3)
-# and min* fixed (the CLI's) at the 8-entry row
+# and min* fixed (the CLI's) at the 8-entry row; and slice 13's one-lane
+# instances (<DMAX, STAR, ET>) beside the template's fixed min* instances
+# they took the routes from: flood_quad_kernel fixed, with early
+# termination (the CLI's) and min* at the 24-entry row (NR BG1 rate 1/3),
+# min* at the 28-entry row (DVB-S2 rate 8/9); layered_row_kernel min* fixed
+# at both rows
 SASS_FLOOD = ("flood_packed_kernelILi4ELi8ELb0EE",
               "flood_packed_kernelILi4ELi8ELb0ELb1ELb0E",
               "flood_packed_kernelILi4ELi8ELb1ELb0ELb0E",
@@ -882,14 +914,22 @@ SASS_FLOOD = ("flood_packed_kernelILi4ELi8ELb0EE",
               "flood_two_lane_kernelILi24ELb0ELb0EE",
               "flood_two_lane_kernelILi24ELb0ELb1EE",
               "flood_two_lane_kernelILi8ELb0ELb0EE",
-              "flood_two_lane_kernelILi24ELb1ELb1EE")
+              "flood_two_lane_kernelILi24ELb1ELb1EE",
+              "flood_quad_kernelILi24ELb0ELb0EE",
+              "flood_quad_kernelILi24ELb0ELb1EE",
+              "flood_quad_kernelILi24ELb1ELb0EE",
+              "flood_quad_kernelILi28ELb1ELb0EE",
+              "minsum_flood_kernelILb0ELb0ELb1E")
 SASS_LAYERED = ("layered_packed_kernelILi4ELi20ELb0ELb1ELb0E",
                 "layered_packed_kernelILi4ELi8ELb0ELb1ELb0E",
                 "layered_packed_kernelILi4ELi8ELb1ELb1ELb0E",
                 "minsum_layered_kernelILb1ELb0ELb0E",
                 "layered_two_lane_kernelILi24ELb0ELb0EE",
                 "layered_two_lane_kernelILi8ELb0ELb1EE",
-                "layered_two_lane_kernelILi8ELb1ELb0EE")
+                "layered_two_lane_kernelILi8ELb1ELb0EE",
+                "layered_row_kernelILi24ELb1ELb0EE",
+                "layered_row_kernelILi28ELb1ELb0EE",
+                "minsum_layered_kernelILb0ELb0ELb1E")
 
 
 def phase(name):
@@ -1009,14 +1049,19 @@ def innermost_loops(ins):
                              for a, b in back))
 
 
-def sass_counts(path):
-    """Per kernel function of a built library (`sass_functions`): its
+def sass_counts(path, keep=lambda name: True):
+    """Per kernel function of a built library (`sass_functions`) whose
+    name `keep` takes: its
     shared-memory loads and stores (LDS, STS), constant-bank loads (LDC,
     ULDC), generic loads (LD), device-memory loads and stores (LDG, STG),
     asynchronous copies (LDGSTS) and barriers (BAR) in the whole function
-    ("all") and in each innermost loop (`innermost_loops`)."""
+    ("all") and in each innermost loop (`innermost_loops`, with its
+    instructions, `ins`: 16 bytes each on sm_90)."""
     out = {}
     for name, ins in sass_functions(path).items():
+        if not keep(name):
+            continue
+
         def count(lo, hi):
             c = dict.fromkeys(SASS_OPS, 0)
             for addr, op, _ in ins:
@@ -1024,7 +1069,8 @@ def sass_counts(path):
                     c[op] += 1
             return c
         out[name] = {"all": count(0, 1 << 62),
-                     "loops": [dict(count(lo, hi), span=[hex(lo), hex(hi)])
+                     "loops": [dict(count(lo, hi), span=[hex(lo), hex(hi)],
+                                    ins=(hi - lo) // 16 + 1)
                                for lo, hi in innermost_loops(ins)]}
     return out
 
@@ -1040,18 +1086,13 @@ def print_sass(minsum, stream, micro):
     streaming library, the pipelined kernel's (its layer loop: LDGSTS, LDS,
     STS, STG, LDC) beside the template's; and the microbenchmark library's
     packed S1 and S2 instances (`sweep_kernel`, `minsum_kernel`)."""
-    path = minsum.load_library("minsum_flood").path
-    for fn, c in sass_counts(path).items():
-        if any(k in fn for k in SASS_FLOOD):
-            print(f"  sass {fn}: {json.dumps(c)}", flush=True)
-    for fn, c in sass_counts(minsum.load_library("minsum_layered").path
-                             ).items():
-        if any(k in fn for k in SASS_LAYERED):
-            print(f"  sass {fn}: {json.dumps(c)}", flush=True)
-    for fn, c in sass_counts(stream.load_library().path).items():
-        print(f"  sass {fn}: {json.dumps(c)}", flush=True)
-    for fn, c in sass_counts(micro.load_library().path).items():
-        if "sweep_kernel" in fn or "minsum_kernel" in fn:
+    for path, keys in (
+            (minsum.load_library("minsum_flood").path, SASS_FLOOD),
+            (minsum.load_library("minsum_layered").path, SASS_LAYERED),
+            (stream.load_library().path, ("",)),
+            (micro.load_library().path, ("sweep_kernel", "minsum_kernel"))):
+        counts = sass_counts(path, lambda fn: any(k in fn for k in keys))
+        for fn, c in counts.items():
             print(f"  sass {fn}: {json.dumps(c)}", flush=True)
 
 
@@ -1071,16 +1112,20 @@ def max_abs_err(a, b):
                if x.numel() else 0.0 for x, y in zip(a, b))
 
 
-def kernel_vs_plain_ms(d, args, kw, gpu, what, kernel_reps=10, plain_reps=3):
-    """Median ms of d.kernel and d.plain on (*args, **kw), in turns (plain,
-    kernel, kernel, plain) after a warm-up; prints and returns both."""
+def kernel_vs_plain_ms(d, args, kw, gpu, what, kernel_reps=10, plain_reps=1):
+    """Median ms of d.kernel and d.plain on (*args, **kw), in turns
+    (kernel, plain, kernel) after the kernel's warm-up; prints and returns
+    both. The plain version runs one turn of plain_reps calls, one by
+    default, with no warm-up of its own (until slice 13: a warm-up and two
+    turns of three calls; the plain versions' calls, up to 20 s each, took
+    the time the script's limit gave slice 13), so its time may hold a
+    first call's setup."""
     from ldpc_tpu_torch.utils.profiling import event_ms
     for _ in range(3):
         d.kernel(*args, **kw)
-    d.plain(*args, **kw)
     torch.cuda.synchronize()
     plain_t, kern_t = [], []
-    for turn in ("plain", "kernel", "kernel", "plain"):
+    for turn in ("kernel", "plain", "kernel"):
         if turn == "plain":
             plain_t += event_ms(lambda: d.plain(*args, **kw), plain_reps)
         else:
@@ -1326,8 +1371,9 @@ def instance_name(d):
     """The kernel template instance decoder d launches: the packed kernel
     of its library <lanes a thread, register row, min*, ET, MC> (the
     flooding library's fixed min-sum family: <lanes a thread, register row,
-    MC>), its two-lane instance <register row, min*, ET> or the one-lane
-    template <ET, MC, min*>."""
+    MC>), its two-lane instance <register row, min*, ET>, its one-lane
+    instance (flood_quad_kernel, layered_row_kernel) <register row, min*,
+    ET> or the one-lane template <ET, MC, min*>."""
     from ldpc_tpu_torch.kernels import minsum
     mc = hasattr(d, "cb")                  # the megakernel (McDecoder)
     d = getattr(d, "inner", d)             # behind the batch-first transposes
@@ -1337,6 +1383,11 @@ def instance_name(d):
 
     def b(x):
         return "true" if x else "false"
+    if d.one_lane:
+        deg = max(len(row) for row in d.ct.entries)
+        dmax = next(r for r in minsum.ONE_LANE_ROW_DEGREES if deg <= r)
+        kernel = "flood_quad" if lib == "flood" else "layered_row"
+        return f"{kernel}_kernel<{dmax}, {b(star)}, {b(et)}>"
     if not d.packed:
         return f"minsum_{lib}_kernel<{b(et)}, {b(mc)}, {b(star)}>"
     dmax = minsum.row_degree_instance(d.ct, d.dec.schedule)
@@ -1359,9 +1410,10 @@ def same_instance(driven, checked, label):
 def launch_counts(minsum, stream, sweep, label, mc):
     """The launch counters of the run just made. An on-chip route must
     have gone through the schedule's library only, in its MC instance
-    exactly when `mc`, in its packed instance (four lanes a thread) exactly
-    when a block of four lanes takes the code (`minsum.is_packed`), else in
-    the one-lane template; a streaming route through its instance of the
+    exactly when `mc`, in its packed instance (four or two lanes a thread)
+    exactly when a packed block takes the code (`minsum.is_packed`), in its
+    one-lane instance exactly when that takes it (`minsum.is_one_lane`),
+    else in the one-lane template; a streaming route through its instance of the
     streaming library only, in the packed resident kernel exactly when the
     decoder is packed; both with no plain call. A plain route (forced,
     to compare with) launches no kernel. Returns the route's launches."""
@@ -1397,21 +1449,26 @@ def launch_counts(minsum, stream, sweep, label, mc):
     dc = sweep.cfg.decoder
     lib = minsum.LIBRARIES[dc.schedule]
     star = dc.algorithm == "min-star"
-    is_packed = minsum.is_packed(sweep.ct, dc.schedule,
-                                 minsum.star_degree(sweep.ct, dc),
+    star_deg = minsum.star_degree(sweep.ct, dc)
+    is_packed = minsum.is_packed(sweep.ct, dc.schedule, star_deg,
                                  dc.early_term)
+    is_one = minsum.is_one_lane(sweep.ct, dc.schedule, star_deg,
+                                dc.early_term)
+    one = dict(minsum.one_lane_launches)
     want_mc = {name: launches[name] if mc else 0 for name in launches}
     want_star = {name: launches[name] if star else 0 for name in launches}
     want_packed = {name: launches[name] if is_packed else 0
                    for name in launches}
+    want_one = {name: launches[name] if is_one else 0 for name in launches}
     if (launches[lib] <= 0 or plain != 0 or mc_launches != want_mc
             or star_launches != want_star or packed != want_packed
-            or stream.kernel_launches
+            or one != want_one or stream.kernel_launches
             or any(v for name, v in launches.items() if name != lib)):
         raise AssertionError(
             f"{label} did not run through {lib}"
             f"{' (min*)' if star else ''}{' (MC)' if mc else ''}"
-            f"{' (packed)' if is_packed else ' (one lane a thread)'} only")
+            + (" (packed)" if is_packed else " (one-lane instance)" if is_one
+               else " (one-lane template)") + " only")
     return launches[lib]
 
 
@@ -1825,7 +1882,7 @@ def check_two_lane(port, minsum, dev):
     first B lanes of a run are the run of those lanes). A (code, schedule)
     that a block of four lanes takes (NR BG1 Z=128 rate 1/3, layered) is
     not a two-lane instance and is left out; min* on rows of 27-28 is the
-    one-lane template's, held here too. Each launch must count as packed
+    one-lane instance's (slice 13), held here too. Each launch must count as packed
     exactly when it is a two-lane instance. The megakernel is not built at
     two lanes a thread (no step reaches it: n > 4,096 takes the
     batch-first chain); asking for it on the card raises, for each code and
@@ -1882,10 +1939,11 @@ def check_two_lane(port, minsum, dev):
                     ct, dc, qc, input_scale=qc.scale if fused else None,
                     count_info_cols=ct.kb if fused else None)
                 two = d.lanes_per_thread == minsum.TWO_LANES
-                if d.packed != two or (not two and d.minstar is None):
+                if d.packed != two or (not two and not (
+                        d.minstar is not None and d.one_lane)):
                     raise AssertionError(f"{label} {schedule} {form}: neither "
                                          f"a two-lane instance nor min* on "
-                                         f"the one-lane template")
+                                         f"the one-lane instance")
                 want = run(d.plain, big)
                 torch.cuda.synchronize()
                 oks, err = [], 0.0
@@ -2044,6 +2102,276 @@ def time_two_lane(port, minsum, gpu, dev):
         b_ms, b_by = bound_of(d, args, {})
         print(f"  bound {b_ms:.4f} ms by {b_by} ({100 * b_ms / t[0]:.1f}% "
               f"of the kernel's time)", flush=True)
+        timing[key], decs[key] = t + (b_ms, b_by), d
+    return timing, decs
+
+
+# Slice 13: the codes of the one-lane instances (flood_quad_kernel,
+# layered_row_kernel; a codeword a block): NR BG1 rate 1/3 at Z = 384 and
+# 320 (no block of two lanes fits: every form) and DVB-S2 n=16,200 rate 8/9
+# (min* on rows of 27-28; its min-sum family takes the two-lane instance),
+# each with the sigma of its held LLRs (lanes finish apart within
+# TWO_LANE_ITERS iterations)
+ONE_LANE_CODES = (
+    ("NR BG1 Z=384 r1/3", "nr-bg1-layered", dict(rate="1/3"), 0.85),
+    ("NR BG1 Z=320 r1/3", "nr-bg1-layered", dict(Z=320, rate="1/3"), 0.85),
+    ("DVB-S2 n=16,200 r8/9", "dvbs2-64800-r12", dict(n=16200, rate="8/9"),
+     0.45))
+ONE_LANE_BATCHES = (3, 5, 1000, 1024, 1027)   # each held to one plain run
+
+
+def check_one_lane(port, minsum, dev):
+    """Slice 13: every one-lane instance (flood_quad_kernel,
+    layered_row_kernel) == its plain version and == the one-lane template
+    it took the route from (forced: `make_decoder(..., template=True)`),
+    tolerance 0 on every output: on each code of ONE_LANE_CODES, both
+    schedules, in the forms of `two_lane_forms` that a one-lane instance
+    takes (all four on NR BG1 rate 1/3; min* on DVB-S2 rate 8/9), at each
+    batch of ONE_LANE_BATCHES against one plain run at the largest. Each
+    launch must count as a one-lane launch and not as packed, each template
+    launch as neither; the megakernel of a one-lane instance is refused on
+    the card (not built: n > 4,096 takes the batch-first chain). Returns
+    the worst error by instance name."""
+    from ldpc_tpu_torch.codes import build_code, from_reference
+    from ldpc_tpu_torch.ops.quantize import quantize
+    from ldpc_tpu_torch.ops.rng import word_layout
+    rng = np.random.default_rng(13)
+    big = max(ONE_LANE_BATCHES)
+    worst = {}
+    for label, preset, code_kw, sigma in ONE_LANE_CODES:
+        cfg = port.PRESETS[preset]
+        cfg = dataclasses.replace(cfg, code=dataclasses.replace(
+            cfg.code, **code_kw))
+        ct = from_reference(build_code(cfg), dev)
+        llr, info = channel_llrs(rng, ct, big, cfg.quant.scale, sigma)
+        f32 = torch.as_tensor(llr).reshape(ct.nb, ct.Z, big).to(dev)
+        bits = torch.as_tensor(info).reshape(ct.kb, ct.Z, big).to(dev)
+        for schedule in ("flooding", "layered"):
+            forms = {form: v for form, v in two_lane_forms(
+                port, cfg, schedule).items()
+                if minsum.is_one_lane(ct, schedule,
+                                      minsum.star_degree(ct, v[0]),
+                                      v[0].early_term)}
+            if not forms:
+                continue
+            dc, qc, _ = next(iter(forms.values()))
+            mc = minsum.make_decoder(ct, dc, qc, input_scale=qc.scale,
+                                     count_info_cols=ct.kb, mc_batch=3,
+                                     inject_random=True)
+            words = torch.zeros((word_layout(ct.kb, ct.nb, ct.Z)[2], 3),
+                                dtype=torch.int32, device=dev)
+            launches0 = minsum.kernel_launches
+            try:
+                mc.kernel(0, np.float32(sigma),
+                          np.float32(2 * qc.scale / sigma ** 2), words=words)
+            except RuntimeError as e:
+                if "not supported" not in str(e):
+                    raise
+                print(f"13 {label} {schedule} the megakernel of the "
+                      f"one-lane instance: refused ({e})", flush=True)
+            else:
+                raise AssertionError(f"{label} {schedule}: a one-lane "
+                                     f"megakernel launched")
+            if minsum.kernel_launches != launches0:
+                raise AssertionError(f"{label} {schedule}: a refused "
+                                     f"megakernel counted as launched")
+            for form, (dc, qc, kind) in forms.items():
+                fused = kind == "fused"
+                chan = f32 if fused else quantize(f32, qc)
+
+                def run(fn, B):
+                    """fn on the first B lanes of the held input."""
+                    return fn(chan[..., :B].contiguous(),
+                              *((bits[..., :B].contiguous(),) if fused
+                                else ()))
+                kw = dict(input_scale=qc.scale if fused else None,
+                          count_info_cols=ct.kb if fused else None)
+                d = minsum.make_decoder(ct, dc, qc, **kw)
+                tmpl = minsum.make_decoder(ct, dc, qc, template=True, **kw)
+                if not d.one_lane or d.packed or tmpl.one_lane or tmpl.packed:
+                    raise AssertionError(f"{label} {schedule} {form}: not "
+                                         f"a one-lane instance")
+                want = run(d.plain, big)
+                torch.cuda.synchronize()
+                oks, err = [], 0.0
+                for B in ONE_LANE_BATCHES:
+                    one0 = minsum.one_lane_launches[d.library]
+                    packed0 = minsum.packed_launches[d.library]
+                    got = run(d.kernel, B)
+                    torch.cuda.synchronize()
+                    one1 = minsum.one_lane_launches[d.library]
+                    old = run(tmpl.kernel, B)
+                    torch.cuda.synchronize()
+                    if (one1 - one0 != 1 or minsum.one_lane_launches[
+                            d.library] != one1
+                            or minsum.packed_launches[d.library] != packed0):
+                        raise AssertionError(f"{label} {schedule} {form} "
+                                             f"B={B}: one-lane launches")
+                    ref = tuple(x[..., :B] for x in want)
+                    err = max(err, max_abs_err(got, ref),
+                              max_abs_err(got, old))
+                    oks.append(all(torch.equal(a, b) and torch.equal(a, c)
+                                   for a, b, c in zip(got, ref, old)))
+                name = instance_name(d)
+                worst[name] = max(worst.get(name, 0.0), err)
+                its = want[-2].double()
+                held = zip(ONE_LANE_BATCHES, oks)
+                print(f"13 {label} {schedule} {form} ({name}, "
+                      f"{shape_text(d)}; template {shape_text(tmpl)}): "
+                      f"max_abs_err {err:g}, equal to plain and to the "
+                      f"template at B = "
+                      f"{', '.join(f'{B} {ok}' for B, ok in held)} "
+                      f"(converged {int(want[-1].sum())}/{big}, iters "
+                      f"{float(its.min()):.0f}-{float(its.max()):.0f}, mean "
+                      f"{float(its.mean()):.3f})", flush=True)
+                if not all(oks):
+                    raise AssertionError(f"kernel != plain or template on "
+                                         f"13 {label} {schedule} {form}")
+    return worst
+
+
+# Slice 13's main paths through the CLI (`sweep`, batch 1,024, two points,
+# one batch a point): name -> (code, schedule, the instance's min* and
+# early termination, argv)
+ONE_LANE_CLI = {
+    "NR BG1 Z=384 r1/3 flooding OMS ET": (
+        ("nr-bg1-layered", dict(rate="1/3")), "flooding", False, True,
+        ["--preset", "nr-bg1-layered", "--rate", "1/3", "--schedule",
+         "flooding", "--auto-two-phase", "--ebn0", "0.5,1.0"]),
+    "NR BG1 Z=384 r1/3 layered min*": (
+        ("nr-bg1-layered", dict(rate="1/3")), "layered", True, False,
+        ["--preset", "nr-bg1-layered", "--rate", "1/3", "--algorithm",
+         "min-star", "--ebn0", "0.5,1.0"]),
+    "DVB-S2 n=16,200 r8/9 flooding min*": (
+        ("dvbs2-64800-r12", dict(n=16200, rate="8/9")), "flooding", True,
+        False, ["--preset", "dvbs2-64800-r12", "--n", "16200", "--rate",
+                "8/9", "--algorithm", "min-star", "--schedule", "flooding",
+                "--ebn0", "3.5,4.0"]),
+    "DVB-S2 n=16,200 r8/9 layered min*": (
+        ("dvbs2-64800-r12", dict(n=16200, rate="8/9")), "layered", True,
+        False, ["--preset", "dvbs2-64800-r12", "--n", "16200", "--rate",
+                "8/9", "--algorithm", "min-star", "--ebn0", "3.5,4.0"]),
+}
+
+
+def check_one_lane_cli(port, minsum, stream):
+    """Slice 13's main paths, `python -m ldpc_tpu_torch.cli sweep` driven in
+    process (ONE_LANE_CLI; the preset's early_term=False turned on by
+    `--auto-two-phase` for the flooding OMS run), each on `auto` and on
+    `--decoder-backend qc` (the plain QC decoder) with rng=host. Fails
+    unless each `auto` run launched the schedule's library only, every
+    launch a one-lane instance (none packed, none of the template), no
+    plain call, and the two runs' counters are equal (the same draws).
+    Returns name -> the auto run's launches."""
+    from ldpc_tpu_torch import cli
+    from ldpc_tpu_torch.codes import build_code, from_reference
+    common = ["--batch", str(STREAM_BATCH), "--max-frames", str(STREAM_BATCH),
+              "--target-errors", "1000000000", "--no-checkpoint"]
+    launched = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, ((preset, code_kw), schedule, star, et, argv) in (
+                ONE_LANE_CLI.items()):
+            cfg = port.PRESETS[preset]
+            ct = from_reference(build_code(dataclasses.replace(
+                cfg, code=dataclasses.replace(cfg.code, **code_kw))), "cpu")
+            star_deg = max(len(row) for row in ct.entries) if star else 0
+            if not minsum.is_one_lane(ct, schedule, star_deg, et):
+                raise AssertionError(f"{name}: not a one-lane instance")
+            lib = minsum.LIBRARIES[schedule]
+            got = {}
+            for backend in ("auto", "qc"):
+                minsum.reset_counters()
+                stream.reset_counters()
+                out = os.path.join(tmp, f"{len(launched)}-{backend}")
+                t0 = time.perf_counter()
+                rc = cli.main(["sweep", *argv, *common, "--rng", "host",
+                               "--decoder-backend", backend, "--out", out])
+                torch.cuda.synchronize()
+                with open(out + ".json") as fh:
+                    res = json.load(fh)
+                libs = dict(minsum.library_launches)
+                one = dict(minsum.one_lane_launches)
+                packed = dict(minsum.packed_launches)
+                plain = minsum.plain_calls + stream.plain_calls
+                print(f"13 CLI {name} --decoder-backend {backend} "
+                      f"({time.perf_counter() - t0:.1f} s, rc {rc}): backend "
+                      f"{res['decoder_backend']}, launches {libs}, one-lane "
+                      f"{one}, packed {packed}, streaming "
+                      f"{stream.kernel_launches}, plain calls {plain}; " +
+                      "; ".join(
+                          f"{r['ebn0_db']} dB frames {r['frames']} "
+                          f"frame_errs {r['frame_errs']} bit_errs "
+                          f"{r['bit_errs']} avg_iters {r['avg_iters']:.4f}"
+                          for r in res["results"]), flush=True)
+                if rc != 0:
+                    raise AssertionError(f"CLI {name}: rc {rc}")
+                if backend == "auto":
+                    if not (libs[lib] > 0 and one[lib] == libs[lib]
+                            and sum(libs.values()) == libs[lib]
+                            and not any(packed.values())
+                            and not stream.kernel_launches and not plain
+                            and res["decoder_backend"].startswith(
+                                "cuda-min")
+                            and "-bf" in res["decoder_backend"]):
+                        raise AssertionError(f"CLI {name}: not the one-lane "
+                                             f"{lib} only")
+                    launched[name] = libs[lib]
+                elif any(libs.values()) or stream.kernel_launches:
+                    raise AssertionError(f"CLI {name} qc: kernels launched")
+                got[backend] = [[r[c] for c in COUNTERS]
+                                for r in res["results"]]
+            if got["auto"] != got["qc"]:
+                raise AssertionError(f"CLI {name}: counters differ: {got}")
+            if any(r[0] < STREAM_BATCH for r in got["auto"]):
+                raise AssertionError(f"CLI {name}: frames short")
+            print(f"  counters equal across auto and qc: True", flush=True)
+    return launched
+
+
+def time_one_lane(port, minsum, gpu, dev):
+    """Slice 13's times on the card: the decoders of the main paths
+    (ONE_LANE_CLI's, behind their transposes, as the CLI launched them) at
+    B = 1,024 on the probe's inputs (`kernels.probe_two_lane.ONE_LANE`'s
+    codes and points): 20 kernel calls against one plain call, with each
+    call's bound, and in turns with the one-lane template forced on the
+    same input. Returns timing key -> (ms, plain ms, bound ms, bound by) and
+    key -> the decoder timed."""
+    from ldpc_tpu_torch.kernels import probe_two_lane as probe
+    from ldpc_tpu_torch.sim.pipeline import select_decoder
+    from ldpc_tpu_torch.utils.profiling import event_ms
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(13)
+    timing, decs = {}, {}
+    nr, dvb = "NR BG1 Z=384 r1/3", "DVB-S2 n=16,200 r8/9"
+    for key, code, form, et, ebn0 in (
+            ("K2 quad", nr, "flooding OMS", True, 1.0),
+            ("K5 layered row", nr, "layered min*", False, 1.0),
+            ("K5 flooding quad r89", dvb, "flooding min*", False, 4.0),
+            ("K5 layered row r89", dvb, "layered min*", False, 4.0)):
+        ct = probe.code_tensors(code, dev)
+        cfg = probe.config(code, form, et)
+        d, label = select_decoder(ct, cfg, batch=STREAM_BATCH)
+        tmpl = minsum.make_decoder(ct, cfg.decoder, cfg.quant,
+                                   template=True)
+        q = probe.channel_q(ct, cfg, ebn0, STREAM_BATCH, gen)
+        # one plain call: the plain min* layered decoder takes 20 s here
+        for _ in range(3):
+            d.kernel(q)
+        kern_t = event_ms(lambda: d.kernel(q), 20)
+        plain_t = event_ms(lambda: d.plain(q), 1)
+        t = (statistics.median(kern_t), plain_t[0])
+        print(f"[{gpu}] {key} ({label}, {instance_name(d)}) on {code}, "
+              f"{form}, {STREAM_BATCH} codewords at {ebn0} dB: kernel "
+              f"{t[0]:.4f} ms (runs {len(kern_t)}, min {min(kern_t):.4f}, "
+              f"max {max(kern_t):.4f}), plain {t[1]:.4f} ms (one call)",
+              flush=True)
+        b_ms, b_by = bound_of(d, (q,), {})
+        print(f"  bound {b_ms:.4f} ms by {b_by} ({100 * b_ms / t[0]:.1f}% "
+              f"of the kernel's time)", flush=True)
+        chan = q.T.reshape(ct.nb, ct.Z, STREAM_BATCH).contiguous()
+        kernels_in_turns_ms({"template": tmpl, "one_lane": d.inner},
+                            (chan,), gpu, f"{key} in turns with the one-lane "
+                            f"template, {code}, {form}")
         timing[key], decs[key] = t + (b_ms, b_by), d
     return timing, decs
 
@@ -4728,9 +5056,11 @@ def main():
          None),
     ]
     # the one-lane template's min-sum family where no block of two lanes
-    # fits (NR BG1 Z=384 rate 1/3: about 170 KB a lane), both schedules,
-    # fixed and with early termination, at ragged tiny batches: no packed
-    # launch
+    # fits (NR BG1 Z=384 rate 1/3: about 170 KB a lane), forced there since
+    # the one-lane instances took the route (slice 13 holds those), both
+    # schedules, fixed and with early termination, at ragged tiny batches:
+    # the cases that keep watch on the one-lane ptxas fault left open
+    # (ROADMAP queue 3), no packed or one-lane launch
     nr13 = long_code("nr-bg1-layered", rate="1/3")
     for B in (3, 5):
         cases += [
@@ -4748,9 +5078,10 @@ def main():
     star_worst = dict.fromkeys(libs, 0.0)
     held = {}   # label -> the decoder held to its plain version at B=BATCH
     for label, ct, dc, qc, B, fused, sigma in cases:
+        template = "(one-lane template)" in label
         if fused:
             d = minsum.make_decoder(ct, dc, qc, input_scale=qc.scale,
-                                    count_info_cols=ct.kb)
+                                    count_info_cols=ct.kb, template=template)
             if isinstance(sigma, tuple):
                 args = chain_args(ct, *sigma, B=B, gen=gen)
             else:
@@ -4758,16 +5089,19 @@ def main():
                 args = (torch.as_tensor(llr).reshape(ct.nb, ct.Z, B).to(dev),
                         torch.as_tensor(info).reshape(ct.kb, ct.Z, B).to(dev))
         else:
-            d = minsum.make_decoder(ct, dc, qc)
+            d = minsum.make_decoder(ct, dc, qc, template=template)
             args = (torch.as_tensor(mixed_llrs(rng, ct.n, B, qc.qmax)
                                     ).reshape(ct.nb, ct.Z, B).to(dev),)
-        if "(one-lane template)" in label and d.packed:
-            raise AssertionError(f"{label}: a packed instance")
+        if template and (d.packed or d.one_lane):
+            raise AssertionError(f"{label}: {instance_name(d)}")
         packed0 = minsum.packed_launches[d.library]
+        one0 = minsum.one_lane_launches[d.library]
         out_k = d.kernel(*args)
         torch.cuda.synchronize()
-        if minsum.packed_launches[d.library] - packed0 != int(d.packed):
-            raise AssertionError(f"{label}: packed launches")
+        if (minsum.packed_launches[d.library] - packed0 != int(d.packed)
+                or minsum.one_lane_launches[d.library] - one0
+                != int(d.one_lane)):
+            raise AssertionError(f"{label}: packed or one-lane launches")
         out_p = d.plain(*args)
         torch.cuda.synchronize()
         err = max_abs_err(out_k, out_p)
@@ -4809,6 +5143,9 @@ def main():
     mc_worst, mc_timed, star_mc_worst = check_mc_kernels(port, minsum, dev)
     phase("slice 12: the two-lane packed instances vs plain (tolerance 0)")
     two_worst = check_two_lane(port, minsum, dev)
+    phase("slice 13: the one-lane instances vs plain and the one-lane "
+          "template (tolerance 0)")
+    one_worst = check_one_lane(port, minsum, dev)
 
     phase("streaming library K6b-K6f vs plain (tolerance 0), and K3 behind "
           "its transposes")
@@ -4898,6 +5235,11 @@ def main():
           "(flooding OMS ET on NR BG1 Z=384, layered min* on DVB-S2 "
           "n=16,200; rng host and device against --decoder-backend qc)")
     two_cli = check_two_lane_cli(port, minsum, stream)
+    phase("slice 13: the one-lane instances' main paths through the CLI "
+          "(flooding OMS ET and layered min* on NR BG1 Z=384 rate 1/3, min* "
+          "on both schedules on DVB-S2 n=16,200 rate 8/9; against "
+          "--decoder-backend qc)")
+    one_cli = check_one_lane_cli(port, minsum, stream)
     phase("slice 7: error floor (importance sampling on K3: the datapath, "
           "results/error_floor_wifi648.json at full size, NR BG1 Z=128 "
           "rate matching, the CLI's floor)")
@@ -4949,14 +5291,14 @@ def main():
     phase("times (CUDA events for kernels, host clock + sync for steps)")
     timing = {}   # name -> (kernel ms, plain ms, bound ms, bound by)
 
-    def timed_call(d, args, what, kw={}, plain_reps=3):
+    def timed_call(d, args, what, kw={}, plain_reps=1):
         t = kernel_vs_plain_ms(d, args, kw, gpu, what, plain_reps=plain_reps)
         bound, by = bound_of(d, args, kw)
         print(f"  bound {bound:.4f} ms by {by} ({100 * bound / t[0]:.1f}% "
               f"of the kernel's time)", flush=True)
         return t + (bound, by)
 
-    def timed_mc(key, d, what, plain_reps=3):
+    def timed_mc(key, d, what, plain_reps=1):
         """Times megakernel `d`, the decoder a main path launched, on the
         arguments of check_mc_kernels' case `key` (the same instance)."""
         checked, args, kw = mc_timed[key]
@@ -5261,6 +5603,10 @@ def main():
     # and the decoders of their main paths against plain
     two_timing, two_decs = time_two_lane(port, minsum, gpu, dev)
     timing.update(two_timing)
+    # slice 13: the decoders of the one-lane instances' main paths against
+    # plain, and in turns with the one-lane template
+    one_timing, one_decs = time_one_lane(port, minsum, gpu, dev)
+    timing.update(one_timing)
     # slices 10 and 11b-11d's instances, each the decoder its sweep
     # launched, on the input it was held to plain with: one time for each
     # (instance, batch) that check_recorded_kernels held, on its first
@@ -5558,6 +5904,21 @@ def main():
                     timing["K5 layered two-lane"],
                     two_decs["K5 layered two-lane"]),
              launched_by="12 CLI DVB-S2 n=16,200 r1/2 layered min*"),
+        # the one-lane instances where no block of two lanes fits or min*
+        # rows have 25-28 entries: the CLI's main paths (slice 13), each
+        # behind the batch-first transposes
+        *(dict(record(name, lib, one_cli[path], one_worst[instance_name(
+            one_decs[key])], timing[key], one_decs[key]),
+               launched_by="13 CLI " + path)
+          for name, lib, path, key in (
+              ("minsum_flood_et_quad", "minsum_flood",
+               "NR BG1 Z=384 r1/3 flooding OMS ET", "K2 quad"),
+              ("minsum_layered_star_row", "minsum_layered",
+               "NR BG1 Z=384 r1/3 layered min*", "K5 layered row"),
+              ("minsum_flood_star_quad", "minsum_flood",
+               "DVB-S2 n=16,200 r8/9 flooding min*", "K5 flooding quad r89"),
+              ("minsum_layered_star_row28", "minsum_layered",
+               "DVB-S2 n=16,200 r8/9 layered min*", "K5 layered row r89"))),
         # K2: its main path since the packed kernel took it
         record("minsum_flood_et", "minsum_flood", launches[OMS_ET],
                worst["minsum_flood_et"], timing["K2 OMS"],

@@ -9,9 +9,10 @@ in `kernels/csrc/` into `kernels/build/` (git-ignored):
 
 A library of several units (`UNITS`) compiles its source once a unit,
 all at once, with `-c -DLDPC_UNIT=<u>`, and links the objects into the
-library: the decoder libraries put their two-lane instances, and their
-four-lane instances of rows above 16 entries, in units of their own, which
-build beside the rest.
+library: the decoder libraries put their two-lane instances, their
+four-lane instances of rows above 16 entries and their one-lane instances
+(the layered library's in two units) in units of their own, which build
+beside the rest.
 
 The file name carries a hash of the source, of every header under
 `csrc/` that it includes (`#include "..."`, followed recursively), of the
@@ -43,7 +44,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # same code as one unit (ptxas gives every instance the same registers) in
 # about half the build time; nvcc's own --split-compile is as fast but
 # changes the megakernels' code (PERF.md section 6).
-UNITS = {"minsum_flood": 3, "minsum_layered": 3}
+UNITS = {"minsum_flood": 4, "minsum_layered": 5}
 
 _INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
 

@@ -43,6 +43,17 @@ constexpr int kTwoLanes = 2;         // ... else the two-lane instances
 // ptxas may give a thread up to 65,536 / 384 = 170 registers.
 constexpr int kTwoLaneThreads = 384;
 constexpr int kRowDegrees[3] = {8, 16, 24};   // the DMAX instances
+// The one-lane instances (flood_quad_kernel of minsum_flood.cu,
+// layered_row_kernel of minsum_layered.cu) for codes whose block of two
+// lanes does not fit, and min* rows of 25-28 entries: one codeword a block,
+// the tables in the parameters, register rows of 24 or 28 entries. The
+// flooding instance packs kQuadRows check rows (or variables) of one lane
+// into a word and takes Z % 4 == 0; its launch bounds, the min-sum family's
+// and min*'s, leave ptxas 128 and 170 registers a thread.
+constexpr int kQuadRows = 4;
+constexpr int kQuadThreads = 512;
+constexpr int kQuadStarThreads = 384;
+constexpr int kOneLaneRowDegrees[2] = {24, 28};
 
 // Entry tables (uint32): layer_ptr[mb + 1], col_ptr[nb + 1],
 // ent[E] = (col * Z) << 11 | shift (by base row), col_ent[E] =
@@ -101,6 +112,27 @@ inline int row_instance(int max_deg) {
   for (int i = 0; i < 3; ++i)
     if (max_deg <= kRowDegrees[i]) return i;
   return 3;
+}
+
+// The one-lane instances' DMAX for a largest base-row degree (2: none).
+inline int one_lane_row_instance(int max_deg) {
+  for (int i = 0; i < 2; ++i)
+    if (max_deg <= kOneLaneRowDegrees[i]) return i;
+  return 2;
+}
+
+struct OneLaneShape {
+  int threads, smem, blocks;   // blocks: resident an SM by this rule
+};
+
+// The block of one lane of `threads` threads and `smem` bytes of state,
+// and the blocks an SM holds by its shared memory, warps and blocks.
+inline OneLaneShape one_lane_shape(int threads, size_t smem) {
+  if (threads <= 0 || smem > size_t(kMaxSmem)) return OneLaneShape{0, 0, 0};
+  const int warps = (threads + 31) / 32;
+  return OneLaneShape{threads, int(smem),
+                      std::min({kSmSmem / int(smem + kBlockReserve),
+                                kSmWarps / warps, kSmBlocks})};
 }
 
 inline int packed_max_degree(const uint32_t* tab, int mb) {
@@ -464,6 +496,83 @@ __device__ __forceinline__ void star_bytes(const StarVal& v, uint32_t& msg,
   const uint32_t sm = prmt(v.s, 0, 0xBA98);
   msg = (mb & sm) | (negm & ~sm);
   nv = (negm & sm) | (mb & ~sm);
+}
+
+// The min* messages of a check row of degree 2 <= d <= DMAX in entry order,
+// the grouping of cn_minstar.cuh on packed lanes: the suffix pass walks
+// the row backwards and keeps suf[j] as bytes in DMAX registers (leaf(j) is
+// entry j's leaf), the prefix pass walks it forwards and calls emit(i,
+// out[i]) with out[0] = suf[1], out[i] = bp2(pre[i - 1], suf[i + 1]),
+// out[d - 1] = pre[d - 2]; pre[0] = leaf[0], pre[i] = bp2(pre[i - 1],
+// leaf[i]). The one-lane instances' row (the packed kernels spell the same
+// walk out in their bodies).
+template <int LPT, int DMAX, typename Leaf, typename Emit>
+__device__ __forceinline__ void star_row(int d, Leaf&& leaf,
+                                         const uint32_t (&tc)[2 * kMaxThresholds],
+                                         int nthr, uint32_t q2, Emit&& emit) {
+  uint32_t sf[DMAX];
+  StarVal acc{};
+#pragma unroll
+  for (int j = DMAX - 1; j >= 1; --j) {
+    if (j < d) {
+      acc = j == d - 1 ? leaf(j) : star_bp2<LPT>(leaf(j), acc, tc, nthr, q2);
+      sf[j] = star_pack(acc);
+    }
+  }
+  StarVal pre{};
+#pragma unroll
+  for (int i = 0; i < DMAX; ++i) {
+    if (i < d) {
+      StarVal out;
+      if (i == 0) out = star_unpack(sf[1]);
+      else if (i == d - 1) out = pre;
+      else out = star_bp2<LPT>(pre, star_unpack(sf[min(i + 1, DMAX - 1)]),
+                               tc, nthr, q2);
+      if (i < d - 1)
+        pre = i == 0 ? leaf(0) : star_bp2<LPT>(pre, leaf(i), tc, nthr, q2);
+      emit(i, out);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Four rows of one lane a word (flood_quad_kernel).
+//
+// With Q = Z / 4, word q (q < Q) of a circulant holds its rows q, q + Q,
+// q + 2Q, q + 3Q as elements 0-3: int8 bytes, or int16 16x2 pairs (lo:
+// elements 0, 1; hi: 2, 3). A shift s = aQ + b (b < Q) maps check row q + kQ
+// to variable row (q + kQ + s) mod Z = q' + k'Q with q' = (q + b) mod Q and
+// k' = (k + a + [q + b >= Q]) mod 4, so the words of a circulant's
+// variables, rotated by m = (a + [q + b >= Q]) mod 4 elements, are its check
+// rows' words, and a variable word's check rows are the rotation the other
+// way. The entry words (kernels/minsum.py::quad_tables) carry a quad index
+// base << 13, a threshold on q << 2 and a:
+//   by base row, entry (col j, s): (j Q + b) << 13 | (Q - b) << 2 | a, and
+//     check word q reads variable word base + q - [q >= Q - b] Q rotated by
+//     (a + [q >= Q - b]) mod 4;
+//   by base column, entry e: (e Q - b + Q) << 13 | b << 2 | a, and variable
+//     word q reads message word base + q - [q >= b] Q rotated the other way
+//     by (a + [q < b]) mod 4.
+
+// The int16 totals of check word q of an entry by base row (word w), as
+// 16x2 pairs t[0] (elements 0, 1) and t[1] (2, 3): one prmt a pair.
+__device__ __forceinline__ void quad_totals(const uint2* tot, uint32_t w, int q,
+                                            int Q, uint32_t (&t)[2]) {
+  const uint32_t c = q >= int((w >> 2) & 0x7ffu);
+  const uint2 v = tot[int(w >> 13) + q - (c ? Q : 0)];
+  // element k of the result is element k + m of v: bytes 2m .. 2m + 7 mod 8
+  const uint32_t sel = (0x3210u + ((w + c) & 3u) * 0x2222u) & 0x7777u;
+  t[0] = prmt(v.x, v.y, sel);
+  t[1] = prmt(v.x, v.y, sel ^ 0x4444u);
+}
+
+// The int8 message word of variable word q of an entry by base column
+// (word w): byte k is the message of the check row of variable row q + kQ.
+__device__ __forceinline__ uint32_t quad_message(const uint32_t* c2v, uint32_t w,
+                                                 int q, int Q) {
+  const uint32_t lo = q < int((w >> 2) & 0x7ffu);
+  const uint32_t m = c2v[int(w >> 13) + q - (lo ? 0 : Q)];
+  return __funnelshift_l(m, m, ((w + lo) & 3u) << 3);
 }
 
 // ---------------------------------------------------------------------------

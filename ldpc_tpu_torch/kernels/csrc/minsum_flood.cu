@@ -18,7 +18,7 @@
 // n=648 code) but the shared-memory pipe, integer latency and the two block
 // barriers an iteration.
 //
-// Two kernel templates share the library.
+// Three kernel templates share the library.
 //
 // flood_packed_kernel: every instance (the min-sum family or min*, fixed or
 // early-terminating, fused IO or the megakernel) wherever a block of four
@@ -121,10 +121,36 @@
 // the same answer): one XOR pair an entry, and no barrier beyond the fixed
 // form's two an iteration.
 //
+// flood_quad_kernel<DMAX, STAR, ET>: the one-lane instance, for codes whose
+// block of two lanes does not fit (NR BG1 rate 1/3 at Z >= 288: 143-171 KB
+// a lane) and min* rows of 25-28 entries (DVB-S2 n=16,200 rate 8/9), where
+// Z % 4 == 0 and rows have at most 28 entries (DMAX 24 or 28); the one-lane
+// template decoded them one row of one lane a thread, reading each row
+// twice (2.1-3.1x faster, PERF.md section 6). A block decodes one codeword,
+// and a word holds four of its check rows (or variables) q, q + Z/4, q +
+// Z/2, q + 3Z/4: int8 bytes for the negated messages, two 16x2 words for
+// the totals, so the four-lane arithmetic (PackedRow<4>, PackedEmit,
+// star_bp2 through star_row) serves four rows an instruction and a
+// circulant shift is a rotation of the word (cn_packed.cuh: quad_totals,
+// one prmt a 16x2 word; quad_message, one funnel shift). The C phase spreads
+// its (base row, word) items over the block's threads and the V phase its
+// (base column, word) items, mb Z/4 and nb Z/4 of them (4,416 and 6,528 on
+// NR BG1 Z=384), up to 512 threads a block (384 for min*; quad_shape) where
+// the template ran Z threads that each walked every base row. The tables
+// ride in the parameters (kernels/minsum.py::quad_tables), the channel in
+// device memory (PackedArgs::chan_q, [block][nb][Z/4] words), the totals and
+// messages in shared memory (170,896 B on NR BG1 Z=384 rate 1/3, one block
+// an SM). Early termination is one block vote a C phase
+// (__syncthreads_or over the items' unsatisfied rows of state k); no
+// megakernel (n > 4,096 takes the batch-first chain). It runs at 8-20% of
+// the operation bound; integer issue and latency at 8-16 warps an SM bound
+// it (not profiled: no profiler on the card).
+//
 // minsum_flood_kernel<ET, MC, STAR>: the earlier one-lane-a-thread layout,
-// kept for codes that admit no block of two lanes (NR BG1 Z=384 rate 1/3,
-// about 174 KB a lane) and for min* on rows above 24 entries; the tables
-// sit in shared memory there. Thread (x, y) = (codeword lane, row y). The row is read
+// kept for codes no packed or quad instance takes (rows above 28 entries
+// for min*, Z % 4 != 0 without a packed block: the (3,30) array code's
+// min*) and as the forced template (`template_only`, the yardstick of the
+// others); the tables sit in shared memory there. Thread (x, y) = (codeword lane, row y). The row is read
 // twice (once to reduce, once to emit); with min* the two reads are the
 // suffix pass into an int8 scratch of star_deg slots per row and the prefix
 // pass that emits. Early termination there: after the V phase of iteration
@@ -148,13 +174,14 @@
 // packed_finish) live in cn_packed.cuh, which the layered library's packed
 // kernel shares.
 //
-// Three units: build.py compiles this file three times at once, with
+// Four units: build.py compiles this file four times at once, with
 // LDPC_UNIT=1 (the C entries, the one-lane template and the four-lane
 // instances of rows up to 16 entries), LDPC_UNIT=2 (the two-lane instances,
-// through flood_two_lane) and LDPC_UNIT=3 (the four-lane instances of longer
-// rows, through flood_four_lane_long), and links them into one library, so
-// that its instances build side by side; without LDPC_UNIT the file is one
-// unit of all.
+// through flood_two_lane), LDPC_UNIT=3 (the four-lane instances of longer
+// rows, through flood_four_lane_long) and LDPC_UNIT=4 (the quad instances,
+// through flood_quad), and links them into one library, so that its
+// instances build side by side; without LDPC_UNIT the file is one unit of
+// all.
 
 #include "cn_minsum.cuh"
 #include "cn_minstar.cuh"
@@ -166,6 +193,8 @@ namespace ldpc {
 PackedKernel flood_two_lane(int max_deg, bool star, bool et, bool mc);
 // The four-lane instance for rows above 16 entries (unit 3, below).
 PackedKernel flood_four_lane_long(int max_deg, bool star, bool et, bool mc);
+// The one-lane quad instance for a code (unit 4, below).
+PackedKernel flood_quad(int max_deg, bool star, bool et);
 }  // namespace ldpc
 
 namespace {
@@ -527,7 +556,230 @@ PackedKernel two_lane_instance(bool et, bool mc) {
             : flood_two_lane_kernel<DMAX, STAR, false>;
 }
 
+// ---------------------------------------------------------------------------
+// The one-lane quad instances: a codeword a block, four check rows (or
+// variables) of it a word (cn_packed.cuh: quad_totals, quad_message).
+
+// The state of one block: the flag and the info-bit errors, the int16
+// totals [nb][Q] as pairs of 16x2 words, the negated int8 messages [E][Q]
+// as words; the channel lives in device memory (PackedArgs::chan_q,
+// [block][nb][Q] words).
+inline size_t quad_smem(int nb, int Z, int E) {
+  const size_t Q = size_t(Z) / kQuadRows;
+  return 16 + align16(8 * nb * Q) + align16(4 * size_t(E) * Q);
+}
+
+// The block shape: Z % 4 == 0, rows of at most 28 entries, the state
+// within a block's shared memory; threads within the instance's bound
+// (kQuadStarThreads for min*, else kQuadThreads), as few as keep the C
+// phase's (base row, word) items to the rounds the bound needs, in whole
+// warps. Threads 0 when the code is not taken.
+inline OneLaneShape quad_shape(int nb, int Z, int mb, int E, int max_deg,
+                               int star_deg) {
+  if (Z % kQuadRows || Z / kQuadRows > 2047 || one_lane_row_instance(max_deg) > 1)
+    return OneLaneShape{0, 0, 0};
+  const int bound = star_deg > 0 ? kQuadStarThreads : kQuadThreads;
+  const int items = mb * (Z / kQuadRows);
+  const int rounds = (items + bound - 1) / bound;
+  const int threads = std::min(bound, ((items + rounds - 1) / rounds + 31) / 32 * 32);
+  return one_lane_shape(threads, quad_smem(nb, Z, E));
+}
+
+// The body of every quad instance. Block b decodes codeword b; thread t
+// takes the items t, t + T, ... of each phase: (base column j, word q) in
+// the V phase, (base row li, word q) in the C phase, item i = j Q + q or
+// li Q + q.
+template <int DMAX, bool STAR, bool ET>
+__device__ __forceinline__ void flood_quad_body(const PackedArgs& a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const Params& p = a.p;
+  const uint32_t* tw = a.t.w;
+  const int Z = p.Z, nb = p.nb, mb = p.mb, E = p.E, Q = Z / kQuadRows;
+  const int o_col = mb + 1, o_ent = mb + nb + 2, o_cent = o_ent + E;
+  const uint32_t (&tc)[2 * kMaxThresholds] = a.star;   // min* constants
+  const uint32_t q2 = uint32_t(p.qmax) * 0x00010001u;
+  const int tid = threadIdx.x, T = blockDim.x;
+  const int nv = nb * Q, nc = mb * Q;
+  const long long b = blockIdx.x;
+
+  int32_t* const s_bits = reinterpret_cast<int32_t*>(smem);
+  uint2* const tot = reinterpret_cast<uint2*>(smem + 16);
+  uint32_t* const c2v =
+      reinterpret_cast<uint32_t*>(smem + 16 + align16(8 * size_t(nv)));
+  uint32_t* const chan =
+      reinterpret_cast<uint32_t*>(a.chan_q) + size_t(blockIdx.x) * nv;
+
+  if (tid == 0) *s_bits = 0;
+  // Channel in, quantized, one word of four variables an item; the V phase
+  // of the same item (the same thread) reads it.
+  for (int i = tid; i < nv; i += T) {
+    const int j = i / Q, q = i - j * Q;
+    uint32_t w = 0;
+#pragma unroll
+    for (int k = 0; k < kQuadRows; ++k)
+      w |= uint32_t(uint8_t(load_chan(p, size_t(j * Z + q + k * Q) * p.B + b)))
+           << (8 * k);
+    chan[i] = w;
+  }
+
+  // The parity of each of the four rows of item (li, q) in bit 7 of its
+  // byte, from the totals; the rows' XOR is accumulated into x by the
+  // caller, or here.
+  auto row_parity = [&](int li, int q) {
+    uint32_t x[2] = {0u, 0u};
+    for (int e = tw[li]; e < int(tw[li + 1]); ++e) {
+      uint32_t t[2];
+      quad_totals(tot, tw[o_ent + e], q, Q, t);
+      x[0] ^= t[0];
+      x[1] ^= t[1];
+    }
+    return bytes_of(x[0], x[1], 0x7531) & 0x80808080u;
+  };
+
+  int iters = p.max_iter;
+  bool conv = false;
+  for (int it = 0;; ++it) {
+    // V phase: totals of the current messages (state `it`), chan - the sum
+    // of the negated messages; c2v = 0 at 0 (never read, so never zeroed).
+    for (int i = tid; i < nv; i += T) {
+      const int j = i / Q, q = i - j * Q;
+      const uint32_t ch = chan[i];
+      uint32_t s_lo = 0, s_hi = 0;
+      if (it) {
+        const int x1 = tw[o_col + j + 1];
+        for (int x = tw[o_col + j]; x < x1; ++x) {
+          const uint32_t m = quad_message(c2v, tw[o_cent + x], q, Q);
+          s_lo = __vadd2(s_lo, widen_lo(m));
+          s_hi = __vadd2(s_hi, widen_hi(m));
+        }
+      }
+      tot[i] = make_uint2(__vadd2(widen_lo(ch), __vneg2(s_lo)),
+                          __vadd2(widen_hi(ch), __vneg2(s_hi)));
+    }
+    __syncthreads();
+    if (it == p.max_iter) {
+      // the syndrome of state max_iter: each thread stops at its first
+      // unsatisfied row
+      bool un = false;
+      for (int i = tid; i < nc && !un; i += T) {
+        const int li = i / Q;
+        un = row_parity(li, i - li * Q) != 0;
+      }
+      conv = !__syncthreads_or(un);
+      break;
+    }
+
+    // C phase: the four rows of each item (li, q); with ET the parity of
+    // their state-`it` hard bits on the way.
+    uint32_t un = 0;
+    for (int i = tid; i < nc; i += T) {
+      const int li = i / Q, q = i - li * Q;
+      const int e0 = tw[li], d = int(tw[li + 1]) - e0;
+      uint32_t* const m0 = c2v + e0 * Q + q;   // + k Q: entry e0 + k
+      uint32_t x[2] = {0u, 0u};
+      PackedRow<kQuadRows> cn;
+      // the row in registers, in groups of four slots: a group past d is
+      // skipped (one branch, uniform where a warp's items share a base
+      // row), and within a group entries past d repeat the last one's
+      // loads and take no part in the row or the stores
+      uint32_t rb[DMAX];   // row bytes: min-sum's, or min*'s leaves
+#pragma unroll
+      for (int k = 0; k < DMAX; ++k) {
+        if ((k & ~3) >= d) break;
+        const int ek = min(k, d - 1);
+        uint32_t t[2];
+        quad_totals(tot, tw[o_ent + e0 + ek], q, Q, t);
+        rb[k] = cn.template entry<!STAR>(t, it ? m0[ek * Q] : 0u, q2, k < d);
+        if constexpr (ET) {
+          if (k < d) {
+            x[0] ^= t[0];
+            x[1] ^= t[1];
+          }
+        }
+      }
+      if constexpr (STAR) {
+        star_row<kQuadRows, DMAX>(
+            d, [&](int k) { return star_unpack(rb[k]); }, tc, p.nthr, q2,
+            [&](int k, const StarVal& v) {
+              uint32_t msg, nw;
+              star_bytes(v, msg, nw);
+              m0[k * Q] = msg;
+            });
+      } else {
+        const PackedEmit em(cn, p);
+#pragma unroll
+        for (int k = 0; k < DMAX; ++k)
+          if (k < d) m0[k * Q] = em.emit(rb[k]);
+      }
+      if constexpr (ET) un |= bytes_of(x[0], x[1], 0x7531) & 0x80808080u;
+    }
+    if constexpr (ET) {
+      // a block vote: done with iters = it once no row of state it is
+      // unsatisfied; the totals still hold state it
+      if (!__syncthreads_or(un != 0)) {
+        iters = it;
+        conv = true;
+        break;
+      }
+    } else {
+      __syncthreads();
+    }
+  }
+
+  // Hard bits or info-bit errors from the totals the loop left.
+  int nerr = 0;
+  for (int i = tid; i < nv; i += T) {
+    const int j = i / Q, q = i - j * Q;
+    const uint2 v = tot[i];
+    const uint32_t h = (bytes_of(v.x, v.y, 0x7531) >> 7) & 0x01010101u;
+#pragma unroll
+    for (int k = 0; k < kQuadRows; ++k) {
+      const size_t g = size_t(j * Z + q + k * Q) * p.B + b;
+      const uint32_t hk = (h >> (8 * k)) & 1u;
+      if (p.hard) p.hard[g] = uint8_t(hk);
+      if (p.info && j < p.kb) nerr += int(hk ^ p.info[g]);
+    }
+  }
+  if (nerr) atomicAdd(s_bits, nerr);
+  __syncthreads();
+  if (tid == 0) {
+    p.iters[b] = iters;
+    p.conv[b] = conv;
+    if (p.bits) {
+      p.bits[b] = *s_bits;
+      p.frame[b] = *s_bits > 0;
+    }
+  }
+}
+
+// Every form of the quad instance (the min-sum family or min*, fixed or
+// early-terminating, fused IO; no megakernel): up to kQuadThreads threads
+// a block (kQuadStarThreads for min*), at least one block an SM.
+template <int DMAX, bool STAR, bool ET>
+__global__ void __launch_bounds__(STAR ? kQuadStarThreads : kQuadThreads, 1)
+flood_quad_kernel(const __grid_constant__ PackedArgs a) {
+  flood_quad_body<DMAX, STAR, ET>(a);
+}
+
+template <int DMAX>
+PackedKernel quad_instance(bool star, bool et) {
+  if (star)
+    return et ? flood_quad_kernel<DMAX, true, true>
+              : flood_quad_kernel<DMAX, true, false>;
+  return et ? flood_quad_kernel<DMAX, false, true>
+            : flood_quad_kernel<DMAX, false, false>;
+}
+
 }  // namespace
+
+#if !defined(LDPC_UNIT) || LDPC_UNIT == 4
+// The quad instance for the largest base-row degree (DMAX 24 or 28), the
+// update and ET.
+PackedKernel ldpc::flood_quad(int max_deg, bool star, bool et) {
+  return one_lane_row_instance(max_deg) == 0 ? quad_instance<24>(star, et)
+                                             : quad_instance<28>(star, et);
+}
+#endif
 
 #if !defined(LDPC_UNIT) || LDPC_UNIT == 2
 // The two-lane instance for the largest base-row degree (DMAX 8, 16, 24,
@@ -762,10 +1014,18 @@ const ldpc::Kernel kOneLane[2][2][2] = {
 // The packed kernel takes a code wherever a block of four lanes fits (up to
 // the instance's threads a block), else two lanes (up to kTwoLaneThreads),
 // min* where its rows (star_deg: the largest base-row degree) fit the
-// largest register row; the one-lane template takes the rest.
+// largest register row; the quad instance takes the rest where quad_shape
+// does (max_deg: the largest base-row degree); the one-lane template the
+// others, and every code when `template_only` asks for it.
 inline bool is_packed(int nb, int Z, int E, int star_deg, int early_term) {
   return flood_shape(nb, Z, E, star_deg, early_term).lanes > 0
       && row_instance(star_deg) < 3;
+}
+
+inline bool is_quad(int nb, int Z, int mb, int E, int max_deg, int star_deg,
+                    int early_term) {
+  return !is_packed(nb, Z, E, star_deg, early_term)
+      && quad_shape(nb, Z, mb, E, max_deg, star_deg).threads > 0;
 }
 
 }  // namespace
@@ -778,14 +1038,29 @@ extern "C" {
 // included). Where a block of four or two lanes fits (and for min* its
 // rows fit a register row) the instance is the packed kernel at that many
 // lanes a thread, and max_row_deg (the largest base-row degree) picks its
-// row instance. Returns cudaErrorInvalidConfiguration, lanes 0, when no
-// block shape fits.
+// row instance; else the quad instance where it takes the code (one lane,
+// lanes_per_thread 1; its threads a block are quad_shape's); else, and
+// with template_only, the one-lane template. Returns
+// cudaErrorInvalidConfiguration, lanes 0, when no block shape fits, and
+// cudaErrorNotSupported for the megakernel at two lanes a thread or on
+// the quad instance, which are not built.
 int minsum_flood_config(int nb, int Z, int mb, int E, int star_deg,
-                        int early_term, int mc, int max_row_deg, int* lanes,
-                        int* smem, int* lanes_per_thread,
-                        int* blocks_per_sm) {
+                        int early_term, int mc, int max_row_deg,
+                        int template_only, int* lanes, int* smem,
+                        int* lanes_per_thread, int* blocks_per_sm) {
   *blocks_per_sm = 0;
-  if (is_packed(nb, Z, E, star_deg, early_term)) {
+  if (!template_only && is_quad(nb, Z, mb, E, max_row_deg, star_deg, early_term)) {
+    const OneLaneShape s = quad_shape(nb, Z, mb, E, max_row_deg, star_deg);
+    *lanes = 1;
+    *smem = s.smem;
+    *lanes_per_thread = 1;
+    const PackedKernel k =
+        mc ? nullptr : flood_quad(max_row_deg, star_deg > 0, early_term != 0);
+    const cudaError_t err = prepare(k, s.smem);
+    if (err != cudaSuccess) return int(err);
+    return ldpc::occupancy(k, s.threads, s.smem, blocks_per_sm);
+  }
+  if (!template_only && is_packed(nb, Z, E, star_deg, early_term)) {
     const PackedShape s = flood_shape(nb, Z, E, star_deg, early_term);
     *lanes = s.lanes;
     *smem = s.smem;
@@ -823,7 +1098,12 @@ const char* minsum_flood_error_string(int err) {
 // (device memory, at least grid * lanes * n bytes: the batch rounded up to
 // the block's lanes, times n), which it refuses null; the other instances
 // do not read it. The megakernel at two lanes a thread is not built, and is
-// refused (cudaErrorNotSupported), here and in minsum_flood_config.
+// refused (cudaErrorNotSupported), here and in minsum_flood_config. The
+// quad instance (where is_quad takes the code) reads its tables from
+// `ptab` too, in quad_tables' layout (the entry words of cn_packed.cuh's
+// quad section), keeps its channel in `chan_q` (at least B * n bytes), and
+// has no megakernel (cudaErrorNotSupported). template_only != 0 runs the
+// one-lane template whatever the code, from `tables`.
 int minsum_flood_launch(const void* chan, int chan_is_f32, float scale,
                         const void* info, int kb, void* hard, void* bits,
                         void* frame, void* iters, void* conv,
@@ -832,36 +1112,45 @@ int minsum_flood_launch(const void* chan, int chan_is_f32, float scale,
                         int beta, int alpha_num, int alpha_shift,
                         int star_deg, const int* thr, int nthr,
                         const ldpc::Mc* mc, const uint32_t* ptab,
-                        int ptab_words, void* chan_q, void* stream) {
+                        int ptab_words, void* chan_q, int template_only,
+                        void* stream) {
   const Params p = ldpc::make_params(
       chan, chan_is_f32, scale, info, kb, hard, bits, frame, iters, conv,
       tables, B, nb, Z, mb, E, max_iter, qmax, beta, alpha_num, alpha_shift,
       star_deg, thr, nthr);
-  if (!is_packed(nb, Z, E, star_deg, early_term))
+  if (!template_only && !ptab) return int(cudaErrorInvalidValue);
+  const int max_deg = ptab ? packed_max_degree(ptab, mb) : 0;
+  if (template_only || (!is_packed(nb, Z, E, star_deg, early_term) &&
+                        !is_quad(nb, Z, mb, E, max_deg, star_deg, early_term)))
     return ldpc::launch_instance(
         kOneLane, [=](int l) { return smem_bytes(nb, Z, mb, E, star_deg, l); },
         p, early_term, mc, stream);
+  // the packed kernel, else the quad instance (one lane a block)
+  const bool quad = !is_packed(nb, Z, E, star_deg, early_term);
   const PackedShape s = flood_shape(nb, Z, E, star_deg, early_term);
+  const OneLaneShape o = quad_shape(nb, Z, mb, E, max_deg, star_deg);
   if (!packed_args_ok(ptab, ptab_words, nb, Z, mb, E, qmax, nthr) ||
-      (s.lpt == kTwoLanes && !chan_q))
+      ((quad || s.lpt == kTwoLanes) && !chan_q))
     return int(cudaErrorInvalidValue);
   static thread_local PackedArgs a;   // 32 KB, off the stack; copied at launch
   static_assert(sizeof(a.t) == 4 * kTabWords, "table words");
   a.p = p;
-  a.p.lanes = s.lanes;
+  a.p.lanes = quad ? 1 : s.lanes;
   if (mc) a.p.mc = *mc;
   a.chan_q = static_cast<int8_t*>(chan_q);
   memcpy(a.t.w, ptab, 4 * size_t(ptab_words));
   star_constants(p, a.star);
-  const PackedKernel k = packed_kernel(s.lpt, packed_max_degree(ptab, mb),
-                                       star_deg > 0, early_term != 0,
-                                       mc != nullptr);
-  const cudaError_t err = prepare(k, s.smem);
+  const PackedKernel k =
+      quad ? (mc ? nullptr : flood_quad(max_deg, star_deg > 0, early_term != 0))
+           : packed_kernel(s.lpt, max_deg, star_deg > 0, early_term != 0,
+                           mc != nullptr);
+  const int smem = quad ? o.smem : s.smem;
+  const cudaError_t err = prepare(k, smem);
   if (err != cudaSuccess) return int(err);
   if (B <= 0) return 0;
-  const dim3 block(s.lanes / s.lpt, Z);
-  const dim3 grid((B + s.lanes - 1) / s.lanes);
-  k<<<grid, block, s.smem, static_cast<cudaStream_t>(stream)>>>(a);
+  const dim3 block = quad ? dim3(o.threads) : dim3(s.lanes / s.lpt, Z);
+  const dim3 grid = quad ? dim3(B) : dim3((B + s.lanes - 1) / s.lanes);
+  k<<<grid, block, smem, static_cast<cudaStream_t>(stream)>>>(a);
   return int(cudaGetLastError());
 }
 

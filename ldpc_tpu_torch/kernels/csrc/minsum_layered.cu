@@ -18,7 +18,7 @@
 // layer: up to max_iter * E * Z check-node edge updates (20 * 79 * 81 =
 // 127,980 for the 802.11n n=1944 rate 5/6 code).
 //
-// Two kernel templates share the library.
+// Three kernel templates share the library.
 //
 // layered_packed_kernel<LPT, DMAX, STAR, ET, MC>: every instance (the
 // min-sum family or min*, fixed or early-terminating, fused IO or the
@@ -92,10 +92,25 @@
 //    threads a block (the launch bound, which leaves ptxas up to 255
 //    registers for the register row; 42-135 used, no spills).
 //
+// layered_row_kernel<DMAX, STAR, ET>: the one-lane register-row instance,
+// for codes whose block of two lanes does not fit (NR BG1 rate 1/3 at Z >=
+// 288) and min* rows of 25-28 entries (DVB-S2 n=16,200 rate 8/9), Z <= 384
+// and rows of at most 28 entries (DMAX 24 or 28). A block decodes one
+// codeword, a thread one check row of each layer (a layer has only Z
+// independent rows). The row is read once into registers and written once,
+// the tables ride in the parameters (packed_tables' words), and min* runs
+// the DPX combine of cn_packed.cuh with its two chains side by side in the
+// two halves of a 16x2 word (layered_row_body), half the combines and half
+// the chain of the template's walk: 2.0-3.0x the template on its min*
+// routes (PERF.md section 6), at 14-22% of the operation bound. What
+// bounds it (no profiler on the card): the time followed the combine
+// chain's length, not the instruction count alone, so the latency of one
+// row's chain a layer at 12 warps an SM. No megakernel.
+//
 // minsum_layered_kernel<ET, MC, STAR>: the earlier one-lane-a-thread
-// layout, kept for codes whose block of two lanes does not fit (NR BG1
-// Z=384 rate 1/3, about 174 KB a lane) and for min* rows above 24
-// entries. Thread (x, y) = (codeword lane, row y); the tables sit in shared
+// layout, kept for codes no packed or register-row instance takes (rows
+// above 28 entries for min*: the (3,30) array code) and as the forced
+// template (`template_only`). Thread (x, y) = (codeword lane, row y); the tables sit in shared
 // memory; the row is read twice (reduce, then emit: c2v[e][y] = new and
 // post[j][(y + s) mod Z] += new - old), and with min* the two reads are
 // the suffix pass into an int8 scratch of star_deg slots per row and the
@@ -111,13 +126,18 @@
 // kernel never reads it in iteration 1), and the error count draws each
 // info bit again.
 //
-// Three units: build.py compiles this file three times at once, with
+// Five units: build.py compiles this file five times at once, with
 // LDPC_UNIT=1 (the C entries, the one-lane template and the four-lane
 // instances of rows up to 16 entries), LDPC_UNIT=2 (the two-lane instances,
-// through layered_two_lane) and LDPC_UNIT=3 (the four-lane instances of
-// longer rows, through layered_four_lane_long), and links them into one
-// library, so that its instances build side by side; without LDPC_UNIT the
-// file is one unit of all.
+// through layered_two_lane), LDPC_UNIT=3 (the four-lane instances of
+// longer rows, through layered_four_lane_long), LDPC_UNIT=4 (the fixed
+// register-row instances, through layered_row) and LDPC_UNIT=5 (the
+// early-terminating ones, through layered_row_et: the min* walks are the
+// library's longest compile), and links them into one library, so that its
+// instances build side by side; without LDPC_UNIT the file is one unit of
+// all.
+
+#include <type_traits>
 
 #include "cn_minsum.cuh"
 #include "cn_minstar.cuh"
@@ -129,6 +149,10 @@ namespace ldpc {
 PackedKernel layered_two_lane(int max_deg, bool star, bool et, bool mc);
 // The four-lane instance for rows above 16 entries (unit 3, below).
 PackedKernel layered_four_lane_long(int max_deg, bool star, bool et, bool mc);
+// The one-lane register-row instance for a code (unit 4, below), and its
+// early-terminating forms (unit 5).
+PackedKernel layered_row(int max_deg, bool star, bool et);
+PackedKernel layered_row_et(int max_deg, bool star);
 }  // namespace ldpc
 
 namespace {
@@ -337,7 +361,9 @@ inline PackedShape layered_shape(int nb, int Z, int E) {
 
 // The packed kernel takes a code wherever a block of four or two lanes
 // fits, min* where its rows (star_deg: the largest base-row degree) fit the
-// largest register row; the one-lane template takes the rest.
+// largest register row; the register-row instance takes the rest where
+// row_shape does (max_deg: the largest base-row degree); the one-lane
+// template the others, and every code when `template_only` asks for it.
 inline bool is_packed(int nb, int Z, int E, int star_deg) {
   return layered_shape(nb, Z, E).lanes > 0 && layered_row_instance(star_deg) < 4;
 }
@@ -610,7 +636,274 @@ PackedKernel two_lane_instance(bool et, bool mc) {
             : layered_two_lane_kernel<DMAX, STAR, false>;
 }
 
+// ---------------------------------------------------------------------------
+// The one-lane register-row instances: a codeword a block, a check row a
+// thread.
+
+// The state of one block: the info-bit errors, the int16 posteriors [n],
+// the negated int8 messages [E][Z].
+inline size_t row_smem(int nb, int Z, int E) {
+  return 16 + align16(2 * size_t(nb) * Z) + align16(size_t(E) * Z);
+}
+
+// The block shape: Z threads (at most kTwoLaneThreads, the launch bound),
+// rows of at most 28 entries, the state within a block's shared memory.
+// Threads 0 when the code is not taken.
+inline OneLaneShape row_shape(int nb, int Z, int E, int max_deg) {
+  if (Z > kTwoLaneThreads || one_lane_row_instance(max_deg) > 1)
+    return OneLaneShape{0, 0, 0};
+  return one_lane_shape(Z, row_smem(nb, Z, E));
+}
+
+// Calls f(std::integral_constant<int, W>) for the min* row width W of a
+// row of degree d <= DMAX: d itself up to 8 entries, else d rounded up to a
+// multiple of 4 (12 .. DMAX), so that a row runs one of at most twelve
+// straight-line walks.
+template <int W, int DMAX, typename F>
+__device__ __forceinline__ void star_width(int d, F&& f) {
+  if constexpr (W <= DMAX) {
+    if (W <= 8 ? d == W : d <= W) f(std::integral_constant<int, W>{});
+    else star_width<W < 8 ? W + 1 : W + 4, DMAX>(d, f);
+  }
+}
+
+// The body of every register-row instance: block b decodes codeword b,
+// thread y check row y of every base row. A layer reads each entry's
+// posterior and old message once into a register row (the raw value post
+// - old in the low half of a 16x2 word), and writes each message and
+// posterior once. The min-sum family reduces the row with PackedRow<2>,
+// whose high half is a lane of zeros. min* puts the high half to work: the
+// grouping of cn_minstar.cuh (suf[j] = bp2(leaf[j], suf[j + 1]) from the
+// right, pre[i] = bp2(pre[i - 1], leaf[i]) from the left, out[i] =
+// bp2(pre[i - 1], suf[i + 1])) runs its two chains side by side, the
+// suffix in the low half and the prefix in the high half of one 16x2 word,
+// C[t] = (suf[W - 1 - t], pre[t]) = bp2((leaf[W - 1 - t], leaf[t]), C[t -
+// 1]), and the outputs in pairs, (out[i], out[W - 1 - i]) =
+// bp2((pre[i - 1], pre[W - 2 - i]), (suf[i + 1], suf[W - i])): W - 2 + W / 2
+// combines for a row of width W instead of 3 d - 6, every index a constant
+// of the straight-line walk of that width (star_width). Slots d .. W - 1
+// are padding: the suffix chain holds the identity, a magnitude of 0x4000
+// (bp2(x, I) = x: min(|x|, I) = |x|, and no threshold lies between I - |x|
+// and I + |x|), until it reaches slot d - 1, pre[-1] and suf[d] are the
+// identity, and the outputs of padded slots are not stored.
+template <int DMAX, bool STAR, bool ET>
+__device__ __forceinline__ void layered_row_body(const PackedArgs& a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const Params& p = a.p;
+  const uint32_t* tw = a.t.w;
+  const int Z = p.Z, nb = p.nb, mb = p.mb, o_ent = mb + nb + 2;
+  const uint32_t (&tc)[2 * kMaxThresholds] = a.star;   // min* constants
+  const uint32_t q2 = uint32_t(p.qmax) * 0x00010001u;
+  const int row = threadIdx.x;
+  const long long b = blockIdx.x;
+
+  int32_t* const s_bits = reinterpret_cast<int32_t*>(smem);
+  int16_t* const post = reinterpret_cast<int16_t*>(smem + 16);
+  int8_t* const msg_row =
+      reinterpret_cast<int8_t*>(smem + 16 + align16(2 * size_t(nb) * Z)) + row;
+
+  if (row == 0) *s_bits = 0;
+  for (int j = 0; j < nb; ++j) {
+    const int v = j * Z + row;
+    post[v] = int16_t(load_chan(p, size_t(v) * p.B + b));
+  }
+  __syncthreads();
+
+  // The posterior of entry word en = colZ << 11 | shift of this check row.
+  auto post_of = [&](uint32_t en) {
+    int c = row + int(en & 0x7ffu);
+    if (c >= Z) c -= Z;
+    return post + int(en >> 11) + c;
+  };
+  // The block's vote: whether some check row is unsatisfied by the signs of
+  // the posteriors (bit 31 of the XOR of the int16 values: the parity of
+  // their signs); each thread stops at its first.
+  auto unsat = [&]() {
+    bool un = false;
+    for (int li = 0; li < mb && !un; ++li) {
+      int x = 0;
+      for (int e = tw[li]; e < int(tw[li + 1]); ++e) x ^= *post_of(tw[o_ent + e]);
+      un = x < 0;
+    }
+    return __syncthreads_or(un) != 0;
+  };
+
+  int iters = p.max_iter;
+  bool conv = false;
+  if constexpr (ET) {
+    // state 0, the channel
+    if (!unsat()) {
+      iters = 0;
+      conv = true;
+    }
+  }
+  for (int it = 0; it < p.max_iter && !conv; ++it) {
+    // One layer a base row li; every thread meets the barrier after it.
+    for (int li = 0; li < mb; ++li) {
+      const int e0 = tw[li], d = int(tw[li + 1]) - e0;
+      int8_t* const m0 = msg_row + e0 * Z;   // + k Z: entry e0 + k
+      // the raw value of slot k of the row (slots past d repeat the last
+      // entry's loads and take no part in the row or the stores)
+      auto load_raw = [&](int k) {
+        const int ek = min(k, d - 1);
+        const uint32_t t = uint32_t(uint16_t(*post_of(tw[o_ent + e0 + ek])));
+        return __vadd2(t, widen_lo(it ? uint32_t(uint8_t(m0[ek * Z])) : 0u));
+      };
+      if constexpr (STAR) {
+        star_width<2, DMAX>(d, [&](auto width) {
+          constexpr int W = decltype(width)::value;
+          const int nthr = p.nthr, pad = W - d;
+          uint32_t raw[W];   // post - old, unclipped, in the low half
+#pragma unroll
+          for (int k = 0; k < W; ++k) raw[k] = load_raw(k);
+          // (leaf of slot W - 1 - t, leaf of slot t)
+          auto leaves = [&](int t) {
+            const uint32_t r2[2] = {prmt(raw[W - 1 - t], raw[t], 0x5410), 0u};
+            return star_leaf<2>(r2, q2);
+          };
+          // the suffix half is the identity while slot W - 1 - t is padding
+          auto suffix_from = [&](StarVal v, int t) {
+            if (t < pad) {
+              v.m[0] = (v.m[0] & 0xffff0000u) | 0x4000u;
+              v.s &= ~0x80u;
+            }
+            return v;
+          };
+          StarVal C[W - 1];   // C[t] = (suf[W - 1 - t], pre[t])
+          C[0] = suffix_from(leaves(0), 0);
+#pragma unroll
+          for (int t = 1; t < W - 1; ++t)
+            C[t] = suffix_from(star_bp2<2>(leaves(t), C[t - 1], tc, nthr, q2), t);
+          // the stores of slot k from the low byte of msg and nv (the
+          // negated and the new message): the message, and the posterior
+          // raw + new
+          auto put = [&](int k, uint32_t msg, uint32_t nv) {
+            m0[k * Z] = int8_t(msg);
+            *post_of(tw[o_ent + e0 + k]) =
+                int16_t(int(int16_t(raw[k])) + int(int8_t(nv)));
+          };
+          // (out[i], out[W - 1 - i]) from X = C[i - 1] (the identity at
+          // i = 0) and Y = C[W - 2 - i]: bp2((X.hi, Y.hi), (Y.lo, X.lo))
+          const StarVal ident{{0x40004000u, 0u}, 0u};
+#pragma unroll
+          for (int i = 0; i < W / 2; ++i) {
+            const StarVal& X = i ? C[i - 1] : ident;
+            const StarVal& Y = C[W - 2 - i];
+            const StarVal U{{prmt(X.m[0], Y.m[0], 0x7632), 0u},
+                            prmt(X.s, Y.s, 0x0051)};
+            const StarVal V{{prmt(Y.m[0], X.m[0], 0x5410), 0u},
+                            prmt(Y.s, X.s, 0x0040)};
+            uint32_t msg, nv;
+            star_bytes(star_bp2<2>(U, V, tc, nthr, q2), msg, nv);
+            if (i < d) put(i, msg, nv);
+            if (W - 1 - i < d) put(W - 1 - i, msg >> 8, nv >> 8);
+          }
+          if constexpr (W % 2) {
+            // the middle slot (W = d): bp2(pre[i - 1], suf[i + 1]), both in
+            // C[i - 1]
+            constexpr int i = W / 2;
+            const StarVal& X = C[i - 1];
+            const StarVal V{{prmt(X.m[0], X.m[0], 0x1032), 0u},
+                            prmt(X.s, X.s, 0x0001)};
+            uint32_t msg, nv;
+            star_bytes(star_bp2<2>(X, V, tc, nthr, q2), msg, nv);
+            put(i, msg, nv);
+          }
+        });
+      } else {
+        uint32_t raw[DMAX];   // post - old, unclipped, in the low half
+        uint32_t rb[DMAX];    // row bytes
+        PackedRow<2> cn;
+        // in groups of four slots: a group past d is skipped
+#pragma unroll
+        for (int k = 0; k < DMAX; ++k) {
+          if ((k & ~3) >= d) break;
+          const uint32_t t[2] = {load_raw(k), 0u};
+          uint32_t r2[2];
+          rb[k] = cn.template entry<true>(t, 0u, q2, k < d, r2);
+          raw[k] = r2[0];
+        }
+        const PackedEmit em(cn, p);
+#pragma unroll
+        for (int k = 0; k < DMAX; ++k) {
+          if (k < d) {
+            uint32_t msg, nv;
+            em.emit(rb[k], msg, nv);
+            // the negated new message, and the posterior raw + new
+            m0[k * Z] = int8_t(msg);
+            *post_of(tw[o_ent + e0 + k]) =
+                int16_t(__vadd2(raw[k], widen_lo(nv)));
+          }
+        }
+      }
+      __syncthreads();
+    }
+    if constexpr (ET) {
+      // state it + 1
+      if (!unsat()) {
+        iters = it + 1;
+        conv = true;
+      }
+    }
+  }
+  if constexpr (!ET) conv = !unsat();
+
+  // Hard bits or info-bit errors from the final posteriors.
+  int nerr = 0;
+  for (int j = 0; j < nb; ++j) {
+    const int v = j * Z + row;
+    const int h = post[v] < 0;
+    const size_t g = size_t(v) * p.B + b;
+    if (p.hard) p.hard[g] = uint8_t(h);
+    if (p.info && j < p.kb) nerr += h ^ int(p.info[g]);
+  }
+  if (nerr) atomicAdd(s_bits, nerr);
+  __syncthreads();
+  if (row == 0) {
+    p.iters[b] = iters;
+    p.conv[b] = conv;
+    if (p.bits) {
+      p.bits[b] = *s_bits;
+      p.frame[b] = *s_bits > 0;
+    }
+  }
+}
+
+// Every form of the register-row instance (the min-sum family or min*,
+// fixed or early-terminating, fused IO; no megakernel), Z <=
+// kTwoLaneThreads threads a block, at least one block an SM.
+template <int DMAX, bool STAR, bool ET>
+__global__ void __launch_bounds__(kTwoLaneThreads, 1)
+layered_row_kernel(const __grid_constant__ PackedArgs a) {
+  layered_row_body<DMAX, STAR, ET>(a);
+}
+
+template <int DMAX, bool ET>
+PackedKernel row_instance_of(bool star) {
+  return star ? layered_row_kernel<DMAX, true, ET>
+              : layered_row_kernel<DMAX, false, ET>;
+}
+
 }  // namespace
+
+#if !defined(LDPC_UNIT) || LDPC_UNIT == 5
+// The early-terminating register-row instance for the largest base-row
+// degree (DMAX 24 or 28) and the update.
+PackedKernel ldpc::layered_row_et(int max_deg, bool star) {
+  return one_lane_row_instance(max_deg) == 0 ? row_instance_of<24, true>(star)
+                                             : row_instance_of<28, true>(star);
+}
+#endif
+
+#if !defined(LDPC_UNIT) || LDPC_UNIT == 4
+// The register-row instance for the largest base-row degree (DMAX 24 or
+// 28), the update and ET (the early-terminating forms from unit 5).
+PackedKernel ldpc::layered_row(int max_deg, bool star, bool et) {
+  if (et) return layered_row_et(max_deg, star);
+  return one_lane_row_instance(max_deg) == 0 ? row_instance_of<24, false>(star)
+                                             : row_instance_of<28, false>(star);
+}
+#endif
 
 #if !defined(LDPC_UNIT) || LDPC_UNIT == 2
 // The two-lane instance for the largest base-row degree (DMAX 8, 16, 20,
@@ -658,6 +951,11 @@ PackedKernel ldpc::layered_four_lane_long(int max_deg, bool star, bool et,
 #if !defined(LDPC_UNIT) || LDPC_UNIT == 1
 namespace {
 
+inline bool is_row(int nb, int Z, int E, int max_deg, int star_deg) {
+  return !is_packed(nb, Z, E, star_deg)
+      && row_shape(nb, Z, E, max_deg).threads > 0;
+}
+
 // The instance at lpt lanes a thread for the largest base-row degree (DMAX
 // 8, 16, 20, 24, else the row read twice; min* only up to 24), the update,
 // ET and MC.
@@ -686,14 +984,29 @@ extern "C" {
 // included). Where a block of four or two lanes fits (and for min* its
 // rows fit a register row) the instance is the packed kernel at that many
 // lanes a thread, and max_row_deg (the largest base-row degree) picks its
-// row instance. Returns cudaErrorInvalidConfiguration, lanes 0, when no
-// block shape fits (Z > 1024 or state above 227 KB per codeword).
+// row instance; else the register-row instance where it takes the code
+// (one lane, Z threads); else, and with template_only, the one-lane
+// template. Returns cudaErrorInvalidConfiguration, lanes 0, when no block
+// shape fits (Z > 1024 or state above 227 KB per codeword), and
+// cudaErrorNotSupported for the megakernel at two lanes a thread or on the
+// register-row instance, which are not built.
 int minsum_layered_config(int nb, int Z, int mb, int E, int star_deg,
-                          int early_term, int mc, int max_row_deg, int* lanes,
-                          int* smem, int* lanes_per_thread,
-                          int* blocks_per_sm) {
+                          int early_term, int mc, int max_row_deg,
+                          int template_only, int* lanes, int* smem,
+                          int* lanes_per_thread, int* blocks_per_sm) {
   *blocks_per_sm = 0;
-  if (is_packed(nb, Z, E, star_deg)) {
+  if (!template_only && is_row(nb, Z, E, max_row_deg, star_deg)) {
+    const OneLaneShape s = row_shape(nb, Z, E, max_row_deg);
+    *lanes = 1;
+    *smem = s.smem;
+    *lanes_per_thread = 1;
+    const PackedKernel k =
+        mc ? nullptr : layered_row(max_row_deg, star_deg > 0, early_term != 0);
+    const cudaError_t err = prepare(k, s.smem);
+    if (err != cudaSuccess) return int(err);
+    return occupancy(k, s.threads, s.smem, blocks_per_sm);
+  }
+  if (!template_only && is_packed(nb, Z, E, star_deg)) {
     const PackedShape s = layered_shape(nb, Z, E);
     *lanes = s.lanes;
     *smem = s.smem;
@@ -724,12 +1037,15 @@ const char* minsum_layered_error_string(int err) {
 // key1) or the injected words, and chan/info are not read. star_deg > 0 (the
 // largest base-row degree) selects the min* update with the nthr thresholds
 // at `thr` (host memory; beta and alpha are then not read). The packed
-// kernel takes its entry tables from `ptab` (host memory, ptab_words uint32
-// words, packed_tables' layout) into its parameters; tables above kTabWords
+// kernel and the register-row instance take their entry tables from `ptab`
+// (host memory, ptab_words uint32 words, packed_tables' layout, required
+// unless template_only) into their parameters; tables above kTabWords
 // words, or qmax above 127, are refused. `chan_q` is not read (the
-// flooding library's two-lane channel; the two libraries share one
-// signature). The megakernel at two lanes a thread is not built, and is
-// refused (cudaErrorNotSupported), here and in minsum_layered_config.
+// flooding library's channel buffer; the two libraries share one
+// signature). The megakernel at two lanes a thread or on the register-row
+// instance is not built, and is refused (cudaErrorNotSupported), here and
+// in minsum_layered_config. template_only != 0 runs the one-lane template
+// whatever the code, from `tables`.
 int minsum_layered_launch(const void* chan, int chan_is_f32, float scale,
                           const void* info, int kb, void* hard, void* bits,
                           void* frame, void* iters, void* conv,
@@ -738,35 +1054,51 @@ int minsum_layered_launch(const void* chan, int chan_is_f32, float scale,
                           int beta, int alpha_num, int alpha_shift,
                           int star_deg, const int* thr, int nthr,
                           const ldpc::Mc* mc, const uint32_t* ptab,
-                          int ptab_words, void* chan_q, void* stream) {
+                          int ptab_words, void* chan_q, int template_only,
+                          void* stream) {
   const Params p = ldpc::make_params(
       chan, chan_is_f32, scale, info, kb, hard, bits, frame, iters, conv,
       tables, B, nb, Z, mb, E, max_iter, qmax, beta, alpha_num, alpha_shift,
       star_deg, thr, nthr);
-  if (!is_packed(nb, Z, E, star_deg))
+  if (!template_only && !ptab) return int(cudaErrorInvalidValue);
+  const int max_deg = ptab ? packed_max_degree(ptab, mb) : 0;
+  const bool row = !template_only && is_row(nb, Z, E, max_deg, star_deg);
+  if (template_only || (!row && !is_packed(nb, Z, E, star_deg)))
     return ldpc::launch_instance(
         kernels, [=](int l) { return smem_bytes(nb, Z, mb, E, star_deg, l); },
         p, early_term, mc, stream);
-  const PackedShape s = layered_shape(nb, Z, E);
-  if (!packed_args_ok(ptab, ptab_words, nb, Z, mb, E, qmax, nthr) ||
-      layered_tab_words(nb, mb, E) > kTabWords ||
-      2 * size_t(s.lanes) * (size_t(nb) + 1) * Z >= (size_t(1) << 21))
+  if (!packed_args_ok(ptab, ptab_words, nb, Z, mb, E, qmax, nthr))
     return int(cudaErrorInvalidValue);
   static thread_local PackedArgs a;   // 32 KB, off the stack; copied at launch
   a.p = p;
-  a.p.lanes = s.lanes;
   if (mc) a.p.mc = *mc;
   memcpy(a.t.w, ptab, 4 * size_t(ptab_words));
+  star_constants(p, a.star);
+  a.chan_q = nullptr;
+  if (row) {
+    // the register-row instance: packed_tables' words as they are
+    const OneLaneShape s = row_shape(nb, Z, E, max_deg);
+    a.p.lanes = 1;
+    const PackedKernel k =
+        mc ? nullptr : layered_row(max_deg, star_deg > 0, early_term != 0);
+    const cudaError_t err = prepare(k, s.smem);
+    if (err != cudaSuccess) return int(err);
+    if (B <= 0) return 0;
+    k<<<dim3(B), dim3(Z), s.smem, static_cast<cudaStream_t>(stream)>>>(a);
+    return int(cudaGetLastError());
+  }
+  const PackedShape s = layered_shape(nb, Z, E);
+  if (layered_tab_words(nb, mb, E) > kTabWords ||
+      2 * size_t(s.lanes) * (size_t(nb) + 1) * Z >= (size_t(1) << 21))
+    return int(cudaErrorInvalidValue);
+  a.p.lanes = s.lanes;
   uint32_t* const off = a.t.w + offsets_at(nb, mb, E);
   for (int e = 0; e < E; ++e) {
     const uint32_t w = ptab[mb + nb + 2 + e], shift = w & 0x7ffu;
     off[e] = (2 * uint32_t(s.lanes) * ((w >> 11) + shift)) << 11 | (Z - shift);
   }
-  star_constants(p, a.star);
-  a.chan_q = nullptr;
-  const PackedKernel k = packed_kernel(s.lpt, packed_max_degree(ptab, mb),
-                                       star_deg > 0, early_term != 0,
-                                       mc != nullptr);
+  const PackedKernel k = packed_kernel(s.lpt, max_deg, star_deg > 0,
+                                       early_term != 0, mc != nullptr);
   const cudaError_t err = prepare(k, s.smem);
   if (err != cudaSuccess) return int(err);
   if (B <= 0) return 0;

@@ -38,9 +38,15 @@ decoder + counting):
   decode(seed, sigma, gain, words=(W, B) int32)    (inject_random=True)
   decode(seed, sigma_lane=(B,), gain_lane=(B,))    (mc_lane_sigma=True)
 The module also counts `mc_launches`, for launches of the min*
-instances `star_launches`, and for launches of a packed instance (four
+instances `star_launches`, for launches of a packed instance (four
 lanes a thread, or two where a block of four does not fit,
-`csrc/cn_packed.cuh`) `packed_launches`, per library.
+`csrc/cn_packed.cuh`) `packed_launches`, and for launches of a one-lane
+instance (`flood_quad_kernel`: four check rows of one codeword a word;
+`layered_row_kernel`: a register row a thread; a codeword a block, where no
+packed block takes the code or min* rows have 25-28 entries)
+`one_lane_launches`, per library; the one-lane template counts in
+neither. `make_decoder(..., template=True)` forces the one-lane template
+on any code.
 """
 from __future__ import annotations
 
@@ -99,6 +105,17 @@ LAYERED_ROW_DEGREES = (8, 16, 20, 24)
 TAB_WORDS = 8000
 LAYERED_MAX_THREADS = 256
 FLOOD_ET_STAR_THREADS = 256
+# The one-lane instances (csrc/cn_packed.cuh; flood_quad_kernel of
+# csrc/minsum_flood.cu, layered_row_kernel of csrc/minsum_layered.cu): a
+# codeword a block, rows of at most ONE_LANE_ROW_DEGREES[-1] entries in a
+# register row; the flooding instance holds QUAD_ROWS check rows (or
+# variables) a word, Z % QUAD_ROWS == 0, up to QUAD_THREADS threads a block
+# (QUAD_STAR_THREADS for min*); the layered instance Z threads, at most
+# TWO_LANE_THREADS.
+QUAD_ROWS = 4
+QUAD_THREADS = 512
+QUAD_STAR_THREADS = 384
+ONE_LANE_ROW_DEGREES = (24, 28)
 
 kernel_launches = 0
 plain_calls = 0
@@ -106,6 +123,7 @@ library_launches = dict.fromkeys(SOURCES, 0)
 mc_launches = dict.fromkeys(SOURCES, 0)
 star_launches = dict.fromkeys(SOURCES, 0)
 packed_launches = dict.fromkeys(SOURCES, 0)
+one_lane_launches = dict.fromkeys(SOURCES, 0)
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
@@ -119,6 +137,7 @@ def reset_counters() -> None:
         mc_launches[lib] = 0
         star_launches[lib] = 0
         packed_launches[lib] = 0
+        one_lane_launches[lib] = 0
 
 
 class McArgs(ctypes.Structure):
@@ -134,18 +153,19 @@ def load_library(name: str, rebuild: bool = False) -> build.Library:
     LIBRARIES); both export <name>_launch, _config and _error_string with
     the same arguments: the launch takes the packed instance's entry tables
     (host memory) and their words between `mc` and the stream, then the
-    two-lane flooding instances' channel buffer (device memory, `chan_q`),
-    the config the largest base-row degree before its four outputs."""
+    two-lane and quad flooding instances' channel buffer (device memory,
+    `chan_q`) and `template_only`; the config the largest base-row degree
+    and `template_only` before its four outputs."""
     lib = build.load(name, rebuild=rebuild)
     c = lib.cdll
     launch = getattr(c, f"{name}_launch")
     launch.argtypes = [_P, _I, _F, _P, _I, _P, _P, _P, _P, _P, _P,
                        _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                        _I, ctypes.POINTER(_I), _I,
-                       ctypes.POINTER(McArgs), _P, _I, _P, _P]
+                       ctypes.POINTER(McArgs), _P, _I, _P, _I, _P]
     launch.restype = _I
     config = getattr(c, f"{name}_config")
-    config.argtypes = [_I] * 8 + [ctypes.POINTER(_I)] * 4
+    config.argtypes = [_I] * 9 + [ctypes.POINTER(_I)] * 4
     config.restype = _I
     err = getattr(c, f"{name}_error_string")
     err.argtypes = [_I]
@@ -185,6 +205,24 @@ def packed_tables(ct: CodeTensors) -> np.ndarray:
                           ).astype(np.uint32)
 
 
+def quad_tables(ct: CodeTensors) -> np.ndarray:
+    """The quad flooding instance's uint32 entry tables (its kernel
+    parameters; the entry words of csrc/cn_packed.cuh's quad section):
+    layer_ptr[mb+1], col_ptr[nb+1], then with Q = Z / 4 and each shift s =
+    a Q + b (b < Q), by base row ent[E] = (col Q + b) << 13 | (Q - b) << 2 |
+    a, and by base column col_ent[E] = (e Q - b + Q) << 13 | b << 2 | a."""
+    t = kernel_tables(ct).astype(np.int64)
+    mb, nb, E, Q = ct.mb, ct.nb, ct.n_entries, ct.Z // QUAD_ROWS
+    layer_ptr = t[: mb + 1]
+    cols, shifts = t[mb + 1: mb + 1 + E], t[mb + 1 + E: mb + 1 + 2 * E]
+    col_ptr, col_ent = t[mb + 1 + 2 * E: mb + nb + 2 + 2 * E], t[-E:]
+    a, b = shifts // Q, shifts % Q
+    ent = (cols * Q + b) << 13 | (Q - b) << 2 | a
+    by_col = ((col_ent * Q - b[col_ent] + Q) << 13 | b[col_ent] << 2
+              | a[col_ent])
+    return np.concatenate([layer_ptr, col_ptr, ent, by_col]).astype(np.uint32)
+
+
 def align16(x: int) -> int:
     return (x + 15) & ~15
 
@@ -205,7 +243,8 @@ def is_packed(ct: CodeTensors, schedule: str, star_deg: int,
               early_term: bool) -> bool:
     """Whether this code and instance take a packed kernel (is_packed of
     csrc/minsum_flood.cu and csrc/minsum_layered.cu), at four or two lanes
-    a thread, else the one-lane template decodes it. Both schedules: every
+    a thread, else a one-lane instance (`is_one_lane`) or the one-lane
+    template decodes it. Both schedules: every
     instance where a block of four lanes fits (for flooding within the
     instance's threads a block, `flood_max_threads`) or else one of two
     lanes (within TWO_LANE_THREADS), min* only where its rows (star_deg)
@@ -281,6 +320,54 @@ def row_degree_instance(ct: CodeTensors, schedule: str = "flooding") -> int:
     return next((r for r in rows if d <= r), 0)
 
 
+def one_lane_shape(ct: CodeTensors, schedule: str = "flooding",
+                   star_deg: int = 0) -> Tuple[int, int, int]:
+    """(threads a block, shared-memory bytes, blocks an SM holds by
+    shared memory, warps and blocks) of the schedule's one-lane instance for
+    this code (quad_shape of csrc/minsum_flood.cu, row_shape of
+    csrc/minsum_layered.cu), zeros where it does not take the code. Both:
+    one codeword a block, rows of at most ONE_LANE_ROW_DEGREES[-1] entries,
+    the state within MAX_SMEM. Flooding: Z % QUAD_ROWS == 0; 16 B, the int16
+    totals and the int8 messages (the channel lives in device memory); of
+    the threads within the bound (QUAD_STAR_THREADS for min*, else
+    QUAD_THREADS), as few as keep the C phase's mb Z / 4 items to the
+    rounds the bound needs, in whole warps. Layered: Z <= TWO_LANE_THREADS
+    threads; 16 B, the int16 posteriors and the int8 messages."""
+    d = max(len(row) for row in ct.entries)
+    if d > ONE_LANE_ROW_DEGREES[-1]:
+        return (0, 0, 0)
+    if schedule == "flooding":
+        Q = ct.Z // QUAD_ROWS
+        if ct.Z % QUAD_ROWS or Q > 2047:
+            return (0, 0, 0)
+        bound = QUAD_STAR_THREADS if star_deg else QUAD_THREADS
+        items = ct.mb * Q
+        rounds = -(-items // bound)
+        per_round = -(-items // rounds)
+        threads = min(bound, -(-per_round // 32) * 32)
+        smem = 16 + align16(8 * ct.nb * Q) + align16(4 * ct.n_entries * Q)
+    else:
+        threads = ct.Z
+        if threads > TWO_LANE_THREADS:
+            return (0, 0, 0)
+        smem = 16 + align16(2 * ct.n) + align16(ct.n_entries * ct.Z)
+    if smem > MAX_SMEM:
+        return (0, 0, 0)
+    blocks = min(SM_SMEM // (smem + BLOCK_RESERVE),
+                 SM_WARPS // -(-threads // 32), SM_BLOCKS)
+    return (threads, smem, blocks)
+
+
+def is_one_lane(ct: CodeTensors, schedule: str, star_deg: int,
+                early_term: bool) -> bool:
+    """Whether this code and instance take the schedule's one-lane
+    instance (is_quad of csrc/minsum_flood.cu, is_row of
+    csrc/minsum_layered.cu): no packed instance takes it (`is_packed`) and
+    `one_lane_shape` does."""
+    return (not is_packed(ct, schedule, star_deg, early_term)
+            and one_lane_shape(ct, schedule, star_deg)[0] > 0)
+
+
 def onchip_smem_bytes(ct: CodeTensors, schedule: str, star_deg: int,
                       lanes: int, early_term: bool = False) -> int:
     """Dynamic shared memory of one block of `lanes` codewords of the
@@ -288,10 +375,16 @@ def onchip_smem_bytes(ct: CodeTensors, schedule: str, star_deg: int,
     minsum_layered.cu): the tables, two words per lane, int16 totals or
     posteriors, for flooding the int8 channel, the int8 messages and the
     min* scratch; the packed instances keep no tables and no scratch
-    (`packed_smem_bytes`)."""
+    (`packed_smem_bytes`), nor do the one-lane instances (`one_lane_shape`,
+    one lane a block)."""
     if is_packed(ct, schedule, star_deg, early_term):
         lpt = packed_shape(ct, schedule, star_deg, early_term)[1]
         return packed_smem_bytes(ct, lanes, schedule, lpt)
+    if is_one_lane(ct, schedule, star_deg, early_term):
+        if lanes != 1:
+            raise ValueError(f"the one-lane instance has 1 lane a block, "
+                             f"not {lanes}")
+        return one_lane_shape(ct, schedule, star_deg)[1]
     return (align16(4 * table_words(ct)) + align16(8 * lanes)
             + align16(2 * ct.n * lanes)
             + (align16(ct.n * lanes) if schedule == "flooding" else 0)
@@ -302,13 +395,15 @@ def onchip_smem_bytes(ct: CodeTensors, schedule: str, star_deg: int,
 def pick_lanes(ct: CodeTensors, schedule: str, star_deg: int = 0,
                early_term: bool = False) -> int:
     """Codeword lanes per block of the on-chip kernels for this code,
-    without building them: for a packed instance `packed_shape`; else
-    ldpc::pick_lanes of csrc/cn_minsum.cuh, the most lanes (a power of two
-    <= 32, lanes * Z <= 1024 threads) whose state fits 113 KB, else the
-    227 KB opt-in. 0 when one block's state does not fit one SM's shared
-    memory."""
+    without building them: for a packed instance `packed_shape`; 1 for a
+    one-lane instance (`is_one_lane`); else ldpc::pick_lanes of
+    csrc/cn_minsum.cuh, the most lanes (a power of two <= 32, lanes * Z <=
+    1024 threads) whose state fits 113 KB, else the 227 KB opt-in. 0 when
+    one block's state does not fit one SM's shared memory."""
     if is_packed(ct, schedule, star_deg, early_term):
         return packed_shape(ct, schedule, star_deg, early_term)[0]
+    if is_one_lane(ct, schedule, star_deg, early_term):
+        return 1
     for limit in (PREFERRED_SMEM, MAX_SMEM):
         lanes = 32
         while lanes >= 1:
@@ -383,7 +478,7 @@ class MinsumDecoder:
 
     def __init__(self, ct: CodeTensors, dec: DecoderConfig,
                  quant: QuantConfig, input_scale: Optional[float],
-                 count_info_cols: Optional[int]):
+                 count_info_cols: Optional[int], template: bool = False):
         if dec.schedule not in LIBRARIES:
             raise ValueError(f"unknown schedule {dec.schedule!r}")
         if count_info_cols is not None:
@@ -418,15 +513,23 @@ class MinsumDecoder:
         # the min* instances' scratch degree; 0 selects the min-sum update
         self.star_deg = star_degree(ct, dec)
         self._kernel_domain = kernel_domain(ct, quant)
-        # a packed instance: its entry tables travel in the kernel's
-        # parameters (the one-lane template takes none); its lanes a block
-        # and a thread
-        self.packed = is_packed(ct, dec.schedule, self.star_deg,
-                                dec.early_term)
+        # a packed instance, or a one-lane instance: their entry tables
+        # travel in the kernel's parameters (the one-lane template, forced
+        # by `template` or taking what neither takes, reads `tables_on`);
+        # the lanes a block and a thread
+        self.template = template
+        self.packed = not template and is_packed(ct, dec.schedule,
+                                                 self.star_deg,
+                                                 dec.early_term)
+        self.one_lane = not template and is_one_lane(ct, dec.schedule,
+                                                     self.star_deg,
+                                                     dec.early_term)
         self.packed_lanes, self.lanes_per_thread = (
             packed_shape(ct, dec.schedule, self.star_deg,
                          dec.early_term)[:2] if self.packed else (0, 1))
-        self._ptab = packed_tables(ct) if self.packed else None
+        self.quad = self.one_lane and dec.schedule == "flooding"
+        self._ptab = (quad_tables(ct) if self.quad
+                      else None if template else packed_tables(ct))
         self._launch_tables = ((None, 0) if self._ptab is None
                                else (self._ptab.ctypes.data, len(self._ptab)))
 
@@ -508,12 +611,13 @@ class MinsumDecoder:
         if self._kernel_domain is not None:
             raise NotImplementedError(self._kernel_domain)
         ct = self.ct
-        if self.packed and (self.param_words() > TAB_WORDS
-                            or ct.n_entries * ct.Z >= 1 << 21):
+        if (self.packed or self.one_lane) and (
+                self.param_words() > TAB_WORDS
+                or ct.n_entries * ct.Z >= 1 << 21):
             raise ValueError(
                 f"{ct.code.name}: {self.param_words()} words of entry tables "
                 f"(E * Z = {ct.n_entries * ct.Z}) exceed the {TAB_WORDS} "
-                f"words (and 2**21) the packed kernel's parameters hold")
+                f"words (and 2**21) the kernel's parameters hold")
         if dev.type != "cuda":
             raise ValueError(f"the CUDA kernel needs CUDA tensors, got {dev}")
         if B >= 2 ** 31:
@@ -534,10 +638,12 @@ class MinsumDecoder:
         def ptr(t):
             return None if t is None else t.data_ptr()
 
-        # the two-lane flooding instances' quantized channel,
-        # [block][n][lanes]
+        # the quantized channel of the two-lane flooding instances,
+        # [block][n][lanes], and of the quad instance, [B][n]
         chan_q = None
-        if self.lanes_per_thread == TWO_LANES and self.library == \
+        if self.quad:
+            chan_q = torch.empty(B * ct.n, dtype=torch.int8, device=dev)
+        elif self.lanes_per_thread == TWO_LANES and self.library == \
                 LIBRARIES["flooding"]:
             blocks = -(-B // self.packed_lanes)
             chan_q = torch.empty(blocks * self.packed_lanes * ct.n,
@@ -555,7 +661,8 @@ class MinsumDecoder:
                 int(self.dec.early_term), self.quant.qmax, self.beta, num,
                 shift, self.star_deg, thr, len(self.minstar or ()),
                 None if mc is None else ctypes.byref(mc),
-                *self._launch_tables, ptr(chan_q), stream)
+                *self._launch_tables, ptr(chan_q), int(self.template),
+                stream)
         check_launch(lib, name, err)
         kernel_launches += 1
         library_launches[name] += 1
@@ -565,15 +672,19 @@ class MinsumDecoder:
             star_launches[name] += 1
         if self.packed:
             packed_launches[name] += 1
+        if self.one_lane:
+            one_lane_launches[name] += 1
         if self.counting:
             return bits, frame, iters, conv
         return hard, iters, conv
 
     def param_words(self) -> int:
-        """Table words of the packed instance's parameters: `packed_tables`,
-        and for layered the entries' posterior offsets (layered_tab_words of
-        csrc/minsum_layered.cu)."""
-        extra = self.ct.n_entries if self.dec.schedule == "layered" else 0
+        """Table words of the packed or one-lane instance's parameters:
+        `packed_tables` (`quad_tables` for the quad instance), and for the
+        packed layered kernel the entries' posterior offsets
+        (layered_tab_words of csrc/minsum_layered.cu)."""
+        extra = (self.ct.n_entries
+                 if self.dec.schedule == "layered" and self.packed else 0)
         return len(self._ptab) + extra
 
     @property
@@ -596,13 +707,14 @@ class MinsumDecoder:
         thread, blocks an SM keeps resident) of the instance for this code,
         from the library's `<name>_config` (the last by
         cudaOccupancyMaxActiveBlocksPerMultiprocessor); builds the library.
-        A code no block shape takes raises."""
+        A code no block shape takes raises, and so does the megakernel of a
+        one-lane instance (not built)."""
         out = [ctypes.c_int(0) for _ in range(4)]
         lib = load_library(self.library).cdll
         err = getattr(lib, f"{self.library}_config")(
             self.ct.nb, self.ct.Z, self.ct.mb, self.ct.n_entries,
             self.star_deg, int(self.dec.early_term), int(mc),
-            max(len(row) for row in self.ct.entries),
+            max(len(row) for row in self.ct.entries), int(self.template),
             *(ctypes.byref(o) for o in out))
         check_launch(lib, self.library, err)
         return tuple(o.value for o in out)
@@ -764,15 +876,21 @@ def make_decoder(ct: CodeTensors, dec: DecoderConfig, quant: QuantConfig,
                  count_info_cols: Optional[int] = None,
                  mc_batch: Optional[int] = None,
                  inject_random: bool = False,
-                 mc_lane_sigma: bool = False
+                 mc_lane_sigma: bool = False,
+                 template: bool = False
                  ) -> Union[MinsumDecoder, McDecoder]:
     """Factory from configs, mirroring `minsum_pallas.make_decoder`;
     (beta, alpha) come from `config.cn_params`, the min* thresholds from
     `config.minstar_thresholds`. mc_batch selects the
-    Monte-Carlo megakernel (`McDecoder`), as in the reference."""
+    Monte-Carlo megakernel (`McDecoder`), as in the reference. template
+    forces the one-lane template (the yardstick the packed and one-lane
+    instances are held and timed against; not for the megakernel)."""
     if mc_batch is not None:
+        if template:
+            raise ValueError("template does not take mc_batch")
         return McDecoder(ct, dec, quant, input_scale, count_info_cols,
                          mc_batch, inject_random, mc_lane_sigma)
     if inject_random or mc_lane_sigma:
         raise ValueError("inject_random and mc_lane_sigma need mc_batch")
-    return MinsumDecoder(ct, dec, quant, input_scale, count_info_cols)
+    return MinsumDecoder(ct, dec, quant, input_scale, count_info_cols,
+                         template)

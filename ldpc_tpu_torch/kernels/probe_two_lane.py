@@ -1,11 +1,25 @@
-"""Probe of the two-lane packed decoder instances on one CUDA device:
-times them in turns with the one-lane template they replaced and with the
-streaming kernels that `auto` weighs them against
-(`sim.pipeline.stream_first`).
+"""Probe of the two-lane packed decoder instances and the one-lane
+instances on one CUDA device: times them in turns with the one-lane
+template they replaced and with the streaming kernels that `auto` weighs
+them against (`sim.pipeline.stream_first`).
 
     python -m ldpc_tpu_torch.kernels.probe_two_lane [--parent DIR]
-        [--batch 1024 4096] [--route-batch 256 1024] [--reps 5]
-        [--out FILE]
+        [--cells all|two-lane|one-lane] [--batch 1024 4096]
+        [--route-batch 256 1024] [--reps 5] [--out FILE]
+
+One-lane cells (`ONE_LANE`, `--cells one-lane`): the routes the one-lane
+template decoded until the one-lane instances (`flood_quad_kernel`,
+`layered_row_kernel`) took them: NR BG1 Z=384 rate 1/3 flooding offset
+min-sum beta 2 at 20 fixed iterations and with early termination at 0.5
+and 1.0 dB (`results/nr_bg1_z128_r13.json`'s points), flooding min* fixed-20,
+layered min* fixed-20 and with early termination at 1.0 dB; DVB-S2
+n=16,200 rate 8/9 min* on both schedules, fixed-20 and with early
+termination at 3.5 and 4.0 dB; each at every B of `--batch`, on int8 LLRs
+of the all-zeros word. Each cell times the one-lane instance (`one_lane`)
+in turns with this commit's one-lane template (`template`, forced by
+`minsum.make_decoder(..., template=True)`) and, with `--parent`, the
+parent's library (`parent`: its template on these routes); all outputs
+equal.
 
 Cells: NR BG1 Z=384 rate 1/2 (preset `nr-bg1-layered`, 1.25 dB) and DVB-S2
 n=16,200 rate 1/2 (`dvbs2-64800-r12` at n=16,200, 1.4 dB), each in five
@@ -29,12 +43,12 @@ bound printed (`utils.profiling.bound` over the call's bytes and
 `minsum.iteration_ops` for the iterations its lanes ran).
 
 `--parent DIR`: a checkout (`git archive`) of a commit whose decoder
-libraries decode these codes with the one-lane template; its
-`minsum_flood.cu` and `minsum_layered.cu` are built from
-`DIR/ldpc_tpu_torch/kernels/csrc` with the same flags, both at once, and
-launched through that commit's C signature (no channel buffer). Each cell
-then runs parent, two-lane, two-lane, parent, both timings, and the two
-outputs must be equal (both are bit-exact with the plain version).
+libraries take the two-lane channel buffer (`chan_q`) but no
+`template_only` argument; its `minsum_flood.cu` and `minsum_layered.cu`
+are built from `DIR/ldpc_tpu_torch/kernels/csrc` with the same flags, both
+at once, and launched through that commit's C signature. Each cell then
+runs parent, change, change, parent, both timings, and the outputs must be
+equal (both are bit-exact with the plain version).
 
 Four-lane cells: 802.11n n=648 rate 1/2 (the canonical preset), flooding
 min-sum and offset min-sum, fixed and with early termination, at B =
@@ -93,6 +107,20 @@ FORMS = {"flooding min-sum": ("flooding", "min-sum", 0),
          "flooding min*": ("flooding", "min-star", 0),
          "layered OMS": ("layered", "offset-min-sum", 2),
          "layered min*": ("layered", "min-star", 0)}
+# The one-lane instances' routes: code -> ((preset, code fields, Eb/N0 of
+# the fixed-iteration cells), ((form, early-termination Eb/N0 or None for
+# fixed-20), ...))
+ONE_LANE = {
+    "NR BG1 Z=384 r1/3": (
+        ("nr-bg1-layered", dict(rate="1/3"), 1.0),
+        (("flooding OMS", None), ("flooding OMS", 0.5),
+         ("flooding OMS", 1.0), ("flooding min*", None),
+         ("layered min*", None), ("layered min*", 1.0))),
+    "DVB-S2 n=16,200 r8/9": (
+        ("dvbs2-64800-r12", dict(n=16200, rate="8/9"), 4.0),
+        (("flooding min*", None), ("flooding min*", 3.5),
+         ("flooding min*", 4.0), ("layered min*", None),
+         ("layered min*", 3.5), ("layered min*", 4.0)))}
 
 
 def config(code: str, form: str, early_term: bool):
@@ -110,7 +138,8 @@ def config(code: str, form: str, early_term: bool):
 
 def _codes():
     """Every cell's code: name -> (preset, code fields, Eb/N0)."""
-    return {**CODES, **{k: v[0] for k, v in SHAPES.items()}, **FOUR_LANE}
+    return {**CODES, **{k: v[0] for k, v in SHAPES.items()}, **FOUR_LANE,
+            **{k: v[0] for k, v in ONE_LANE.items()}}
 
 
 def code_tensors(code: str, dev) -> CodeTensors:
@@ -131,8 +160,9 @@ def k_name(form: str, early_term: bool) -> str:
 
 class ParentDecoder:
     """The parent commit's library for decoder d's code and configuration,
-    launched through its own C signature (no channel buffer): the one-lane
-    template on the codes the two-lane instances took from it."""
+    launched through its own C signature (the channel buffer, no
+    `template_only`): its two-lane instances where they take the code, its
+    one-lane template on the codes the one-lane instances took from it."""
 
     def __init__(self, d: minsum.MinsumDecoder, cdll: ctypes.CDLL):
         self.d = d
@@ -141,7 +171,8 @@ class ParentDecoder:
         self.launch.argtypes = [_P, _I, _F, _P, _I, _P, _P, _P, _P, _P, _P,
                                 _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                                 _I, ctypes.POINTER(_I), _I,
-                                ctypes.POINTER(minsum.McArgs), _P, _I, _P]
+                                ctypes.POINTER(minsum.McArgs), _P, _I, _P,
+                                _P]
         self.launch.restype = _I
         self.error_string = getattr(cdll, f"{d.library}_error_string")
         self.error_string.argtypes = [_I]
@@ -160,13 +191,18 @@ class ParentDecoder:
 
         def ptr(t):
             return None if t is None else t.data_ptr()
+        chan_q = None
+        if d.packed and d.lanes_per_thread == minsum.TWO_LANES and \
+                d.library == minsum.LIBRARIES["flooding"]:
+            chan_q = torch.empty(-(-B // d.packed_lanes) * d.packed_lanes
+                                 * ct.n, dtype=torch.int8, device=dev)
         err = self.launch(
             ptr(chan), 0, 0.0, None, 0, ptr(hard), None, None,
             ptr(iters), ptr(conv), d.tables_on(dev).data_ptr(), B, ct.nb,
             ct.Z, ct.mb, ct.n_entries, d.dec.max_iter,
             int(d.dec.early_term), d.quant.qmax, d.beta, num, shift,
             d.star_deg, thr, len(d.minstar or ()), None, *d._launch_tables,
-            torch.cuda.current_stream(dev).cuda_stream)
+            ptr(chan_q), torch.cuda.current_stream(dev).cuda_stream)
         if err:
             raise RuntimeError(f"parent {d.library} launch failed: "
                                f"{self.error_string(err).decode()} ({err})")
@@ -202,7 +238,10 @@ def parent_libraries(parent: Path) -> Dict[str, ctypes.CDLL]:
 def in_turns(fns: Dict[str, Callable[[], object]], reps: int
              ) -> Dict[str, Dict[str, List[float]]]:
     """Event and device-only ms of each fn, `reps` calls a turn, in turns
-    a, b, b, a (after three warm-up calls each)."""
+    a, b, b, a (after three warm-up calls each). The device-only times
+    start from a 2 ms spin: a decoder's host dispatch (its checks,
+    allocations and ctypes call) outlasted the default 0.5 ms, and then
+    1 ms, on a busy host."""
     names = list(fns)
     for name in names:
         for _ in range(3):
@@ -212,7 +251,7 @@ def in_turns(fns: Dict[str, Callable[[], object]], reps: int
     for name in names + names[::-1]:
         out[name]["event"] += event_ms(fns[name], reps)
     for name in names + names[::-1]:
-        out[name]["device"] += device_ms(fns[name], reps)
+        out[name]["device"] += device_ms(fns[name], reps, spin_ms=2.0)
     return out
 
 
@@ -257,6 +296,50 @@ def kernel_cells(ct: CodeTensors, code: str, B: int, gen, reps: int,
                   "bound_ms": b_ms, "bound_by": b_by, **medians(times)})
 
 
+def one_lane_cells(ct: CodeTensors, code: str, B: int, gen, reps: int,
+                   parent: Optional[Dict[str, ctypes.CDLL]], gpu: str,
+                   emit: Callable[[dict], None]) -> None:
+    """The cells of ONE_LANE[code] at batch B: the one-lane instance in
+    turns with this commit's template and the parent's library."""
+    (_, _, fixed_db), cells = ONE_LANE[code]
+    for form, et_db in cells:
+        et = et_db is not None
+        ebn0 = et_db if et else fixed_db
+        cfg = config(code, form, et)
+        d = minsum.make_decoder(ct, cfg.decoder, cfg.quant)
+        tmpl = minsum.make_decoder(ct, cfg.decoder, cfg.quant, template=True)
+        if not d.one_lane:
+            raise AssertionError(f"{code} {form}: not a one-lane instance")
+        chan = channel_q(ct, cfg, ebn0, B, gen).T.reshape(
+            ct.nb, ct.Z, B).contiguous()
+        out = d.kernel(chan)
+        fns = {"template": lambda: tmpl.kernel(chan),
+               "one_lane": lambda: d.kernel(chan)}
+        outs = {"template": tmpl.kernel(chan)}
+        if parent is not None:
+            old = ParentDecoder(d, parent[d.library])
+            outs["parent"] = old.kernel(chan)
+            fns = {"parent": lambda: old.kernel(chan), **fns}
+        for name, got in outs.items():
+            if not equal(got, out):
+                raise AssertionError(f"{code} {form} B={B}: the {name} and "
+                                     f"the one-lane instance differ")
+        times = in_turns(fns, reps)
+        its = int(out[1].to(torch.int64).sum())
+        b_ms, b_by = bound(tensor_bytes(chan, out),
+                           its * minsum.iteration_ops(ct, d.minstar))
+        emit({"gpu": gpu, "cell": "one_lane", "code": code, "form": form,
+              "row": k_name(form, et), "early_term": et, "B": B,
+              "ebn0_db": ebn0, "mean_iters": its / B,
+              "converged": int(out[2].sum()),
+              "launch_shape": list(d.launch_shape()),
+              "template_shape": list(tmpl.launch_shape()),
+              "threads": minsum.one_lane_shape(ct, d.dec.schedule,
+                                               d.star_deg)[0],
+              "equal_to_parent": parent is not None,
+              "bound_ms": b_ms, "bound_by": b_by, **medians(times)})
+
+
 def route_cells(ct: CodeTensors, code: str, B: int, gen, reps: int,
                 gpu: str, emit: Callable[[dict], None]) -> None:
     for et in (False, True):
@@ -280,6 +363,8 @@ def route_cells(ct: CodeTensors, code: str, B: int, gen, reps: int,
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("--parent", type=Path)
+    ap.add_argument("--cells", choices=("all", "two-lane", "one-lane"),
+                    default="all")
     ap.add_argument("--batch", type=int, nargs="+", default=[1024, 4096])
     ap.add_argument("--route-batch", type=int, nargs="*",
                     default=[256, 1024])
@@ -305,6 +390,13 @@ def main(argv=None) -> int:
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(20)
+    if args.cells in ("all", "one-lane"):
+        for code in ONE_LANE:
+            ct = code_tensors(code, dev)
+            for B in args.batch:
+                one_lane_cells(ct, code, B, gen, args.reps, parent, gpu, emit)
+    if args.cells == "one-lane":
+        return 0
     for code in CODES:
         ct = code_tensors(code, dev)
         for B in args.batch:

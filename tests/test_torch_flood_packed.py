@@ -522,18 +522,23 @@ def test_onchip_domain_admits_what_it_admitted(preset):
             assert len(minsum.packed_tables(ct)) <= minsum.TAB_WORDS
 
 
-def test_code_without_a_two_lane_block_keeps_the_one_lane_kernel():
+def test_code_without_a_two_lane_block_takes_the_quad_instance():
     """NR BG1 Z=384 rate 1/3 (n=26,112): two lanes of state (totals and
     messages, 341,776 B) exceed a block's shared memory, so the fixed
-    min-sum flooding instance is the one-lane template (one lane, 384
-    threads), as before the packed kernel. NR BG1 Z=384 rate 1/2 and DVB-S2
-    n=16,200 fit two lanes but not the packed kernel's four: since the
-    two-lane instances they take those, one block of two lanes an SM."""
+    min-sum flooding instance is the one-lane quad instance (one lane a
+    block, four check rows a word, 512 threads, 170,896 B), one lane a
+    block as the one-lane template before it. NR BG1 Z=384 rate 1/2 and
+    DVB-S2 n=16,200 fit two lanes but not the packed kernel's four: since
+    the two-lane instances they take those, one block of two lanes an SM."""
     cfg = PRESETS["nr-bg1-layered"]
     ct = from_reference(build_code(dataclasses.replace(
         cfg, code=dataclasses.replace(cfg.code, rate="1/3"))), "cpu")
     assert minsum.packed_shape(ct) == (0, 0, 0, 0)
     assert not minsum.is_packed(ct, "flooding", 0, False)
+    assert minsum.is_one_lane(ct, "flooding", 0, False)
+    assert minsum.one_lane_shape(ct, "flooding") == (512, 170896, 1)
+    d = minsum.make_decoder(ct, DecoderConfig(), QuantConfig())
+    assert d.quad and not d.packed and d.lanes_per_thread == 1
     assert minsum.pick_lanes(ct, "flooding") == _old_pick_lanes(
         ct, "flooding", 0) == 1
     nr = from_reference(build_code(cfg), "cpu")

@@ -563,14 +563,14 @@ def test_launch_bound_caps_the_et_and_minstar_block():
     ("dvbs2-64800-r12", dict(n=16200)),       # 86,760 B a codeword
     ("nr-bg1-layered", {}),                    # Z=384: above 256 threads
 ])
-def test_codes_without_a_block_of_four_keep_the_one_lane_template(name,
+def test_codes_without_a_block_of_four_take_the_two_lane_instance(name,
                                                                   code):
     """Checks that these codes, which no block of four lanes a thread fits
     (their channel, totals and messages exceed a block's shared memory, or
     NR BG1's 384 threads the bound), take the two-lane instance (the
     channel in device memory, 384 threads a block) and not the one-lane
     template, in every early-terminating and min* form: their rows (7, 22)
-    fit a register row. The name predates the two-lane instances."""
+    fit a register row."""
     ct = _preset_ct(name, **code)
     star = minsum.star_degree(ct, DecoderConfig(algorithm="min-star"))
     assert star <= max(minsum.ROW_DEGREES)

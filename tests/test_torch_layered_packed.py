@@ -662,13 +662,13 @@ def _preset_ct(name, **code):
     ("dvbs2-64800-r12", dict(n=16200), 1),        # 86,760 B a codeword
     ("nr-bg1-layered", {}, 2),                     # Z=384: 1,536 threads
 ])
-def test_codes_without_a_block_of_four_keep_the_one_lane_template(
+def test_codes_without_a_block_of_four_take_the_two_lane_instance(
         name, code, lanes):
     """Checks that these codes, which no block of four lanes a thread fits
     and which the one-lane template took with `lanes` lanes a block (its
     rule still admits them), now take the two-lane instance: a block of two
     lanes and Z threads, one an SM, min* too (rows of 7 and 22 fit a
-    register row). The name predates the two-lane instances."""
+    register row)."""
     ct = _preset_ct(name, **code)
     assert minsum.packed_smem_bytes(ct, 4, "layered") > minsum.MAX_SMEM
     shape = minsum.packed_shape(ct, "layered")

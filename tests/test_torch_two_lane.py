@@ -46,7 +46,8 @@ def _ct(name="nr-bg1-layered", **code):
     return from_reference(build_code(_cfg(name, **code)), "cpu")
 
 
-# The codes of the two-lane instances and the one the template keeps:
+# The codes of the two-lane instances and the one whose min* takes the
+# one-lane instance:
 # (name, preset, code fields).
 CODES = {
     "nr384": ("nr-bg1-layered", {}),
@@ -113,33 +114,44 @@ def test_shape_rule_against_hand_computed_bytes(key, schedule):
 
 @pytest.mark.parametrize("schedule", ["flooding", "layered"])
 def test_minstar_above_24_keeps_the_one_lane_template(schedule):
-    """DVB-S2 n=16,200 rate 8/9 (rows of 27-28): min* keeps the one-lane
-    template, with its own lanes (the tables in shared memory, one lane a
-    thread); its min-sum family takes the two-lane instance."""
+    """DVB-S2 n=16,200 rate 8/9 (rows of 27-28): min* is no two-lane
+    instance (its rows exceed the two-lane register rows) and takes one lane
+    a block, now in the one-lane instance (`minsum.is_one_lane`: the tables
+    in the parameters, the 28-entry register row) and no longer the
+    one-lane template, which the forced decoder keeps; its min-sum family
+    takes the two-lane instance. The name predates the one-lane
+    instances."""
     ct = _ct("dvbs2-64800-r12", n=16200, rate="8/9")
     star = minsum.star_degree(ct, DecoderConfig(algorithm="min-star"))
     assert star == 28
     for et in (False, True):
         assert not minsum.is_packed(ct, schedule, star, et)
+        assert minsum.is_one_lane(ct, schedule, star, et)
         assert minsum.pick_lanes(ct, schedule, star, et) == 1
-    d = minsum.make_decoder(ct, DecoderConfig(algorithm="min-star",
-                                              schedule=schedule),
-                            QuantConfig(beta_lsb=0))
-    assert not d.packed and d.lanes_per_thread == 1
-    assert d._launch_tables == (None, 0)
+    dec = DecoderConfig(algorithm="min-star", schedule=schedule)
+    d = minsum.make_decoder(ct, dec, QuantConfig(beta_lsb=0))
+    assert not d.packed and d.one_lane and d.lanes_per_thread == 1
+    assert d._launch_tables == (d._ptab.ctypes.data, len(d._ptab))
+    t = minsum.make_decoder(ct, dec, QuantConfig(beta_lsb=0), template=True)
+    assert not t.packed and not t.one_lane and t.lanes_per_thread == 1
+    assert t._launch_tables == (None, 0)
     assert minsum.is_packed(ct, schedule, 0, True)
 
 
 @pytest.mark.parametrize("schedule", ["flooding", "layered"])
-def test_code_without_a_two_lane_block_keeps_the_one_lane_template(schedule):
+def test_code_without_a_two_lane_block_takes_the_one_lane_instance(
+        schedule):
     """NR BG1 Z=384 rate 1/3 (n = 26,112, 309 circulants): 170,880 B a lane
     (2n of totals, E Z of messages), so two lanes exceed a block's shared
-    memory; the one-lane template decodes it, one lane a block."""
+    memory; the one-lane instance (flood_quad_kernel, layered_row_kernel)
+    decodes it, one lane a block, in 170,896 B."""
     ct = _ct(Z=384, rate="1/3")
     assert (ct.n, ct.n_entries) == (26112, 309)
     assert minsum.packed_smem_bytes(ct, 2, schedule, 2) > minsum.MAX_SMEM
     assert minsum.packed_shape(ct, schedule) == (0, 0, 0, 0)
     assert not minsum.is_packed(ct, schedule, 0, True)
+    assert minsum.is_one_lane(ct, schedule, 0, True)
+    assert minsum.one_lane_shape(ct, schedule)[1] == 170896
     assert minsum.pick_lanes(ct, schedule) == 1
 
 
@@ -167,7 +179,7 @@ def test_two_lane_kernels_are_declared_under_their_bound(lib, kernel):
     src = (build.CSRC / f"{lib}.cu").read_text()
     assert re.search(r"__launch_bounds__\(kTwoLaneThreads, 1\)\s+"
                      + kernel + r"\(", src)
-    assert build.UNITS[lib] == 3
+    assert build.UNITS[lib] == (5 if lib == "minsum_layered" else 4)
     # the two-lane instances are named in two_lane_instance, which unit 2
     # alone calls; unit 1 takes them through the getter
     two = src.index("#if !defined(LDPC_UNIT) || LDPC_UNIT == 2")
@@ -189,7 +201,7 @@ def test_two_lane_kernels_are_declared_under_their_bound(lib, kernel):
 
 
 def test_library_units_build_at_once_and_link(tmp_path, monkeypatch):
-    """A library of three units: nvcc compiles the source once a unit with
+    """A library of four units: nvcc compiles the source once a unit with
     -c -DLDPC_UNIT=u, all at once, then links the objects into the library;
     the objects are removed, ptxas' reports of every step kept."""
     log = tmp_path / "calls"
@@ -206,17 +218,17 @@ def test_library_units_build_at_once_and_link(tmp_path, monkeypatch):
     out = tmp_path / "lib" / "libminsum_flood.so"
     report = build.compile_library("minsum_flood", out)
     calls = log.read_text().splitlines()
-    assert len(calls) == 4
+    assert len(calls) == 5
     # the units run at once, in any order; the link comes last
-    calls[:3] = sorted(calls[:3], key=lambda c: c.split("LDPC_UNIT=")[1])
-    for u, call in zip((1, 2, 3), calls):
+    calls[:4] = sorted(calls[:4], key=lambda c: c.split("LDPC_UNIT=")[1])
+    for u, call in zip((1, 2, 3, 4), calls):
         assert f"-c -DLDPC_UNIT={u} -o" in call and "-shared" not in call
         assert call.endswith("minsum_flood.cu")
-    objs = [c.split(" -o ")[1].split()[0] for c in calls[:3]]
-    assert calls[3].endswith(" ".join(objs)) and "-shared" in calls[3]
+    objs = [c.split(" -o ")[1].split()[0] for c in calls[:4]]
+    assert calls[4].endswith(" ".join(objs)) and "-shared" in calls[4]
     assert out.read_text() == "x"
     assert out.with_suffix(".log").read_text() == report
-    assert report.count("ptxas info") == 4
+    assert report.count("ptxas info") == 5
     assert sorted(os.listdir(out.parent)) == ["libminsum_flood.log",
                                               "libminsum_flood.so"]
     # one unit: one call with -shared, the source straight to the library
@@ -265,7 +277,7 @@ def _with(cfg, **dec):
      "torch-plain-minstar-layered-bf", 2),
     ("dvb16200-r89", "flooding", "offset-min-sum", "onchip",
      "torch-plain-bf", 2),
-    # min* on rows of 27-28: the one-lane template
+    # min* on rows of 27-28: the one-lane instance
     ("dvb16200-r89", "layered", "min-star", "onchip",
      "torch-plain-minstar-layered-bf", 1),
     # a block of four lanes: NR BG1 Z=128 rate 1/3 layered, and the

@@ -67,6 +67,7 @@ from ..ops.encode import (DENSE_MAX_N, has_qc_struct, make_encoder,
 from ..ops.mc import gain_for
 from ..ops.quantize import quantize
 from ..parallel.mesh import all_sum, shard_lanes
+from ..utils.profiling import SPAN_CHAIN, span
 
 MIN_SUM_FAMILY = ("min-sum", "offset-min-sum", "normalized-min-sum")
 FIXED_POINT = MIN_SUM_FAMILY + ("min-star",)
@@ -539,7 +540,8 @@ def make_lane_step(ct: CodeTensors, cfg: SimConfig,
     `backend_label`, `mc`, `transposed`, `lane0` and `local_batch` (this
     rank's lanes), and a batch-first step `chain`, its part before the
     decoder: chain(rng, sigma, **draws) -> (info bits (B/W, k), the
-    decoder's input (B/W, n))."""
+    decoder's input (B/W, n)). A host chain runs up to the decoder's call
+    in the span `ldpc.step.chain` (`utils.profiling.span`)."""
     check_in_slice(ct, cfg)
     B = batch or cfg.run.batch
     if n_points < 1 or B % n_points:
@@ -604,16 +606,17 @@ def make_lane_step(ct: CodeTensors, cfg: SimConfig,
 
         def step(rng, sigma, *, info_t: Optional[torch.Tensor] = None,
                  noise: Optional[torch.Tensor] = None) -> Tuple:
-            if info_t is None:
-                info_t = draw_info(rng, (k, B))
-            check_draws("info_t", info_t, (k, B), noise, sym_shape)
-            if noise is None:
-                noise = ch.standard_normal(rng, sym_shape, dev)
-            info_t = info_t[:, local].contiguous()
-            sig = lane_sigma(sigma) if n_points > 1 else sigma
-            x = ch.modulate_t(enc_t(info_t), mod)
-            y = ch.awgn_t(None, x, sig, noise=noise[..., local])
-            llr = ch.demap_t(y, sig, mod).reshape(nb, Z, Bl)
+            with span(SPAN_CHAIN):
+                if info_t is None:
+                    info_t = draw_info(rng, (k, B))
+                check_draws("info_t", info_t, (k, B), noise, sym_shape)
+                if noise is None:
+                    noise = ch.standard_normal(rng, sym_shape, dev)
+                info_t = info_t[:, local].contiguous()
+                sig = lane_sigma(sigma) if n_points > 1 else sigma
+                x = ch.modulate_t(enc_t(info_t), mod)
+                y = ch.awgn_t(None, x, sig, noise=noise[..., local])
+                llr = ch.demap_t(y, sig, mod).reshape(nb, Z, Bl)
             if dec.counting:
                 return dec(llr, info_t.reshape(ct.kb, Z, Bl))
             hard_t, iters, conv = dec(llr)
@@ -663,7 +666,8 @@ def make_lane_step(ct: CodeTensors, cfg: SimConfig,
                           else quantize(llr, cfg.quant))
 
         def step(rng, sigma, **draws) -> Tuple:
-            info, q = chain(rng, sigma, **draws)
+            with span(SPAN_CHAIN):
+                info, q = chain(rng, sigma, **draws)
             hard, iters, conv = dec(q)
             err = hard[:, ct.info_positions] != info
             return err.sum(dim=1), err.any(dim=1), iters, conv

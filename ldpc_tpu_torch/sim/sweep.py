@@ -59,6 +59,7 @@ from ..codes import build_code, from_reference
 from ..device import DeviceLike, resolve_device
 from ..ops.channel import sigma_for
 from ..parallel.mesh import is_rank0, on_rank0
+from ..utils.profiling import SPAN_DRAW, SPAN_ISSUE, SPAN_READ, span
 from .pipeline import make_run_batch
 from .stats import SnrPoint
 
@@ -335,10 +336,14 @@ this rank's device of a process mesh.
             while need_more() or inflight:
                 while (need_more() and len(inflight) < self.lookahead
                        and frames_issued < max_fr):
-                    inflight.append(run_batch(self.draw(si, issued), sigma))
+                    with span(SPAN_ISSUE):
+                        with span(SPAN_DRAW):
+                            rng = self.draw(si, issued)
+                        inflight.append(run_batch(rng, sigma))
                     issued += 1
                     frames_issued += self.batch
-                out = inflight.popleft().tolist()  # waits for the device
+                with span(SPAN_READ):
+                    out = inflight.popleft().tolist()  # waits for the device
                 now = time.perf_counter()
                 pt.wall_s += now - t_last
                 t_last = now
